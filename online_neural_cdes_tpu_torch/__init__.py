@@ -1,0 +1,29 @@
+"""online_neural_cdes_tpu_torch -- the PyTorch/CUDA port of
+``online_neural_cdes_tpu``.
+
+The port mirrors the JAX package's module paths and public names and runs
+on an NVIDIA Hopper card: plain tensor code is PyTorch, and the TPU's
+Pallas kernels become hand-written CUDA kernels (``csrc/``), built at
+first use.  It imports neither JAX nor the JAX package.
+
+This slice ports the serving path of a rectilinear or linear NCDE with a
+fixed-grid solver: interpolation coefficients, the fused vector field (and
+its Hopper kernel), the fixed-grid piece scan, ``NeuralCDE``,
+``Predictor`` and ``OnlineNCDEStepper``.  ``ROADMAP.md`` lists what comes
+next.
+"""
+
+__version__ = "0.1.0"
+
+from online_neural_cdes_tpu_torch.ops.cdeint import cdeint  # noqa: F401
+from online_neural_cdes_tpu_torch.ops.interpolation import (  # noqa: F401
+    LinearInterpolation,
+    linear_interpolation_coeffs,
+    prepare_rectilinear_interpolation,
+)
+from online_neural_cdes_tpu_torch.models import NeuralCDE, VectorField  # noqa: F401
+from online_neural_cdes_tpu_torch.serving import (  # noqa: F401
+    OnlineNCDEStepper,
+    Predictor,
+)
+from online_neural_cdes_tpu_torch.utils.convert import params_from_jax  # noqa: F401
