@@ -6,11 +6,13 @@ on an NVIDIA Hopper card: plain tensor code is PyTorch, and the TPU's
 Pallas kernels become hand-written CUDA kernels (``csrc/``), built at
 first use.  It imports neither JAX nor the JAX package.
 
-This slice ports the serving path of a rectilinear or linear NCDE with a
-fixed-grid solver: interpolation coefficients, the fused vector field (and
-its Hopper kernel), the fixed-grid piece scan, ``NeuralCDE``,
-``Predictor`` and ``OnlineNCDEStepper``.  ``ROADMAP.md`` lists what comes
-next.
+Two slices are ported: serving and training of a rectilinear or linear
+NCDE with a fixed-grid solver -- interpolation coefficients, the fused
+vector field with its forward and backward Hopper kernels, the fixed-grid
+piece scan and its interval adjoint, ``NeuralCDE``, ``Predictor``,
+``OnlineNCDEStepper``, the NaN-masked losses and the Adam train steps
+(``training``), and the Brownian-motion toy (``data.toy``,
+``experiments.sim_bm_toy``).  ``ROADMAP.md`` lists what comes next.
 """
 
 __version__ = "0.1.0"

@@ -11,7 +11,11 @@ names) from a ``torch.Generator``; ``forward(inputs)`` is the JAX
 The model runs on ``device`` (the CUDA card unless ``device="cpu"`` is
 asked for; with neither it raises).  The field goes through the fused
 trunk -> head -> contraction op for every H and B: on the card that is the
-hand-written kernel ``csrc/fused_field.cu``.
+hand-written kernel ``csrc/fused_field.cu``.  A forward that needs
+gradients (grad mode on, parameters or inputs requiring grad) goes through
+``cdeint``'s interval adjoint (``adjoint=True``, the default) or autograd
+through the scan; every reverse stage then runs the field's backward
+kernel ``csrc/fused_field_bwd.cu`` on the card.
 """
 
 from __future__ import annotations

@@ -14,26 +14,29 @@ Hopper kernel ``csrc/fused_field.cu`` (the port of the TPU kernel
 ``_forward_reference``.  The choice follows the tensor's device only:
 nothing falls back from the kernel to the plain version.
 
+The gradient is a ``torch.autograd.Function`` whose backward is the same
+kind of pair: on a CUDA tensor the Hopper kernel ``csrc/fused_field_bwd.cu``
+(the port of ``_backward_pallas``), on a CPU tensor
+:func:`_backward_reference`, autograd through the plain forward (what the
+JAX package's default VJP computes).  The op records an autograd node only
+when grad mode is on and an input requires grad; otherwise it is called
+directly.
+
 The head is packed contraction-major, (HH, I*H), unpadded: the TPU's
 128-lane padding is a layout rule of that chip and is not carried over.
-
-Gradients are the training slice's work: when autograd records the op
-(grad mode on and an input that requires grad) it goes through a
-``torch.autograd.Function`` whose backward raises on every device, so a
-gradient through the port fails loudly instead of differing between the
-CPU and the card.  Otherwise the op is called directly, without an
-autograd node.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from online_neural_cdes_tpu_torch.utils.cuda_build import CudaKernel
 
-__all__ = ["fused_matmul_field", "pack_fused_params", "fused_field_kernel"]
+__all__ = ["fused_matmul_field", "pack_fused_params", "fused_field_kernel",
+           "fused_field_bwd_kernel"]
 
 MAX_TRUNK = 4
 
@@ -48,6 +51,23 @@ fused_field_kernel = CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # head_w, head_b, out
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, HH, I
      ctypes.c_void_p],                                  # stream
+)
+
+# The backward kernel's launcher (one count per call of its C entry point,
+# which runs five launches in stream order).
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+fused_field_bwd_kernel = CudaKernel(
+    "fused_field_bwd.cu",
+    "oncde_fused_field_backward",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # z, dx, g
+     _PTRS, _PTRS, ctypes.c_int,                         # trunk w, b, n
+     ctypes.c_void_p, ctypes.c_void_p,                   # head_w, head_b
+     ctypes.c_void_p, ctypes.c_void_p,                   # dz, ddx
+     _PTRS, _PTRS,                                       # dtrunk w, b
+     ctypes.c_void_p, ctypes.c_void_p,                   # dhead_w, dhead_b
+     ctypes.c_void_p, ctypes.c_longlong,                 # scratch, its floats
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, HH, I
+     ctypes.c_void_p],                                   # stream
 )
 
 
@@ -96,38 +116,52 @@ def _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
     return operands
 
 
-def _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
-    """Launch ``csrc/fused_field.cu`` on the current stream.  Raises on
-    anything the kernel does not take: another device, a dtype other than
-    float32, a non-contiguous operand, a wrong shape, 0 or more than
-    MAX_TRUNK trunk layers."""
-    if not 1 <= len(trunk) <= MAX_TRUNK:
-        raise ValueError(f"fused field kernel takes 1..{MAX_TRUNK} trunk "
-                         f"layers, got {len(trunk)}")
-    for name, t, shape in _kernel_operands(trunk, head_w, head_b, z, dx,
-                                           hidden_dim, input_dim):
-        if t.device != z.device:
-            raise ValueError(f"fused field kernel: {name} is on {t.device}, "
-                             f"z on {z.device}")
+def _check_operands(what, operands, device, n_trunk):
+    """Raise on anything a kernel does not take: another device, a dtype
+    other than float32, a non-contiguous operand, a wrong shape, 0 or more
+    than MAX_TRUNK trunk layers."""
+    if not 1 <= n_trunk <= MAX_TRUNK:
+        raise ValueError(f"{what} takes 1..{MAX_TRUNK} trunk layers, got {n_trunk}")
+    for name, t, shape in operands:
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, z on {device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"fused field kernel takes float32; {name} is {t.dtype}")
+            raise TypeError(f"{what} takes float32; {name} is {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"fused field kernel: {name} is not contiguous")
+            raise ValueError(f"{what}: {name} is not contiguous")
         if t.shape != shape:
-            raise ValueError(f"fused field kernel: {name} has shape "
-                             f"{tuple(t.shape)}, want {shape}")
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, want {shape}")
+    if device.type == "cuda" and device.index != torch.cuda.current_device():
+        raise ValueError(f"{what}: z is on {device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * MAX_TRUNK)(*[t.data_ptr() for t in tensors])
+
+
+def _flat_trunk(trunk):
+    return [t for layer in trunk for t in (layer["w"], layer["b"])]
+
+
+def _unflat_trunk(trunk_flat):
+    return [{"w": trunk_flat[i], "b": trunk_flat[i + 1]}
+            for i in range(0, len(trunk_flat), 2)]
+
+
+def _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
+    """Launch ``csrc/fused_field.cu`` on the current stream; raises on
+    anything the kernel does not take (:func:`_check_operands`)."""
+    _check_operands("fused field kernel",
+                    _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
+                                     input_dim), z.device, len(trunk))
     batch = z.shape[0]
     out = torch.empty((batch, hidden_dim), dtype=z.dtype, device=z.device)
     if batch == 0:
         return out
-    pointers = ctypes.c_void_p * MAX_TRUNK
-    trunk_w = pointers(*[layer["w"].data_ptr() for layer in trunk])
-    trunk_b = pointers(*[layer["b"].data_ptr() for layer in trunk])
-    if z.device.index != torch.cuda.current_device():
-        raise ValueError(f"fused field kernel: z is on {z.device}, the current "
-                         f"device is cuda:{torch.cuda.current_device()}")
     fused_field_kernel(
-        z.data_ptr(), dx.data_ptr(), trunk_w, trunk_b, len(trunk),
+        z.data_ptr(), dx.data_ptr(), _pointers(l["w"] for l in trunk),
+        _pointers(l["b"] for l in trunk), len(trunk),
         head_w.data_ptr(), head_b.data_ptr(), out.data_ptr(),
         batch, hidden_dim, head_w.shape[0], input_dim,
         torch.cuda.current_stream().cuda_stream,
@@ -141,16 +175,90 @@ def _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
     return _forward_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
 
 
+def _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim):
+    """Plain PyTorch version of the fused field's VJP: autograd through
+    :func:`_forward_reference`, as the JAX package's default route
+    (``jax.vjp`` of its ``_forward_reference``).  Returns ``(dtrunk, dhw,
+    dhb, dz, ddx)`` with ``dtrunk = [{"w", "b"}, ...]``, the order of
+    ``_backward_pallas``."""
+    leaves = [t.detach().requires_grad_()
+              for t in (z, dx, head_w, head_b, *_flat_trunk(trunk))]
+    z_, dx_, hw_, hb_, *flat = leaves
+    with torch.enable_grad():
+        out = _forward_reference(_unflat_trunk(flat), hw_, hb_, z_, dx_, hidden_dim,
+                                 input_dim)
+        dz, ddx, dhw, dhb, *dflat = torch.autograd.grad(out, leaves, g)
+    return _unflat_trunk(dflat), dhw, dhb, dz, ddx
+
+
+@functools.lru_cache(maxsize=64)
+def _backward_scratch_floats(batch, hidden_dim, hh, input_dim, n_trunk) -> int:
+    """Floats of scratch the backward kernel needs at this shape (0 if it
+    does not take it), as the library computes it."""
+    fn = fused_field_bwd_kernel.helper("oncde_fused_field_backward_scratch",
+                                       [ctypes.c_int] * 5, ctypes.c_longlong)
+    return int(fn(batch, hidden_dim, hh, input_dim, n_trunk))
+
+
+def _backward_kernel(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim):
+    """Launch ``csrc/fused_field_bwd.cu`` on the current stream.  Same
+    checks as :func:`_forward_kernel`, plus g (B, H); the library refuses
+    any other shape it does not take (H or HH above its tile width), and
+    the wrapper raises on that.  Returns what :func:`_backward_reference`
+    returns."""
+    batch, hh = z.shape[0], head_w.shape[0]
+    _check_operands("fused field backward kernel",
+                    _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
+                                     input_dim) + [("g", g, (batch, hidden_dim))],
+                    z.device, len(trunk))
+    dz, ddx = torch.empty_like(z), torch.empty_like(dx)
+    dtrunk = [{"w": torch.empty_like(l["w"]), "b": torch.empty_like(l["b"])}
+              for l in trunk]
+    dhw, dhb = torch.empty_like(head_w), torch.empty_like(head_b)
+    if batch == 0:
+        for t in (*_flat_trunk(dtrunk), dhw, dhb):
+            t.zero_()
+        return dtrunk, dhw, dhb, dz, ddx
+    n_scratch = _backward_scratch_floats(batch, hidden_dim, hh, input_dim, len(trunk))
+    if n_scratch <= 0:
+        max_dim = fused_field_bwd_kernel.helper(
+            "oncde_fused_field_backward_max_dim", [], ctypes.c_int)()
+        raise ValueError(f"fused field backward kernel does not take B={batch}, "
+                         f"H={hidden_dim}, HH={hh}, I={input_dim} (it takes H and "
+                         f"HH up to {max_dim})")
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=z.device)
+    fused_field_bwd_kernel(
+        z.data_ptr(), dx.data_ptr(), g.data_ptr(),
+        _pointers(l["w"] for l in trunk), _pointers(l["b"] for l in trunk), len(trunk),
+        head_w.data_ptr(), head_b.data_ptr(), dz.data_ptr(), ddx.data_ptr(),
+        _pointers(l["w"] for l in dtrunk), _pointers(l["b"] for l in dtrunk),
+        dhw.data_ptr(), dhb.data_ptr(), scratch.data_ptr(), n_scratch,
+        batch, hidden_dim, hh, input_dim, torch.cuda.current_stream().cuda_stream,
+    )
+    return dtrunk, dhw, dhb, dz, ddx
+
+
+def _backward(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim):
+    if z.is_cuda:
+        return _backward_kernel(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim)
+    return _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim)
+
+
 class _FusedField(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden_dim, input_dim, z, dx, head_w, head_b, *trunk_flat):
-        trunk = [{"w": trunk_flat[i], "b": trunk_flat[i + 1]}
-                 for i in range(0, len(trunk_flat), 2)]
-        return _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
+        ctx.dims = (hidden_dim, input_dim)
+        ctx.save_for_backward(z, dx, head_w, head_b, *trunk_flat)
+        return _forward(_unflat_trunk(trunk_flat), head_w, head_b, z, dx,
+                        hidden_dim, input_dim)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("training slice: port _backward_pallas")
+    def backward(ctx, g):
+        z, dx, head_w, head_b, *trunk_flat = ctx.saved_tensors
+        dtrunk, dhw, dhb, dz, ddx = _backward(
+            _unflat_trunk(trunk_flat), head_w, head_b, z, dx, g.contiguous(),
+            *ctx.dims)
+        return (None, None, dz, ddx, dhw, dhb, *_flat_trunk(dtrunk))
 
 
 def fused_matmul_field(trunk, head_w, head_b, z, dx, hidden_dim: int,
@@ -160,17 +268,16 @@ def fused_matmul_field(trunk, head_w, head_b, z, dx, hidden_dim: int,
     trunk: list of {'w', 'b'} relu layers; head_w: (HH, I*H)
     contraction-major; z: (..., H); dx: (..., I) with the same leading
     dims, flattened to the kernel's (B, H) and (B, I) and restored.
-    Returns (..., H).  CUDA tensors go through the Hopper kernel (float32,
-    contiguous, or it raises); CPU tensors through the plain version (any
+    Returns (..., H).  CUDA tensors go through the Hopper kernels (float32,
+    contiguous, or they raise); CPU tensors through the plain versions (any
     float dtype).
     """
     lead = z.shape[:-1]
     z = z.reshape(-1, hidden_dim)
     dx = dx.reshape(-1, input_dim)
-    flat = [t for layer in trunk for t in (layer["w"], layer["b"])]
+    flat = _flat_trunk(trunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (z, dx, head_w, head_b, *flat)):
-        # Recorded for autograd, whose backward raises.
         out = _FusedField.apply(hidden_dim, input_dim, z, dx, head_w, head_b, *flat)
     else:
         out = _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)

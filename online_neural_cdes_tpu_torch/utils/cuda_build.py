@@ -102,6 +102,14 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
+    def helper(self, symbol: str, argtypes, restype):
+        """Another C function of the same library (a size query, say);
+        calling it counts no launch."""
+        self.function()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        return fn
+
     def __call__(self, *args) -> None:
         err = self.function()(*args)
         if err != 0:

@@ -140,15 +140,6 @@ def test_neural_cde_packs_time_slice_contiguously():
     torch.testing.assert_close(packed["head_b_time"], packed["head_b"][2 * H:3 * H])
 
 
-def test_neural_cde_backward_raises():
-    _, _, tm = _pair(dtype=jnp.float32, interpolation="rectilinear",
-                     return_sequences=True)
-    _, _, tin = _inputs(0, True, dtype=np.float32)
-    out = tm(tin)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
-
-
 @pytest.mark.parametrize("kw,match", [
     (dict(interpolation="cubic"), "ROADMAP item 11"),
     (dict(solver="dopri5"), "ROADMAP item 12"),

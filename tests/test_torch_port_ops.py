@@ -156,6 +156,35 @@ def test_fixed_steppers_match_jax(method):
     assert solvers.FIXED_METHODS == jax_solvers.FIXED_METHODS
 
 
+@pytest.mark.parametrize("method", ["euler", "midpoint", "rk4"])
+def test_tuple_steppers_match_jax(method):
+    """The adjoint's augmented-state form: a tuple state whose field reads
+    only its first two leaves (``live=2``) and returns None for a zero
+    derivative, against the JAX tree stepper on the same pytree."""
+    rng = np.random.default_rng(16)
+    m = rng.normal(size=(4, 4))
+    ys = [rng.normal(size=(3, 4)), rng.normal(size=(3, 4)), rng.normal(size=(2,)),
+          rng.normal(size=(5,))]
+
+    def f_torch(t, y):
+        z, a = y
+        return (torch.tanh(z @ torch.from_numpy(m)) * (1.0 + t), a * z,
+                z.sum(0)[:2] * t, None)
+
+    def f_jax(t, y):
+        z, a, _, _ = y
+        return (jnp.tanh(z @ jnp.asarray(m)) * (1.0 + t), a * z,
+                z.sum(0)[:2] * t, jnp.zeros(5))
+
+    got = solvers.tree_fixed_step(method, live=2)(
+        f_torch, 0.5, 0.3, tuple(torch.from_numpy(y) for y in ys))
+    want = jax_solvers.tree_fixed_step(method)(
+        f_jax, 0.5, 0.3, tuple(jnp.asarray(y) for y in ys))
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        close(g, w)
+
+
 def test_fixed_step_casts_dt_to_state_dtype():
     y = torch.ones(2, dtype=torch.float32)
     out = solvers.tree_fixed_step("euler")(lambda t, y: y, 0.0, 0.1, y)
@@ -249,14 +278,100 @@ def test_fused_field_plain_matches_pallas_kernel_interpret(B, H):
     close(got, want, rtol=1e-5, atol=1e-6)
 
 
-def test_fused_field_backward_raises():
-    jf, jparams, tf = _field(3, 3, 4, 5, 1, dtype=jnp.float32)
-    packed = kernels.pack_fused_params(tf.params, 4, 3)
-    z = torch.randn(2, 4, requires_grad=True)
-    out = kernels.fused_matmul_field(packed["trunk"], packed["head_w"],
-                                     packed["head_b"], z, torch.randn(2, 3), 4, 3)
-    with pytest.raises(NotImplementedError, match="_backward_pallas"):
-        out.sum().backward()
+def _packed_pair(tf, jparams, H, C, time_slice, k=2):
+    """The port's and JAX's unpadded packings; with ``time_slice`` the
+    rectilinear I = 1 head slice of channel k (contiguous on the port)."""
+    ours = kernels.pack_fused_params(tf.params, H, C)
+    theirs = jax_kernels.pack_fused_params(jparams, H, C, pad=False)
+    if time_slice:
+        ours = dict(ours, head_w=ours["head_w"][:, k * H:(k + 1) * H].contiguous(),
+                    head_b=ours["head_b"][k * H:(k + 1) * H].contiguous())
+        theirs = dict(theirs, head_w=theirs["head_w"][:, k * H:(k + 1) * H],
+                      head_b=theirs["head_b"][k * H:(k + 1) * H])
+    return ours, theirs
+
+
+def _close_backward(got, want, rtol=RTOL, atol=ATOL):
+    """Port (dtrunk, dhw, dhb, dz, ddx) against JAX's, group by group."""
+    dtrunk, dhw, dhb, dz, ddx = got
+    w_trunk, w_hw, w_hb, w_z, w_dx = want
+    for g, w in [(dz, w_z), (ddx, w_dx), (dhw, w_hw), (dhb, w_hb)]:
+        close(g, w, rtol, atol)
+    assert len(dtrunk) == len(w_trunk)
+    for g, w in zip(dtrunk, w_trunk):
+        close(g["w"], w["w"], rtol, atol)
+        close(g["b"], w["b"], rtol, atol)
+
+
+@pytest.mark.parametrize("n_trunk", [1, 3])
+@pytest.mark.parametrize("time_slice", [False, True])
+def test_fused_field_backward_plain_matches_jax_vjp(n_trunk, time_slice):
+    """The plain backward against jax.vjp of the JAX ``_forward_reference``
+    (the JAX package's default VJP route), at I = C and at the I = 1 time
+    slice, in float64."""
+    B, C, H, HH = 6, 4, 8, 10
+    jf, jparams, tf = _field(20 + n_trunk, C, H, HH, n_trunk)
+    ours, theirs = _packed_pair(tf, jparams, H, C, time_slice)
+    I = 1 if time_slice else C
+    rng = np.random.default_rng(30 + n_trunk)
+    z, g = rng.normal(size=(B, H)), rng.normal(size=(B, H))
+    dx = rng.normal(size=(B, I))
+
+    def ref(trunk, head_w, head_b, z_, dx_):
+        return jax_kernels._forward_reference(trunk, head_w, head_b, z_, dx_, H, I)
+
+    _, vjp = jax.vjp(ref, theirs["trunk"], theirs["head_w"], theirs["head_b"],
+                     jnp.asarray(z), jnp.asarray(dx))
+    want = vjp(jnp.asarray(g))
+    got = kernels._backward(ours["trunk"], ours["head_w"], ours["head_b"],
+                            torch.from_numpy(z), torch.from_numpy(dx),
+                            torch.from_numpy(g), H, I)
+    assert got[3].dtype == torch.float64
+    _close_backward(got, want)
+
+
+@pytest.mark.parametrize("B,H", [(8, 8), (5, 12)])
+def test_fused_field_backward_plain_matches_pallas_kernel_interpret(B, H):
+    """The TPU backward kernel itself, ``_backward_pallas`` in Pallas
+    interpret mode with the unpadded packing, against the port's plain
+    backward.  Float32 at rtol=1e-5, atol=2e-5: interpret mode does not
+    keep float64 (ROADMAP C)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    C, HH = 3, 16
+    jf, jparams, tf = _field(40 + B, C, H, HH, 2, dtype=jnp.float32)
+    ours, theirs = _packed_pair(tf, jparams, H, C, time_slice=False)
+    rng = np.random.default_rng(B)
+    z, dx, g = (rng.normal(size=s).astype(np.float32) for s in [(B, H), (B, C), (B, H)])
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_kernels._backward_pallas(
+            theirs["trunk"], theirs["head_w"], theirs["head_b"], jnp.asarray(z),
+            jnp.asarray(dx), jnp.asarray(g), H, C, "float32")
+    got = kernels._backward(ours["trunk"], ours["head_w"], ours["head_b"],
+                            torch.from_numpy(z), torch.from_numpy(dx),
+                            torch.from_numpy(g), H, C)
+    _close_backward(got, want, rtol=1e-5, atol=2e-5)
+
+
+def test_fused_field_autograd_matches_plain_backward():
+    """fused_matmul_field under autograd routes its gradient through the
+    backward's plain version on CPU tensors, leading dims included."""
+    jf, jparams, tf = _field(3, 3, 4, 5, 2)
+    p = kernels.pack_fused_params(tf.params, 4, 3)
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy(rng.normal(size=(2, 3, 4))).requires_grad_()
+    dx = torch.from_numpy(rng.normal(size=(2, 3, 3)))
+    g = torch.from_numpy(rng.normal(size=(2, 3, 4)))
+    out = kernels.fused_matmul_field(p["trunk"], p["head_w"], p["head_b"], z, dx, 4, 3)
+    leaves = [z, p["head_w"]] + [layer["w"] for layer in p["trunk"]]
+    grads = torch.autograd.grad(out, leaves, g)
+    dtrunk, dhw, _, dz, _ = kernels._backward_reference(
+        p["trunk"], p["head_w"], p["head_b"], z.reshape(6, 4), dx.reshape(6, 3),
+        g.reshape(6, 4), 4, 3)
+    close(grads[0], dz.reshape(2, 3, 4))
+    close(grads[1], dhw)
+    for got, layer in zip(grads[2:], dtrunk):
+        close(got, layer["w"])
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
@@ -276,13 +391,35 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         kernels._forward_kernel(p["trunk"] * 3, p["head_w"], p["head_b"], z, dx, 4, 3)
 
 
+def test_backward_kernel_wrapper_rejects_what_the_kernel_does_not_take():
+    """The wrapper's own checks.  Widths the kernel's tiles cannot hold
+    (H or HH above the library's limit) are refused by the library, so
+    that case is held on the card, in ``chip_smoke.py``."""
+    jf, jparams, tf = _field(5, 3, 4, 5, 2, dtype=jnp.float32)
+    p = kernels.pack_fused_params(tf.params, 4, 3)
+    z, dx, g = torch.randn(2, 4), torch.randn(2, 3), torch.randn(2, 4)
+    args = (p["trunk"], p["head_w"], p["head_b"])
+    with pytest.raises(TypeError, match="float32"):
+        kernels._backward_kernel(*args, z, dx, g.double(), 4, 3)
+    with pytest.raises(ValueError, match="g has shape"):
+        kernels._backward_kernel(*args, z, dx, torch.randn(3, 4), 4, 3)
+    with pytest.raises(ValueError, match="not contiguous"):
+        kernels._backward_kernel(*args, z, dx, torch.randn(4, 2).T, 4, 3)
+    with pytest.raises(ValueError, match="trunk layers"):
+        kernels._backward_kernel(p["trunk"] * 3, p["head_w"], p["head_b"], z, dx, g, 4, 3)
+
+
 def test_fused_field_kernel_launch_counter_untouched_on_cpu():
-    before = kernels.fused_field_kernel.launches
+    before = (kernels.fused_field_kernel.launches, kernels.fused_field_bwd_kernel.launches)
     jf, jparams, tf = _field(4, 3, 4, 5, 1, dtype=jnp.float32)
     packed = kernels.pack_fused_params(tf.params, 4, 3)
-    kernels.fused_matmul_field(packed["trunk"], packed["head_w"], packed["head_b"],
-                               torch.randn(2, 4), torch.randn(2, 3), 4, 3)
-    assert kernels.fused_field_kernel.launches == before
+    z = torch.randn(2, 4, requires_grad=True)
+    out = kernels.fused_matmul_field(packed["trunk"], packed["head_w"], packed["head_b"],
+                                     z, torch.randn(2, 3), 4, 3)
+    out.sum().backward()
+    assert z.grad is not None
+    assert (kernels.fused_field_kernel.launches,
+            kernels.fused_field_bwd_kernel.launches) == before
 
 
 # ------------------------------------------------------------ cdeint
