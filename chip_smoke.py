@@ -6,8 +6,9 @@
 Drives the port's serving and training paths at the width of the
 repository's flagship online NCDE (C=21 with time in channel 0, H=HH=128,
 two trunk layers, static_dim=10, rectilinear, RK4 one step per knot,
-return_sequences) with random weights from a seed, and prints one JSON line
-per phase:
+return_sequences) with random weights from a seed, the interval-chain
+experiments at the same field width, and the flagship under Hermite
+controls, and prints one JSON line per phase:
 
 1. env       -- torch, CUDA, nvcc, triton, CUTLASS headers, the card.
 2. build     -- builds every kernel from ``online_neural_cdes_tpu_torch/csrc``,
@@ -18,27 +19,40 @@ per phase:
 4. kernel_bwd -- the same for the backward kernel: all five cotangent
                 groups over the sweep, identical bits on a repeat call, and
                 a width its tiles cannot hold refused without a launch.
-5. predictor -- ``Predictor`` serving 64 ragged, NaN-holding requests: the
-                kernel's launch count for one forward, the outputs against
+5. kernel_rk4 -- the whole-interval RK4 kernel against its plain version
+                over the sweep, its K-replica form (K = 1..4) bit for bit
+                against K single launches, a width beyond its limit refused
+                without a launch, and its times.
+6. predictor -- ``Predictor`` serving 64 ragged, NaN-holding requests: the
+                kernels' launch counts for one forward, the outputs against
                 the same predictor on the CPU, and request latencies.
    profile   -- one ``predict`` under torch.profiler: device time by kernel
                 and the device's busy share of the call.
-6. stepper   -- ``OnlineNCDEStepper`` over 64 streams x 99 ticks against
+7. stepper   -- ``OnlineNCDEStepper`` over 64 streams x 99 ticks against
                 the predictor's rows, and tick latencies.
-7. train     -- ``make_train_step`` (Adam, BCE, lr 5e-4, interval adjoint)
-                on a B=512 flagship batch: both kernels' launch counts for
+8. train     -- ``make_train_step`` (Adam, BCE, lr 5e-4, interval adjoint)
+                on a B=512 flagship batch: the kernels' launch counts for
                 one step, the card's gradients against the CPU port's on a
                 16-row slice, falling losses, step times, the profile of a
                 step and the peak device memory.
-8. toy       -- the rectilinear Brownian-motion toy trained on the card and
-                on the CPU from the same weights and data: the loss curves
-                agree and the last-time train accuracy rises.
+9. chains    -- the ``pair_probe`` and ``interleave_experiment`` modules'
+                chains (per-stage path against the interval kernel; K
+                replicas in one launch against one launch each) with their
+                launch counts, and the interval kernel chained over the
+                flagship batch against ``cdeint``'s per-stage solve.
+10. splines  -- every spline coefficient builder on the card against the
+                CPU, a Hermite flagship ``Predictor`` and one Hermite
+                training step: launch counts, card against CPU, times.
+11. toy      -- the Brownian-motion toy under the rectilinear, Hermite and
+                natural cubic schemes, trained on the card and on the CPU
+                from the same weights and data: the loss curves agree and
+                the last-time train accuracy rises.
 
-Then a line with every kernel's numbers, a line with the card's name and
-power limit as ``nvidia-smi`` gives them, and, as the last line,
-``{"ok": true, "device": {...}}``.  Any failure raises: the run then exits
-non-zero without that last line.  It needs a CUDA card, and it imports
-nothing of JAX.
+Then a line with every kernel's numbers, a line with the run's seconds, a
+line with the card's name and power limit as ``nvidia-smi`` gives them,
+and, as the last line, ``{"ok": true, "device": {...}}``.  Any failure
+raises: the run then exits non-zero without that last line.  It needs a
+CUDA card, and it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -51,10 +65,11 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from functools import partial
 
 import numpy as np
 import torch
+
+from online_neural_cdes_tpu_torch.utils.timing import device_us
 
 # Flagship online NCDE (the repository's MIMIC-scale configuration).
 C, H, HH, N_LAYERS, STATIC = 21, 128, 128, 2, 10
@@ -72,6 +87,14 @@ TRAIN_SHAPE = (512, 128, 128, 21, 2)
 TIMED = [(64, 128, 128, 21, 2), (64, 128, 128, 1, 2),
          (512, 128, 128, 21, 2), (512, 128, 128, 1, 2)]
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5   # the sums run in another order
+# The whole-interval RK4 kernel: the forward sweep plus bench.py's parity
+# shape; timed at the training step's two shapes and the serving batch;
+# its K-replica form at K = 1..4 on the training shape and K = 3 on a
+# ragged one, and timed at K = 2 and 4.
+RK4_SWEEP = SWEEP + [(256, 128, 64, 21, 2)]
+RK4_TIMED = [(512, 128, 128, 21, 2), (512, 128, 128, 1, 2), (64, 128, 128, 21, 2)]
+RK4_MULTI = [(TRAIN_SHAPE, (1, 2, 3, 4)), ((5, 96, 196, 21, 3), (3,))]
+RK4_MULTI_TIMED = (2, 4)
 # Backward kernel vs its plain version, each of the five groups: |err| <=
 # BWD_RTOL |want| + BWD_ATOL_REL max|want|.  Weight grads sum B rows (and
 # dz, ddx sum I*H columns) in another order than cuBLAS; f32 round-off of
@@ -84,6 +107,15 @@ SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4     # card vs CPU over 222 RK intervals
 # against one (64*223)x128 product), and f32 round-off grows over 198 RK
 # intervals.
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
+# The interval kernel chained over the flagship batch's 198 intervals
+# against cdeint's per-stage solve: the same field arithmetic, the RK
+# updates rounded in another order.  Hidden states reach |z| ~ 100, where
+# f32's spacing is ~8e-6, and the trunk mixes every hidden unit into every
+# other, so a round-off at the largest unit reaches units near zero: per
+# tensor |err| <= CHAIN_RTOL |want| + CHAIN_ATOL_REL max|want|.  Two runs
+# on the same inputs read 3.8e-6 and 5.3e-6 of max|want|, so the bound
+# leaves a margin of about 5 over the larger.
+CHAIN_RTOL, CHAIN_ATOL_REL = 1e-4, 3e-5
 # Training: B=512 flagship batch, 100 observations -> 199 knots.
 TRAIN_B, TRAIN_L, TRAIN_LR, TRAIN_STEPS = 512, 100, 5e-4, 10
 GRAD_ROWS = 16
@@ -91,11 +123,18 @@ GRAD_ROWS = 16
 # reverse (adjoint) in f32, summed in other orders on the two devices: per
 # tensor, |err| <= GRAD_RTOL |want| + GRAD_ATOL_REL max|want|.
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-3
+# Spline coefficients of the padded serving batch, card vs CPU: the same
+# f32 formulas, but the natural cubic's tridiagonal solve carries round-off
+# through 112 knots, so per tensor |err| <= SPLINE_RTOL |want| +
+# SPLINE_ATOL_REL max|want|.
+SPLINE_RTOL, SPLINE_ATOL_REL = 1e-4, 1e-5
+SMOOTH_EPS = 0.5
 # Toy: 4096 paths of 3 points, batches of 1024, 20 epochs; card vs CPU
 # loss curves after 80 Adam steps in f32 (Adam divides by the root of the
 # second moment, which amplifies round-off where gradients are small).
 TOY_PATHS, TOY_BATCH, TOY_EPOCHS = 4096, 1024, 20
 TOY_RTOL, TOY_ATOL = 1e-3, 1e-4
+TOY_SCHEMES = ("rectilinear", "cubic_hermite", "cubic")
 
 
 def emit(phase: str, **fields):
@@ -136,34 +175,44 @@ def field_bwd_cost(B, Hd, HHd, I, n):
     return flops, nbytes
 
 
+def rk4_cost(B, Hd, HHd, I, n, K=1):
+    """One RK4 interval: four field evaluations' operations; the bytes of
+    one (z, dX and the weights read once, the state written once); K
+    replicas K times both."""
+    flops, nbytes = field_cost(B, Hd, HHd, I, n)
+    return K * 4 * flops, K * nbytes
+
+
 def bound(flops, nbytes, peak_flops, peak_bytes):
     """(bound in us, what bounds it)."""
     t_ops, t_bytes = flops / peak_flops, nbytes / peak_bytes
     return max(t_ops, t_bytes) * 1e6, "operations" if t_ops > t_bytes else "bytes"
 
 
-def device_us(fn, reps) -> float:
-    """Device time per call: CUDA events around ``reps`` calls that the
-    host queues behind a ~0.1 s sleep kernel, so they run back to back on
-    the card whatever the host's per-call cost.  Keep reps x launches per
-    call well under CUDA's queue of about a thousand pending launches."""
-    for _ in range(10):
-        fn()
+# Each kernel's launch counter, under the key the phases report it by.
+COUNTED = (("forward", "fused_field_kernel"), ("backward", "fused_field_bwd_kernel"),
+           ("rk4", "fused_rk4_kernel"), ("rk4_multi", "fused_rk4_multi_kernel"))
+
+
+def counted(fn):
+    """Runs ``fn`` with every kernel's launch count set to 0 just before
+    and read just after; returns (fn's result, the counts)."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
-    if host_ms > 80.0:
-        raise RuntimeError(f"device_us: queueing {reps} calls took {host_ms:.1f} ms,"
-                           " longer than the sleep; the time would be host-bound")
-    return start.elapsed_time(end) * 1e3 / reps
+    for _, attr in COUNTED:
+        getattr(kernels, attr).launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {key: getattr(kernels, attr).launches for key, attr in COUNTED}
+
+
+def expect_launches(what, got, **want):
+    """Raise unless ``got`` has the counts ``want`` and 0 for every other
+    kernel."""
+    full = {key: want.get(key, 0) for key, _ in COUNTED}
+    if got != full:
+        raise AssertionError(f"{what} launched {got}, expected {full}")
 
 
 def percentiles(samples_ms):
@@ -333,12 +382,116 @@ def phase_kernel_bwd(peak_flops, peak_bytes):
     return max_err, timings
 
 
-def flagship_model(device):
+def stacked_fields(gen, K, shape, device):
+    """K random fields of one shape in the K-replica op's stacked layouts,
+    and the K single fields."""
+    from online_neural_cdes_tpu_torch.experiments.interleave_experiment import (
+        stack_fields)
+
+    fields = [random_field(gen, *shape, device) for _ in range(K)]
+    weights = stack_fields([{"trunk": f[0], "head_w": f[1], "head_b": f[2]}
+                            for f in fields])
+    return (*weights, *(torch.stack([f[i] for f in fields]) for i in (3, 4))), fields
+
+
+def phase_kernel_rk4(peak_flops, peak_bytes):
+    """The whole-interval RK4 kernel (both entry points) against its plain
+    version over the sweep; the K-replica form bit for bit against K single
+    launches; a width beyond the library's limit refused with no launch;
+    CUDA-event times beside the bound and the plain version's time."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    gen = torch.Generator().manual_seed(3)
+    errors, multi_errors, timings, multi_timings = [], [], {}, {}
+    with torch.inference_mode():
+        for shape in RK4_SWEEP:
+            B, Hd, HHd, I, n = shape
+            trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
+            got = kernels.fused_rk4_interval(trunk, head_w, head_b, z, dx, Hd, I)
+            want = kernels._rk4_interval_reference(trunk, head_w, head_b, z, dx, Hd, I)
+            torch.cuda.synchronize()
+            if got.shape != (B, Hd) or not torch.isfinite(got).all():
+                raise AssertionError(f"RK4 kernel output at {shape}: shape "
+                                     f"{tuple(got.shape)} or non-finite values")
+            torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                                       msg=lambda m: f"RK4 kernel at {shape}: {m}")
+            errors.append({"shape": list(shape),
+                           "max_abs_err": float((got - want).abs().max())})
+        for shape, ks in RK4_MULTI:
+            B, Hd, HHd, I, n = shape
+            for K in ks:
+                stacked, fields = stacked_fields(gen, K, shape, "cuda")
+                got = kernels.fused_rk4_interval_multi(*stacked, Hd, I)
+                singles = torch.stack([kernels.fused_rk4_interval(*f, Hd, I)
+                                       for f in fields])
+                want = kernels._rk4_interval_multi_reference(*stacked, Hd, I)
+                torch.cuda.synchronize()
+                if not torch.equal(got, singles):
+                    raise AssertionError(
+                        f"K-replica RK4 kernel at {shape}, K={K}: differs from K single "
+                        f"launches by {float((got - singles).abs().max())}")
+                torch.testing.assert_close(
+                    got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                    msg=lambda m: f"K-replica RK4 kernel at {shape}, K={K}: {m}")
+                multi_errors.append({"shape": list(shape), "K": K,
+                                     "max_abs_err": float((got - want).abs().max()),
+                                     "vs_single_launches": "bit-identical"})
+        # A width beyond the library's limit: refused, nothing launched.
+        wide = kernels.rk4_max_dim() + 1
+        stacked, (field,) = stacked_fields(gen, 1, (2, wide, 64, 1, 1), "cuda")
+        counts = (kernels.fused_rk4_kernel.launches,
+                  kernels.fused_rk4_multi_kernel.launches)
+        for op, args in ((kernels.fused_rk4_interval, field),
+                         (kernels.fused_rk4_interval_multi, stacked)):
+            try:
+                op(*args, wide, 1)
+            except ValueError as e:
+                if "H and HH up to" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{op.__name__} took H={wide}")
+        if counts != (kernels.fused_rk4_kernel.launches,
+                      kernels.fused_rk4_multi_kernel.launches):
+            raise AssertionError(f"the RK4 kernel launched at H={wide}")
+
+        for shape in RK4_TIMED:
+            B, Hd, HHd, I, n = shape
+            args = (*random_field(gen, *shape, "cuda"), Hd, I)
+            bound_us, bound_by = bound(*rk4_cost(*shape), peak_flops, peak_bytes)
+            timings[shape] = {
+                "shape": list(shape),
+                "kernel_us": device_us(lambda: kernels.fused_rk4_interval(*args),
+                                       reps=100),
+                "plain_us": device_us(lambda: kernels._rk4_interval_reference(*args),
+                                      reps=5),
+                "bound_us": bound_us, "bound_by": bound_by, "blocks": -(-B // 8)}
+        for K in RK4_MULTI_TIMED:
+            B, Hd, HHd, I, n = TRAIN_SHAPE
+            args = (*stacked_fields(gen, K, TRAIN_SHAPE, "cuda")[0], Hd, I)
+            bound_us, bound_by = bound(*rk4_cost(*TRAIN_SHAPE, K=K), peak_flops,
+                                       peak_bytes)
+            multi_timings[K] = {
+                "shape": list(TRAIN_SHAPE), "K": K,
+                "kernel_us": device_us(lambda: kernels.fused_rk4_interval_multi(*args),
+                                       reps=100),
+                "plain_us": device_us(
+                    lambda: kernels._rk4_interval_multi_reference(*args), reps=2),
+                "bound_us": bound_us, "bound_by": bound_by, "blocks": K * -(-B // 8)}
+    emit("kernel_rk4", tolerance={"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
+         sweep=errors, multi=multi_errors, refused_width=wide,
+         timed=list(timings.values()), timed_multi=list(multi_timings.values()),
+         library="none: no single PyTorch call computes an RK4 interval of the "
+                 "fused field")
+    return (max(e["max_abs_err"] for e in errors),
+            max(e["max_abs_err"] for e in multi_errors), timings, multi_timings)
+
+
+def flagship_model(device, interpolation="rectilinear"):
     from online_neural_cdes_tpu_torch import NeuralCDE
 
     return NeuralCDE(
         input_dim=C, hidden_dim=H, output_dim=1, static_dim=STATIC,
-        hidden_hidden_dim=HH, num_layers=N_LAYERS, interpolation="rectilinear",
+        hidden_hidden_dim=HH, num_layers=N_LAYERS, interpolation=interpolation,
         solver="rk4", return_sequences=True,
         generator=torch.Generator().manual_seed(0), device=device,
     )
@@ -362,11 +515,9 @@ def make_requests(seed=5):
 
 
 def phase_predictor():
-    from online_neural_cdes_tpu_torch import Predictor, linear_interpolation_coeffs
-    from online_neural_cdes_tpu_torch.ops.kernels import (
-        fused_field_bwd_kernel, fused_field_kernel)
+    from online_neural_cdes_tpu_torch import Predictor
 
-    coeff_fn = partial(linear_interpolation_coeffs, rectilinear=0)
+    coeff_fn = rectilinear_coeffs
     model = flagship_model("cuda")
     pred = Predictor(model, coeff_fn=coeff_fn, batch_buckets=(1, 64),
                      length_multiple=LENGTH_MULTIPLE, device="cuda")
@@ -376,18 +527,8 @@ def phase_predictor():
     intervals = 2 * padded_len - 2
     expected = intervals * 4  # RK4: four field evaluations per interval
 
-    torch.cuda.synchronize()
-    fused_field_kernel.launches = 0
-    fused_field_bwd_kernel.launches = 0
-    outs = pred.predict(requests, static=static)        # the serving path
-    launches = {"forward": fused_field_kernel.launches,
-                "backward": fused_field_bwd_kernel.launches}
-    if launches["forward"] != expected:
-        raise AssertionError(f"kernel launched {launches['forward']} times, "
-                             f"expected {expected}")
-    if launches["backward"]:
-        raise AssertionError(f"serving launched the backward kernel "
-                             f"{launches['backward']} times")
+    outs, launches = counted(lambda: pred.predict(requests, static=static))  # serving
+    expect_launches("one predict", launches, forward=expected)
 
     model_cpu = flagship_model("cpu")
     model_cpu.load_state_dict(model.state_dict())
@@ -503,18 +644,23 @@ def phase_stepper(model, requests, static, outs):
          sequential_64_steps_ms=seq_ms)
 
 
-def train_batch(device, seed=7):
-    """The flagship training batch (as ``bench.py``'s flagship step makes
-    it): B=512 series of 100 observations, time in channel 0, static
-    features, random 0/1 labels per observation."""
+def rectilinear_coeffs(x):
     from online_neural_cdes_tpu_torch import linear_interpolation_coeffs
 
+    return linear_interpolation_coeffs(x, rectilinear=0)
+
+
+def train_batch(device, seed=7, coeff_fn=rectilinear_coeffs):
+    """The flagship training batch (as ``bench.py``'s flagship step makes
+    it): B=512 series of 100 observations, time in channel 0, static
+    features, random 0/1 labels per observation; ``coeff_fn`` makes the
+    model's coefficients (rectilinear by default)."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(TRAIN_B, TRAIN_L, C)).astype(np.float32)
     x[:, :, 0] = np.arange(TRAIN_L)
     static = rng.normal(size=(TRAIN_B, STATIC)).astype(np.float32)
     labels = rng.integers(0, 2, size=(TRAIN_B, TRAIN_L)).astype(np.float32)
-    coeffs = linear_interpolation_coeffs(torch.from_numpy(x).to(device), rectilinear=0)
+    coeffs = coeff_fn(torch.from_numpy(x).to(device))
     return ((torch.from_numpy(static).to(device), coeffs),
             torch.from_numpy(labels).to(device))
 
@@ -531,8 +677,6 @@ def slice_grads(model, inputs, labels, rows):
 
 
 def phase_train():
-    from online_neural_cdes_tpu_torch.ops.kernels import (
-        fused_field_bwd_kernel, fused_field_kernel)
     from online_neural_cdes_tpu_torch.training.loop import make_train_step
 
     model = flagship_model("cuda")
@@ -557,16 +701,9 @@ def phase_train():
         grad_err[name] = float((g - w).abs().max() / w.abs().max())
 
     step = make_train_step(model, loss="bce", lr=TRAIN_LR)
-    torch.cuda.synchronize()
-    fused_field_kernel.launches = 0
-    fused_field_bwd_kernel.launches = 0
-    losses = [step(inputs, labels, 1.0)]                 # the main path
-    torch.cuda.synchronize()
-    launches = {"forward": fused_field_kernel.launches,
-                "backward": fused_field_bwd_kernel.launches}
-    if launches != expected:
-        raise AssertionError(f"one training step launched {launches}, expected "
-                             f"{expected}")
+    loss, launches = counted(lambda: step(inputs, labels, 1.0))   # the main path
+    expect_launches("one training step", launches, **expected)
+    losses = [loss]
 
     step_ms = []
     torch.cuda.reset_peak_memory_stats()
@@ -592,39 +729,231 @@ def phase_train():
     return launches
 
 
+def rk4_chain_states(model, inputs):
+    """The flagship model's hidden states at every knot by chaining the
+    whole-interval RK4 kernel over its rectilinear pieces: even pieces with
+    the time channel's head slice (I=1), odd pieces with the full head,
+    each with its piece's dX/dt times the knot spacing.  Also the same
+    states from ``cdeint`` through the per-stage field kernel."""
+    from online_neural_cdes_tpu_torch.ops.cdeint import cdeint
+    from online_neural_cdes_tpu_torch.ops.kernels import fused_rk4_interval
+
+    with torch.inference_mode():
+        spline, h0 = model._setup_h0(inputs)
+        func, even_func, packed, vf_type = model.make_solve_func(h0)
+        want = cdeint(spline, func, h0, spline.grid_points, packed, adjoint=False,
+                      vector_field_type=vf_type, method="rk4", even_func=even_func,
+                      options={"substeps": 1})
+        grid, dxdt = spline.host_grid(), spline.piece_data()["dxdt"]
+        k, states, z = model.rectilinear_time_channel, [h0], h0
+        for i in range(len(grid) - 1):
+            dx = dxdt[i] * (grid[i + 1] - grid[i])
+            if i % 2 == 0:
+                z = fused_rk4_interval(packed["trunk"], packed["head_w_time"],
+                                       packed["head_b_time"], z,
+                                       dx[:, k:k + 1].contiguous(), H, 1)
+            else:
+                z = fused_rk4_interval(packed["trunk"], packed["head_w"],
+                                       packed["head_b"], z, dx.contiguous(), H, C)
+            states.append(z)
+        return torch.stack(states, dim=-2), want
+
+
+def phase_chains():
+    """Both interval-chain experiments on the card (their variants and the
+    launches of every chain), then the interval kernel chained over the
+    flagship training batch against ``cdeint``'s per-stage solve."""
+    from online_neural_cdes_tpu_torch.experiments import interleave_experiment, pair_probe
+
+    (probe, inter), launches = counted(                  # the chains' main path
+        lambda: (pair_probe.main([]), interleave_experiment.main([])))
+    n_probe, n_inter = probe["shape"]["N"], inter["shape"]["N"]
+    for name, row in probe["variants"].items():
+        per = 2 * n_probe if name.startswith("pair") else n_probe
+        want = {"fused_field": 4 * per if name.endswith("_stages") else 0,
+                "fused_rk4": per if name.endswith("_interval") else 0}
+        if row["launches"] != want or not row["finite"]:
+            raise AssertionError(f"pair_probe {name}: launches {row['launches']}, "
+                                 f"expected {want}, finite {row['finite']}")
+    for name, row in inter["variants"].items():
+        if "launches" not in row:
+            continue
+        k = row.get("K", 1)
+        want = ({"fused_rk4": 0, "fused_rk4_multi": n_inter} if name.endswith("interleave")
+                else {"fused_rk4": k * n_inter, "fused_rk4_multi": 0})
+        if row["launches"] != want:
+            raise AssertionError(f"interleave {name}: launches {row['launches']}, "
+                                 f"expected {want}")
+
+    model = flagship_model("cuda")
+    inputs, _ = train_batch("cuda")
+    got, want = rk4_chain_states(model, inputs)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"interval chain states: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite values")
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=CHAIN_RTOL, atol=CHAIN_ATOL_REL * scale,
+                               msg=lambda m: f"interval chain vs cdeint: {m}")
+    emit("chains", pair_probe=probe["variants"], interleave=inter["variants"],
+         parity=inter["parity"], launches=launches,
+         model_chain={"intervals": got.shape[-2] - 1,
+                      "max_abs_err": float((got - want).abs().max()),
+                      "max_abs_state": scale, "rtol": CHAIN_RTOL,
+                      "atol_per_max": CHAIN_ATOL_REL})
+    return launches
+
+
+def spline_builders():
+    """Every spline coefficient builder of the port, by name."""
+    from online_neural_cdes_tpu_torch import (
+        SmoothLinearInterpolation, hermite_cubic_coefficients_with_backward_differences,
+        linear_interpolation_coeffs, natural_cubic_coeffs, natural_cubic_spline_coeffs)
+
+    def smoothing(quintic):
+        return lambda x: SmoothLinearInterpolation.create(
+            linear_interpolation_coeffs(x), SMOOTH_EPS,
+            match_second_derivatives=quintic).matching_coeffs
+
+    return {"natural_cubic": natural_cubic_coeffs,
+            "natural_cubic_v0": natural_cubic_spline_coeffs,
+            "hermite": hermite_cubic_coefficients_with_backward_differences,
+            "cubic_smoothing": smoothing(False), "quintic_smoothing": smoothing(True)}
+
+
+def phase_splines():
+    """The spline family on the card: every coefficient builder on the
+    padded serving batch against the CPU; a Hermite flagship ``Predictor``
+    (444 forward launches, 0 backward per ``predict``) against the CPU; one
+    Hermite flagship training step (792 forward, 396 backward launches)
+    with the card's gradients against the CPU's on 16 rows."""
+    from online_neural_cdes_tpu_torch import (
+        Predictor, hermite_cubic_coefficients_with_backward_differences as hermite)
+    from online_neural_cdes_tpu_torch.data.loader import pad_ragged
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+
+    requests, static = make_requests()
+    x = torch.from_numpy(pad_ragged(requests, bucket_multiple=LENGTH_MULTIPLE))
+    coeff_err = {}
+    with torch.inference_mode():
+        for name, fn in spline_builders().items():
+            got, want = fn(x.cuda()).cpu(), fn(x)
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} coefficients on the card: shape "
+                                     f"{tuple(got.shape)} or non-finite values")
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=SPLINE_RTOL,
+                                       atol=SPLINE_ATOL_REL * scale,
+                                       msg=lambda m: f"{name} coefficients: {m}")
+            coeff_err[name] = {"shape": list(got.shape),
+                               "max_err_per_max": float((got - want).abs().max()) / scale}
+
+    # Serving: the flagship widths with Hermite controls.
+    model = flagship_model("cuda", "hermite")
+    pred = Predictor(model, coeff_fn=hermite, batch_buckets=(1, 64),
+                     length_multiple=LENGTH_MULTIPLE, device="cuda")
+    pred.precompile(channels=C, max_length=MAX_LEN, static_dim=STATIC)
+    intervals = x.shape[1] - 1
+    outs, serve = counted(lambda: pred.predict(requests, static=static))  # Hermite serving
+    expect_launches("one Hermite predict", serve, forward=4 * intervals)
+    model_cpu = flagship_model("cpu", "hermite")
+    model_cpu.load_state_dict(model.state_dict())
+    outs_cpu = Predictor(model_cpu, coeff_fn=hermite, batch_buckets=(1, 64),
+                         length_multiple=LENGTH_MULTIPLE, device="cpu").predict(
+                             requests, static=static)
+    serve_err = 0.0
+    for r, g, c in zip(requests, outs, outs_cpu):
+        if g.shape != (len(r), 1) or not np.isfinite(g).all():
+            raise AssertionError(f"Hermite predictor output shape {g.shape} or non-finite")
+        np.testing.assert_allclose(g, c, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+        serve_err = max(serve_err, float(np.abs(g - c).max()))
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        pred.predict(requests, static=static)
+        lat.append((time.perf_counter() - t0) * 1e3)
+
+    # Training: one Hermite flagship step, B=512, 100 observations.
+    model = flagship_model("cuda", "hermite")
+    inputs, labels = train_batch("cuda", coeff_fn=hermite)
+    model_cpu.load_state_dict(model.state_dict())
+    got = slice_grads(model, inputs, labels, GRAD_ROWS)
+    want = slice_grads(model_cpu, tuple(t.cpu() for t in inputs), labels.cpu(), GRAD_ROWS)
+    grad_err = {}
+    for name, w in want.items():
+        g = got[name].cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"Hermite card gradient of {name} is not finite")
+        torch.testing.assert_close(g, w, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL_REL * float(w.abs().max()),
+                                   msg=lambda m: f"Hermite gradient of {name}: {m}")
+        grad_err[name] = float((g - w).abs().max() / w.abs().max())
+    step = make_train_step(model, loss="bce", lr=TRAIN_LR)
+    train_intervals = TRAIN_L - 1
+    loss, train = counted(lambda: step(inputs, labels, 1.0))  # Hermite training
+    expect_launches("one Hermite training step", train, forward=8 * train_intervals,
+                    backward=4 * train_intervals)
+    losses = [loss]
+    step_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        losses.append(step(inputs, labels, 1.0))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"Hermite training losses not finite: {losses}")
+    emit("splines", coefficients=coeff_err,
+         coeff_tolerance={"rtol": SPLINE_RTOL, "atol_per_max": SPLINE_ATOL_REL},
+         hermite_predict={"intervals": intervals, "kernel_launches": serve,
+                          "vs_cpu": {"max_abs_err": serve_err, "rtol": SERVE_RTOL,
+                                     "atol": SERVE_ATOL},
+                          "predict_ms": percentiles(lat)},
+         hermite_train={"batch": TRAIN_B, "intervals": train_intervals,
+                        "kernel_launches": train,
+                        "grads_vs_cpu": {"rows": GRAD_ROWS,
+                                         "max_err_per_max": max(grad_err.values()),
+                                         "rtol": GRAD_RTOL, "atol_per_max": GRAD_ATOL_REL},
+                        "losses": [float(v) for v in losses],
+                        "train_step_ms": percentiles(step_ms)})
+    return serve, train
+
+
 def phase_toy():
-    """The rectilinear toy, card against CPU from the same weights and
-    data."""
+    """The toy under the rectilinear, Hermite and natural cubic schemes,
+    card against CPU from the same weights and data."""
     from online_neural_cdes_tpu_torch.experiments import sim_bm_toy as toy
 
-    runs = {}
-    for device in ("cuda", "cpu"):
-        runs[device] = toy.train_scheme(
-            "rectilinear", toy.toy_data(TOY_PATHS, 3, device), epochs=TOY_EPOCHS,
-            hidden=10, width=256, reps=1, batch_size=TOY_BATCH, device=device)
-    gpu, cpu = runs["cuda"], runs["cpu"]
-    np.testing.assert_allclose(gpu["losses"], cpu["losses"], rtol=TOY_RTOL,
-                               atol=TOY_ATOL)
-    before, after = float(gpu["train_acc_before"][0]), float(gpu["train_acc"][0])
-    if not after > before:
-        raise AssertionError(f"toy train accuracy did not rise: {before} -> {after}")
-    emit("toy", scheme="rectilinear", paths=TOY_PATHS, epochs=TOY_EPOCHS,
-         steps=int(gpu["losses"].shape[1]),
-         loss_first_last=[float(gpu["losses"][0, 0]), float(gpu["losses"][0, -1])],
-         vs_cpu={"max_abs_err": float(np.abs(gpu["losses"] - cpu["losses"]).max()),
-                 "rtol": TOY_RTOL, "atol": TOY_ATOL},
-         train_acc_before=before, train_acc=after,
-         test_acc=float(gpu["test_acc"][0]), seconds_card=gpu["seconds"],
-         seconds_cpu=cpu["seconds"])
+    data = {device: toy.toy_data(TOY_PATHS, 3, device) for device in ("cuda", "cpu")}
+    for scheme in TOY_SCHEMES:
+        runs = {device: toy.train_scheme(
+            scheme, data[device], epochs=TOY_EPOCHS, hidden=10, width=256, reps=1,
+            batch_size=TOY_BATCH, device=device) for device in ("cuda", "cpu")}
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        np.testing.assert_allclose(gpu["losses"], cpu["losses"], rtol=TOY_RTOL,
+                                   atol=TOY_ATOL, err_msg=scheme)
+        before, after = float(gpu["train_acc_before"][0]), float(gpu["train_acc"][0])
+        if not after > before:
+            raise AssertionError(f"toy {scheme}: train accuracy did not rise: "
+                                 f"{before} -> {after}")
+        emit("toy", scheme=scheme, paths=TOY_PATHS, epochs=TOY_EPOCHS,
+             steps=int(gpu["losses"].shape[1]),
+             loss_first_last=[float(gpu["losses"][0, 0]), float(gpu["losses"][0, -1])],
+             vs_cpu={"max_abs_err": float(np.abs(gpu["losses"] - cpu["losses"]).max()),
+                     "rtol": TOY_RTOL, "atol": TOY_ATOL},
+             train_acc_before=before, train_acc=after,
+             test_acc=float(gpu["test_acc"][0]), seconds_card=gpu["seconds"],
+             seconds_cpu=cpu["seconds"])
+
+
+def times(t):
+    return {"ms": t["kernel_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
+            "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"]}
 
 
 def kernel_entry(name, source, replaces, launches, max_err, timings):
     """One kernel's entry: its times at TRAIN_SHAPE, and every timed
     shape's under ``by_shape``."""
-    def times(t):
-        return {"ms": t["kernel_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
-                "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"]}
-
     return {"name": name, "route": "cuda",
             "source": f"online_neural_cdes_tpu_torch/csrc/{source}",
             "replaces": f"online_neural_cdes_tpu/ops/kernels.py:{replaces}",
@@ -635,7 +964,8 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
                          for shape, t in timings.items()]}
 
 
-PHASES = ("kernel", "kernel_bwd", "predictor", "stepper", "train", "toy")
+PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
+          "chains", "splines", "toy")
 
 
 def main(argv=None) -> int:
@@ -653,18 +983,26 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     peak_flops, peak_bytes = peaks(torch.cuda.get_device_name(0))
 
+    t0 = time.perf_counter()
     phase_env()
     phase_build()
     if "kernel" in phases:
         max_err, timings = phase_kernel(peak_flops, peak_bytes)
     if "kernel_bwd" in phases:
         max_err_bwd, timings_bwd = phase_kernel_bwd(peak_flops, peak_bytes)
+    if "kernel_rk4" in phases:
+        max_err_rk4, max_err_multi, timings_rk4, timings_multi = phase_kernel_rk4(
+            peak_flops, peak_bytes)
     if phases & {"predictor", "stepper"}:
         model, requests, static, outs, serve_launches = phase_predictor()
     if "stepper" in phases:
         phase_stepper(model, requests, static, outs)
     if "train" in phases:
         train_launches = phase_train()
+    if "chains" in phases:
+        chain_launches = phase_chains()
+    if "splines" in phases:
+        hermite_serve, hermite_train = phase_splines()
     if "toy" in phases:
         phase_toy()
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
@@ -673,18 +1011,39 @@ def main(argv=None) -> int:
         print(card_line(), flush=True)
         return 0
 
-    # launches: each kernel's count in this slice's main path, one flagship
-    # training step; launches_by_path adds the serving path's.
+    # Every kernel's launches on each path; ``launches`` is the count on
+    # its own slice's main path: the training step for the field kernels,
+    # the interval chains for the RK4 kernels.
+    by_path = {"predict": serve_launches, "train_step": train_launches,
+               "hermite_predict": hermite_serve, "hermite_train_step": hermite_train,
+               "interval_chain": chain_launches}
+
+    def paths(key):
+        return {path: counts[key] for path, counts in by_path.items()}
+
     entries = []
-    for kernel, source, replaces, key, err, tm in (
-            ("fused_matmul_field", "fused_field.cu", 184, "forward", max_err, timings),
+    for kernel, source, replaces, key, err, tm, main_path in (
+            ("fused_matmul_field", "fused_field.cu", 184, "forward", max_err, timings,
+             "train_step"),
             ("fused_matmul_field_bwd", "fused_field_bwd.cu", 367, "backward",
-             max_err_bwd, timings_bwd)):
-        entry = kernel_entry(kernel, source, replaces, train_launches[key], err, tm)
-        entry["launches_by_path"] = {"predict": serve_launches[key],
-                                     "train_step": train_launches[key]}
+             max_err_bwd, timings_bwd, "train_step"),
+            ("fused_rk4_interval", "fused_rk4_interval.cu", 511, "rk4", max_err_rk4,
+             timings_rk4, "interval_chain")):
+        entry = kernel_entry(kernel, source, replaces, by_path[main_path][key], err, tm)
+        entry["launches_by_path"] = paths(key)
         entries.append(entry)
+    k_main = RK4_MULTI_TIMED[0]
+    entries.append({
+        "name": "fused_rk4_interval_multi", "route": "cuda",
+        "source": "online_neural_cdes_tpu_torch/csrc/fused_rk4_interval.cu",
+        "replaces": "online_neural_cdes_tpu/ops/kernels.py:637",
+        "launches": chain_launches["rk4_multi"], "max_abs_err": max_err_multi,
+        **times(timings_multi[k_main]), "library_ms": None, "K": k_main,
+        "timed_shape": list(TRAIN_SHAPE),
+        "by_K": [{"K": k, **times(t)} for k, t in timings_multi.items()],
+        "launches_by_path": paths("rk4_multi")})
     print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,9 @@
 The counterpart of the JAX package's ``experiments/sim_bm_toy.py``: train
 the Neural CDE under each interpolation scheme for several repetitions and
 write a table of train/test accuracy (mean and standard deviation) as CSV.
-The linear and rectilinear schemes are ported; the natural-cubic and
-Hermite schemes raise until ROADMAP item 11 ports their splines.
-Repetitions run one after another (the JAX script vmaps them).
+The schemes are the JAX script's: natural cubic, Hermite cubic with
+backward differences, rectilinear and linear.  Repetitions run one after
+another (the JAX script vmaps them).
 
 Usage::
 
@@ -25,19 +25,23 @@ import torch
 
 from online_neural_cdes_tpu_torch.data.toy import brownian_motion_data
 from online_neural_cdes_tpu_torch.models.ncde import NeuralCDE
-from online_neural_cdes_tpu_torch.ops.interpolation import linear_interpolation_coeffs
+from online_neural_cdes_tpu_torch.ops.interpolation import (
+    hermite_cubic_coefficients_with_backward_differences,
+    linear_interpolation_coeffs,
+    natural_cubic_coeffs,
+)
 from online_neural_cdes_tpu_torch.training.loop import make_eval_step, make_train_step
 from online_neural_cdes_tpu_torch.utils.device import resolve_device
 
 __all__ = ["SCHEMES", "coefficients", "train_scheme", "main"]
 
+# scheme -> (the model's interpolation, its coefficient function)
 SCHEMES = {
-    "cubic": "cubic",
-    "cubic_hermite": "hermite",
-    "rectilinear": "rectilinear",
-    "linear": "linear",
+    "cubic": ("cubic", natural_cubic_coeffs),
+    "cubic_hermite": ("hermite", hermite_cubic_coefficients_with_backward_differences),
+    "rectilinear": ("rectilinear", lambda x: linear_interpolation_coeffs(x, rectilinear=0)),
+    "linear": ("linear", linear_interpolation_coeffs),
 }
-PORTED = ("rectilinear", "linear")
 LR = 1e-3          # Adam, every parameter alike, as the JAX script
 SEED = 2           # repetition r starts from weights of seed SEED + r
 TEST_PATHS = 1024
@@ -47,19 +51,13 @@ def coefficients(name: str, x: torch.Tensor) -> torch.Tensor:
     """The scheme's interpolation coefficients of the paths ``x``."""
     if name not in SCHEMES:
         raise ValueError(f"unknown scheme {name!r}; one of {sorted(SCHEMES)}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"scheme {name!r} is not ported yet (ROADMAP item 11: the cubic "
-            "and Hermite splines)"
-        )
-    kw = {"rectilinear": 0} if name == "rectilinear" else {}
-    return linear_interpolation_coeffs(x, **kw)
+    return SCHEMES[name][1](x)
 
 
 def make_model(name: str, hidden: int, width: int, seed: int, device) -> NeuralCDE:
     return NeuralCDE(
         input_dim=2, hidden_dim=hidden, output_dim=1, hidden_hidden_dim=width,
-        num_layers=2, interpolation=SCHEMES[name], return_sequences=True,
+        num_layers=2, interpolation=SCHEMES[name][0], return_sequences=True,
         adjoint=True, solver="rk4", generator=torch.Generator().manual_seed(seed),
         device=device,
     )
@@ -130,7 +128,7 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--batch-size", type=int, default=1024)
-    ap.add_argument("--schemes", nargs="+", default=list(PORTED),
+    ap.add_argument("--schemes", nargs="+", default=list(SCHEMES),
                     choices=sorted(SCHEMES))
     ap.add_argument("--device", default=None,
                     help="cuda (the default; needs a card) or cpu")

@@ -1,12 +1,14 @@
 """The Neural CDE model.
 
 PyTorch counterpart of the JAX package's ``models/ncde.py`` for the fixed
-solvers and linear/rectilinear controls.  ``NeuralCDE`` is an
-``nn.Module``: the constructor takes the JAX dataclass's fields and makes
-the parameters (``field``, ``initial``, ``final``, under the JAX pytree's
-names) from a ``torch.Generator``; ``forward(inputs)`` is the JAX
-``apply(params, inputs)``.  ``inputs`` is the coefficient array, or a
-``(static, coeffs)`` pair when ``static_dim`` is set.
+solvers and every spline of its registry (linear, rectilinear, natural
+cubic, Hermite, and linear with cubic or quintic smoothing).
+``NeuralCDE`` is an ``nn.Module``: the constructor takes the JAX
+dataclass's fields and makes the parameters (``field``, ``initial``,
+``final``, under the JAX pytree's names) from a ``torch.Generator``;
+``forward(inputs)`` is the JAX ``apply(params, inputs)``.  ``inputs`` is
+the coefficient array, or a ``(static, coeffs)`` pair when ``static_dim``
+is set.
 
 The model runs on ``device`` (the CUDA card unless ``device="cpu"`` is
 asked for; with neither it raises).  The field goes through the fused
@@ -28,7 +30,7 @@ from torch import nn
 from online_neural_cdes_tpu_torch.models.vector_fields import VectorField
 from online_neural_cdes_tpu_torch.ops import solvers as _solvers
 from online_neural_cdes_tpu_torch.ops.cdeint import cdeint
-from online_neural_cdes_tpu_torch.ops.interpolation import LinearInterpolation
+from online_neural_cdes_tpu_torch.ops import interpolation as interp
 from online_neural_cdes_tpu_torch.ops.kernels import (
     fused_matmul_field,
     pack_fused_params,
@@ -48,22 +50,21 @@ SPLINES = (
 )
 
 
-_PORTED_SPLINES = ("linear", "rectilinear")
-
-
-def _spline_not_ported(interpolation: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"interpolation={interpolation!r} is not ported yet (ROADMAP item 11:"
-        " the rest of ops/interpolation.py)"
-    )
-
-
-def make_spline(interpolation: str, coeffs: torch.Tensor):
-    """Spline registry; ``coeffs`` must come from the matching
-    coefficient function."""
-    if interpolation not in _PORTED_SPLINES:
-        raise _spline_not_ported(interpolation)
-    return LinearInterpolation.create(coeffs)
+def make_spline(interpolation: str, coeffs: torch.Tensor, eps: Optional[float] = None):
+    """Spline registry; ``coeffs`` must come from the matching builder in
+    ``ops.interpolation``; ``eps`` is the smoothing splines' matching
+    width."""
+    if interpolation in ("linear", "rectilinear"):
+        return interp.LinearInterpolation.create(coeffs)
+    if interpolation in ("cubic", "hermite"):
+        return interp.CubicSpline.create(coeffs)
+    if interpolation == "linear_cubic_smoothing":
+        return interp.SmoothLinearInterpolation.create(
+            coeffs, gradient_matching_eps=eps, match_second_derivatives=False)
+    if interpolation == "linear_quintic_smoothing":
+        return interp.SmoothLinearInterpolation.create(
+            coeffs, gradient_matching_eps=eps, match_second_derivatives=True)
+    raise ValueError(f"Unrecognised interpolation scheme {interpolation}")
 
 
 class NeuralCDE(nn.Module):
@@ -100,8 +101,6 @@ class NeuralCDE(nn.Module):
             raise ValueError(
                 f"unknown interpolation {interpolation!r}; one of {sorted(SPLINES)}"
             )
-        if interpolation not in _PORTED_SPLINES:
-            raise _spline_not_ported(interpolation)
         valid = (tuple(_solvers.FIXED_METHODS) + tuple(_solvers.ADAPTIVE_METHODS)
                  + ("explicit_adams", "implicit_adams", "scipy_solver"))
         if solver not in valid:
@@ -192,7 +191,7 @@ class NeuralCDE(nn.Module):
                     "Inputs must be a 2-tuple of (static_data, temporal_data)"
                 )
             static, coeffs = inputs
-        spline = make_spline(self.interpolation, coeffs)
+        spline = make_spline(self.interpolation, coeffs, self.interpolation_eps)
         x0 = spline.evaluate(spline.interval[0])
         if static is None:
             if self.use_initial:

@@ -8,9 +8,8 @@ rectilinear scan ``_fixed_scan_forward_paired``, the interval adjoints
 ``_interval_adjoint_bwd``, and the fixed-method branch of ``cdeint`` with
 ``return_stats``.  The scans are Python loops over the knot intervals;
 inside interval i the field is pinned to piece i of the control.  Step
-sizes are host floats taken from the spline's knot times
-(``LinearInterpolation.host_grid``), so a solve on the card enqueues its
-kernels without reading anything back.
+sizes are host floats from the spline's knot times (``host_grid``), so a
+solve on the card enqueues its kernels without reading anything back.
 
 Gradients:
 

@@ -3,7 +3,9 @@
 PyTorch counterpart of the JAX package's ``ops/fill.py``: the same
 vectorised ``cummax``/gather formulation (``torch.cummax`` for
 ``lax.cummax``), the same semantics.  Series are ``(..., length,
-channels)`` blocks with NaN for a missing value.
+channels)`` blocks with NaN for a missing value.  ``tridiagonal_solve`` is
+the Thomas algorithm batched over leading dims, with Python loops over the
+system's length in place of ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["forward_fill", "backward_fill", "linear_fill"]
+__all__ = ["forward_fill", "backward_fill", "linear_fill", "tridiagonal_solve"]
 
 
 def _last_observed_index(mask: torch.Tensor) -> torch.Tensor:
@@ -87,3 +89,25 @@ def linear_fill(x: torch.Tensor, t: Optional[torch.Tensor] = None,
     all_nan = ~torch.any(mask, dim=-1, keepdim=True)
     filled = torch.where(all_nan, torch.zeros_like(filled), filled)
     return torch.movedim(filled, -1, axis)
+
+
+def tridiagonal_solve(b: torch.Tensor, a_upper: torch.Tensor, a_diagonal: torch.Tensor,
+                      a_lower: torch.Tensor) -> torch.Tensor:
+    """Thomas-algorithm solve of a tridiagonal system, batched over leading
+    dims: every batch element sweeps its band in lockstep.  Shapes: ``b``,
+    ``a_diagonal``: (..., N); ``a_upper``, ``a_lower``: (..., N-1)."""
+    n = b.shape[-1]
+    if n == 1:
+        return b / a_diagonal
+    cs = [a_upper[..., 0] / a_diagonal[..., 0]]
+    ds = [b[..., 0] / a_diagonal[..., 0]]
+    for i in range(1, n):
+        lower = a_lower[..., i - 1]
+        denom = a_diagonal[..., i] - lower * cs[-1]
+        upper = a_upper[..., i] if i < n - 1 else torch.zeros_like(denom)
+        cs.append(upper / denom)
+        ds.append((b[..., i] - lower * ds[-1]) / denom)
+    xs = [ds[-1]]
+    for i in range(n - 2, -1, -1):
+        xs.append(ds[i] - cs[i] * xs[-1])
+    return torch.stack(xs[::-1], dim=-1)

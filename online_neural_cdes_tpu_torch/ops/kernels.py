@@ -24,6 +24,14 @@ directly.
 
 The head is packed contraction-major, (HH, I*H), unpadded: the TPU's
 128-lane padding is a layout rule of that chip and is not carried over.
+
+:func:`fused_rk4_interval` and :func:`fused_rk4_interval_multi` are the
+counterparts of the JAX ops of the same names: one whole RK4 (3/8) interval
+of the fused field with a constant dX, for one model or for K stacked
+replicas, in one launch of ``csrc/fused_rk4_interval.cu`` on a CUDA
+tensor; their plain versions step ``solvers.tree_fixed_step("rk4")`` over
+:func:`_forward_reference`.  Like the JAX ops (bare ``pallas_call``s),
+they have no gradient.
 """
 
 from __future__ import annotations
@@ -33,10 +41,12 @@ import functools
 
 import torch
 
+from online_neural_cdes_tpu_torch.ops import solvers
 from online_neural_cdes_tpu_torch.utils.cuda_build import CudaKernel
 
-__all__ = ["fused_matmul_field", "pack_fused_params", "fused_field_kernel",
-           "fused_field_bwd_kernel"]
+__all__ = ["fused_matmul_field", "pack_fused_params", "fused_rk4_interval",
+           "fused_rk4_interval_multi", "fused_field_kernel", "fused_field_bwd_kernel",
+           "fused_rk4_kernel", "fused_rk4_multi_kernel"]
 
 MAX_TRUNK = 4
 
@@ -70,6 +80,16 @@ fused_field_bwd_kernel = CudaKernel(
      ctypes.c_void_p],                                   # stream
 )
 
+# The whole-interval RK4 kernel's two entry points (one library).
+_RK4_HEAD = [ctypes.c_void_p, ctypes.c_void_p, _PTRS, _PTRS, ctypes.c_int,  # z, dx, trunk
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]    # head_w, head_b, out
+_DIMS = [ctypes.c_int] * 4                                         # B, H, HH, I
+fused_rk4_kernel = CudaKernel("fused_rk4_interval.cu", "oncde_fused_rk4_interval",
+                              _RK4_HEAD + _DIMS + [ctypes.c_void_p])
+fused_rk4_multi_kernel = CudaKernel(
+    "fused_rk4_interval.cu", "oncde_fused_rk4_interval_multi",
+    _RK4_HEAD + [ctypes.c_int] + _DIMS + [ctypes.c_void_p])     # ..., K, B, H, HH, I
+
 
 def pack_fused_params(field_params, hidden_dim: int, input_dim: int) -> dict:
     """Re-layout an 'original' VectorField's parameters for the fused op:
@@ -102,9 +122,10 @@ def _forward_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
     return out[..., :hidden_dim].to(z.dtype)
 
 
-def _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
-    """Every operand with the shape the kernel reads it at."""
-    batch, hh = z.shape[0], head_w.shape[0]
+def _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim, input_dim, lead=()):
+    """Every operand with the shape the kernel reads it at; ``lead`` is the
+    replica dims of stacked operands, ``(K,)``, before every shape."""
+    batch, hh = z.shape[len(lead)], head_w.shape[-2]
     operands = [("z", z, (batch, hidden_dim)), ("dx", dx, (batch, input_dim)),
                 ("head_w", head_w, (hh, input_dim * hidden_dim)),
                 ("head_b", head_b, (input_dim * hidden_dim,))]
@@ -113,7 +134,7 @@ def _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
         operands += [(f"trunk[{l}].w", layer["w"], (d_in, hh)),
                      (f"trunk[{l}].b", layer["b"], (hh,))]
         d_in = hh
-    return operands
+    return [(name, t, tuple(lead) + shape) for name, t, shape in operands]
 
 
 def _check_operands(what, operands, device, n_trunk):
@@ -282,3 +303,127 @@ def fused_matmul_field(trunk, head_w, head_b, z, dx, hidden_dim: int,
     else:
         out = _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
     return out.reshape(lead + (hidden_dim,))
+
+
+# ---------------------------------------------------------------------------
+# Whole-interval RK4 (3/8): the JAX ops fused_rk4_interval and
+# fused_rk4_interval_multi.
+# ---------------------------------------------------------------------------
+
+
+def _rk4_interval_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
+    """Plain version of :func:`fused_rk4_interval`: the port's RK4 (3/8)
+    stepper from t=0 to 1 over :func:`_forward_reference` -- the
+    composition the JAX package holds its kernel against."""
+    step = solvers.tree_fixed_step("rk4")
+    return step(lambda t, zz: _forward_reference(trunk, head_w, head_b, zz, dx,
+                                                 hidden_dim, input_dim), 0.0, 1.0, z)
+
+
+def _replica(trunk, head_w, head_b, r):
+    return [{"w": l["w"][r], "b": l["b"][r]} for l in trunk], head_w[r], head_b[r]
+
+
+def _rk4_interval_multi_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
+    """Plain version of :func:`fused_rk4_interval_multi`: the single plain
+    version on each replica in turn."""
+    return torch.stack([
+        _rk4_interval_reference(*_replica(trunk, head_w, head_b, r), z[r], dx[r],
+                                hidden_dim, input_dim)
+        for r in range(z.shape[0])])
+
+
+def _check_rk4_call(what, trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
+    """What both interval ops refuse on every device: a padded head (the
+    JAX ops' unpadded-packing assert) and a gradient request (they have no
+    VJP)."""
+    if head_w.shape[-1] != input_dim * hidden_dim:
+        raise ValueError(
+            f"{what} takes the unpadded head (pack_fused_params): head_w has "
+            f"{head_w.shape[-1]} columns, want input_dim * hidden_dim = "
+            f"{input_dim * hidden_dim}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (z, dx, head_w, head_b, *_flat_trunk(trunk))):
+        raise RuntimeError(
+            f"{what} has no gradient (as the JAX op); call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+
+
+@functools.lru_cache(maxsize=1)
+def rk4_max_dim() -> int:
+    """The largest H and HH the interval kernel takes (its shared-memory
+    budget), as its library states it."""
+    return int(fused_rk4_kernel.helper("oncde_fused_rk4_max_dim", [], ctypes.c_int)())
+
+
+def _rk4_launch(kernel, what, z, dx, trunk, head_w, head_b, hidden_dim, input_dim,
+                replicas=None):
+    """Launch one of the interval kernel's entry points on the current
+    stream, after the width check; returns the output."""
+    hh = head_w.shape[-2]
+    if max(hidden_dim, hh) > rk4_max_dim():
+        raise ValueError(f"{what} does not take H={hidden_dim}, HH={hh} (it takes H "
+                         f"and HH up to {rk4_max_dim()})")
+    out = torch.empty_like(z)
+    if z.numel() == 0:
+        return out
+    lead = () if replicas is None else (replicas,)
+    kernel(z.data_ptr(), dx.data_ptr(), _pointers(l["w"] for l in trunk),
+           _pointers(l["b"] for l in trunk), len(trunk), head_w.data_ptr(),
+           head_b.data_ptr(), out.data_ptr(), *lead, z.shape[-2], hidden_dim, hh,
+           input_dim, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _rk4_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
+    """Launch ``csrc/fused_rk4_interval.cu`` for one model; the checks of
+    :func:`_forward_kernel`, then the library's width limit."""
+    _check_operands("fused RK4 interval kernel",
+                    _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
+                                     input_dim), z.device, len(trunk))
+    return _rk4_launch(fused_rk4_kernel, "fused RK4 interval kernel", z, dx, trunk,
+                       head_w, head_b, hidden_dim, input_dim)
+
+
+def _rk4_multi_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
+    """Launch the K-replica entry point of ``csrc/fused_rk4_interval.cu``."""
+    what = "fused RK4 interval multi kernel"
+    if z.dim() != 3 or head_w.dim() != 3:
+        raise ValueError(f"{what} takes stacked (K, ...) operands; z has shape "
+                         f"{tuple(z.shape)}, head_w {tuple(head_w.shape)}")
+    _check_operands(what, _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
+                                           input_dim, lead=z.shape[:1]),
+                    z.device, len(trunk))
+    return _rk4_launch(fused_rk4_multi_kernel, what, z, dx, trunk, head_w, head_b,
+                       hidden_dim, input_dim, replicas=z.shape[0])
+
+
+def fused_rk4_interval(trunk, head_w, head_b, z, dx, hidden_dim: int,
+                       input_dim: int) -> torch.Tensor:
+    """z after one unit interval of RK4 (3/8) under dz = f(z) dX with a
+    constant increment ``dx`` (B, I): a caller with knot spacing dt passes
+    dX/dt * dt.  Shapes as in :func:`fused_matmul_field`, 2-D, with the
+    unpadded head (HH, I*H).  A CUDA tensor launches the Hopper kernel
+    (float32, contiguous, or it raises); a CPU tensor runs
+    :func:`_rk4_interval_reference` in any float dtype.  No gradient."""
+    _check_rk4_call("fused_rk4_interval", trunk, head_w, head_b, z, dx, hidden_dim,
+                    input_dim)
+    if z.is_cuda:
+        return _rk4_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
+    return _rk4_interval_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
+
+
+def fused_rk4_interval_multi(trunk, head_w, head_b, z, dx, hidden_dim: int,
+                             input_dim: int) -> torch.Tensor:
+    """K independent replicas' unit RK4 (3/8) intervals in one launch.
+    Stacked layouts, as the JAX op: ``trunk`` a list of ``{'w': (K, d_in,
+    HH), 'b': (K, HH)}``, ``head_w`` (K, HH, I*H) unpadded, ``head_b`` (K,
+    I*H), ``z`` (K, B, H), ``dx`` (K, B, I).  Returns (K, B, H); replica r's
+    result equals :func:`fused_rk4_interval` on its own operands (to the
+    bit on the card).  Dispatch as :func:`fused_rk4_interval`."""
+    _check_rk4_call("fused_rk4_interval_multi", trunk, head_w, head_b, z, dx,
+                    hidden_dim, input_dim)
+    if z.is_cuda:
+        return _rk4_multi_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
+    return _rk4_interval_multi_reference(trunk, head_w, head_b, z, dx, hidden_dim,
+                                         input_dim)

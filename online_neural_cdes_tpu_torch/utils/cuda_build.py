@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers it
+includes) has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library loaded with ``ctypes`` --
 no PyTorch headers, so a build takes seconds.  Libraries go to
 ``build/torch_kernels/`` beside the package (git-ignored), named by a hash
@@ -49,7 +50,11 @@ def nvcc_path() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Named by the source, the shared headers (``csrc/*.cuh``) and the
+    flags, so an edit of any of them rebuilds."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -141,7 +141,7 @@ def test_neural_cde_packs_time_slice_contiguously():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(interpolation="cubic"), "ROADMAP item 11"),
+    (dict(solver="implicit_adams"), "ROADMAP item 12"),
     (dict(solver="dopri5"), "ROADMAP item 12"),
     (dict(vector_field="gru"), "ROADMAP item 14"),
     (dict(vector_field_type="evaluate"), "ROADMAP item 14"),

@@ -490,12 +490,14 @@ def test_toy_loss_curve_matches_jax():
 
 
 def test_toy_experiment_runs_and_refuses_unported_schemes(tmp_path):
+    """Every scheme of the JAX script runs on the CPU, the natural cubic
+    and Hermite ones included."""
     out = tmp_path / "table.csv"
     sim_bm_toy.main(["--epochs", "1", "--paths", "16", "--batch-size", "8", "--reps", "1",
                      "--hidden", "3", "--width", "4", "--device", "cpu",
-                     "--schemes", "linear", "--out", str(out)])
+                     "--schemes", "linear", "cubic", "cubic_hermite", "--out", str(out)])
     lines = out.read_text().splitlines()
-    assert lines[0].startswith("interpolation,") and lines[1].startswith("linear,")
-    for name in ("cubic", "cubic_hermite"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            sim_bm_toy.coefficients(name, torch.zeros(2, 3, 2))
+    assert lines[0].startswith("interpolation,")
+    assert [ln.split(",")[0] for ln in lines[1:]] == ["linear", "cubic", "cubic_hermite"]
+    with pytest.raises(ValueError, match="unknown scheme"):
+        sim_bm_toy.coefficients("quadratic", torch.zeros(2, 3, 2))
