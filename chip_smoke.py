@@ -16,9 +16,10 @@ controls, and prints one JSON line per phase:
 3. kernel    -- the fused field's forward kernel against its plain PyTorch
                 version on the card over a shape sweep, and its time (CUDA
                 events) beside its bound and the plain version's time.
-4. kernel_bwd -- the same for the backward kernel: all five cotangent
-                groups over the sweep, identical bits on a repeat call, and
-                a width its tiles cannot hold refused without a launch.
+4. kernel_bwd -- the same for the backward kernel: all six cotangent
+                groups over the sweep, identical bits on a repeat call, a
+                width its tiles cannot hold refused without a launch, and
+                each of its launches' device time at the training shapes.
 5. kernel_rk4 -- the whole-interval RK4 kernel against its plain version
                 over the sweep, its K-replica form (K = 1..4) bit for bit
                 against K single launches, a width beyond its limit refused
@@ -77,10 +78,12 @@ N_REQUESTS, MIN_LEN, MAX_LEN = 64, 60, 100
 LENGTH_MULTIPLE = 16
 # (B, H, HH, I, n_trunk): the serving shapes (I=21 value pieces, I=1 time
 # pieces, B=1 and 64 buckets), the flagship training batch's two shapes,
-# and odd widths.
+# and odd widths (H = HH = 256 with four layers fills the backward kernel's
+# shared memory; the last one's H and HH are not multiples of 8, the
+# tensor-core tiles' edge).
 SWEEP = [(64, 128, 128, 21, 2), (64, 128, 128, 1, 2), (1, 128, 128, 21, 2),
          (512, 128, 128, 21, 2), (512, 128, 128, 1, 2), (5, 96, 196, 21, 3),
-         (33, 256, 64, 21, 4)]
+         (33, 256, 64, 21, 4), (9, 256, 256, 3, 4), (17, 42, 37, 5, 1)]
 # The training step's dominant shape: the kernels line reports each
 # kernel's times here, where most of its counted launches run.
 TRAIN_SHAPE = (512, 128, 128, 21, 2)
@@ -95,7 +98,7 @@ RK4_SWEEP = SWEEP + [(256, 128, 64, 21, 2)]
 RK4_TIMED = [(512, 128, 128, 21, 2), (512, 128, 128, 1, 2), (64, 128, 128, 21, 2)]
 RK4_MULTI = [(TRAIN_SHAPE, (1, 2, 3, 4)), ((5, 96, 196, 21, 3), (3,))]
 RK4_MULTI_TIMED = (2, 4)
-# Backward kernel vs its plain version, each of the five groups: |err| <=
+# Backward kernel vs its plain version, each of the six groups: |err| <=
 # BWD_RTOL |want| + BWD_ATOL_REL max|want|.  Weight grads sum B rows (and
 # dz, ddx sum I*H columns) in another order than cuBLAS; f32 round-off of
 # such a sum grows with its largest terms, so the absolute part scales with
@@ -149,10 +152,11 @@ def card_line() -> str:
 
 
 def peaks(name: str):
-    """(f32 CUDA-core FLOP/s, HBM bytes/s) from NVIDIA's data sheets."""
+    """(f32 CUDA-core FLOP/s, dense TF32 tensor-core FLOP/s, HBM bytes/s)
+    from NVIDIA's data sheets."""
     if "PCIe" in name:
-        return 51e12, 2.0e12
-    return 67e12, 3.35e12  # SXM
+        return 51e12, 378e12, 2.0e12
+    return 67e12, 495e12, 3.35e12  # SXM
 
 
 def field_cost(B, Hd, HHd, I, n):
@@ -187,6 +191,16 @@ def bound(flops, nbytes, peak_flops, peak_bytes):
     """(bound in us, what bounds it)."""
     t_ops, t_bytes = flops / peak_flops, nbytes / peak_bytes
     return max(t_ops, t_bytes) * 1e6, "operations" if t_ops > t_bytes else "bytes"
+
+
+def bounds(flops, nbytes, pk):
+    """A timed entry's bounds from ``pk = peaks(...)``: ``bound_us`` on the
+    f32 CUDA cores and ``bound_tc_us`` on the tensor cores in 3xTF32 (three
+    TF32 passes per f32 product), each the larger of operations and bytes."""
+    peak_f32, peak_tf32, peak_bytes = pk
+    bound_us, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
+    return {"bound_us": bound_us, "bound_by": bound_by,
+            "bound_tc_us": bound(flops, nbytes, peak_tf32 / 3, peak_bytes)[0]}
 
 
 # Each kernel's launch counter, under the key the phases report it by.
@@ -266,7 +280,7 @@ def phase_build():
     emit("build", sources=sources, seconds=seconds, ptxas=ptxas)
 
 
-def phase_kernel(peak_flops, peak_bytes):
+def phase_kernel(pk):
     from online_neural_cdes_tpu_torch.ops import kernels
 
     gen = torch.Generator().manual_seed(1)
@@ -287,15 +301,13 @@ def phase_kernel(peak_flops, peak_bytes):
         for shape in TIMED:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
-            bound_us, bound_by = bound(*field_cost(*shape), peak_flops, peak_bytes)
             kernel_us = device_us(lambda: kernels.fused_matmul_field(
                 trunk, head_w, head_b, z, dx, Hd, I), reps=200)
             plain_us = device_us(lambda: kernels._forward_reference(
                 trunk, head_w, head_b, z, dx, Hd, I), reps=50)
             timings[shape] = {
                 "shape": list(shape), "kernel_us": kernel_us, "plain_us": plain_us,
-                "bound_us": bound_us, "bound_by": bound_by,
-                "blocks": -(-B // 8) * -(-Hd // 32)}
+                **bounds(*field_cost(*shape), pk), "blocks": -(-B // 8) * -(-Hd // 32)}
     emit("kernel", tolerance={"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
          sweep=errors, timed=list(timings.values()),
          library="none: no single PyTorch call computes the fused field")
@@ -307,7 +319,8 @@ def random_cotangent(gen, B, Hd, device):
 
 
 def bwd_groups(out):
-    """The backward's five groups as (name, tensor) pairs."""
+    """The backward's six groups (each trunk layer's pair listed apart) as
+    (name, tensor) pairs."""
     dtrunk, dhw, dhb, dz, ddx = out
     groups = [("dz", dz), ("ddx", ddx), ("dhead_w", dhw), ("dhead_b", dhb)]
     for l, layer in enumerate(dtrunk):
@@ -315,11 +328,12 @@ def bwd_groups(out):
     return groups
 
 
-def phase_kernel_bwd(peak_flops, peak_bytes):
+def phase_kernel_bwd(pk):
     """The backward kernel against its plain version (autograd through the
     plain forward) over the forward's sweep, each group within
     BWD_RTOL |want| + BWD_ATOL_REL max|want|; a repeat call gives the same
-    bits; CUDA-event times at the two training shapes."""
+    bits; CUDA-event times at the two training shapes, with each of the
+    kernel's launches' device time per call (profiler, 20 calls)."""
     from online_neural_cdes_tpu_torch.ops import kernels
 
     gen = torch.Generator().manual_seed(2)
@@ -367,14 +381,16 @@ def phase_kernel_bwd(peak_flops, peak_bytes):
         trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
         args = (trunk, head_w, head_b, z, dx, random_cotangent(gen, B, Hd, "cuda"),
                 Hd, I)
-        bound_us, bound_by = bound(*field_bwd_cost(*shape), peak_flops, peak_bytes)
         kernel_us = device_us(lambda: kernels._backward_kernel(*args), reps=100)
         plain_us = device_us(lambda: kernels._backward_reference(*args), reps=20)
+        calls = 20
+        top = profile_call(lambda: [kernels._backward_kernel(*args)
+                                    for _ in range(calls)])["top"]
         timings[shape] = {"shape": list(shape), "kernel_us": kernel_us,
-                          "plain_us": plain_us, "bound_us": bound_us,
-                          "bound_by": bound_by,
-                          "launches": profile_call(
-                              lambda: kernels._backward_kernel(*args))["top"]}
+                          "plain_us": plain_us, **bounds(*field_bwd_cost(*shape), pk),
+                          "per_launch": [{"name": t["name"], "per_call": t["count"] / calls,
+                                          "us_per_call": t["ms"] * 1e3 / calls}
+                                         for t in top]}
     emit("kernel_bwd", tolerance={"rtol": BWD_RTOL, "atol_per_max": BWD_ATOL_REL},
          sweep=errors, repeat="bit-identical", timed=list(timings.values()),
          library="none: no single PyTorch call computes the fused field's VJP")
@@ -394,7 +410,7 @@ def stacked_fields(gen, K, shape, device):
     return (*weights, *(torch.stack([f[i] for f in fields]) for i in (3, 4))), fields
 
 
-def phase_kernel_rk4(peak_flops, peak_bytes):
+def phase_kernel_rk4(pk):
     """The whole-interval RK4 kernel (both entry points) against its plain
     version over the sweep; the K-replica form bit for bit against K single
     launches; a width beyond the library's limit refused with no launch;
@@ -457,26 +473,23 @@ def phase_kernel_rk4(peak_flops, peak_bytes):
         for shape in RK4_TIMED:
             B, Hd, HHd, I, n = shape
             args = (*random_field(gen, *shape, "cuda"), Hd, I)
-            bound_us, bound_by = bound(*rk4_cost(*shape), peak_flops, peak_bytes)
             timings[shape] = {
                 "shape": list(shape),
                 "kernel_us": device_us(lambda: kernels.fused_rk4_interval(*args),
                                        reps=100),
                 "plain_us": device_us(lambda: kernels._rk4_interval_reference(*args),
                                       reps=5),
-                "bound_us": bound_us, "bound_by": bound_by, "blocks": -(-B // 8)}
+                **bounds(*rk4_cost(*shape), pk), "blocks": -(-B // 8)}
         for K in RK4_MULTI_TIMED:
             B, Hd, HHd, I, n = TRAIN_SHAPE
             args = (*stacked_fields(gen, K, TRAIN_SHAPE, "cuda")[0], Hd, I)
-            bound_us, bound_by = bound(*rk4_cost(*TRAIN_SHAPE, K=K), peak_flops,
-                                       peak_bytes)
             multi_timings[K] = {
                 "shape": list(TRAIN_SHAPE), "K": K,
                 "kernel_us": device_us(lambda: kernels.fused_rk4_interval_multi(*args),
                                        reps=100),
                 "plain_us": device_us(
                     lambda: kernels._rk4_interval_multi_reference(*args), reps=2),
-                "bound_us": bound_us, "bound_by": bound_by, "blocks": K * -(-B // 8)}
+                **bounds(*rk4_cost(*TRAIN_SHAPE, K=K), pk), "blocks": K * -(-B // 8)}
     emit("kernel_rk4", tolerance={"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
          sweep=errors, multi=multi_errors, refused_width=wide,
          timed=list(timings.values()), timed_multi=list(multi_timings.values()),
@@ -948,7 +961,8 @@ def phase_toy():
 
 def times(t):
     return {"ms": t["kernel_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
-            "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"]}
+            "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
+            "bound_tc_us": t["bound_tc_us"]}
 
 
 def kernel_entry(name, source, replaces, launches, max_err, timings):
@@ -981,18 +995,17 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    peak_flops, peak_bytes = peaks(torch.cuda.get_device_name(0))
+    pk = peaks(torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
     phase_env()
     phase_build()
     if "kernel" in phases:
-        max_err, timings = phase_kernel(peak_flops, peak_bytes)
+        max_err, timings = phase_kernel(pk)
     if "kernel_bwd" in phases:
-        max_err_bwd, timings_bwd = phase_kernel_bwd(peak_flops, peak_bytes)
+        max_err_bwd, timings_bwd = phase_kernel_bwd(pk)
     if "kernel_rk4" in phases:
-        max_err_rk4, max_err_multi, timings_rk4, timings_multi = phase_kernel_rk4(
-            peak_flops, peak_bytes)
+        max_err_rk4, max_err_multi, timings_rk4, timings_multi = phase_kernel_rk4(pk)
     if phases & {"predictor", "stepper"}:
         model, requests, static, outs, serve_launches = phase_predictor()
     if "stepper" in phases:

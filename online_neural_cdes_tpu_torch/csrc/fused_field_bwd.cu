@@ -1,5 +1,5 @@
 // Fused CDE vector field, backward (vector-Jacobian product), for Hopper
-// (sm_90a), f32.
+// (sm_90a), f32 in and out, products on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel online_neural_cdes_tpu/ops/kernels.py::
 // _backward_pallas / _make_bwd_kernel (pl.pallas_call at kernels.py:367).
@@ -18,58 +18,117 @@
 //     dv_l       = du_l * (u_l > 0),  dW_l = u_{l-1}^T dv_l,
 //     db_l       = sum_b dv_l,  du_{l-1} = dv_l W_l^T,   dz = du_0.
 //
-// A and dpre never reach device memory.
-//
 // Bound on the H100.  At the flagship training shape (B=512, H=HH=128,
 // two trunk layers, I=21) the three products of each weight (forward
 // recompute, weight grad, input grad) are 3 * 2 * 512 * (2*128*128 +
-// 128*2688) = 1.16 GFLOP of f32 multiply-adds, 17.3 us at the 67 TFLOP/s
-// f32 CUDA-core peak of the SXM part; the bytes it must move (inputs,
-// weights, their grads) are about 4 MB, 1.2 us at 3.35 TB/s.  At I=1 (the
-// rectilinear time slice) 0.15 GFLOP, 2.25 us.  Bound by operations.  (A
-// reckoning from the data sheet, not a measurement.)
+// 128*2688) = 1.16 GFLOP: 17.3 us at the 67 TFLOP/s f32 CUDA-core peak of
+// the SXM part, 7.0 us at its 495 TFLOP/s dense TF32 rate divided by the
+// three passes of 3xTF32.  The bytes it must move (inputs, weights, their
+// grads) are about 4 MB, 1.2 us at 3.35 TB/s.  At I=1 (the rectilinear
+// time slice) 0.15 GFLOP: 2.25 us on CUDA cores, 0.92 us in 3xTF32.  Bound
+// by operations.  (A reckoning from the data sheet, not a measurement.)
 //
-// Design.  The TPU kernel sums the weight grads over its batch tiles in
-// place, because a TPU grid runs in order; here blocks run in parallel, so
-// every sum over the batch is split into per-tile partials in scratch and
-// summed in a fixed order by a later pass.  No atomics: two calls give the
-// same bits.  Five launches behind one entry point, in stream order:
+// Design.
+// - Every product runs on the tensor cores: mma.sync m16n8k8 TF32 with
+//   each f32 operand split into a big and a small TF32 part (3xTF32,
+//   mma_tf32.cuh), f32 accumulation.  One TF32 pass would miss the f32
+//   gate by orders of magnitude; three passes keep about 21 bits.  An
+//   operand that every warp of a block reads (the activation tiles, dpre's
+//   strip) is split once, where it is written to shared memory.  The MMA
+//   loops run to fixed counts over zero-filled padding and hold no branch:
+//   ptxas does not overlap one k-step's loads with the last one's MMAs
+//   across a branch.
+// - Every tile reaches shared memory by cp.async, 16 bytes a copy when H
+//   and HH are multiples of 4 (V = 4), else 4 bytes (V = 1), staged while
+//   the previous tile computes.
+// - The trunk's passes are chains of dependent layers on a 16-row tile
+//   (the m16 of an MMA), only 32 tiles at B=512.  A cluster of four blocks
+//   shares each tile: each block computes a quarter of every layer's
+//   columns and writes them into all four blocks' shared memory
+//   (distributed shared memory), so 128 blocks run the trunk.  Cluster
+//   barriers are split into arrive and wait around independent work.
+// - The TPU kernel sums the weight grads over its batch tiles in place,
+//   because a TPU grid runs in order.  Here blocks run in parallel, so each
+//   cross-block sum is placed where it is small:
+//     * dpre (B x I*H, 5.5 MB at the flagship shape: it stays in L2) is
+//       written once, and the weight-grad blocks walk the batch in order
+//       over it, so dW_o needs no partials in device memory; where the
+//       tiles leave most SMs idle (I=1) the batch splits into a few ranges
+//       whose blocks form a cluster and sum their partials in rank order
+//       through distributed shared memory;
+//     * du_n's sum over the I*H head columns is split into a few column
+//       groups (14 at the flagship shape, 3.7 MB) that one block each walks
+//       in order, instead of one partial per 64-column strip (42, 11 MB);
+//     * ddx's sum over h is split into the ceil(H / 64) strips of a channel.
+//   Every partial is summed in a fixed order and nothing uses atomics: two
+//   calls give the same bits.
+// - Grids are sized for one wave on the H100 SXM's 132 SMs (kTargetBlocks,
+//   a constant so that the summation order, and so the bits, do not depend
+//   on the card).
 //
-//   1. trunk_forward   recomputes u_1..u_n for 8 rows a block (scratch).
-//   2. head_backward   one block per (32-row batch tile, 64-column strip of
-//                      one channel's H columns): stages W_o's strip, u_n's
-//                      tile and g in shared memory, recomputes the strip of
-//                      A, forms dpre on chip, and writes
-//                        - ddx's partial over the strip's h,
-//                        - db_o's and dW_o's partial over the tile's rows,
-//                        - du_n's partial over the strip's columns.
-//   3. reduce_head     dW_o, db_o = sums of the tile partials.
-//   4. trunk_backward  du_n = sum of the strip partials, ddx = sum of its
-//                      partials, then the relu trunk back to dz (8 rows a
-//                      block), keeping each dv_l (scratch).
-//   5. trunk_wgrad     dW_l, db_l = u_{l-1}^T dv_l over the whole batch, one
-//                      block per 32 x 32 output tile.
+// Four launches behind one entry point, in stream order:
 //
-// Every product is a plain f32 FMA loop over shared-memory tiles, a few
-// outputs a thread.  Tensor cores (3xTF32 wgmma), TMA staging and fewer,
-// smaller partials are left for later work.  Scratch is allocated by the
-// caller (oncde_fused_field_backward_scratch gives its size in floats);
-// the kernel allocates nothing.
+//   1. trunk_forward   u_1..u_n, a cluster of four blocks per 16 rows; each
+//                      block stages its columns of W_{l+1} while layer l
+//                      computes.
+//   2. head_backward   one block per (16-, 32- or 64-row tile, group of
+//                      64-column strips): u_n's tile stays in shared memory,
+//                      each strip of W_o, g, dX and b_o is staged while the
+//                      previous strip computes; per strip it recomputes A,
+//                      writes ddx's strip partial and dpre, and accumulates
+//                      du_n += dpre W_o^T in registers over the group,
+//                      written once as the group's partial.
+//   3. trunk_backward  du_n and ddx from their partials, then back through
+//                      the relu trunk to dz, keeping dv_l; a cluster of four
+//                      blocks per 16 rows, as trunk_forward.
+//   4. weight_grad     dW_o, db_o and every dW_l, db_l in one launch: one
+//                      block per 64 x 32 output tile (and batch range),
+//                      walking its rows 64 at a time through a three-deep
+//                      ring.
+//
+// Ragged edges: every staged tile is zero-filled past the batch, past H
+// and HH and past a strip's columns, and the K loops run over those zeros
+// to the next multiple of 16; outputs past the edges are not stored.
+// Scratch is allocated by the caller (oncde_fused_field_backward_scratch
+// gives its size in floats); the kernel allocates nothing.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr int kMaxTrunk = 4;
-constexpr int kMaxDim = 256;    // largest H and HH taken
+constexpr int kMaxDim = 256;        // largest H and HH taken
 constexpr int kThreads = 256;
-constexpr int kTile = 32;       // batch rows of one head block / weight-grad partial
-constexpr int kStrip = 64;      // head columns of one head block, inside one channel
-constexpr int kRowsT = 8;       // batch rows of one trunk block
-constexpr int kWg = 32;         // trunk weight-grad output tile
-constexpr int kChunkT = 16;     // trunk weight columns staged per step
+constexpr int kWarps = kThreads / 32;
+constexpr int kTargetBlocks = 132;  // one wave on the H100 SXM
+constexpr size_t kMaxSmem = 227 * 1024;
+// Trunk passes: a cluster of kCluster blocks of kTThreads threads shares a
+// 16-row tile (one m16 tile); each block owns segments of kSeg columns
+// (owned_col).  Activation tiles are [16][trunk_ld] (4 mod 8: A-fragment
+// reads hit distinct banks).
+constexpr int kRowTile = 16;
+constexpr int kCluster = 4;
+constexpr int kTThreads = 128;
+constexpr int kSeg = 32;
+constexpr int kPerT = kRowTile * 2 * kSeg / kTThreads;  // owned tile elements a thread
+// Head: 64-column strips inside one channel.
+constexpr int kStrip = 64;
+constexpr int kLdS = kStrip + 4;  // g and dpre strips (4 mod 8: row-wise reads)
+constexpr int kLdW = kStrip + 8;  // W_o strip (8 mod 32: column-wise reads)
+// Weight grads: 64 x 32 output tiles, 4 warps of 32 x 16, 64 batch rows a
+// stage (strides 8 mod 32: the transposed fragment reads hit distinct banks).
+constexpr int kWgThreads = 128;
+constexpr int kWgM = 64, kWgN = 32, kWgRows = 64, kWgRing = 3;
+constexpr int kMaxSplit = 8;  // batch ranges of one tile: a portable cluster
+constexpr int kLdX = kWgM + 8;
+constexpr int kLdD = kWgN + 8;
+constexpr int kWgStage = kWgRows * (kLdX + kLdD);
+constexpr int kProblems = 1 + kMaxTrunk;  // dW_o, then dW_1..dW_n
 
 struct Trunk {
   const float* w[kMaxTrunk];  // layer l: (d_in, hh) row-major, d_in = H for l = 0
@@ -77,434 +136,923 @@ struct Trunk {
   int n;
 };
 
-struct TrunkGrad {
-  float* w[kMaxTrunk];
-  float* b[kMaxTrunk];
+// One weight gradient W = X^T D (M x N), b = sum_b D, over the batch.
+struct GradProblem {
+  const float* x;  // (B, M), leading dimension m
+  const float* d;  // (B, N), leading dimension n
+  float* w;
+  float* b;
+  int m, n;
+  int tiles_n, tile0;  // output tiles in n; the first tile's block index
+};
+
+struct GradProblems {
+  GradProblem p[kProblems];
+  int count, tiles, split, rows_per_split;
+};
+
+struct HeadGrid {
+  int mt, row_tiles, spg, groups;  // m16 tiles a block, blocks in rows, strips a group
 };
 
 struct Layout {
-  int tiles, hstrips, strips;
-  size_t acts, dv, wpart, bpart, dupart, ddxpart, total;  // offsets / size, floats
+  HeadGrid head;
+  int hstrips, strips;
+  size_t acts, dv, dpre, dupart, ddxpart, total;  // offsets / size, floats
 };
 
-// cp.async of one float into shared memory, zero-filled (src not read)
-// when !valid: the staging loops issue every copy before any is waited on,
-// instead of one device-memory round trip per element.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
-// sum_{t < n} p[t * stride], in order of t, with kUnroll loads in flight.
-constexpr int kUnroll = 8;
-__device__ __forceinline__ float ordered_sum(const float* __restrict__ p, size_t stride,
-                                             int n) {
-  float s = 0.f;
-  int t = 0;
-  for (; t + kUnroll <= n; t += kUnroll) {
-    float v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = p[(size_t)(t + u) * stride];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) s += v[u];
-  }
-  for (; t < n; ++t) s += p[(size_t)t * stride];
-  return s;
-}
-
+__host__ __device__ constexpr int pad8(int n) { return (n + 7) & ~7; }
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 size_t round4(size_t n) { return (n + 3) & ~static_cast<size_t>(3); }
+
+// cp.async of V floats (V = 4: 16 bytes, V = 1: 4 bytes); zeros when !valid.
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stages rows x cols (cols a multiple of V) of a row-major matrix at src
+// (leading dimension ld) into shared memory at dst (leading dimension
+// lds); entries at rows >= rvalid or columns >= cvalid read as 0.  With
+// V = 4, ld, cvalid and src are multiples of 4 floats.
+template <int V, int NT>
+__device__ __forceinline__ void stage(float* dst, int lds, const float* src, size_t ld,
+                                      int rows, int cols, int rvalid, int cvalid) {
+  const int per_row = cols / V;
+  for (int e = threadIdx.x; e < rows * per_row; e += NT) {
+    const int r = e / per_row, c = (e - r * per_row) * V;
+    const bool ok = r < rvalid && c < cvalid;
+    cp_async<V>(dst + r * lds + c, ok ? src + (size_t)r * ld + c : src, ok);
+  }
+}
+
+// The two halves of a cluster barrier (release / acquire), so that a block
+// does independent work between signalling that its writes are done and
+// waiting for its peers'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// trunk.w[l] / trunk.b[l] without indexing the parameter by a runtime l
+// (which would copy the struct to local memory).
+__device__ __forceinline__ const float* layer_w(const Trunk& t, int l) {
+  const float* p = t.w[0];
+#pragma unroll
+  for (int q = 1; q < kMaxTrunk; ++q)
+    if (q == l) p = t.w[q];
+  return p;
+}
+__device__ __forceinline__ const float* layer_b(const Trunk& t, int l) {
+  const float* p = t.b[0];
+#pragma unroll
+  for (int q = 1; q < kMaxTrunk; ++q)
+    if (q == l) p = t.b[q];
+  return p;
+}
+
+// W_o strip rows a head block stages: product 2's n-tiles reach 64 NQ
+// rows, NQ = 2 up to HH = 128, else 4 (zero rows past HH).
+__host__ __device__ constexpr int head_nq(int hh) { return pad16(hh) <= 128 ? 2 : 4; }
+size_t head_smem_bytes(int mt, int hh) {
+  const size_t rt = 16 * mt, kp = pad16(hh), kw = 64 * head_nq(hh);
+  const size_t floats = 2 * rt * (kp + 4) + 2 * kw * kLdW + 2 * rt * kLdS + 2 * rt * kLdS +
+                        2 * rt + 2 * kStrip + kWarps * rt;
+  return floats * sizeof(float);
+}
+
+HeadGrid head_grid(int batch, int hh, int strips) {
+  HeadGrid G;
+  // The largest row tile that still gives one block an SM; 64 rows only
+  // for HH <= 128 (product 2's accumulators).
+  G.mt = 1;
+  for (int mt = 2; mt <= 4; mt *= 2)
+    if ((long long)cdiv(batch, 16 * mt) * strips >= kTargetBlocks &&
+        head_smem_bytes(mt, hh) <= kMaxSmem && (mt < 4 || head_nq(hh) == 2))
+      G.mt = mt;
+  G.row_tiles = cdiv(batch, 16 * G.mt);
+  G.spg = (int)(((long long)G.row_tiles * strips + kTargetBlocks - 1) / kTargetBlocks);
+  G.groups = cdiv(strips, G.spg);
+  return G;
+}
+
+// The weight-grad problems; pointers are filled at launch.
+GradProblems grad_problems(int batch, int hidden, int hh, int n_in, int n_trunk) {
+  GradProblems P = {};
+  P.count = 1 + n_trunk;
+  int tiles = 0;
+  for (int q = 0; q < P.count; ++q) {
+    GradProblem& p = P.p[q];
+    p.m = q == 1 ? hidden : hh;
+    p.n = q == 0 ? n_in * hidden : hh;
+    p.tiles_n = cdiv(p.n, kWgN);
+    p.tile0 = tiles;
+    tiles += cdiv(p.m, kWgM) * p.tiles_n;
+  }
+  P.tiles = tiles;
+  // Split the batch only when the tiles leave most SMs idle: into up to
+  // kMaxSplit ranges of whole stages, about two blocks an SM.
+  int split = tiles >= kTargetBlocks / 2 ? 1 : cdiv(2 * kTargetBlocks, tiles);
+  split = split < kMaxSplit ? split : kMaxSplit;
+  split = split < cdiv(batch, kWgRows) ? split : cdiv(batch, kWgRows);
+  P.rows_per_split = cdiv(cdiv(batch, split), kWgRows) * kWgRows;
+  P.split = cdiv(batch, P.rows_per_split);
+  return P;
+}
 
 Layout layout(int batch, int hidden, int hh, int n_in, int n_trunk) {
   Layout L;
-  L.tiles = (batch + kTile - 1) / kTile;
-  L.hstrips = (hidden + kStrip - 1) / kStrip;
+  L.hstrips = cdiv(hidden, kStrip);
   L.strips = n_in * L.hstrips;
-  const size_t ih = (size_t)n_in * hidden;
+  L.head = head_grid(batch, hh, L.strips);
   size_t off = 0;
   L.acts = off;    off += round4((size_t)n_trunk * batch * hh);
   L.dv = off;      off += round4((size_t)n_trunk * batch * hh);
-  L.wpart = off;   off += round4((size_t)L.tiles * hh * ih);
-  L.bpart = off;   off += round4((size_t)L.tiles * ih);
-  L.dupart = off;  off += round4((size_t)L.strips * batch * hh);
+  L.dpre = off;    off += round4((size_t)batch * n_in * hidden);
+  L.dupart = off;  off += round4((size_t)L.head.groups * batch * hh);
   L.ddxpart = off; off += round4((size_t)L.hstrips * batch * n_in);
   L.total = off;
   return L;
 }
 
-size_t head_smem_bytes(int hh) {
-  const size_t floats = (size_t)hh * (kStrip + 1) + (size_t)kTile * (hh + 1) + 8 +
-                        2 * (size_t)kTile * kStrip + kTile + kStrip;
-  return floats * sizeof(float);
+__host__ __device__ constexpr int trunk_ld(int hidden, int hh) {
+  return pad16(hidden > hh ? hidden : hh) + 4;
+}
+// Segments of kSeg columns a cluster rank owns of a width-d product.
+__host__ __device__ constexpr int owned_segs(int d) { return pad8(d) > kSeg * kCluster ? 2 : 1; }
+size_t trunk_forward_smem(int hidden, int hh) {
+  const size_t tile = kRowTile * trunk_ld(hidden, hh);
+  const int kmax = pad16(hidden > hh ? hidden : hh);
+  return (4 * tile + 2 * (size_t)kmax * (owned_segs(hh) * kSeg + 8)) * sizeof(float);
+}
+size_t trunk_backward_smem(int hidden, int hh) {
+  const size_t tile = kRowTile * trunk_ld(hidden, hh);
+  const int sw = owned_segs(hidden > hh ? hidden : hh) * kSeg;
+  const int swh = owned_segs(hh) * kSeg;
+  return (5 * tile + 2 * (size_t)sw * (pad16(hh) + 4) + 2 * (size_t)kRowTile * swh) *
+         sizeof(float);
+}
+constexpr size_t kWgSmemBytes = (size_t)kWgRing * kWgStage * sizeof(float);
+
+// Column c_loc of the columns that cluster rank `rank` owns: n-tile j of a
+// trunk product belongs to rank (j % 16) / 4, warp j % 4 of it, as its
+// (j / 16)-th tile, so a rank owns [32 rank, +32) and [128 + 32 rank, +32).
+__device__ __forceinline__ int owned_col(int rank, int c_loc) {
+  return (c_loc / kSeg) * (kSeg * kCluster) + kSeg * rank + c_loc % kSeg;
 }
 
-// 1. u_l for every layer, kRowsT rows a block: acts[l][b][j].  Each
-// layer's weight streams through shared memory kChunkF rows at a time.
-constexpr int kChunkF = 16;
-__global__ void __launch_bounds__(kThreads)
+// 1. u_l for every layer: acts[l][b][j].  A cluster of four blocks owns 16
+// rows (one m16 tile); each block computes its quarter of every layer's
+// columns and writes them, split, into all four blocks' copy of the next
+// activation tile (distributed shared memory), then the cluster syncs.  A
+// block stages only its columns of each W_l, the next layer's while the
+// current one computes.  K runs to a multiple of 16 over zeros and every
+// warp computes its NQ tiles, so the MMA loop has no branch.
+template <int V, int NQ>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTThreads, 1)
 trunk_forward(const float* __restrict__ z, Trunk trunk, float* __restrict__ acts,
               int batch, int hidden, int hh) {
-  __shared__ float xs[2][kRowsT][kMaxDim];
-  __shared__ float wc[kChunkF][kMaxDim];
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRowsT;
-  const int rows = min(kRowsT, batch - row0);
-  for (int e = tid; e < kRowsT * hidden; e += kThreads) {
-    const int r = e / hidden, k = e - r * hidden;
-    cp_async4(&xs[0][r][k], z + (size_t)(row0 + r) * hidden + k, r < rows);
-  }
-  cp_async_wait_all();
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int ldt = trunk_ld(hidden, hh), tile = kRowTile * ldt;
+  float* xs = smem;                  // [2][kRowTile][ldt] big, then the same small
+  float* slots = smem + 4 * tile;    // [2][kmax][ldw] W_l's owned columns, by layer parity
+  const int rank = (int)cluster.block_rank();
+  constexpr int ldw = NQ * kSeg + 8;  // 8 mod 32: B-fragment reads hit distinct banks
+  const int kmax = pad16(hidden > hh ? hidden : hh);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = (blockIdx.x / kCluster) * kRowTile;
+  const int rows = min(kRowTile, batch - row0);
+  const int ntiles = pad16(hh) / 8;
+  const int j0 = 4 * rank + warp;    // this warp's n-tiles: j0 + 16 q
+  float* peer[kCluster];
+#pragma unroll
+  for (int p = 0; p < kCluster; ++p) peer[p] = cluster.map_shared_rank(smem, p);
+
+  auto load = [&](int l) {
+    const int d_in = l == 0 ? hidden : hh;
+    const float* w = layer_w(trunk, l);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int c0 = q * kSeg * kCluster + kSeg * rank;
+      stage<V, kTThreads>(slots + (l % 2) * kmax * ldw + q * kSeg, ldw, w + c0, hh,
+                          pad16(d_in), kSeg, d_in, hh - c0);
+    }
+  };
+
+  // Barrier phases: S (arrived now, awaited before the first remote write),
+  // then P_l (arrived after layer l's remote writes, awaited before layer
+  // l + 1 reads them, or before the block exits).
+  cluster_arrive();
+  load(0);
+  stage<V, kTThreads>(xs, ldt, z + (size_t)row0 * hidden, hidden, kRowTile, pad16(hidden),
+                      rows, hidden);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  // Thread: columns j = tid % 128 (+ 128 q), rows r0..r0+3.
-  const int r0 = (tid / 128) * 4;
-  int cur = 0, d_in = hidden;
+  for (int e = tid; e < kRowTile * pad16(hidden); e += kTThreads) {  // split z in place
+    const int r = e / pad16(hidden), k = e - r * pad16(hidden);
+    tf32_split(xs[r * ldt + k], xs[r * ldt + k], xs[2 * tile + r * ldt + k]);
+  }
+  __syncthreads();
+
+  int cur = 0;
   for (int l = 0; l < trunk.n; ++l) {
-    const float* __restrict__ w = trunk.w[l];
-    const float* __restrict__ b = trunk.b[l];
-    float acc[kMaxDim / 128][4] = {};
-    for (int k0 = 0; k0 < d_in; k0 += kChunkF) {
-      const int kn = min(kChunkF, d_in - k0);
-      for (int e = tid; e < kChunkF * hh; e += kThreads) {
-        const int kk = e / hh, j = e - kk * hh;
-        cp_async4(&wc[kk][j], w + (size_t)(k0 + kk) * hh + j, kk < kn);
+    // P_{l-1}: the activation tile is complete in every block, W_l landed,
+    // and every block is done reading layer l - 1's input.
+    if (l > 0) cluster_wait();
+    if (l + 1 < trunk.n) load(l + 1);
+    cp_async_commit();
+    const int d_in = l == 0 ? hidden : hh;
+    const float* wsl = slots + (l % 2) * kmax * ldw + 8 * warp + g;
+    const float* xa = xs + cur * tile;
+    const float* __restrict__ b = layer_b(trunk, l);
+    float bias[NQ][2];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * (j0 + 16 * q) + 2 * t + e;
+        bias[q][e] = col < hh ? b[col] : 0.f;
       }
-      cp_async_wait_all();
-      __syncthreads();
-      for (int kk = 0; kk < kn; ++kk) {
-        float x[4];
+    // Even and odd k-steps in separate accumulators: four MMA chains a tile.
+    float hi[2][NQ][4] = {}, lo[2][NQ][4] = {};
+    const int ksteps = pad16(d_in) / 8;
+#pragma unroll 2
+    for (int ks = 0; ks < ksteps; ks += 2) {
 #pragma unroll
-        for (int m = 0; m < 4; ++m) x[m] = xs[cur][r0 + m][k0 + kk];
+      for (int h = 0; h < 2; ++h) {
+        const FragA fa = frag_a_rows(xa + 8 * (ks + h), ldt, 2 * tile);
 #pragma unroll
-        for (int q = 0; q < kMaxDim / 128; ++q) {
-          const int j = tid % 128 + 128 * q;
-          if (j < hh) {
-            const float wv = wc[kk][j];
+        for (int q = 0; q < NQ; ++q) {
+          const float* wp = wsl + (8 * (ks + h) + t) * ldw + kSeg * q;
+          mma_3xtf32(hi[h][q], lo[h][q], fa, frag_b(wp[0], wp[4 * ldw]));
+        }
+      }
+    }
+    if (l == 0) cluster_wait();  // S: every block of the cluster runs
+    const int nxt = (cur ^ 1) * tile;
+    float v[NQ][4];
 #pragma unroll
-            for (int m = 0; m < 4; ++m) acc[q][m] = fmaf(x[m], wv, acc[q][m]);
+    for (int q = 0; q < NQ; ++q) {
+      const int j = j0 + 16 * q;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + e % 2;
+        v[q][e] = col < hh ? fmaxf((hi[0][q][e] + lo[0][q][e]) + (hi[1][q][e] + lo[1][q][e]) +
+                                       bias[q][e % 2], 0.f)
+                           : 0.f;
+      }
+      if (j < ntiles && l + 1 < trunk.n) {  // the last layer feeds only acts
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8, columns 2t, 2t + 1
+          const int off = nxt + (g + 8 * h) * ldt + 8 * j + 2 * t;
+          float2 big, small;
+          tf32_split(v[q][2 * h], big.x, small.x);
+          tf32_split(v[q][2 * h + 1], big.y, small.y);
+#pragma unroll
+          for (int p = 0; p < kCluster; ++p) {
+            *reinterpret_cast<float2*>(peer[p] + off) = big;
+            *reinterpret_cast<float2*>(peer[p] + 2 * tile + off) = small;
           }
         }
       }
-      __syncthreads();
     }
+    cp_async_wait<0>();  // W_{l+1}'s columns, before P_l publishes them
+    cluster_arrive();    // P_l
 #pragma unroll
-    for (int q = 0; q < kMaxDim / 128; ++q) {
-      const int j = tid % 128 + 128 * q;
-      if (j < hh) {
-        const float bj = b[j];
+    for (int q = 0; q < NQ; ++q) {
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const float v = fmaxf(acc[q][m] + bj, 0.f);
-          xs[cur ^ 1][r0 + m][j] = v;
-          if (r0 + m < rows) acts[((size_t)l * batch + row0 + r0 + m) * hh + j] = v;
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e / 2), col = 8 * (j0 + 16 * q) + 2 * t + e % 2;
+        if (r < rows && col < hh) acts[((size_t)l * batch + row0 + r) * hh + col] = v[q][e];
       }
     }
-    __syncthreads();
     cur ^= 1;
-    d_in = hh;
   }
+  cluster_wait();  // P_{n-1}: no peer writes into this block any more
 }
 
-// 2. One (batch tile, column strip) of the head's backward.
-__global__ void __launch_bounds__(kThreads)
+// 2. One (row tile, strip group) of the head's backward.  MT m16 tiles of
+// rows; the group's strips run in order, the next one staged while the
+// current one computes.  Both products' loops run over zero-filled rows
+// and columns to fixed counts and have no branch.
+template <int MT, int NQ, int V>
+__global__ void __launch_bounds__(kThreads, 1)
 head_backward(const float* __restrict__ dx, const float* __restrict__ g,
               const float* __restrict__ u_last, const float* __restrict__ head_w,
-              const float* __restrict__ head_b, float* __restrict__ wpart,
-              float* __restrict__ bpart, float* __restrict__ dupart,
-              float* __restrict__ ddxpart, int batch, int hidden, int hh,
-              int n_in, int hstrips) {
+              const float* __restrict__ head_b, float* __restrict__ dpre,
+              float* __restrict__ dupart, float* __restrict__ ddxpart, int batch,
+              int hidden, int hh, int n_in, int hstrips, int strips, int spg) {
+  constexpr int RT = 16 * MT;
   extern __shared__ __align__(16) float smem[];
-  constexpr int ldw = kStrip + 1;  // odd: column reads across lanes hit distinct banks
-  const int ldu = hh + 1;
-  float* ws = smem;                       // [hh][ldw]   W_o strip
-  float* us = ws + hh * ldw;              // [kTile][ldu] u_n tile (+8 floats of slack)
-  float* gs = us + kTile * ldu + 8;       // [kTile][kStrip]
-  float* ds = gs + kTile * kStrip;        // [kTile][kStrip] dpre
-  float* dxs = ds + kTile * kStrip;       // [kTile]
-  float* bs = dxs + kTile;                // [kStrip]
+  const int kp = pad16(hh), ldu = kp + 4;
+  constexpr int kw = 64 * NQ;        // W_o strip rows staged
+  const int su = RT * ldu, sd = RT * kLdS;  // big-to-small distances
+  float* us = smem;                   // [RT][ldu] u_n tile, big; small at + su
+  float* ws = us + 2 * su;            // [2][kw][kLdW]      W_o strip
+  float* gs = ws + 2 * kw * kLdW;     // [2][RT][kLdS]      g strip
+  float* ds = gs + 2 * RT * kLdS;     // [RT][kLdS] dpre strip, big; small at + sd
+  float* dxs = ds + 2 * sd;           // [2][RT]            dX column
+  float* bs = dxs + 2 * RT;           // [2][kStrip]        b_o strip
+  float* red = bs + 2 * kStrip;       // [kWarps][RT]       ddx's per-warp sums
 
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int strip = blockIdx.y;           // i * hstrips + hs
-  const int i = strip / hstrips, hs = strip - i * hstrips;
-  const int h0 = hs * kStrip;
-  const int ncols = min(kStrip, hidden - h0);
-  const int row0 = tile * kTile;
-  const int rows = min(kTile, batch - row0);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, t = lane % 4;
+  const int row0 = blockIdx.x * RT;
+  const int rows = min(RT, batch - row0);
+  const int s_begin = blockIdx.y * spg;
+  const int s_end = min(strips, s_begin + spg);
   const size_t ih = (size_t)n_in * hidden;
-  const size_t col0 = (size_t)i * hidden + h0;
 
-  for (int e = tid; e < hh * kStrip; e += kThreads) {
-    const int k = e / kStrip, c = e - k * kStrip;
-    cp_async4(ws + k * ldw + c, head_w + (size_t)k * ih + col0 + c, c < ncols);
-  }
-  for (int e = tid; e < kTile * hh; e += kThreads) {
-    const int r = e / hh, k = e - r * hh;
-    cp_async4(us + r * ldu + k, u_last + (size_t)(row0 + r) * hh + k, r < rows);
-  }
-  if (tid < 8) us[kTile * ldu + tid] = 0.f;
-  for (int e = tid; e < kTile * kStrip; e += kThreads) {
-    const int r = e / kStrip, c = e - r * kStrip;
-    cp_async4(gs + e, g + (size_t)(row0 + r) * hidden + h0 + c, r < rows && c < ncols);
-  }
-  if (tid < kTile) cp_async4(dxs + tid, dx + (size_t)(row0 + tid) * n_in + i, tid < rows);
-  if (tid < kStrip) cp_async4(bs + tid, head_b + col0 + tid, tid < ncols);
-  cp_async_wait_all();
+  auto load = [&](int s, int buf) {
+    const int i = s / hstrips, h0 = (s - i * hstrips) * kStrip;
+    const int ncols = min(kStrip, hidden - h0);
+    const size_t col0 = (size_t)i * hidden + h0;
+    stage<V, kThreads>(ws + buf * kw * kLdW, kLdW, head_w + col0, ih, kw, kStrip, hh, ncols);
+    stage<V, kThreads>(gs + buf * RT * kLdS, kLdS, g + (size_t)row0 * hidden + h0, hidden,
+                       RT, kStrip, rows, ncols);
+    if (tid < RT)
+      cp_async<1>(dxs + buf * RT + tid, tid < rows ? dx + (size_t)(row0 + tid) * n_in + i : dx,
+                  tid < rows);
+    if (tid < kStrip / V)
+      cp_async<V>(bs + buf * kStrip + V * tid, V * tid < ncols ? head_b + col0 + V * tid : head_b,
+                  V * tid < ncols);
+  };
+
+  stage<V, kThreads>(us, ldu, u_last + (size_t)row0 * hh, hh, RT, kp, rows, hh);
+  load(s_begin, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
+  for (int e = tid; e < RT * kp; e += kThreads) {  // split u_n's tile in place
+    const int r = e / kp, k = e - r * kp;
+    tf32_split(us[r * ldu + k], us[r * ldu + k], us[su + r * ldu + k]);
+  }
 
-  const int tx = tid % 16, ty = tid / 16;
-  // Recompute the strip of A (rows 2ty, 2ty+1; columns tx + 16q), then
-  // ddx's partial and dpre.  Padded rows and columns give dpre = 0.
-  {
-    float acc[2][4] = {};
-    const float* u0 = us + (2 * ty) * ldu;
-    const float* u1 = u0 + ldu;
-    for (int k = 0; k < hh; ++k) {
-      const float a0 = u0[k], a1 = u1[k];
+  // du_n's accumulators: warp w owns M2 m-tiles from mb2 and the n-tiles
+  // j2 + NS2 q of hh (with MT = 4: two m-tiles and four n-tiles, HH <= 128).
+  constexpr int M2 = MT == 4 ? 2 : MT, Q2 = MT == 4 ? 4 : NQ, NS2 = MT == 4 ? 4 : kWarps;
+  const int mb2 = MT == 4 ? 2 * (warp / 4) : 0, j2 = MT == 4 ? warp % 4 : warp;
+  float du_hi[M2][Q2][4] = {}, du_lo[M2][Q2][4] = {};
+  const int ntiles = pad8(hh) / 8;
+
+  for (int s = s_begin, buf = 0; s < s_end; ++s, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // strip s staged; every warp is done with strip s - 1
+    if (s + 1 < s_end) load(s + 1, buf ^ 1);
+    cp_async_commit();
+
+    const int i = s / hstrips, hs = s - i * hstrips, h0 = hs * kStrip;
+    const int ncols = min(kStrip, hidden - h0);
+    const size_t col0 = (size_t)i * hidden + h0;
+    const float* wsb = ws + buf * kw * kLdW;
+    const float* gsb = gs + buf * RT * kLdS;
+    const float* dxb = dxs + buf * RT;
+    const float* bsb = bs + buf * kStrip;
+
+    // pre (RT x 64) = u_n tile (RT x kp) W_o strip (kp x 64): warp w owns
+    // MT n-tiles of one m-tile (m1, n1 + i), so each A fragment serves MT
+    // tiles; with fewer than four tiles, even and odd k-steps accumulate
+    // apart.
+    constexpr int WPM = kWarps / MT, EO = MT == 4 ? 1 : 2;
+    const int m1 = warp / WPM, n1 = (warp % WPM) * MT;
+    float pre_hi[2][MT][4] = {}, pre_lo[2][MT][4] = {};
+#pragma unroll 2
+    for (int ks = 0; ks < kp / 8; ks += EO) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float wv = ws[k * ldw + tx + 16 * q];
-        acc[0][q] = fmaf(a0, wv, acc[0][q]);
-        acc[1][q] = fmaf(a1, wv, acc[1][q]);
+      for (int h = 0; h < EO; ++h) {
+        const FragA fa = frag_a_rows(us + 16 * m1 * ldu + 8 * (ks + h), ldu, su);
+#pragma unroll
+        for (int n = 0; n < MT; ++n) {
+          const float* wp = wsb + (8 * (ks + h) + t) * kLdW + 8 * (n1 + n) + gq;
+          mma_3xtf32(pre_hi[h][n], pre_lo[h][n], fa, frag_b(wp[0], wp[4 * kLdW]));
+        }
       }
     }
-    float part[2] = {0.f, 0.f};
+
+    // A, ddx's partial over the strip, dpre.  Padded rows and columns give
+    // g = 0, so dpre = 0 and no ddx term there.
+    float part[2] = {};
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = 2 * ty + rr;
+    for (int n = 0; n < MT; ++n) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = tx + 16 * q;
-        const float a = tanhf(acc[rr][q] + bs[c]);
-        const float gv = gs[r * kStrip + c];
-        part[rr] = fmaf(a, gv, part[rr]);
-        ds[r * kStrip + c] = dxs[r] * gv * (1.f - a * a);
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * m1 + gq + 8 * (e / 2), col = 8 * (n1 + n) + 2 * t + e % 2;
+        const float a = tanhf((pre_hi[0][n][e] + pre_lo[0][n][e]) +
+                              (pre_hi[1][n][e] + pre_lo[1][n][e]) + bsb[col]);
+        const float gv = gsb[r * kLdS + col];
+        part[e / 2] = fmaf(a, gv, part[e / 2]);
+        const float d = dxb[r] * gv * (1.f - a * a);
+        tf32_split(d, ds[r * kLdS + col], ds[sd + r * kLdS + col]);
+        if (r < rows && col < ncols) dpre[(size_t)(row0 + r) * ih + col0 + col] = d;
       }
     }
-    // Sum over the 16 lanes (tx) of this half-warp, which share the rows.
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      part[0] += __shfl_xor_sync(0xffffffffu, part[0], off);
-      part[1] += __shfl_xor_sync(0xffffffffu, part[1], off);
+    for (int h = 0; h < 2; ++h) {
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+      if (t == 0) red[warp * RT + 16 * m1 + gq + 8 * h] = part[h];
     }
-    if (tx == 0) {
+    __syncthreads();
+    if (tid < rows) {  // the warps that hold the row's m-tile, in warp order
+      float sum = 0.f;
+      const int w0 = (tid / 16) * WPM;
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = 2 * ty + rr;
-        if (r < rows) ddxpart[((size_t)hs * batch + row0 + r) * n_in + i] = part[rr];
+      for (int w = 0; w < WPM; ++w) sum += red[(w0 + w) * RT + tid];
+      ddxpart[((size_t)hs * batch + row0 + tid) * n_in + i] = sum;
+    }
+
+    // du (RT x kp) += dpre strip (RT x 64) W_o strip^T (64 x kp).
+#pragma unroll
+    for (int ks = 0; ks < kStrip / 8; ++ks) {
+      FragA fa[M2];
+#pragma unroll
+      for (int m = 0; m < M2; ++m)
+        fa[m] = frag_a_rows(ds + 16 * (mb2 + m) * kLdS + 8 * ks, kLdS, sd);
+#pragma unroll
+      for (int q = 0; q < Q2; ++q) {
+        const float* wr = wsb + (8 * (j2 + NS2 * q) + gq) * kLdW + 8 * ks + t;
+        const FragB fb = frag_b(wr[0], wr[4]);
+#pragma unroll
+        for (int m = 0; m < M2; ++m) mma_3xtf32(du_hi[m][q], du_lo[m][q], fa[m], fb);
       }
     }
   }
-  __syncthreads();
+  cp_async_wait<0>();
 
-  // db_o's partial over the tile's rows.
-  if (tid < ncols) {
-    float s = 0.f;
-    for (int r = 0; r < kTile; ++r) s += ds[r * kStrip + tid];
-    bpart[(size_t)tile * ih + col0 + tid] = s;
-  }
-
-  // dW_o's partial: rows k = kb..kb+7, columns tx + 16q, summed over the tile.
-  for (int kb = ty * 8; kb < hh; kb += 128) {
-    float acc[8][4] = {};
-    for (int r = 0; r < kTile; ++r) {
-      float d[4];
+  // The group's partial of du_n.
 #pragma unroll
-      for (int q = 0; q < 4; ++q) d[q] = ds[r * kStrip + tx + 16 * q];
-      const float* ur = us + r * ldu + kb;
+  for (int q = 0; q < Q2; ++q) {
+    const int j = j2 + NS2 * q;
+    if (j < ntiles) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float uv = ur[j];
+      for (int m = 0; m < M2; ++m) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[j][q] = fmaf(uv, d[q], acc[j][q]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = kb + j;
-      if (k < hh) {
-        float* dst = wpart + ((size_t)tile * hh + k) * ih + col0;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (tx + 16 * q < ncols) dst[tx + 16 * q] = acc[j][q];
-      }
-    }
-  }
-
-  // du_n's partial over the strip's columns: rows 4w..4w+3, k = lane + 32j.
-  const int lane = tid % 32, warp = tid / 32;
-  for (int kb = 0; kb < hh; kb += 128) {
-    float acc[4][4] = {};
-    for (int c = 0; c < ncols; ++c) {
-      float d[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) d[m] = ds[(warp * 4 + m) * kStrip + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = kb + lane + 32 * j;
-        const float wv = k < hh ? ws[k * ldw + c] : 0.f;
-#pragma unroll
-        for (int m = 0; m < 4; ++m) acc[m][j] = fmaf(d[m], wv, acc[m][j]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int r = warp * 4 + m;
-      if (r < rows) {
-        float* dst = dupart + ((size_t)strip * batch + row0 + r) * hh;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = kb + lane + 32 * j;
-          if (k < hh) dst[k] = acc[m][j];
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * (mb2 + m) + gq + 8 * (e / 2), k = 8 * j + 2 * t + e % 2;
+          if (r < rows && k < hh)
+            dupart[((size_t)blockIdx.y * batch + row0 + r) * hh + k] =
+                du_hi[m][q][e] + du_lo[m][q][e];
         }
       }
     }
   }
 }
 
-// 3. dW_o and db_o: the tile partials summed in tile order.
-__global__ void __launch_bounds__(kThreads)
-reduce_head(const float* __restrict__ wpart, const float* __restrict__ bpart,
-            float* __restrict__ dhw, float* __restrict__ dhb, int tiles,
-            size_t n_w, size_t n_b) {
-  const size_t stride = (size_t)gridDim.x * kThreads;
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n_w + n_b; e += stride) {
-    if (e < n_w)
-      dhw[e] = ordered_sum(wpart + e, n_w, tiles);
-    else
-      dhb[e - n_w] = ordered_sum(bpart + (e - n_w), n_b, tiles);
-  }
-}
-
-// 4. du_n and ddx from their partials, then back through the relu trunk
-// to dz, kRowsT rows a block; keeps dv_l for the weight grads.
-__global__ void __launch_bounds__(kThreads)
-trunk_backward(const float* __restrict__ dupart, const float* __restrict__ ddxpart,
+// 3. du_n and ddx from their partials (in group and strip order), then back
+// through the relu trunk to dz; keeps dv_l for the weight grads.  A
+// cluster of four blocks owns 16 rows; each block owns a quarter of the
+// columns (owned_col) of du and dv.  Per layer a block masks its columns of
+// du into dv_l and writes them, split, into all four blocks' dv tile; after
+// the cluster syncs, it computes its columns of du_{l-1} = dv_l W_l^T from
+// its rows of W_l, staged while the previous layer computed.  As in
+// trunk_forward, the MMA loop runs over zeros to a multiple of 16 and has
+// no branch.
+template <int V, int NQ>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTThreads, 1)
+trunk_backward(const float* __restrict__ dupart, int groups,
+               const float* __restrict__ ddxpart, int hstrips,
                const float* __restrict__ acts, Trunk trunk, float* __restrict__ dv,
-               float* __restrict__ dz, float* __restrict__ ddx, int batch,
-               int hidden, int hh, int n_in, int strips, int hstrips) {
-  __shared__ float du[kRowsT][kMaxDim];
-  __shared__ float dvs[kRowsT][kMaxDim];
-  __shared__ float wt[kMaxDim * (kChunkT + 1)];
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRowsT;
-  const int rows = min(kRowsT, batch - row0);
+               float* __restrict__ dz, float* __restrict__ ddx, int batch, int hidden,
+               int hh, int n_in) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int ldt = trunk_ld(hidden, hh), tile = kRowTile * ldt;
+  float* du = smem;                  // [kRowTile][ldt] (this block's columns)
+  float* dvs = smem + tile;         // [2][kRowTile][ldt] big, then the same small
+  float* slots = smem + 5 * tile;   // [2][sw][ldb] W_l's owned rows, by layer parity
+  const int rank = (int)cluster.block_rank();
+  constexpr int sw = NQ * kSeg;
+  const int swh = owned_segs(hh) * kSeg;  // owned columns of hh
+  const int kph = pad16(hh);
+  const int ldb = kph + 4;           // 4 mod 8: row-wise fragment reads hit distinct banks
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = (blockIdx.x / kCluster) * kRowTile;
+  const int rows = min(kRowTile, batch - row0);
+  const int j0 = 4 * rank + warp;
+  float* peer[kCluster];
+#pragma unroll
+  for (int p = 0; p < kCluster; ++p) peer[p] = cluster.map_shared_rank(smem, p);
 
-  for (int e = tid; e < kRowsT * hh; e += kThreads) {
-    const int r = e / hh, k = e - r * hh;
-    du[r][k] = r < rows ? ordered_sum(dupart + (size_t)(row0 + r) * hh + k,
-                                      (size_t)batch * hh, strips)
-                        : 0.f;
+  float* acs = slots + 2 * sw * ldb;  // [2][kRowTile][swh] u_l on the owned columns
+  // Stages W_l's owned rows and u_l's owned columns (slot l % 2).
+  auto load = [&](int l) {
+    const int d_in = l == 0 ? hidden : hh;
+    const float* w = layer_w(trunk, l);
+#pragma unroll
+    for (int sg = 0; sg < NQ; ++sg) {
+      const int r0 = sg * kSeg * kCluster + kSeg * rank;
+      stage<V, kTThreads>(slots + ((l % 2) * sw + sg * kSeg) * ldb, ldb,
+                          w + (size_t)r0 * hh, hh, kSeg, kph, d_in - r0, hh);
+    }
+    for (int sg = 0; sg < swh / kSeg; ++sg) {
+      const int c0 = sg * kSeg * kCluster + kSeg * rank;
+      stage<V, kTThreads>(acs + (l % 2) * kRowTile * swh + sg * kSeg, swh,
+                          acts + ((size_t)l * batch + row0) * hh + c0, hh, kRowTile, kSeg, rows,
+                          hh - c0);
+    }
+  };
+  load(trunk.n - 1);
+  cp_async_commit();
+
+  // du_n on this block's columns: the groups' partials, staged (as many
+  // groups at a time as the dv tiles' space holds, before any peer writes
+  // there) and summed in group order.
+  {
+    float* pbuf = dvs;
+    const int cap = 4 * tile / (kRowTile * swh);
+    float s[kPerT];
+#pragma unroll
+    for (int u = 0; u < kPerT; ++u) s[u] = 0.f;
+    for (int q0 = 0; q0 < groups; q0 += cap) {
+      const int qn = min(cap, groups - q0);
+      for (int q = 0; q < qn; ++q)
+        for (int sg = 0; sg < swh / kSeg; ++sg) {
+          const int c0 = sg * kSeg * kCluster + kSeg * rank;
+          stage<V, kTThreads>(pbuf + q * kRowTile * swh + sg * kSeg, swh,
+                              dupart + ((size_t)(q0 + q) * batch + row0) * hh + c0, hh,
+                              kRowTile, kSeg, rows, hh - c0);
+        }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      for (int q = 0; q < qn; ++q)
+#pragma unroll
+        for (int u = 0; u < kPerT; ++u) {
+          const int e = tid + u * kTThreads;
+          if (e < kRowTile * swh) s[u] += pbuf[q * kRowTile * swh + e];
+        }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < kPerT; ++u) {
+      const int e = tid + u * kTThreads, r = e / swh, c = owned_col(rank, e % swh);
+      if (r < kRowTile && c < kph) du[r * ldt + c] = s[u];
+    }
   }
-  for (int e = tid; e < kRowsT * n_in; e += kThreads) {
+  for (int e = rank * kTThreads + tid; e < kRowTile * n_in; e += kCluster * kTThreads) {
     const int r = e / n_in, i = e - r * n_in;
-    if (r < rows)
-      ddx[(size_t)(row0 + r) * n_in + i] = ordered_sum(
-          ddxpart + (size_t)(row0 + r) * n_in + i, (size_t)batch * n_in, hstrips);
+    if (r < rows) {
+      float v[kMaxDim / kStrip];
+#pragma unroll
+      for (int q = 0; q < kMaxDim / kStrip; ++q)
+        v[q] = q < hstrips ? ddxpart[((size_t)q * batch + row0 + r) * n_in + i] : 0.f;
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxDim / kStrip; ++q) s += v[q];
+      ddx[(size_t)(row0 + r) * n_in + i] = s;
+    }
   }
-  __syncthreads();
+  cp_async_wait<0>();
+  __syncthreads();  // du complete; u_{n-1}'s columns and W_{n-1}'s rows landed
+  // Barrier phases: S (every block is past its prologue, which used its dv
+  // tiles' space; awaited before the first remote write), then D_l
+  // (arrived after dv_l's remote writes, awaited before reading them).
+  cluster_arrive();
 
-  const int lane = tid % 32, r = tid / 32;  // one row per warp
   for (int l = trunk.n - 1; l >= 0; --l) {
     const int d_in = l == 0 ? hidden : hh;
-    const float* __restrict__ act = acts + (size_t)l * batch * hh;
-    const float* __restrict__ w = trunk.w[l];
-    for (int e = tid; e < kRowsT * hh; e += kThreads) {
-      const int rr = e / hh, j = e - rr * hh;
-      const bool live = rr < rows && act[(size_t)(row0 + rr) * hh + j] > 0.f;
-      const float v = live ? du[rr][j] : 0.f;
-      dvs[rr][j] = v;
-      if (rr < rows) dv[((size_t)l * batch + row0 + rr) * hh + j] = v;
-    }
-    __syncthreads();
-    // du_{l-1}[r][k] = sum_j dv[r][j] W_l[k][j], W_l staged kChunkT columns at a time.
-    float acc[kMaxDim / 32] = {};
-    for (int j0 = 0; j0 < hh; j0 += kChunkT) {
-      const int jn = min(kChunkT, hh - j0);
-      for (int e = tid; e < d_in * kChunkT; e += kThreads) {
-        const int k = e / kChunkT, jj = e - k * kChunkT;
-        cp_async4(wt + k * (kChunkT + 1) + jj, w + (size_t)k * hh + j0 + jj, jj < jn);
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      for (int jj = 0; jj < jn; ++jj) {
-        const float dvv = dvs[r][j0 + jj];
+    const int buf = (l % 2) * tile;
+    // dv_l = du * (u_l > 0) on this block's columns, to every block's tile;
+    // a thread takes column pairs (c, c + 1).
+    float dvv[kPerT / 2][2];
 #pragma unroll
-        for (int q = 0; q < kMaxDim / 32; ++q) {
-          const int k = lane + 32 * q;
-          if (k < d_in) acc[q] = fmaf(dvv, wt[k * (kChunkT + 1) + jj], acc[q]);
+    for (int u = 0; u < kPerT / 2; ++u) {
+      const int e = tid + u * kTThreads, r = e / (swh / 2), cl = 2 * (e % (swh / 2));
+      const int c = owned_col(rank, cl);
+      const bool in = r < kRowTile && c < kph;
+      const float* a = acs + ((l % 2) * kRowTile + r) * swh + cl;
+      dvv[u][0] = in && a[0] > 0.f ? du[r * ldt + c] : 0.f;
+      dvv[u][1] = in && a[1] > 0.f ? du[r * ldt + c + 1] : 0.f;
+    }
+    if (l == trunk.n - 1) cluster_wait();  // S: every block of the cluster runs
+#pragma unroll
+    for (int u = 0; u < kPerT / 2; ++u) {
+      const int e = tid + u * kTThreads, r = e / (swh / 2), cl = 2 * (e % (swh / 2));
+      const int c = owned_col(rank, cl);
+      if (r < kRowTile && c < kph) {
+        float2 big, small;
+        tf32_split(dvv[u][0], big.x, small.x);
+        tf32_split(dvv[u][1], big.y, small.y);
+#pragma unroll
+        for (int p = 0; p < kCluster; ++p) {
+          *reinterpret_cast<float2*>(peer[p] + tile + buf + r * ldt + c) = big;
+          *reinterpret_cast<float2*>(peer[p] + 3 * tile + buf + r * ldt + c) = small;
         }
       }
-      __syncthreads();
+    }
+    cluster_arrive();  // D_l
+#pragma unroll
+    for (int u = 0; u < kPerT / 2; ++u) {  // dv_l for the weight grads
+      const int e = tid + u * kTThreads, r = e / (swh / 2), c = owned_col(rank, 2 * (e % (swh / 2)));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r < rows && c + h < hh) dv[((size_t)l * batch + row0 + r) * hh + c + h] = dvv[u][h];
+    }
+    cluster_wait();  // D_l: dv_l complete in every block
+    if (l > 0) load(l - 1);
+    cp_async_commit();
+
+    // This block's columns of du_{l-1} (16 x d_in) = dv_l (16 x hh) W_l^T.
+    const float* wsl = slots + (l % 2) * sw * ldb + (8 * warp + g) * ldb + t;
+    const float* dva = dvs + buf;
+    const int ntiles = pad16(d_in) / 8;
+    float hi[2][NQ][4] = {}, lo[2][NQ][4] = {};  // even and odd k-steps
+#pragma unroll 2
+    for (int ks = 0; ks < kph / 8; ks += 2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const FragA fa = frag_a_rows(dva + 8 * (ks + h), ldt, 2 * tile);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float* wp = wsl + kSeg * q * ldb + 8 * (ks + h);
+          mma_3xtf32(hi[h][q], lo[h][q], fa, frag_b(wp[0], wp[4]));
+        }
+      }
     }
 #pragma unroll
-    for (int q = 0; q < kMaxDim / 32; ++q) {
-      const int k = lane + 32 * q;
-      if (k < d_in) du[r][k] = acc[q];
+    for (int q = 0; q < NQ; ++q) {
+      const int j = j0 + 16 * q;
+      if (j < ntiles) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = g + 8 * (e / 2), col = 8 * j + 2 * t + e % 2;
+          const float v = (hi[0][q][e] + lo[0][q][e]) + (hi[1][q][e] + lo[1][q][e]);
+          if (l > 0)
+            du[r * ldt + col] = v;
+          else if (r < rows && col < hidden)
+            dz[(size_t)(row0 + r) * hidden + col] = v;
+        }
+      }
     }
-    __syncthreads();
-  }
-  for (int e = tid; e < kRowsT * hidden; e += kThreads) {
-    const int rr = e / hidden, k = e - rr * hidden;
-    if (rr < rows) dz[(size_t)(row0 + rr) * hidden + k] = du[rr][k];
+    cp_async_wait<0>();
+    __syncthreads();  // du complete for this block's next mask; W_{l-1}'s rows landed
   }
 }
 
-// 5. dW_l = u_{l-1}^T dv_l and db_l = sum_b dv_l over the whole batch, in
-// batch order: one 32 x 32 output tile a block, blockIdx.z = layer; the
-// batch streams through shared memory kWgRows rows at a time.
-constexpr int kWgRows = 64;
-__global__ void __launch_bounds__(kThreads)
-trunk_wgrad(const float* __restrict__ z, const float* __restrict__ acts,
-            const float* __restrict__ dv, TrunkGrad grad, int batch, int hidden,
-            int hh) {
-  __shared__ float ins[kWgRows][kWg + 1];
-  __shared__ float dvt[kWgRows][kWg + 1];
-  const int l = blockIdx.z;
-  const int d_in = l == 0 ? hidden : hh;
-  const int k0 = blockIdx.y * kWg, j0 = blockIdx.x * kWg;
-  if (k0 >= d_in) return;  // uniform over the block
-  const float* __restrict__ in = l == 0 ? z : acts + (size_t)(l - 1) * batch * hh;
-  const float* __restrict__ d = dv + (size_t)l * batch * hh;
-  const int tid = threadIdx.x;
-  const int tx = tid % kWg, ty = tid / kWg;  // column j0 + tx; rows k0 + 4ty .. +3
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+// 4. Every weight gradient W = X^T D, b = sum_b D in one launch: block
+// (tile, range) owns a 64 x 32 tile of one problem's W and walks its batch
+// range in order, 64 rows a stage, the next stage in flight.  Warp w owns
+// the tile's rows 32 (w % 2) .. + 31 and columns 16 (w / 2) .. + 15 (2 x 2
+// MMA tiles); warp 0 of the first row tile's blocks also sums b.  The
+// ranges of one tile form a thread-block cluster: each block leaves its
+// partial in shared memory and rank 0 sums them in rank order through
+// distributed shared memory and writes W and b.
+template <int V>
+__global__ void __launch_bounds__(kWgThreads, 1)
+weight_grad(GradProblems P, int batch) {
+  extern __shared__ __align__(16) float smem[];  // [kWgRing][X: kWgRows x kLdX, D: x kLdD]
+  GradProblem pr = P.p[0];
+#pragma unroll
+  for (int q = 1; q < kProblems; ++q)
+    if (q < P.count && (int)blockIdx.x >= P.p[q].tile0) pr = P.p[q];
+  const int local = blockIdx.x - pr.tile0;
+  const int tm = local / pr.tiles_n, tn = local - tm * pr.tiles_n;
+  const int m0 = tm * kWgM, n0 = tn * kWgN;
+  const int split = blockIdx.y;
+  const int b_begin = split * P.rows_per_split;
+  const int b_end = min(batch, b_begin + P.rows_per_split);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = 32 * (warp % 2), wn = 16 * (warp / 2);
+  const bool bias = tm == 0 && tid < kWgN;
+  const int chunks = b_end > b_begin ? cdiv(b_end - b_begin, kWgRows) : 0;
+
+  auto load = [&](int c) {
+    const int r0 = b_begin + c * kWgRows;
+    float* st = smem + (c % kWgRing) * kWgStage;
+    stage<V, kWgThreads>(st, kLdX, pr.x + (size_t)r0 * pr.m + m0, pr.m, kWgRows, kWgM,
+                         b_end - r0, pr.m - m0);
+    stage<V, kWgThreads>(st + kWgRows * kLdX, kLdD, pr.d + (size_t)r0 * pr.n + n0, pr.n,
+                         kWgRows, kWgN, b_end - r0, pr.n - n0);
+  };
+
+  float hi[2][2][4] = {}, lo[2][2][4] = {};
   float bacc = 0.f;
-  for (int b0 = 0; b0 < batch; b0 += kWgRows) {
-    for (int e = tid; e < kWgRows * kWg; e += kThreads) {
-      const int bb = e / kWg, c = e - bb * kWg;
-      const bool row = b0 + bb < batch;
-      cp_async4(&ins[bb][c], in + (size_t)(b0 + bb) * d_in + k0 + c, row && k0 + c < d_in);
-      cp_async4(&dvt[bb][c], d + (size_t)(b0 + bb) * hh + j0 + c, row && j0 + c < hh);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    for (int bb = 0; bb < kWgRows; ++bb) {
-      const float dvv = dvt[bb][tx];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) acc[m] = fmaf(ins[bb][4 * ty + m], dvv, acc[m]);
-      bacc += dvv;
-    }
-    __syncthreads();
+  for (int p = 0; p < kWgRing - 1; ++p) {
+    if (p < chunks) load(p);
+    cp_async_commit();
   }
-  const int j = j0 + tx;
-  if (j < hh) {
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kWgRing - 2>();
+    __syncthreads();  // stage c landed; every warp is done with stage c - 1
+    if (c + kWgRing - 1 < chunks) load(c + kWgRing - 1);
+    cp_async_commit();
+    const float* xb = smem + (c % kWgRing) * kWgStage;
+    const float* db = xb + kWgRows * kLdX;
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int k = k0 + 4 * ty + m;
-      if (k < d_in) grad.w[l][(size_t)k * hh + j] = acc[m];
+    for (int ks = 0; ks < kWgRows / 8; ++ks) {
+      // A = X^T: A[m][k] = X[k][m]; B = D.
+      FragA fa[2];
+      FragB fb[2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* x0 = xb + (8 * ks + t) * kLdX + wm + 16 * mi + g;
+        fa[mi] = frag_a(x0[0], x0[8], x0[4 * kLdX], x0[4 * kLdX + 8]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        const float* d0 = db + (8 * ks + t) * kLdD + wn + 8 * ni + g;
+        fb[ni] = frag_b(d0[0], d0[4 * kLdD]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) mma_3xtf32(hi[mi][ni], lo[mi][ni], fa[mi], fb[ni]);
     }
-    if (blockIdx.y == 0 && ty == 0) grad.b[l][j] = bacc;
+    if (bias) {
+#pragma unroll 8
+      for (int r = 0; r < kWgRows; ++r) bacc += db[r * kLdD + tid];
+    }
   }
+  cp_async_wait<0>();
+
+  if (P.split == 1) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + wm + 16 * mi + g + 8 * (e / 2);
+          const int n = n0 + wn + 8 * ni + 2 * t + e % 2;
+          if (m < pr.m && n < pr.n) pr.w[(size_t)m * pr.n + n] = hi[mi][ni][e] + lo[mi][ni][e];
+        }
+    if (bias && n0 + tid < pr.n) pr.b[n0 + tid] = bacc;
+    return;
+  }
+  // The range's partial tile ([kWgM][kWgN], then b's kWgN) in shared memory.
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  float* part = smem;
+  __syncthreads();  // every warp is done with the stages
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[(wm + 16 * mi + g + 8 * (e / 2)) * kWgN + wn + 8 * ni + 2 * t + e % 2] =
+            hi[mi][ni][e] + lo[mi][ni][e];
+  if (tid < kWgN) part[kWgM * kWgN + tid] = bacc;
+  cluster.sync();
+  // Rank r sums its share of the tile's entries over the ranks, in rank order.
+  constexpr int kEntries = (kWgM + 1) * kWgN;
+  const int share = cdiv(kEntries, P.split), e0 = (int)cluster.block_rank() * share;
+  for (int e = e0 + tid; e < min(kEntries, e0 + share); e += kWgThreads) {
+    float s = 0.f;
+    for (int r = 0; r < P.split; ++r) s += cluster.map_shared_rank(part, r)[e];
+    const int m = m0 + e / kWgN, n = n0 + e % kWgN;
+    if (e < kWgM * kWgN) {
+      if (m < pr.m && n < pr.n) pr.w[(size_t)m * pr.n + n] = s;
+    } else if (tm == 0 && n < pr.n) {
+      pr.b[n] = s;
+    }
+  }
+  cluster.sync();  // every block's partial stays until all ranks have read it
+}
+
+// Raises a kernel's dynamic shared-memory limit the first time a launch
+// needs more than the current one.
+template <auto Kernel>
+cudaError_t reserve_smem(size_t smem) {
+  static size_t smem_set = 48 * 1024;  // the default dynamic limit
+  if (smem <= smem_set) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) smem_set = smem;
+  return err;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
 bool valid(int batch, int hidden, int hh, int n_in, int n_trunk) {
   return n_trunk >= 1 && n_trunk <= kMaxTrunk && batch >= 1 && hidden >= 1 &&
          hidden <= kMaxDim && hh >= 1 && hh <= kMaxDim && n_in >= 1 &&
          (long long)n_in * ((hidden + kStrip - 1) / kStrip) <= 65535;
+}
+
+// Launches `kernel` with clusters of cy blocks along y.
+template <class... Params, class... Args>
+cudaError_t launch_cluster_y(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                             cudaStream_t stream, int cy, Args... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cy;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, args...);
+}
+
+template <int MT, int NQ, int V>
+cudaError_t launch_head(dim3 blocks, size_t smem, cudaStream_t s, const float* dx,
+                        const float* g, const float* u_last, const float* head_w,
+                        const float* head_b, float* scratch, const Layout& L, int batch,
+                        int hidden, int hh, int n_in) {
+  const cudaError_t err = reserve_smem<head_backward<MT, NQ, V>>(smem);
+  if (err != cudaSuccess) return err;
+  head_backward<MT, NQ, V><<<blocks, kThreads, smem, s>>>(
+      dx, g, u_last, head_w, head_b, scratch + L.dpre, scratch + L.dupart, scratch + L.ddxpart,
+      batch, hidden, hh, n_in, L.hstrips, L.strips, L.head.spg);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch(const float* z, const float* dx, const float* g, const Trunk& trunk,
+                   const float* head_w, const float* head_b, float* dz, float* ddx,
+                   float* const* dtrunk_w, float* const* dtrunk_b, float* dhead_w,
+                   float* dhead_b, float* scratch, const Layout& L, int batch, int hidden,
+                   int hh, int n_in, cudaStream_t s) {
+  const int n_trunk = trunk.n;
+  float* acts = scratch + L.acts;
+  float* dv = scratch + L.dv;
+  const float* u_last = acts + (size_t)(n_trunk - 1) * batch * hh;
+  const int trunk_blocks = cdiv(batch, kRowTile) * kCluster;
+  cudaError_t err;
+
+  size_t smem = trunk_forward_smem(hidden, hh);
+  if (owned_segs(hh) == 2) {
+    if ((err = reserve_smem<trunk_forward<V, 2>>(smem)) != cudaSuccess) return err;
+    trunk_forward<V, 2><<<trunk_blocks, kTThreads, smem, s>>>(z, trunk, acts, batch, hidden, hh);
+  } else {
+    if ((err = reserve_smem<trunk_forward<V, 1>>(smem)) != cudaSuccess) return err;
+    trunk_forward<V, 1><<<trunk_blocks, kTThreads, smem, s>>>(z, trunk, acts, batch, hidden, hh);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const HeadGrid& H = L.head;
+  smem = head_smem_bytes(H.mt, hh);
+  const dim3 head_blocks(H.row_tiles, H.groups);
+  const bool nq2 = head_nq(hh) == 2;
+  const auto head = H.mt == 4 ? launch_head<4, 2, V>
+                    : H.mt == 2 ? (nq2 ? launch_head<2, 2, V> : launch_head<2, 4, V>)
+                                : (nq2 ? launch_head<1, 2, V> : launch_head<1, 4, V>);
+  err = head(head_blocks, smem, s, dx, g, u_last, head_w, head_b, scratch, L, batch, hidden, hh,
+             n_in);
+  if (err != cudaSuccess) return err;
+
+  smem = trunk_backward_smem(hidden, hh);
+  if (owned_segs(hidden > hh ? hidden : hh) == 2) {
+    if ((err = reserve_smem<trunk_backward<V, 2>>(smem)) != cudaSuccess) return err;
+    trunk_backward<V, 2><<<trunk_blocks, kTThreads, smem, s>>>(
+        scratch + L.dupart, H.groups, scratch + L.ddxpart, L.hstrips, acts, trunk, dv, dz,
+        ddx, batch, hidden, hh, n_in);
+  } else {
+    if ((err = reserve_smem<trunk_backward<V, 1>>(smem)) != cudaSuccess) return err;
+    trunk_backward<V, 1><<<trunk_blocks, kTThreads, smem, s>>>(
+        scratch + L.dupart, H.groups, scratch + L.ddxpart, L.hstrips, acts, trunk, dv, dz,
+        ddx, batch, hidden, hh, n_in);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  GradProblems P = grad_problems(batch, hidden, hh, n_in, n_trunk);
+  P.p[0].x = u_last;
+  P.p[0].d = scratch + L.dpre;
+  P.p[0].w = dhead_w;
+  P.p[0].b = dhead_b;
+  for (int l = 0; l < n_trunk; ++l) {
+    GradProblem& p = P.p[1 + l];
+    p.x = l == 0 ? z : acts + (size_t)(l - 1) * batch * hh;
+    p.d = dv + (size_t)l * batch * hh;
+    p.w = dtrunk_w[l];
+    p.b = dtrunk_b[l];
+  }
+  if ((err = reserve_smem<weight_grad<V>>(kWgSmemBytes)) != cudaSuccess) return err;
+  err = launch_cluster_y(weight_grad<V>, dim3(P.tiles, P.split), dim3(kWgThreads), kWgSmemBytes,
+                         s, P.split, P, batch);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -521,9 +1069,9 @@ long long oncde_fused_field_backward_scratch(int batch, int hidden, int hh, int 
 // The largest H and HH taken (the shared-memory tiles' width).
 int oncde_fused_field_backward_max_dim() { return kMaxDim; }
 
-// Launches on `stream`; returns the first cudaGetLastError() that is not 0
-// (0 on success).  trunk_w / trunk_b / dtrunk_w / dtrunk_b are host arrays
-// of n_trunk device pointers; scratch holds scratch_floats floats.
+// Launches on `stream`; returns the first CUDA error that is not 0 (0 on
+// success).  trunk_w / trunk_b / dtrunk_w / dtrunk_b are host arrays of
+// n_trunk device pointers; scratch holds scratch_floats floats.
 int oncde_fused_field_backward(const float* z, const float* dx, const float* g,
                                const float* const* trunk_w,
                                const float* const* trunk_b, int n_trunk,
@@ -537,55 +1085,19 @@ int oncde_fused_field_backward(const float* z, const float* dx, const float* g,
   const Layout L = layout(batch, hidden, hh, n_in, n_trunk);
   if (scratch_floats < (long long)L.total) return (int)cudaErrorInvalidValue;
   Trunk trunk;
-  TrunkGrad grad;
+  bool vec = hidden % 4 == 0 && hh % 4 == 0 && aligned16(z) && aligned16(g) &&
+             aligned16(head_w) && aligned16(head_b) && aligned16(scratch);
   for (int l = 0; l < kMaxTrunk; ++l) {
     trunk.w[l] = l < n_trunk ? trunk_w[l] : nullptr;
     trunk.b[l] = l < n_trunk ? trunk_b[l] : nullptr;
-    grad.w[l] = l < n_trunk ? dtrunk_w[l] : nullptr;
-    grad.b[l] = l < n_trunk ? dtrunk_b[l] : nullptr;
+    if (l < n_trunk) vec = vec && aligned16(trunk_w[l]);
   }
   trunk.n = n_trunk;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* acts = scratch + L.acts;
-  float* dv = scratch + L.dv;
-  float* wpart = scratch + L.wpart;
-  float* bpart = scratch + L.bpart;
-  float* dupart = scratch + L.dupart;
-  float* ddxpart = scratch + L.ddxpart;
-  const int row_blocks = (batch + kRowsT - 1) / kRowsT;
-  cudaError_t err;
-
-  trunk_forward<<<row_blocks, kThreads, 0, s>>>(z, trunk, acts, batch, hidden, hh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t smem = head_smem_bytes(hh);
-  static size_t smem_set = 48 * 1024;  // the default dynamic limit
-  if (smem > smem_set) {
-    err = cudaFuncSetAttribute(head_backward, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
-  head_backward<<<dim3(L.tiles, L.strips), kThreads, smem, s>>>(
-      dx, g, acts + (size_t)(n_trunk - 1) * batch * hh, head_w, head_b, wpart, bpart,
-      dupart, ddxpart, batch, hidden, hh, n_in, L.hstrips);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t n_w = (size_t)hh * n_in * hidden, n_b = (size_t)n_in * hidden;
-  const size_t red_blocks = (n_w + n_b + kThreads - 1) / kThreads;
-  reduce_head<<<(unsigned)(red_blocks < 4096 ? red_blocks : 4096), kThreads, 0, s>>>(
-      wpart, bpart, dhead_w, dhead_b, L.tiles, n_w, n_b);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  trunk_backward<<<row_blocks, kThreads, 0, s>>>(dupart, ddxpart, acts, trunk, dv, dz,
-                                                  ddx, batch, hidden, hh, n_in,
-                                                  L.strips, L.hstrips);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int dmax = hidden > hh ? hidden : hh;
-  const dim3 wg_grid((hh + kWg - 1) / kWg, (dmax + kWg - 1) / kWg, n_trunk);
-  trunk_wgrad<<<wg_grid, kThreads, 0, s>>>(z, acts, dv, grad, batch, hidden, hh);
-  return (int)cudaGetLastError();
+  return (int)(vec ? launch<4>(z, dx, g, trunk, head_w, head_b, dz, ddx, dtrunk_w, dtrunk_b,
+                               dhead_w, dhead_b, scratch, L, batch, hidden, hh, n_in, s)
+                   : launch<1>(z, dx, g, trunk, head_w, head_b, dz, ddx, dtrunk_w, dtrunk_b,
+                               dhead_w, dhead_b, scratch, L, batch, hidden, hh, n_in, s));
 }
 
 const char* oncde_cuda_error_string(int err) {

@@ -64,7 +64,7 @@ fused_field_kernel = CudaKernel(
 )
 
 # The backward kernel's launcher (one count per call of its C entry point,
-# which runs five launches in stream order).
+# which runs four launches in stream order).
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 fused_field_bwd_kernel = CudaKernel(
     "fused_field_bwd.cu",

@@ -1,0 +1,145 @@
+"""The backward kernel's precision scheme, rehearsed on the CPU.
+
+``csrc/fused_field_bwd.cu`` runs every product of the fused field's VJP on
+the tensor cores in 3xTF32: each f32 operand x is split into a TF32 "big"
+part (x rounded to nearest, ties away from zero, as ``cvt.rna.tf32.f32``
+rounds) and a TF32 "small" part (x - big, rounded the same way), and a
+product accumulates big*big + big*small + small*big.  This file emulates
+that arithmetic in numpy (operands rounded as the kernel rounds them, sums
+in float64) for the backward's three head products and its trunk products
+at the flagship training shapes, and holds the result against
+``kernels._backward_reference`` in float64 with the kernel's gate on the
+card: per cotangent group, |err| <= 1e-4 |want| + 1e-5 max|want|.
+
+3xTF32 meets that gate; a single TF32 pass (big*big alone) does not.  The
+second case is the reason the kernel splits: it documents, before any chip
+time, that one pass of the tensor cores is not an f32 product.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from online_neural_cdes_tpu_torch.ops import kernels
+
+torch.set_num_threads(1)
+
+RTOL, ATOL_PER_MAX = 1e-4, 1e-5   # chip_smoke.py's BWD_RTOL, BWD_ATOL_REL
+# (B, H, HH, I, n_trunk): the flagship step's value pieces and the
+# time-channel slice at a smaller batch.
+SHAPES = [(512, 128, 128, 21, 2), (64, 128, 128, 1, 2)]
+
+
+def tf32(x):
+    """x (float32) rounded to TF32: add half a TF32 ulp to the bit pattern
+    and clear the 13 low mantissa bits (round to nearest, ties away from
+    zero, for every finite x)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x):
+    big = tf32(x)
+    return big, tf32(x.astype(np.float32) - big)
+
+
+def mm_3xtf32(a, b):
+    (ab, as_), (bb, bs) = split(a), split(b)
+    f = np.float64
+    return ((ab.astype(f) @ bb.astype(f)) + (ab.astype(f) @ bs.astype(f))
+            + (as_.astype(f) @ bb.astype(f))).astype(np.float32)
+
+
+def mm_1xtf32(a, b):
+    return (tf32(a).astype(np.float64) @ tf32(b).astype(np.float64)).astype(np.float32)
+
+
+def backward_emulated(mm, trunk, head_w, head_b, z, dx, g, n_in):
+    """The kernel's backward with every product through ``mm`` and the
+    elementwise steps in float32, in the kernel's order of operations."""
+    us = [z]
+    for layer in trunk:
+        us.append(np.maximum(mm(us[-1], layer["w"]) + layer["b"], 0).astype(np.float32))
+    batch, hidden = z.shape
+    a = np.tanh(mm(us[-1], head_w) + head_b).astype(np.float32)
+    a3 = a.reshape(batch, n_in, hidden)
+    ddx = np.einsum("bih,bh->bi", a3.astype(np.float64), g.astype(np.float64))
+    dpre = ((dx[:, :, None] * g[:, None, :]).reshape(batch, -1)
+            * (1 - a * a)).astype(np.float32)
+    dhw = mm(us[-1].T.copy(), dpre)
+    dhb = dpre.astype(np.float64).sum(0)
+    du = mm(dpre, head_w.T.copy())
+    dtrunk = [None] * len(trunk)
+    for l in range(len(trunk) - 1, -1, -1):
+        dv = (du * (us[l + 1] > 0)).astype(np.float32)
+        dtrunk[l] = {"w": mm(us[l].T.copy(), dv), "b": dv.astype(np.float64).sum(0)}
+        du = mm(dv, trunk[l]["w"].T.copy())
+    return dtrunk, dhw, dhb, du, ddx
+
+
+def inputs(shape, seed=0):
+    """Seeded weights and inputs at chip_smoke.py's scales, float32."""
+    batch, hidden, hh, n_in, n_trunk = shape
+    rng = np.random.default_rng(seed)
+
+    def u(size, fan_in):
+        bound = 1.0 / fan_in ** 0.5
+        return rng.uniform(-bound, bound, size=size).astype(np.float32)
+
+    trunk, d_in = [], hidden
+    for _ in range(n_trunk):
+        trunk.append({"w": u((d_in, hh), d_in), "b": u((hh,), d_in)})
+        d_in = hh
+    head_w, head_b = u((hh, n_in * hidden), hh), u((n_in * hidden,), hh)
+    z, dx, g = (rng.standard_normal(s).astype(np.float32)
+                for s in ((batch, hidden), (batch, n_in), (batch, hidden)))
+    return trunk, head_w, head_b, z, dx, g
+
+
+def gate_ratios(mm, shape):
+    """err / gate of every cotangent group, emulated against the plain
+    backward in float64."""
+    batch, hidden, hh, n_in, n_trunk = shape
+    trunk, head_w, head_b, z, dx, g = inputs(shape)
+    got = backward_emulated(mm, trunk, head_w, head_b, z, dx, g, n_in)
+    t64 = lambda x: torch.from_numpy(x).double()
+    want = kernels._backward_reference(
+        [{k: t64(v) for k, v in layer.items()} for layer in trunk], t64(head_w),
+        t64(head_b), t64(z), t64(dx), t64(g), hidden, n_in)
+    ratios = {}
+    for name, gt, wt in [("dhead_w", got[1], want[1]), ("dhead_b", got[2], want[2]),
+                         ("dz", got[3], want[3]), ("ddx", got[4], want[4])] + [
+            (f"dtrunk[{l}].{k}", got[0][l][k], want[0][l][k])
+            for l in range(n_trunk) for k in ("w", "b")]:
+        wt = wt.detach().numpy()
+        err = np.abs(gt.astype(np.float64) - wt)
+        ratios[name] = float((err / (RTOL * np.abs(wt) + ATOL_PER_MAX * np.abs(wt).max())).max())
+    return ratios
+
+
+def test_tf32_rounds_to_nearest_with_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)                      # TF32's spacing at 1
+    x = np.array([one + ulp / 4, one + ulp / 2, one + 3 * ulp / 4, -(one + ulp / 2),
+                  one + ulp / 2 - np.float32(2.0 ** -23)], dtype=np.float32)
+    np.testing.assert_array_equal(
+        tf32(x), np.array([one, one + ulp, one + ulp, -(one + ulp), one], dtype=np.float32))
+    # big + small keeps about 21 of f32's 24 bits.
+    x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    big, small = split(x)
+    np.testing.assert_array_equal(tf32(big), big)
+    np.testing.assert_array_equal(tf32(small), small)
+    rel = np.abs((big.astype(np.float64) + small) - x) / np.abs(x)
+    assert rel.max() <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_3xtf32_meets_the_backward_gate(shape):
+    ratios = gate_ratios(mm_3xtf32, shape)
+    assert max(ratios.values()) < 1.0, ratios
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_one_tf32_pass_misses_the_backward_gate(shape):
+    ratios = gate_ratios(mm_1xtf32, shape)
+    assert max(ratios.values()) > 10.0, ratios
