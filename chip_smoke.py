@@ -14,8 +14,10 @@ controls, and prints one JSON line per phase:
 2. build     -- builds every kernel from ``online_neural_cdes_tpu_torch/csrc``,
                 one ``nvcc`` per source, all started together.
 3. kernel    -- the fused field's forward kernel against its plain PyTorch
-                version on the card over a shape sweep, and its time (CUDA
-                events) beside its bound and the plain version's time.
+                version on the card over the sweep and a width above 256
+                (its CUDA-core path), identical bits on a repeat call, and
+                its time (CUDA events) beside its bounds and the plain
+                version's time, with each of its launches' device time.
 4. kernel_bwd -- the same for the backward kernel: all six cotangent
                 groups over the sweep, identical bits on a repeat call, a
                 width its tiles cannot hold refused without a launch, and
@@ -59,6 +61,7 @@ CUDA card, and it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import os
@@ -90,6 +93,10 @@ TRAIN_SHAPE = (512, 128, 128, 21, 2)
 TIMED = [(64, 128, 128, 21, 2), (64, 128, 128, 1, 2),
          (512, 128, 128, 21, 2), (512, 128, 128, 1, 2)]
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5   # the sums run in another order
+# Forward-only: a width above the tensor-core tiles' 256, which takes the
+# forward kernel's CUDA-core path for wide models (the backward and the
+# interval kernel refuse it).
+FWD_WIDE = [(3, 320, 264, 2, 1)]
 # The whole-interval RK4 kernel: the forward sweep plus bench.py's parity
 # shape; timed at the training step's two shapes and the serving batch;
 # its K-replica form at K = 1..4 on the training shape and K = 3 on a
@@ -229,6 +236,13 @@ def expect_launches(what, got, **want):
         raise AssertionError(f"{what} launched {got}, expected {full}")
 
 
+def gate_share(got, want, rtol, atol):
+    """max |got - want| / (atol + rtol |want|): the share of its gate a
+    comparison uses (below 1 passes)."""
+    got, want = (np.asarray(a, dtype=np.float64) for a in (got, want))
+    return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+
+
 def percentiles(samples_ms):
     a = np.asarray(samples_ms)
     return {"p50": float(np.percentile(a, 50)), "p99": float(np.percentile(a, 99)),
@@ -248,6 +262,16 @@ def random_field(gen, B, Hd, HHd, I, n, device):
     z = torch.randn((B, Hd), generator=gen).to(device)
     dx = torch.randn((B, I), generator=gen).to(device)
     return trunk, head_w, head_b, z, dx
+
+
+def per_launch(fn, calls=20):
+    """Each kernel's device time per launch over ``calls`` calls of ``fn``
+    under torch.profiler, averaged over the launches whose events the
+    profiler kept (``per_call``: those launches per call; it may keep fewer
+    than all)."""
+    top = profile_call(lambda: [fn() for _ in range(calls)])["top"]
+    return [{"name": t["name"], "per_call": t["count"] / calls,
+             "us_per_launch": t["ms"] * 1e3 / t["count"]} for t in top]
 
 
 def phase_env():
@@ -280,36 +304,66 @@ def phase_build():
     emit("build", sources=sources, seconds=seconds, ptxas=ptxas)
 
 
+def forward_grid(B, Hd, HHd, I):
+    """The forward kernel's launch geometry at a shape, as its library
+    states it (``oncde_fused_field_forward_grid``)."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    grid = (ctypes.c_int * 6)()
+    fn = kernels.fused_field_kernel.helper(
+        "oncde_fused_field_forward_grid", [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
+        ctypes.c_int)
+    if fn(B, Hd, HHd, I, grid):
+        return {"path": "tensor cores", "trunk_blocks": grid[0],
+                "head_blocks": grid[1] * grid[2], "cluster": grid[2],
+                "head_rows": grid[3], "channels_per_group": grid[4],
+                "head_clusters_at_once": grid[5]}
+    return {"path": "cuda cores", "blocks": grid[0] * grid[1]}
+
+
 def phase_kernel(pk):
+    """The forward kernel against its plain version over the sweep and the
+    wide shape, a repeat call giving the same bits; CUDA-event times at the
+    timed shapes beside both bounds and the plain version's time, with each
+    of the kernel's launches' device time (profiler, 20 calls)."""
     from online_neural_cdes_tpu_torch.ops import kernels
 
     gen = torch.Generator().manual_seed(1)
     errors, timings = [], {}
     with torch.inference_mode():
-        for shape in SWEEP:
+        for shape in SWEEP + FWD_WIDE:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
             got = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
+            again = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
             want = kernels._forward_reference(trunk, head_w, head_b, z, dx, Hd, I)
             torch.cuda.synchronize()
             if got.shape != (B, Hd) or not torch.isfinite(got).all():
                 raise AssertionError(f"kernel output at {shape}: shape "
                                      f"{tuple(got.shape)} or non-finite values")
-            torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-            err = float((got - want).abs().max())
-            errors.append({"shape": list(shape), "max_abs_err": err})
+            if not torch.equal(got, again):
+                raise AssertionError(f"kernel at {shape}: two calls on the same inputs "
+                                     "differ")
+            torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                                       msg=lambda m: f"kernel at {shape}: {m}")
+            err = (got - want).abs()
+            errors.append({"shape": list(shape), "max_abs_err": float(err.max()),
+                           "gate_share": float((err / (KERNEL_RTOL * want.abs()
+                                                       + KERNEL_ATOL)).max()),
+                           "path": forward_grid(B, Hd, HHd, I)["path"]})
         for shape in TIMED:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
-            kernel_us = device_us(lambda: kernels.fused_matmul_field(
-                trunk, head_w, head_b, z, dx, Hd, I), reps=200)
+            call = lambda: kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
+            kernel_us = device_us(call, reps=200)
             plain_us = device_us(lambda: kernels._forward_reference(
                 trunk, head_w, head_b, z, dx, Hd, I), reps=50)
             timings[shape] = {
                 "shape": list(shape), "kernel_us": kernel_us, "plain_us": plain_us,
-                **bounds(*field_cost(*shape), pk), "blocks": -(-B // 8) * -(-Hd // 32)}
+                **bounds(*field_cost(*shape), pk), **forward_grid(B, Hd, HHd, I),
+                "per_launch": per_launch(call)}
     emit("kernel", tolerance={"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
-         sweep=errors, timed=list(timings.values()),
+         sweep=errors, repeat="bit-identical", timed=list(timings.values()),
          library="none: no single PyTorch call computes the fused field")
     return max(e["max_abs_err"] for e in errors), timings
 
@@ -333,7 +387,7 @@ def phase_kernel_bwd(pk):
     plain forward) over the forward's sweep, each group within
     BWD_RTOL |want| + BWD_ATOL_REL max|want|; a repeat call gives the same
     bits; CUDA-event times at the two training shapes, with each of the
-    kernel's launches' device time per call (profiler, 20 calls)."""
+    kernel's launches' device time (profiler, 20 calls)."""
     from online_neural_cdes_tpu_torch.ops import kernels
 
     gen = torch.Generator().manual_seed(2)
@@ -383,14 +437,9 @@ def phase_kernel_bwd(pk):
                 Hd, I)
         kernel_us = device_us(lambda: kernels._backward_kernel(*args), reps=100)
         plain_us = device_us(lambda: kernels._backward_reference(*args), reps=20)
-        calls = 20
-        top = profile_call(lambda: [kernels._backward_kernel(*args)
-                                    for _ in range(calls)])["top"]
         timings[shape] = {"shape": list(shape), "kernel_us": kernel_us,
                           "plain_us": plain_us, **bounds(*field_bwd_cost(*shape), pk),
-                          "per_launch": [{"name": t["name"], "per_call": t["count"] / calls,
-                                          "us_per_call": t["ms"] * 1e3 / calls}
-                                         for t in top]}
+                          "per_launch": per_launch(lambda: kernels._backward_kernel(*args))}
     emit("kernel_bwd", tolerance={"rtol": BWD_RTOL, "atol_per_max": BWD_ATOL_REL},
          sweep=errors, repeat="bit-identical", timed=list(timings.values()),
          library="none: no single PyTorch call computes the fused field's VJP")
@@ -548,12 +597,13 @@ def phase_predictor():
     pred_cpu = Predictor(model_cpu, coeff_fn=coeff_fn, batch_buckets=(1, 64),
                          length_multiple=LENGTH_MULTIPLE, device="cpu")
     outs_cpu = pred_cpu.predict(requests, static=static)
-    err = 0.0
+    err = share = 0.0
     for r, g, c in zip(requests, outs, outs_cpu):
         if g.shape != (len(r), 1) or not np.isfinite(g).all():
             raise AssertionError(f"predictor output shape {g.shape} or non-finite")
         np.testing.assert_allclose(g, c, rtol=SERVE_RTOL, atol=SERVE_ATOL)
         err = max(err, float(np.abs(g - c).max()))
+        share = max(share, gate_share(g, c, SERVE_RTOL, SERVE_ATOL))
 
     lat = []
     for _ in range(20):
@@ -569,7 +619,8 @@ def phase_predictor():
     emit("predictor", warmed_shapes=warmed, padded_length=padded_len,
          intervals=intervals, kernel_launches=launches["forward"],
          backward_launches=launches["backward"], expected_launches=expected,
-         vs_cpu={"max_abs_err": err, "rtol": SERVE_RTOL, "atol": SERVE_ATOL},
+         vs_cpu={"max_abs_err": err, "gate_share": share, "rtol": SERVE_RTOL,
+                 "atol": SERVE_ATOL},
          predict_ms=percentiles(lat), predict_many_ms_per_batch=many_ms)
     emit("profile", **profile_call(lambda: pred.predict(requests, static=static)))
     return model, requests, static, outs, launches
@@ -631,10 +682,11 @@ def phase_stepper(model, requests, static, outs):
         raise AssertionError(f"stepper launched {launches} kernels, expected "
                              f"{8 * (MAX_LEN - 1)}")
     rows = torch.stack(rows, dim=1).cpu().numpy()          # (64, 100, 1)
-    err = 0.0
+    err = share = 0.0
     for i, (r, o) in enumerate(zip(requests, outs)):
         np.testing.assert_allclose(rows[i, :len(r)], o, rtol=STEP_RTOL, atol=STEP_ATOL)
         err = max(err, float(np.abs(rows[i, :len(r)] - o).max()))
+        share = max(share, gate_share(rows[i, :len(r)], o, STEP_RTOL, STEP_ATOL))
 
     block = np.ascontiguousarray(np.swapaxes(x[:, 1:65], 0, 1))  # (64, B, C)
     start = stepper.init(x[:, 0])
@@ -652,7 +704,8 @@ def phase_stepper(model, requests, static, outs):
     np.testing.assert_allclose(ys.cpu().numpy().swapaxes(0, 1), rows[:, 1:65],
                                rtol=STEP_RTOL, atol=STEP_ATOL)
     emit("stepper", streams=N_REQUESTS, ticks=MAX_LEN - 1, kernel_launches=launches,
-         vs_predictor={"max_abs_err": err, "rtol": STEP_RTOL, "atol": STEP_ATOL},
+         vs_predictor={"max_abs_err": err, "gate_share": share, "rtol": STEP_RTOL,
+                       "atol": STEP_ATOL},
          tick_ms=percentiles(ticks), step_many_64_ms=many_ms,
          sequential_64_steps_ms=seq_ms)
 
@@ -703,15 +756,16 @@ def phase_train():
     got = slice_grads(model, inputs, labels, GRAD_ROWS)
     want = slice_grads(model_cpu, tuple(t.cpu() for t in inputs), labels.cpu(),
                        GRAD_ROWS)
-    grad_err = {}
+    grad_err, grad_share = {}, 0.0
     for name, w in want.items():
         g = got[name].cpu()
         if not torch.isfinite(g).all():
             raise AssertionError(f"card gradient of {name} is not finite")
-        torch.testing.assert_close(g, w, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL_REL * float(w.abs().max()),
+        atol = GRAD_ATOL_REL * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=atol,
                                    msg=lambda m: f"gradient of {name}: {m}")
         grad_err[name] = float((g - w).abs().max() / w.abs().max())
+        grad_share = max(grad_share, gate_share(g, w, GRAD_RTOL, atol))
 
     step = make_train_step(model, loss="bce", lr=TRAIN_LR)
     loss, launches = counted(lambda: step(inputs, labels, 1.0))   # the main path
@@ -736,7 +790,8 @@ def phase_train():
     emit("train", batch=TRAIN_B, knots=2 * TRAIN_L - 1, intervals=intervals,
          kernel_launches=launches, expected_launches=expected,
          grads_vs_cpu={"rows": GRAD_ROWS, "max_err_per_max": max(grad_err.values()),
-                       "rtol": GRAD_RTOL, "atol_per_max": GRAD_ATOL_REL},
+                       "gate_share": grad_share, "rtol": GRAD_RTOL,
+                       "atol_per_max": GRAD_ATOL_REL},
          losses=[float(v) for v in losses], train_step_ms=percentiles(step_ms),
          peak_memory_mb=peak_mb, profile=profile)
     return launches
@@ -812,6 +867,8 @@ def phase_chains():
          parity=inter["parity"], launches=launches,
          model_chain={"intervals": got.shape[-2] - 1,
                       "max_abs_err": float((got - want).abs().max()),
+                      "gate_share": gate_share(got.cpu(), want.cpu(), CHAIN_RTOL,
+                                               CHAIN_ATOL_REL * scale),
                       "max_abs_state": scale, "rtol": CHAIN_RTOL,
                       "atol_per_max": CHAIN_ATOL_REL})
     return launches
@@ -874,12 +931,13 @@ def phase_splines():
     outs_cpu = Predictor(model_cpu, coeff_fn=hermite, batch_buckets=(1, 64),
                          length_multiple=LENGTH_MULTIPLE, device="cpu").predict(
                              requests, static=static)
-    serve_err = 0.0
+    serve_err = serve_share = 0.0
     for r, g, c in zip(requests, outs, outs_cpu):
         if g.shape != (len(r), 1) or not np.isfinite(g).all():
             raise AssertionError(f"Hermite predictor output shape {g.shape} or non-finite")
         np.testing.assert_allclose(g, c, rtol=SERVE_RTOL, atol=SERVE_ATOL)
         serve_err = max(serve_err, float(np.abs(g - c).max()))
+        serve_share = max(serve_share, gate_share(g, c, SERVE_RTOL, SERVE_ATOL))
     lat = []
     for _ in range(20):
         t0 = time.perf_counter()
@@ -919,8 +977,8 @@ def phase_splines():
     emit("splines", coefficients=coeff_err,
          coeff_tolerance={"rtol": SPLINE_RTOL, "atol_per_max": SPLINE_ATOL_REL},
          hermite_predict={"intervals": intervals, "kernel_launches": serve,
-                          "vs_cpu": {"max_abs_err": serve_err, "rtol": SERVE_RTOL,
-                                     "atol": SERVE_ATOL},
+                          "vs_cpu": {"max_abs_err": serve_err, "gate_share": serve_share,
+                                     "rtol": SERVE_RTOL, "atol": SERVE_ATOL},
                           "predict_ms": percentiles(lat)},
          hermite_train={"batch": TRAIN_B, "intervals": train_intervals,
                         "kernel_launches": train,

@@ -9,7 +9,9 @@ PyTorch counterpart of ``fused_matmul_field`` in the JAX package's
 
 On a CUDA tensor :func:`fused_matmul_field` launches the hand-written
 Hopper kernel ``csrc/fused_field.cu`` (the port of the TPU kernel
-``_forward_pallas``); on a CPU tensor it runs the plain version
+``_forward_pallas``: the trunk pass of ``csrc/trunk_mma.cuh`` and a head
+kernel, both on the tensor cores in 3xTF32, for H and HH up to 256; one
+CUDA-core kernel above that); on a CPU tensor it runs the plain version
 :func:`_forward_reference`, line for line the JAX package's
 ``_forward_reference``.  The choice follows the tensor's device only:
 nothing falls back from the kernel to the plain version.
@@ -50,22 +52,23 @@ __all__ = ["fused_matmul_field", "pack_fused_params", "fused_rk4_interval",
 
 MAX_TRUNK = 4
 
-# The Hopper kernel's launcher; ``fused_field_kernel.launches`` counts its
-# launches.
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+
+# The forward kernel's launcher (one count per call of its C entry point,
+# which runs two launches in stream order, or one for H or HH above 256).
 fused_field_kernel = CudaKernel(
     "fused_field.cu",
     "oncde_fused_field_forward",
-    [ctypes.c_void_p, ctypes.c_void_p,                  # z, dx
-     ctypes.POINTER(ctypes.c_void_p),                   # trunk weights
-     ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,     # trunk biases, n
+    [ctypes.c_void_p, ctypes.c_void_p,                   # z, dx
+     _PTRS, _PTRS, ctypes.c_int,                         # trunk w, b, n
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # head_w, head_b, out
+     ctypes.c_void_p, ctypes.c_longlong,                 # scratch, its floats
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, HH, I
-     ctypes.c_void_p],                                  # stream
+     ctypes.c_void_p],                                   # stream
 )
 
 # The backward kernel's launcher (one count per call of its C entry point,
 # which runs four launches in stream order).
-_PTRS = ctypes.POINTER(ctypes.c_void_p)
 fused_field_bwd_kernel = CudaKernel(
     "fused_field_bwd.cu",
     "oncde_fused_field_backward",
@@ -170,21 +173,33 @@ def _unflat_trunk(trunk_flat):
             for i in range(0, len(trunk_flat), 2)]
 
 
+@functools.lru_cache(maxsize=64)
+def _forward_scratch_floats(batch, hidden_dim, hh, input_dim, n_trunk) -> int:
+    """Floats of scratch the forward kernel needs at this shape (u_n on the
+    tensor-core path; 0 for H or HH above 256), as the library computes
+    it."""
+    fn = fused_field_kernel.helper("oncde_fused_field_forward_scratch",
+                                   [ctypes.c_int] * 5, ctypes.c_longlong)
+    return int(fn(batch, hidden_dim, hh, input_dim, n_trunk))
+
+
 def _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
     """Launch ``csrc/fused_field.cu`` on the current stream; raises on
     anything the kernel does not take (:func:`_check_operands`)."""
     _check_operands("fused field kernel",
                     _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
                                      input_dim), z.device, len(trunk))
-    batch = z.shape[0]
+    batch, hh = z.shape[0], head_w.shape[0]
     out = torch.empty((batch, hidden_dim), dtype=z.dtype, device=z.device)
     if batch == 0:
         return out
+    n_scratch = _forward_scratch_floats(batch, hidden_dim, hh, input_dim, len(trunk))
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=z.device)
     fused_field_kernel(
         z.data_ptr(), dx.data_ptr(), _pointers(l["w"] for l in trunk),
         _pointers(l["b"] for l in trunk), len(trunk),
         head_w.data_ptr(), head_b.data_ptr(), out.data_ptr(),
-        batch, hidden_dim, head_w.shape[0], input_dim,
+        scratch.data_ptr(), n_scratch, batch, hidden_dim, hh, input_dim,
         torch.cuda.current_stream().cuda_stream,
     )
     return out

@@ -1,19 +1,26 @@
-"""The backward kernel's precision scheme, rehearsed on the CPU.
+"""The fused field kernels' precision scheme, rehearsed on the CPU.
 
 ``csrc/fused_field_bwd.cu`` runs every product of the fused field's VJP on
-the tensor cores in 3xTF32: each f32 operand x is split into a TF32 "big"
-part (x rounded to nearest, ties away from zero, as ``cvt.rna.tf32.f32``
-rounds) and a TF32 "small" part (x - big, rounded the same way), and a
-product accumulates big*big + big*small + small*big.  This file emulates
-that arithmetic in numpy (operands rounded as the kernel rounds them, sums
-in float64) for the backward's three head products and its trunk products
-at the flagship training shapes, and holds the result against
-``kernels._backward_reference`` in float64 with the kernel's gate on the
-card: per cotangent group, |err| <= 1e-4 |want| + 1e-5 max|want|.
+the tensor cores in 3xTF32, and ``csrc/fused_field.cu`` every product of
+the forward (for H and HH up to 256): each f32 operand x is split into a
+TF32 "big" part (x rounded to nearest, ties away from zero, as
+``cvt.rna.tf32.f32`` rounds) and a TF32 "small" part (x - big, rounded the
+same way), and a product accumulates big*big + big*small + small*big.  This
+file emulates that arithmetic in numpy (operands rounded as the kernel
+rounds them, sums in float64):
 
-3xTF32 meets that gate; a single TF32 pass (big*big alone) does not.  The
-second case is the reason the kernel splits: it documents, before any chip
-time, that one pass of the tensor cores is not an f32 product.
+- the backward's three head products and its trunk products at the
+  flagship training shapes, held against ``kernels._backward_reference``
+  in float64 with the kernel's gate on the card: per cotangent group,
+  |err| <= 1e-4 |want| + 1e-5 max|want|;
+- the forward's trunk and head products, with tanh, the bias and the dX
+  sum in float32 and the channel groups summed in the kernel's order, held
+  against ``kernels._forward_reference`` in float64 with the forward's
+  gate on the card, |err| <= 1e-4 |want| + 1e-5 (absolute).
+
+3xTF32 meets those gates; a single TF32 pass (big*big alone) does not.
+The one-pass cases are the reason the kernels split: they document, before
+any chip time, that one pass of the tensor cores is not an f32 product.
 """
 
 import numpy as np
@@ -25,9 +32,17 @@ from online_neural_cdes_tpu_torch.ops import kernels
 torch.set_num_threads(1)
 
 RTOL, ATOL_PER_MAX = 1e-4, 1e-5   # chip_smoke.py's BWD_RTOL, BWD_ATOL_REL
+FWD_RTOL, FWD_ATOL = 1e-4, 1e-5   # chip_smoke.py's KERNEL_RTOL, KERNEL_ATOL
 # (B, H, HH, I, n_trunk): the flagship step's value pieces and the
 # time-channel slice at a smaller batch.
 SHAPES = [(512, 128, 128, 21, 2), (64, 128, 128, 1, 2)]
+# The forward's: those two and a ragged one (H and HH not multiples of 8,
+# five single-channel groups summed across a cluster).
+FWD_SHAPES = SHAPES + [(17, 42, 37, 5, 1)]
+# head_forward's grid (csrc/fused_field.cu::head_forward_grid): kTargetBlocks
+# SMs, channel groups for kWaveBlocks blocks, at most kMaxGroups of them (a
+# portable cluster).
+TARGET_BLOCKS, WAVE_BLOCKS, MAX_GROUPS, STRIP = 132, 99, 8, 64
 
 
 def tf32(x):
@@ -75,6 +90,56 @@ def backward_emulated(mm, trunk, head_w, head_b, z, dx, g, n_in):
         dtrunk[l] = {"w": mm(us[l].T.copy(), dv), "b": dv.astype(np.float64).sum(0)}
         du = mm(dv, trunk[l]["w"].T.copy())
     return dtrunk, dhw, dhb, du, ddx
+
+
+def channels_per_group(batch, hidden, n_in):
+    """head_forward_grid's channels a group: the largest row tile (16, 32
+    or 64 rows) whose blocks still give half the SMs a block, then as many
+    channel groups as three quarters of one wave hold.  (Its shared-memory
+    check never binds at these widths.)"""
+    hstrips = -(-hidden // STRIP)
+    most = min(n_in, MAX_GROUPS)
+    rows = 16
+    for r in (32, 64):
+        if -(-batch // r) * hstrips * most >= TARGET_BLOCKS // 2:
+            rows = r
+    groups = min(max(WAVE_BLOCKS // (-(-batch // rows) * hstrips), 1), most)
+    return -(-n_in // groups)
+
+
+def forward_emulated(mm, trunk, head_w, head_b, z, dx, n_in):
+    """The forward kernel with every product through ``mm`` and tanh, the
+    bias and the dX sum in float32, in the kernel's order: within a channel
+    group, out = fma(tanh(pre_i + b_i), dX_i, out) over its channels in
+    order; then the groups' partials summed in group order from 0."""
+    u = z
+    for layer in trunk:
+        u = np.maximum(mm(u, layer["w"]) + layer["b"], 0).astype(np.float32)
+    batch, hidden = z.shape
+    a = np.tanh(mm(u, head_w) + head_b).astype(np.float32).reshape(batch, n_in, hidden)
+    cpg = channels_per_group(batch, hidden, n_in)
+    out = np.zeros((batch, hidden), np.float32)
+    for i0 in range(0, n_in, cpg):
+        part = np.zeros((batch, hidden), np.float32)
+        for i in range(i0, min(n_in, i0 + cpg)):
+            # fmaf: one rounding of a * dX + part
+            part = (a[:, i].astype(np.float64) * dx[:, i:i + 1] + part).astype(np.float32)
+        out = (out + part).astype(np.float32)
+    return out
+
+
+def forward_gate_ratio(mm, shape):
+    """max err / gate of the emulated forward against the plain forward in
+    float64."""
+    batch, hidden, hh, n_in, n_trunk = shape
+    trunk, head_w, head_b, z, dx, _ = inputs(shape)
+    got = forward_emulated(mm, trunk, head_w, head_b, z, dx, n_in)
+    t64 = lambda x: torch.from_numpy(x).double()
+    want = kernels._forward_reference(
+        [{k: t64(v) for k, v in layer.items()} for layer in trunk], t64(head_w),
+        t64(head_b), t64(z), t64(dx), hidden, n_in).numpy()
+    err = np.abs(got.astype(np.float64) - want)
+    return float((err / (FWD_RTOL * np.abs(want) + FWD_ATOL)).max())
 
 
 def inputs(shape, seed=0):
@@ -143,3 +208,24 @@ def test_3xtf32_meets_the_backward_gate(shape):
 def test_one_tf32_pass_misses_the_backward_gate(shape):
     ratios = gate_ratios(mm_1xtf32, shape)
     assert max(ratios.values()) > 10.0, ratios
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_3xtf32_meets_the_forward_gate(shape):
+    ratio = forward_gate_ratio(mm_3xtf32, shape)
+    assert ratio < 1.0, ratio
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_one_tf32_pass_misses_the_forward_gate(shape):
+    ratio = forward_gate_ratio(mm_1xtf32, shape)
+    assert ratio > 10.0, ratio
+
+
+def test_forward_channel_groups_follow_the_kernels_grid():
+    """The grids the kernel's design note states: 6 groups of 4 channels
+    at B=512, I=21 (64-row tiles), one group at I=1 (16-row tiles)."""
+    assert channels_per_group(512, 128, 21) == 4
+    assert channels_per_group(512, 128, 1) == 1
+    assert channels_per_group(64, 128, 21) == 3
+    assert channels_per_group(17, 42, 5) == 1
