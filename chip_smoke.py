@@ -22,6 +22,12 @@ controls, and prints one JSON line per phase:
                 groups over the sweep, identical bits on a repeat call, a
                 width its tiles cannot hold refused without a launch, and
                 each of its launches' device time at the training shapes.
+                Both field kernels also run the sweep in bf16 storage and
+                under precision "bfloat16" (each held to one bf16 ulp of
+                the plain version in the same mode, and in the rounded
+                modes that gate shown to refuse the kernel's "float32"
+                instantiation), are timed in bf16, and print a sha256
+                digest of their f32 outputs at a fixed seed.
 5. kernel_rk4 -- the whole-interval RK4 kernel against its plain version
                 over the sweep, its K-replica form (K = 1..4) bit for bit
                 against K single launches, a width beyond its limit refused
@@ -50,6 +56,19 @@ controls, and prints one JSON line per phase:
                 natural cubic schemes, trained on the card and on the CPU
                 from the same weights and data: the loss curves agree and
                 the last-time train accuracy rises.
+12. train_bf16 -- one flagship step with ``compute_dtype="bfloat16"``: launch
+                counts, the card's bf16 gradients against the CPU's on 16
+                rows (on their first 10 observations, each parameter's
+                held to half the CPU's own bf16-vs-f32 distance), the
+                first loss against the f32 one, 10 more
+                steps with a falling loss, step times, profile and peak
+                memory beside the f32 step's.
+13. predict_bf16 -- one ``predict`` of a bf16 flagship model: launch counts,
+                and the card's outputs against the CPU's, held to the CPU's
+                own bf16-vs-f32 distance.
+14. bench_bf16_leg -- the JAX package's bf16 parity leg (bench.py): the
+                flagship field in bf16 storage under precision "bfloat16",
+                forward and gradient, the card against the CPU.
 
 Then a line with every kernel's numbers, a line with the run's seconds, a
 line with the card's name and power limit as ``nvidia-smi`` gives them,
@@ -62,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import importlib.util
 import json
 import os
@@ -69,6 +89,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -145,6 +166,69 @@ SMOOTH_EPS = 0.5
 TOY_PATHS, TOY_BATCH, TOY_EPOCHS = 4096, 1024, 20
 TOY_RTOL, TOY_ATOL = 1e-3, 1e-4
 TOY_SCHEMES = ("rectilinear", "cubic_hermite", "cubic")
+# bf16 operands, each (storage dtype, precision) held against the plain
+# version run on the card in the same mode: bf16 storage with products of
+# the operands as stored (the compute_dtype="bfloat16" path) or rounded to
+# bf16 (the JAX op's precision="bfloat16"), and f32 storage rounded.  The
+# first two are timed.
+BF16_MODES = ((torch.bfloat16, "float32"), (torch.bfloat16, "bfloat16"),
+              (torch.float32, "bfloat16"))
+BF16_TIMED = BF16_MODES[:2]
+# One bf16 ulp: the card and the plain version sum in other orders, so a
+# result near a rounding boundary may land on the neighbouring bf16 value;
+# |err| <= 2^-7 |want| + 1e-5 max|want| admits that and nothing larger.
+# Under precision "bfloat16" every product's operands are rounded too, and
+# an operand that lands on its neighbour moves every sum downstream by an
+# ulp of its terms, which cancellation can leave large against the sum: the
+# absolute part is then one ulp of the group's largest value, 2^-8
+# max|want|.  In f32 storage under "bfloat16" the forward's output is not
+# rounded at all: it is an f32 sum of products of rounded operands, and its
+# gate is 8x tighter, 2^-10 |want| + 2^-11 max|want|.  In that mode the
+# backward's dz and weight grads are cotangents of rounded operands, bf16
+# values stored in f32, and must be bf16 values to the bit.  In bf16
+# storage, of every group of at least 1,000 elements, 99% are equal to the
+# bit; under "bfloat16", where such neighbours reach every sum downstream
+# (a weight grad sums 512 rows, most columns hold one), 80% of every group
+# of at least 100.  Each rounded mode's gate must refuse the kernel's
+# "float32" instantiation (the operands left unrounded) at every sweep
+# shape; the tight gate and the 80% lie between that control's readings and
+# the kernel's (PERF.md).
+BF16_RTOL, BF16_ATOL_REL, BF16_ROUNDED_ATOL_REL = 2.0 ** -7, 1e-5, 2.0 ** -8
+BF16_F32_OUT_RTOL, BF16_F32_OUT_ATOL_REL = 2.0 ** -10, 2.0 ** -11
+BF16_MIN_EQUAL, BF16_EQUAL_MIN_SIZE = 0.99, 1000
+BF16_MIN_EQUAL_ROUNDED, BF16_EQUAL_MIN_SIZE_ROUNDED = 0.80, 100
+BF16_TOLERANCE = {"rtol": BF16_RTOL, "atol_per_max": BF16_ATOL_REL,
+                  "atol_per_max_rounded": BF16_ROUNDED_ATOL_REL,
+                  "f32_storage_rounded_output": {"rtol": BF16_F32_OUT_RTOL,
+                                                 "atol_per_max": BF16_F32_OUT_ATOL_REL},
+                  "min_bit_equal": BF16_MIN_EQUAL, "min_size": BF16_EQUAL_MIN_SIZE,
+                  "min_bit_equal_rounded": BF16_MIN_EQUAL_ROUNDED,
+                  "min_size_rounded": BF16_EQUAL_MIN_SIZE_ROUNDED}
+# The training step's two shapes: the bf16 times and the f32 digests.
+TRAIN_SHAPES = [(512, 128, 128, 21, 2), (512, 128, 128, 1, 2)]
+# bench.py's bf16 parity leg: B=512, H=128, I=21, two trunk layers, bf16
+# storage under precision "bfloat16"; max|card - cpu| <= tol max|cpu| + 1e-5.
+LEG_B, LEG_H, LEG_I, LEG_TOL = 512, 128, 21, 3e-2
+# A bf16 step, card against CPU on GRAD_ROWS rows.  A bf16 rounding that
+# the card and the CPU settle the other way (their f32 sums differ in the
+# last bits) changes one element by a whole bf16 ulp, and the solve carries
+# it on, so a kernel that is right moves single gradient entries by a large
+# share of the CPU's own bf16-vs-f32 distance, more the longer the series.
+# So the gate is on the first GRAD_BF16_L observations and, for each
+# parameter tensor, on ||card - cpu_bf16|| / ||cpu_bf16 - cpu_f32||
+# (Frobenius): a kernel that rounds where the plain version does not moves
+# every entry of the tensors it reaches and reads near 1.  Beside it, the
+# same shares of the CPU's plain version with every product jittered by
+# BF16_JITTER (relative; about the f32 round-off that separates the card's
+# products from the CPU's) in place of the card: the yardstick the limit
+# was set against (PERF.md).
+GRAD_BF16_RATIO, GRAD_BF16_L, BF16_JITTER = 0.5, 10, 1e-7
+# The first bf16 loss against the f32 one (the JAX package's bound,
+# tests/test_cdeint.py).
+LOSS_BF16_TOL = 0.06
+# A bf16 predict, card against CPU over 222 intervals: at most this share of
+# the CPU's own bf16-vs-f32 distance (same weights), for the same reason.
+PREDICT_BF16_RATIO = 1.0
 
 
 def emit(phase: str, **fields):
@@ -159,31 +243,70 @@ def card_line() -> str:
 
 
 def peaks(name: str):
-    """(f32 CUDA-core FLOP/s, dense TF32 tensor-core FLOP/s, HBM bytes/s)
-    from NVIDIA's data sheets."""
+    """(f32 CUDA-core FLOP/s, dense TF32 tensor-core FLOP/s, HBM bytes/s,
+    dense bf16 tensor-core FLOP/s) from NVIDIA's data sheets."""
     if "PCIe" in name:
-        return 51e12, 378e12, 2.0e12
-    return 67e12, 495e12, 3.35e12  # SXM
+        return 51e12, 378e12, 2.0e12, 756e12
+    return 67e12, 495e12, 3.35e12, 989e12  # SXM
 
 
-def field_cost(B, Hd, HHd, I, n):
+def field_cost(B, Hd, HHd, I, n, elem=4):
     """Operations and the least bytes moved (each input read once, the
-    output written once) of one fused-field call, f32."""
+    output written once) of one fused-field call, ``elem`` bytes an
+    element (4: f32)."""
     weights = Hd * HHd + (n - 1) * HHd * HHd + n * HHd + HHd * I * Hd + I * Hd
     flops = 2 * B * (Hd * HHd + (n - 1) * HHd * HHd + HHd * I * Hd + I * Hd)
-    nbytes = 4 * (B * Hd + B * I + weights + B * Hd)
+    nbytes = elem * (B * Hd + B * I + weights + B * Hd)
     return flops, nbytes
 
 
-def field_bwd_cost(B, Hd, HHd, I, n):
+def field_bwd_cost(B, Hd, HHd, I, n, elem=4):
     """Operations (forward recompute, weight grads and input grads of every
     product) and the least bytes (inputs z, dX, g and the weights read
     once; dz, ddX and the weight grads written once) of one backward call,
-    f32."""
+    ``elem`` bytes an element (4: f32)."""
     weights = Hd * HHd + (n - 1) * HHd * HHd + n * HHd + HHd * I * Hd + I * Hd
     flops = 3 * 2 * B * (Hd * HHd + (n - 1) * HHd * HHd + HHd * I * Hd)
-    nbytes = 4 * (2 * B * Hd + B * I + weights + B * Hd + B * I + weights)
+    nbytes = elem * (2 * B * Hd + B * I + weights + B * Hd + B * I + weights)
     return flops, nbytes
+
+
+def mode_products(kind, B, Hd, HHd, I, n, dtype, precision):
+    """(operations, a is bf16, b is bf16) of each product group of one call
+    of the forward or backward kernel in a (storage, precision) mode, an
+    operand being bf16 where the reference holds it in bf16: z, dX and the
+    weights in bf16 storage; every product's operands under "bfloat16"
+    (in the backward, the cotangents of rounded operands too); the
+    activations, dpre and the dX sum's tanh stay f32 otherwise."""
+    rnd, stored = precision == "bfloat16", dtype == torch.bfloat16
+    w16 = rnd or stored
+    first = 2 * B * Hd * HHd                     # layer 1: z W_1
+    rest = 2 * B * (n - 1) * HHd * HHd           # later layers: u W_l
+    head = 2 * B * HHd * I * Hd                  # u_n W_o
+    fwd = [(first, w16, w16), (rest, rnd, w16), (head, rnd, w16)]
+    if kind == "forward":
+        return fwd + [(2 * B * I * Hd, False, stored)]   # the dX sum
+    return fwd + [(head, False, w16),                   # du_n = dpre W_o^T
+                  (first + rest, rnd, w16),             # du_{l-1} = dv_l W_l^T
+                  (first, w16, False),                  # dW_1 = z^T dpre_1
+                  (rest + head, rnd, False)]            # dW_l = u^T dpre_l, dW_o
+
+
+def mode_bounds(products, nbytes, pk):
+    """``bounds`` for a mode: a product of two bf16 operands at the dense
+    bf16 tensor-core rate in both; any other on the f32 CUDA cores in
+    ``bound_us`` and, in ``bound_tc_us``, in the TF32 passes that its
+    operand types need on the tensor cores (three, two with one bf16
+    operand); bytes at the HBM rate in both."""
+    peak_f32, peak_tf32, peak_bytes, peak_bf16 = pk
+    pair = sum(f for f, a, b in products if a and b) / peak_bf16
+    rest = [(f, 3 - int(a) - int(b)) for f, a, b in products if not (a and b)]
+    t_ops = pair + sum(f for f, _ in rest) / peak_f32
+    t_tc = pair + sum(f * p for f, p in rest) / peak_tf32
+    t_bytes = nbytes / peak_bytes
+    return {"bound_us": max(t_ops, t_bytes) * 1e6,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_tc_us": max(t_tc, t_bytes) * 1e6}
 
 
 def rk4_cost(B, Hd, HHd, I, n, K=1):
@@ -204,7 +327,7 @@ def bounds(flops, nbytes, pk):
     """A timed entry's bounds from ``pk = peaks(...)``: ``bound_us`` on the
     f32 CUDA cores and ``bound_tc_us`` on the tensor cores in 3xTF32 (three
     TF32 passes per f32 product), each the larger of operations and bytes."""
-    peak_f32, peak_tf32, peak_bytes = pk
+    peak_f32, peak_tf32, peak_bytes, _ = pk
     bound_us, bound_by = bound(flops, nbytes, peak_f32, peak_bytes)
     return {"bound_us": bound_us, "bound_by": bound_by,
             "bound_tc_us": bound(flops, nbytes, peak_tf32 / 3, peak_bytes)[0]}
@@ -274,6 +397,111 @@ def per_launch(fn, calls=20):
              "us_per_launch": t["ms"] * 1e3 / t["count"]} for t in top]
 
 
+def mode_name(dtype, precision):
+    return f"{str(dtype).removeprefix('torch.')}/{precision}"
+
+
+def cast_field(field, dtype):
+    trunk, head_w, head_b, z, dx = field
+    return ([{k: v.to(dtype) for k, v in layer.items()} for layer in trunk],
+            head_w.to(dtype), head_b.to(dtype), z.to(dtype), dx.to(dtype))
+
+
+def rounded_group(name):
+    """Whether a backward group is the cotangent of a rounded operand under
+    precision "bfloat16": dz, dW_o and every trunk dW."""
+    return name in ("dz", "dhead_w") or name.endswith(".w")
+
+
+def bf16_readings(got, want, precision, f32_out=False, exact=False):
+    """One result against the plain version in a bf16 mode: the largest
+    error, the share of its gate it uses, the share of the elements within
+    one ulp of their own value (BF16_ATOL_REL), the share equal to the bit,
+    and ``failed``, what of the gate it fails.  The gate: |got - want| <=
+    BF16_RTOL |want| + atol max|want| (atol BF16_ATOL_REL, or
+    BF16_ROUNDED_ATOL_REL under "bfloat16"; ``f32_out``, the f32-storage
+    forward under "bfloat16", BF16_F32_OUT_*); in bf16 storage the share
+    equal to the bit (BF16_MIN_EQUAL* of groups of BF16_EQUAL_MIN_SIZE* or
+    more); with ``exact``, every value a bf16 value."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
+        return {"failed": [f"shape {tuple(got.shape)}, dtype {got.dtype} (want "
+                           f"{tuple(want.shape)}, {want.dtype}) or non-finite values"]}
+    g, w = got.double(), want.double()
+    err, scale = (g - w).abs(), float(w.abs().max())
+    rounded = precision == "bfloat16"
+    rtol, atol = ((BF16_F32_OUT_RTOL, BF16_F32_OUT_ATOL_REL) if f32_out else
+                  (BF16_RTOL, BF16_ROUNDED_ATOL_REL if rounded else BF16_ATOL_REL))
+    share = float((err / (atol * scale + rtol * w.abs()).clamp_min(1e-300)).max())
+    equal = float((got == want).double().mean())
+    floor, size = ((BF16_MIN_EQUAL_ROUNDED, BF16_EQUAL_MIN_SIZE_ROUNDED) if rounded
+                   else (BF16_MIN_EQUAL, BF16_EQUAL_MIN_SIZE))
+    failed = []
+    if not share <= 1.0:
+        failed.append(f"max |err| {float(err.max())} is past its gate (share {share})")
+    if got.dtype == torch.bfloat16 and got.numel() >= size and not equal >= floor:
+        failed.append(f"only {equal} of the elements equal to the bit")
+    if exact and not torch.equal(got, got.to(torch.bfloat16).to(got.dtype)):
+        failed.append("not bf16 values")
+    within = float((err <= BF16_ATOL_REL * scale + BF16_RTOL * w.abs()).double().mean())
+    return {"max_abs_err": float(err.max()), "gate_share": share, "one_ulp_share": within,
+            "bit_equal_share": equal, "failed": failed}
+
+
+def ulp_gate(what, got, want, precision, **kw):
+    """Raise unless ``got`` passes its bf16 gate (:func:`bf16_readings`);
+    returns the readings."""
+    readings = bf16_readings(got, want, precision, **kw)
+    failed = readings.pop("failed")
+    if failed:
+        raise AssertionError(f"{what}: {'; '.join(failed)}")
+    return readings
+
+
+def control_summary(mode, shape, readings):
+    """A control case: whether the gate refused it, and its readings (the
+    largest gate share, the least share equal to the bit, what failed)."""
+    failed = [f"{name}: {f}" for name, r in readings.items() for f in r["failed"]]
+    return {"mode": mode, "shape": list(shape), "refused": bool(failed),
+            "gate_share": max(r.get("gate_share", float("inf")) for r in readings.values()),
+            "bit_equal_share": min(r.get("bit_equal_share", 0.0) for r in readings.values()),
+            "failed": failed[:3]}
+
+
+def expect_refused(what, controls):
+    """Raise unless the gate refused every control case."""
+    passed = [(c["mode"], c["shape"]) for c in controls if not c["refused"]]
+    if passed:
+        raise AssertionError(f"{what}: the bf16 gate took the kernel's \"float32\" "
+                             f"instantiation in a rounded mode at {passed}")
+
+
+def f32_digests(kind):
+    """sha256 of the f32 field kernel's results at TRAIN_SHAPES from a fixed
+    seed: ``kind`` "forward" digests the output, "backward" the six
+    cotangent groups in order.  It calls only entry points that older trees
+    of the port share, so a run against one on the same card shows whether
+    the f32 bits moved."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    gen = torch.Generator().manual_seed(13)
+    digests = {}
+    for shape in TRAIN_SHAPES:
+        B, Hd, HHd, I, n = shape
+        trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
+        g = random_cotangent(gen, B, Hd, "cuda")
+        if kind == "forward":
+            with torch.inference_mode():
+                outs = [kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)]
+        else:
+            outs = [t for _, t in bwd_groups(kernels._backward(trunk, head_w, head_b, z, dx,
+                                                                g, Hd, I))]
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        digests["x".join(map(str, shape))] = h.hexdigest()
+    return digests
+
+
 def phase_env():
     from online_neural_cdes_tpu_torch.utils.cuda_build import nvcc_path
 
@@ -298,10 +526,17 @@ def phase_build():
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         libs = dict(zip(sources, pool.map(build_library, sources)))
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, lib in libs.items()}
-    emit("build", sources=sources, seconds=seconds, ptxas=ptxas)
+    ptxas, spills = {}, {}
+    for name, lib in libs.items():
+        lines = lib.with_suffix(".log").read_text().splitlines()
+        ptxas[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+        function = None
+        for ln in lines:
+            if "Function properties for" in ln:
+                function = ln.split("Function properties for")[-1].strip()
+            elif "spill stores" in ln and not ln.strip().startswith("0 bytes stack frame, 0 "):
+                spills.setdefault(name, []).append(f"{function}: {ln.strip()}")
+    emit("build", sources=sources, seconds=seconds, ptxas=ptxas, spills=spills)
 
 
 def forward_grid(B, Hd, HHd, I):
@@ -362,10 +597,52 @@ def phase_kernel(pk):
                 "shape": list(shape), "kernel_us": kernel_us, "plain_us": plain_us,
                 **bounds(*field_cost(*shape), pk), **forward_grid(B, Hd, HHd, I),
                 "per_launch": per_launch(call)}
+
+        # bf16: the sweep and the wide shape in every mode, against the plain
+        # version in the same mode, and in the rounded modes the control;
+        # times at the training shapes.
+        bf16_sweep, bf16_timed, controls = [], {}, []
+        for dtype, precision in BF16_MODES:
+            mode = mode_name(dtype, precision)
+            f32_out = dtype == torch.float32
+            for shape in SWEEP + FWD_WIDE:
+                B, Hd, HHd, I, n = shape
+                field = cast_field(random_field(gen, *shape, "cuda"), dtype)
+                args = (*field, Hd, I, precision)
+                got = kernels.fused_matmul_field(*args)
+                again = kernels.fused_matmul_field(*args)
+                want = kernels._forward_reference(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"kernel {mode} at {shape}: two calls on the same "
+                                         "inputs differ")
+                bf16_sweep.append({"mode": mode, "shape": list(shape),
+                                   **ulp_gate(f"kernel {mode} at {shape}", got, want,
+                                              precision, f32_out=f32_out)})
+                if precision == "bfloat16":
+                    control = kernels.fused_matmul_field(*field, Hd, I, "float32")
+                    controls.append(control_summary(mode, shape, {"out": bf16_readings(
+                        control, want, precision, f32_out=f32_out)}))
+        for dtype, precision in BF16_TIMED:
+            mode = mode_name(dtype, precision)
+            for shape in TRAIN_SHAPES:
+                B, Hd, HHd, I, n = shape
+                args = (*cast_field(random_field(gen, *shape, "cuda"), dtype), Hd, I, precision)
+                call = lambda: kernels.fused_matmul_field(*args)
+                bf16_timed[mode, shape] = {
+                    "mode": mode, "shape": list(shape), "kernel_us": device_us(call, reps=200),
+                    "plain_us": device_us(lambda: kernels._forward_reference(*args), reps=50),
+                    **mode_bounds(mode_products("forward", *shape, dtype, precision),
+                                  field_cost(*shape, elem=dtype.itemsize)[1], pk),
+                    "per_launch": per_launch(call)}
     emit("kernel", tolerance={"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
          sweep=errors, repeat="bit-identical", timed=list(timings.values()),
-         library="none: no single PyTorch call computes the fused field")
-    return max(e["max_abs_err"] for e in errors), timings
+         library="none: no single PyTorch call computes the fused field",
+         bf16={"tolerance": BF16_TOLERANCE, "sweep": bf16_sweep, "repeat": "bit-identical",
+               "control": controls, "timed": list(bf16_timed.values())},
+         f32_digest=f32_digests("forward"))
+    expect_refused("forward kernel", controls)
+    return max(e["max_abs_err"] for e in errors), timings, bf16_timed
 
 
 def random_cotangent(gen, B, Hd, device):
@@ -440,11 +717,64 @@ def phase_kernel_bwd(pk):
         timings[shape] = {"shape": list(shape), "kernel_us": kernel_us,
                           "plain_us": plain_us, **bounds(*field_bwd_cost(*shape), pk),
                           "per_launch": per_launch(lambda: kernels._backward_kernel(*args))}
+
+    # bf16: every group over the sweep in every mode, against autograd
+    # through the plain forward in the same mode, and in the rounded modes
+    # the control; times at the training shapes.
+    bf16_sweep, bf16_timed, controls = [], {}, []
+    for dtype, precision in BF16_MODES:
+        mode = mode_name(dtype, precision)
+        exact = precision == "bfloat16" and dtype == torch.float32
+        for shape in SWEEP:
+            B, Hd, HHd, I, n = shape
+            field = cast_field(random_field(gen, *shape, "cuda"), dtype)
+            cotangent = random_cotangent(gen, B, Hd, "cuda").to(dtype)
+            args = (*field, cotangent, Hd, I, precision)
+            got = kernels._backward(*args)
+            again = kernels._backward(*args)
+            want = kernels._backward_reference(*args)
+            torch.cuda.synchronize()
+            groups = {}
+            for (name, gt), (_, ag), (_, wt) in zip(bwd_groups(got), bwd_groups(again),
+                                                     bwd_groups(want)):
+                if not torch.equal(gt, ag):
+                    raise AssertionError(f"backward kernel {mode} at {shape}: {name} differs "
+                                         "between two calls on the same inputs")
+                groups[name] = ulp_gate(f"backward kernel {mode} at {shape}, {name}", gt, wt,
+                                        precision, exact=exact and rounded_group(name))
+            if precision == "bfloat16":
+                control = kernels._backward(*field, cotangent, Hd, I, "float32")
+                controls.append(control_summary(mode, shape, {
+                    name: bf16_readings(c, w, precision, exact=exact and rounded_group(name))
+                    for (name, c), (_, w) in zip(bwd_groups(control), bwd_groups(want))}))
+            worst = max(groups, key=lambda k: groups[k]["gate_share"])
+            bf16_sweep.append({
+                "mode": mode, "shape": list(shape), "worst_group": worst, **groups[worst],
+                "one_ulp_share": min(r["one_ulp_share"] for r in groups.values()),
+                "bit_equal_share": min(r["bit_equal_share"] for r in groups.values())})
+    for dtype, precision in BF16_TIMED:
+        mode = mode_name(dtype, precision)
+        for shape in TRAIN_SHAPES:
+            B, Hd, HHd, I, n = shape
+            field = cast_field(random_field(gen, *shape, "cuda"), dtype)
+            args = (*field, random_cotangent(gen, B, Hd, "cuda").to(dtype), Hd, I, precision)
+            call = lambda: kernels._backward_kernel(*args)
+            bf16_timed[mode, shape] = {
+                "mode": mode, "shape": list(shape), "kernel_us": device_us(call, reps=100),
+                "plain_us": device_us(lambda: kernels._backward_reference(*args), reps=8),
+                **mode_bounds(mode_products("backward", *shape, dtype, precision),
+                              field_bwd_cost(*shape, elem=dtype.itemsize)[1], pk),
+                "per_launch": per_launch(call)}
     emit("kernel_bwd", tolerance={"rtol": BWD_RTOL, "atol_per_max": BWD_ATOL_REL},
          sweep=errors, repeat="bit-identical", timed=list(timings.values()),
-         library="none: no single PyTorch call computes the fused field's VJP")
+         library="none: no single PyTorch call computes the fused field's VJP",
+         bf16={"tolerance": BF16_TOLERANCE, "sweep": bf16_sweep, "repeat": "bit-identical",
+               "exact_groups_f32_storage": "dz, dhead_w, dtrunk[*].w", "control": controls,
+               "timed": list(bf16_timed.values())},
+         f32_digest=f32_digests("backward"))
+    expect_refused("backward kernel", controls)
     max_err = max(e for entry in errors for e in entry["max_abs_err"].values())
-    return max_err, timings
+    return max_err, timings, bf16_timed
 
 
 def stacked_fields(gen, K, shape, device):
@@ -548,14 +878,14 @@ def phase_kernel_rk4(pk):
             max(e["max_abs_err"] for e in multi_errors), timings, multi_timings)
 
 
-def flagship_model(device, interpolation="rectilinear"):
+def flagship_model(device, interpolation="rectilinear", dtype=torch.float32):
     from online_neural_cdes_tpu_torch import NeuralCDE
 
     return NeuralCDE(
         input_dim=C, hidden_dim=H, output_dim=1, static_dim=STATIC,
         hidden_hidden_dim=HH, num_layers=N_LAYERS, interpolation=interpolation,
         solver="rk4", return_sequences=True,
-        generator=torch.Generator().manual_seed(0), device=device,
+        generator=torch.Generator().manual_seed(0), device=device, dtype=dtype,
     )
 
 
@@ -731,13 +1061,22 @@ def train_batch(device, seed=7, coeff_fn=rectilinear_coeffs):
             torch.from_numpy(labels).to(device))
 
 
-def slice_grads(model, inputs, labels, rows):
-    """Parameter gradients of the masked BCE on the first ``rows`` rows."""
+def slice_grads(model, inputs, labels, rows, compute_dtype=None):
+    """Parameter gradients of the masked BCE on the first ``rows`` rows;
+    with ``compute_dtype`` the forward and backward run on the parameters
+    and inputs cast to it, as ``make_train_step(compute_dtype=...)`` runs
+    them."""
     from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
 
     model.zero_grad(set_to_none=True)
     static, coeffs = inputs
-    preds = model((static[:rows], coeffs[:rows]))
+    batch = (static[:rows], coeffs[:rows])
+    if compute_dtype is None:
+        preds = model(batch)
+    else:
+        params = {name: p.to(compute_dtype) for name, p in model.named_parameters()}
+        preds = torch.func.functional_call(
+            model, params, (tuple(t.to(compute_dtype) for t in batch),)).float()
     masked_temporal_loss(make_loss("bce"), preds, labels[:rows]).backward()
     return {name: p.grad.detach().clone() for name, p in model.named_parameters()}
 
@@ -794,6 +1133,220 @@ def phase_train():
                        "atol_per_max": GRAD_ATOL_REL},
          losses=[float(v) for v in losses], train_step_ms=percentiles(step_ms),
          peak_memory_mb=peak_mb, profile=profile)
+    return launches, step_summary(step_ms, peak_mb, profile)
+
+
+def step_summary(step_ms, peak_mb, profile):
+    """A training step's numbers that the bf16 step reports beside its own."""
+    return {"train_step_ms": percentiles(step_ms), "peak_memory_mb": peak_mb,
+            "device_busy_ms": profile["device_busy_ms"],
+            "device_by_kernel": profile["top"]}
+
+
+@contextmanager
+def jittered_products(rel, seed=0):
+    """Every plain product of the fused field (``kernels._mm``, CPU tensors)
+    scaled by (1 + rel N(0, 1)) while the context is open."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    mm, gen = kernels._mm, torch.Generator().manual_seed(seed)
+
+    def jittered(a, b, precision):
+        out = mm(a, b, precision)
+        return out * (1 + rel * torch.randn(out.shape, generator=gen, dtype=out.dtype))
+
+    kernels._mm = jittered
+    try:
+        yield
+    finally:
+        kernels._mm = mm
+
+
+def ratio(num, den):
+    """num / den, with 0 / 0 read as 0 (a parameter whose gradient bf16
+    leaves exactly as it is)."""
+    return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+
+def bf16_grad_ratios(model, model_cpu, inputs, labels, length):
+    """On GRAD_ROWS rows and the first ``length`` observations, per
+    parameter: ||card_bf16 - cpu_bf16|| / ||cpu_bf16 - cpu_f32||
+    (Frobenius), the largest of them and their median over the parameters;
+    and the same for the CPU in bf16 with its products jittered by
+    BF16_JITTER in place of the card ("jitter")."""
+    bf16 = torch.bfloat16
+    static, coeffs = inputs
+    inputs = (static, coeffs[:, :2 * length - 1].contiguous())
+    labels = labels[:, :length]
+    cpu_inputs, cpu_labels = tuple(t.cpu() for t in inputs), labels.cpu()
+    got = slice_grads(model, inputs, labels, GRAD_ROWS, bf16)
+    want = slice_grads(model_cpu, cpu_inputs, cpu_labels, GRAD_ROWS, bf16)
+    f32 = slice_grads(model_cpu, cpu_inputs, cpu_labels, GRAD_ROWS)
+    with jittered_products(BF16_JITTER):
+        jitter = slice_grads(model_cpu, cpu_inputs, cpu_labels, GRAD_ROWS, bf16)
+    for name, g in got.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"card bf16 gradient of {name} is not finite")
+
+    def shares(grads):
+        norm = {n: ratio(float((grads[n].cpu() - w).norm()), float((w - f32[n]).norm()))
+                for n, w in want.items()}
+        return {"max": max(norm.values()), "median": float(np.median(list(norm.values()))),
+                "by_parameter": norm}
+
+    return {"observations": length, "card": shares(got), "jitter": shares(jitter)}
+
+
+def phase_train_bf16(f32_step=None):
+    """One flagship step with ``compute_dtype="bfloat16"`` (the master
+    weights and Adam stay f32): its launches; the card's bf16 gradients on
+    16 rows against the CPU's, each parameter's within GRAD_BF16_RATIO of
+    the CPU's own bf16-vs-f32 distance over the first GRAD_BF16_L
+    observations; the first loss within LOSS_BF16_TOL of the f32 one; 10
+    more steps with a falling loss; times, profile and peak memory beside
+    ``f32_step`` (the f32 step's, when the train phase ran)."""
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+
+    bf16 = torch.bfloat16
+    model = flagship_model("cuda")
+    inputs, labels = train_batch("cuda")
+    intervals = 2 * TRAIN_L - 2
+    expected = {"forward": 2 * 4 * intervals, "backward": 4 * intervals}
+
+    model_cpu = flagship_model("cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    grads = bf16_grad_ratios(model, model_cpu, inputs, labels, GRAD_BF16_L)
+    if not grads["card"]["max"] <= GRAD_BF16_RATIO:
+        raise AssertionError(
+            f"bf16 gradients on {GRAD_BF16_L} observations: a parameter's is "
+            f"{grads['card']['max']} of the CPU's bf16-vs-f32 distance from the CPU's "
+            f"(limit {GRAD_BF16_RATIO}): {grads}")
+    with torch.no_grad():
+        loss_f32 = float(masked_temporal_loss(make_loss("bce"), model(inputs), labels))
+
+    step = make_train_step(model, loss="bce", lr=TRAIN_LR, compute_dtype="bfloat16")
+    loss, launches = counted(lambda: step(inputs, labels, 1.0))   # the bf16 main path
+    expect_launches("one bf16 training step", launches, **expected)
+    if not abs(float(loss) - loss_f32) <= LOSS_BF16_TOL:
+        raise AssertionError(f"first bf16 loss {float(loss)} vs f32 {loss_f32}")
+    losses = [loss]
+    step_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(inputs, labels, 1.0))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all() or not losses[-3:].mean() < losses[0]:
+        raise AssertionError(f"bf16 training losses not finite and falling: {losses}")
+    profile = profile_call(lambda: step(inputs, labels, 1.0))
+    emit("train_bf16", batch=TRAIN_B, intervals=intervals, compute_dtype="bfloat16",
+         kernel_launches=launches, expected_launches=expected,
+         grads_vs_cpu={"rows": GRAD_ROWS, "gate": "max", "ratio_limit": GRAD_BF16_RATIO,
+                       "jitter": BF16_JITTER, **grads},
+         first_loss={"bf16": float(losses[0]), "f32": loss_f32, "limit": LOSS_BF16_TOL},
+         losses=[float(v) for v in losses], train_step_ms=percentiles(step_ms),
+         peak_memory_mb=peak_mb, profile=profile, f32_step=f32_step)
+    return launches
+
+
+def phase_bench_bf16_leg():
+    """The JAX package's bf16 parity leg (bench.py): the flagship field
+    (B=512, H=128, I=21, two trunk layers) in bf16 storage under precision
+    "bfloat16", forward and the gradient of sum(out.float()**2) with
+    respect to the packed weights and z, the card against the CPU, each
+    within max|card - cpu| <= LEG_TOL max|cpu| + 1e-5."""
+    from online_neural_cdes_tpu_torch.models.vector_fields import VectorField
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    bf16 = torch.bfloat16
+
+    def leg(device):
+        field = VectorField(LEG_I, LEG_H, LEG_H, 2, generator=torch.Generator().manual_seed(3),
+                            dtype=bf16, device=device)
+        packed = kernels.pack_fused_params(field.params, LEG_H, LEG_I)
+        leaves = [packed["head_w"], packed["head_b"]] + [t for layer in packed["trunk"]
+                                                         for t in (layer["w"], layer["b"])]
+        leaves = [t.detach().clone().requires_grad_() for t in leaves]
+        rng = np.random.default_rng(3)
+        z = torch.from_numpy(rng.normal(size=(LEG_B, LEG_H))).to(device, bf16).requires_grad_()
+        dx = torch.from_numpy(rng.normal(size=(LEG_B, LEG_I))).to(device, bf16)
+        hw, hb, *flat = leaves
+        trunk = [{"w": flat[i], "b": flat[i + 1]} for i in range(0, len(flat), 2)]
+        out = kernels.fused_matmul_field(trunk, hw, hb, z, dx, LEG_H, LEG_I, "bfloat16")
+        grads = torch.autograd.grad((out.float() ** 2).sum(), leaves + [z])
+        names = ["head_w", "head_b"] + [f"trunk[{l}].{k}" for l in range(len(trunk))
+                                        for k in ("w", "b")] + ["z"]
+        return {"out": out.detach(), **{f"d{n}": g for n, g in zip(names, grads)}}
+
+    got, launches = counted(lambda: leg("cuda"))
+    expect_launches("the bf16 leg", launches, forward=1, backward=1)
+    want = leg("cpu")
+    errs = {}
+    for name, w in want.items():
+        g = got[name].cpu()
+        if g.dtype != bf16 or g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"bf16 leg {name}: dtype {g.dtype}, shape "
+                                 f"{tuple(g.shape)} or non-finite values")
+        g, w = g.double(), w.double()
+        scale = float(w.abs().max())
+        errs[name] = float((g - w).abs().max()) / scale
+        if not float((g - w).abs().max()) <= LEG_TOL * scale + 1e-5:
+            raise AssertionError(f"bf16 leg {name}: max err {errs[name]} of max, past "
+                                 f"{LEG_TOL}")
+    emit("bench_bf16_leg", shape=[LEG_B, LEG_H, LEG_H, LEG_I, 2], storage="bfloat16",
+         precision="bfloat16", kernel_launches=launches, tol=LEG_TOL,
+         max_err_per_max=errs)
+
+
+def phase_predict_bf16():
+    """One ``predict`` of the flagship model in bf16 (the requests go in at
+    the model's dtype): 888 forward launches and no backward; the card's
+    outputs within PREDICT_BF16_RATIO of the CPU's bf16-vs-f32 distance
+    (the same weights in f32) from the CPU's, beside the share a jitter of
+    the CPU's products by BF16_JITTER gives."""
+    from online_neural_cdes_tpu_torch import Predictor
+
+    bf16 = torch.bfloat16
+    model = flagship_model("cuda", dtype=bf16)
+    pred = Predictor(model, coeff_fn=rectilinear_coeffs, batch_buckets=(1, 64),
+                     length_multiple=LENGTH_MULTIPLE, device="cuda")
+    pred.precompile(channels=C, max_length=MAX_LEN, static_dim=STATIC)
+    requests, static = make_requests()
+    padded_len = -(-MAX_LEN // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
+    expected = 4 * (2 * padded_len - 2)
+    outs, launches = counted(lambda: pred.predict(requests, static=static))  # bf16 serving
+    expect_launches("one bf16 predict", launches, forward=expected)
+    def cpu_predict(dtype):
+        m = flagship_model("cpu", dtype=dtype)
+        m.load_state_dict(model.state_dict())
+        return Predictor(m, coeff_fn=rectilinear_coeffs, batch_buckets=(1, 64),
+                         length_multiple=LENGTH_MULTIPLE, device="cpu").predict(
+                             requests, static=static)
+
+    outs_cpu, outs_f32 = cpu_predict(bf16), cpu_predict(torch.float32)
+    with jittered_products(BF16_JITTER):
+        outs_jitter = cpu_predict(bf16)
+    for r, g in zip(requests, outs):
+        if g.shape != (len(r), 1) or not np.isfinite(g).all():
+            raise AssertionError(f"bf16 predictor output shape {g.shape} or non-finite")
+
+    def dist(xs, ys):
+        return max(float(np.abs(x - y).max()) for x, y in zip(xs, ys))
+
+    scale = dist(outs_cpu, outs_f32)
+    share, jitter_share = dist(outs, outs_cpu) / scale, dist(outs_jitter, outs_cpu) / scale
+    if not share <= PREDICT_BF16_RATIO:
+        raise AssertionError(f"bf16 predict: the card is {share} of the CPU's bf16-vs-f32 "
+                             f"distance ({scale}) from the CPU (limit {PREDICT_BF16_RATIO})")
+    emit("predict_bf16", kernel_launches=launches, expected_launches=expected,
+         vs_cpu={"max_abs_err": dist(outs, outs_cpu), "cpu_bf16_vs_f32": scale,
+                 "ratio": share, "ratio_limit": PREDICT_BF16_RATIO,
+                 "cpu_jitter_ratio": jitter_share, "jitter": BF16_JITTER,
+                 "max_abs_output": max(float(np.abs(c).max()) for c in outs_cpu)})
     return launches
 
 
@@ -1037,7 +1590,7 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
 
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
-          "chains", "splines", "toy")
+          "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg")
 
 
 def main(argv=None) -> int:
@@ -1059,23 +1612,30 @@ def main(argv=None) -> int:
     phase_env()
     phase_build()
     if "kernel" in phases:
-        max_err, timings = phase_kernel(pk)
+        max_err, timings, timings_bf16 = phase_kernel(pk)
     if "kernel_bwd" in phases:
-        max_err_bwd, timings_bwd = phase_kernel_bwd(pk)
+        max_err_bwd, timings_bwd, timings_bwd_bf16 = phase_kernel_bwd(pk)
     if "kernel_rk4" in phases:
         max_err_rk4, max_err_multi, timings_rk4, timings_multi = phase_kernel_rk4(pk)
     if phases & {"predictor", "stepper"}:
         model, requests, static, outs, serve_launches = phase_predictor()
     if "stepper" in phases:
         phase_stepper(model, requests, static, outs)
+    f32_step = None
     if "train" in phases:
-        train_launches = phase_train()
+        train_launches, f32_step = phase_train()
     if "chains" in phases:
         chain_launches = phase_chains()
     if "splines" in phases:
         hermite_serve, hermite_train = phase_splines()
     if "toy" in phases:
         phase_toy()
+    if "train_bf16" in phases:
+        train_bf16_launches = phase_train_bf16(f32_step)
+    if "predict_bf16" in phases:
+        predict_bf16_launches = phase_predict_bf16()
+    if "bench_bf16_leg" in phases:
+        phase_bench_bf16_leg()
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
@@ -1087,21 +1647,25 @@ def main(argv=None) -> int:
     # the interval chains for the RK4 kernels.
     by_path = {"predict": serve_launches, "train_step": train_launches,
                "hermite_predict": hermite_serve, "hermite_train_step": hermite_train,
-               "interval_chain": chain_launches}
+               "interval_chain": chain_launches, "train_step_bf16": train_bf16_launches,
+               "predict_bf16": predict_bf16_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}
 
     entries = []
-    for kernel, source, replaces, key, err, tm, main_path in (
+    for kernel, source, replaces, key, err, tm, tm_bf16, main_path in (
             ("fused_matmul_field", "fused_field.cu", 184, "forward", max_err, timings,
-             "train_step"),
+             timings_bf16, "train_step"),
             ("fused_matmul_field_bwd", "fused_field_bwd.cu", 367, "backward",
-             max_err_bwd, timings_bwd, "train_step"),
+             max_err_bwd, timings_bwd, timings_bwd_bf16, "train_step"),
             ("fused_rk4_interval", "fused_rk4_interval.cu", 511, "rk4", max_err_rk4,
-             timings_rk4, "interval_chain")):
+             timings_rk4, None, "interval_chain")):
         entry = kernel_entry(kernel, source, replaces, by_path[main_path][key], err, tm)
         entry["launches_by_path"] = paths(key)
+        if tm_bf16 is not None:
+            entry["by_dtype"] = [{"mode": t["mode"], "shape": t["shape"], **times(t)}
+                                 for t in tm_bf16.values()]
         entries.append(entry)
     k_main = RK4_MULTI_TIMED[0]
     entries.append({

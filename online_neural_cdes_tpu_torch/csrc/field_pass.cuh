@@ -15,10 +15,19 @@
 // the current one is used.  Activations stay transposed in shared memory
 // ([k][row]) so a warp reads both of its rows' u[k] with one broadcast
 // load.
+//
+// The passes take an operand mode M (mma_tf32.cuh's Mode; float32 storage
+// and precision by default, the interval kernel's only mode): with bf16
+// weights, or a product that rounds its operands to bf16, the weight
+// chunks are loaded through registers, widened or rounded, instead of by
+// cp.async, and the trunk rounds each layer's output, which only the next
+// product reads.  Products and sums stay f32.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -35,11 +44,13 @@ constexpr int kHeadGroups = 8;     // head channels per pass
 constexpr int kMaxGroups = kHeadGroups > kTrunkGroups ? kHeadGroups : kTrunkGroups;
 constexpr int kRed = (kSplit - 1) * kPairs * 2 * kMaxGroups * kLanes;
 
-struct Trunk {
-  const float* w[kMaxTrunk];  // layer l: (d_in, hh) row-major, d_in = H for l = 0
-  const float* b[kMaxTrunk];  // (hh,)
+template <class T>
+struct TrunkOf {
+  const T* w[kMaxTrunk];  // layer l: (d_in, hh) row-major, d_in = H for l = 0
+  const T* b[kMaxTrunk];  // (hh,)
   int n;
 };
+using Trunk = TrunkOf<float>;
 
 // Floats of the weight staging buffer for G head channels per pass.
 constexpr int wbuf_floats(int G) {
@@ -72,9 +83,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // whether it exists (whole V-groups); missing columns and rows read as 0.
 // The slice streams through `wbuf` (2 x kChunk x NCOL*32 floats).  Only
 // warps of the first quarter (quarter == 0) hold the total afterwards.
-template <int NCOL, int V, class Col>
+template <int NCOL, int V, class M = F32, class Col>
 __device__ __forceinline__ void pass(float (&acc)[2][NCOL], const float* x,
-                                     const float* w, size_t ld, int K, Col col,
+                                     const typename M::Storage* w, size_t ld, int K, Col col,
                                      float* wbuf, float* red) {
   constexpr int cols = NCOL * kLanes;
   constexpr int per_row = cols / V;
@@ -96,7 +107,15 @@ __device__ __forceinline__ void pass(float (&acc)[2][NCOL], const float* x,
       const int k = k0 + kk;
       int off;
       const bool ok = col(q * V, off) && k < K;
-      cp_async<V>(dst + kk * cols + q * V, ok ? w + (size_t)k * ld + off : w, ok);
+      if constexpr (std::is_same<M, F32>::value) {
+        cp_async<V>(dst + kk * cols + q * V, ok ? w + (size_t)k * ld + off : w, ok);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float v = ok ? widen(w[(size_t)k * ld + off + i]) : 0.f;
+          dst[kk * cols + q * V + i] = M::kRound ? bf16_round(v) : v;
+        }
+      }
     }
   };
 
@@ -152,9 +171,10 @@ __device__ __forceinline__ void pass(float (&acc)[2][NCOL], const float* x,
 // The relu trunk for the block's rows: `in` [hidden][kRows] -> returns the
 // buffer holding u_n [hh][kRows].  Layer 0 writes buf0, and the layers
 // alternate between buf0 and buf1 (buf1 may be `in`).  Ends synchronised.
-template <int V>
+template <int V, class M = F32>
 __device__ __forceinline__ const float* trunk_forward(const float* in, float* buf0,
-                                                      float* buf1, const Trunk& trunk,
+                                                      float* buf1,
+                                                      const TrunkOf<typename M::Storage>& trunk,
                                                       int hidden, int hh, float* wbuf,
                                                       float* red) {
   const int lane = threadIdx.x % kLanes;
@@ -167,10 +187,10 @@ __device__ __forceinline__ const float* trunk_forward(const float* in, float* bu
 #pragma unroll
   for (int l = 0; l < kMaxTrunk; ++l) {
     if (l < trunk.n) {
-      const float* __restrict__ b = trunk.b[l];
+      const auto* __restrict__ b = trunk.b[l];
       for (int j0 = 0; j0 < hh; j0 += kTrunkGroups * kLanes) {
         float acc[2][kTrunkGroups];
-        pass<kTrunkGroups, V>(
+        pass<kTrunkGroups, V, M>(
             acc, src, trunk.w[l], hh, d_in,
             [&](int c, int& off) { off = j0 + c; return j0 + c < hh; }, wbuf, red);
         if (lead) {
@@ -178,10 +198,12 @@ __device__ __forceinline__ const float* trunk_forward(const float* in, float* bu
           for (int g = 0; g < kTrunkGroups; ++g) {
             const int j = j0 + g * kLanes + lane;
             if (j < hh) {
-              const float bj = b[j];
+              const float bj = widen(b[j]);
 #pragma unroll
-              for (int r = 0; r < 2; ++r)
-                dst[j * kRows + 2 * pair + r] = fmaxf(acc[r][g] + bj, 0.f);
+              for (int r = 0; r < 2; ++r) {
+                const float u = fmaxf(acc[r][g] + bj, 0.f);
+                dst[j * kRows + 2 * pair + r] = M::kRound ? bf16_round(u) : u;
+              }
             }
           }
         }
@@ -200,10 +222,10 @@ __device__ __forceinline__ const float* trunk_forward(const float* in, float* bu
 // * dX[row, i] for h = h0 + lane and row = 2 * pair + r.  `dxs` is the
 // block's dX tile [kRows][n_in].  Only warps of the first quarter hold the
 // result.
-template <int G, int V>
+template <int G, int V, class M = F32>
 __device__ __forceinline__ void head_strip(float (&out)[2], const float* u,
-                                           const float* __restrict__ head_w,
-                                           const float* __restrict__ head_b,
+                                           const typename M::Storage* __restrict__ head_w,
+                                           const typename M::Storage* __restrict__ head_b,
                                            const float* dxs, int hidden, int hh,
                                            int n_in, int h0, float* wbuf, float* red) {
   const int lane = threadIdx.x % kLanes;
@@ -215,7 +237,7 @@ __device__ __forceinline__ void head_strip(float (&out)[2], const float* u,
   out[0] = out[1] = 0.f;
   for (int ig = 0; ig < n_in; ig += G) {
     float acc[2][G];
-    pass<G, V>(
+    pass<G, V, M>(
         acc, u, head_w, head_cols, hh,
         [&](int c, int& off) {
           const int i = ig + c / kLanes, hc = h0 + c % kLanes;
@@ -228,7 +250,7 @@ __device__ __forceinline__ void head_strip(float (&out)[2], const float* u,
       for (int g = 0; g < G; ++g) {
         const int i = ig + g;
         if (i < n_in && h < hidden) {
-          const float bias = head_b[(size_t)i * hidden + h];
+          const float bias = widen(head_b[(size_t)i * hidden + h]);
 #pragma unroll
           for (int r = 0; r < 2; ++r)
             out[r] = fmaf(tanhf(acc[r][g] + bias), dxs[(2 * pair + r) * n_in + i], out[r]);

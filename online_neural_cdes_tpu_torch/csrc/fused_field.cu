@@ -1,4 +1,5 @@
-// Fused CDE vector field, forward, for Hopper (sm_90a), f32 in and out.
+// Fused CDE vector field, forward, for Hopper (sm_90a): float32 or bfloat16
+// storage, products in f32 (3xTF32) or on operands rounded to bf16.
 //
 // Replaces the TPU kernel online_neural_cdes_tpu/ops/kernels.py::
 // _forward_pallas / _make_kernel (pl.pallas_call at kernels.py:184).  For
@@ -70,6 +71,17 @@
 //   slice), adding tanh(...) * dX[:, i] into each thread's output registers.
 //   It needs no scratch.  This path is the shape's, not a fallback: a launch
 //   that fails on either path returns its error.
+//
+// Operand modes (the JAX op's bf16 storage and precision "bfloat16"; see
+// mma_tf32.cuh's Mode).  Every path is instantiated for each of the four
+// (storage, precision) pairs; the float32 / "float32" one is the code
+// above, unchanged.  bf16 inputs are widened to f32 where they are staged,
+// and the output is rounded to bf16 once, after the channel sum.  Under
+// "bfloat16" the products' operands (z, each layer's output, u_n, the
+// weights) are rounded to bf16 where they are staged; biases, tanh and the
+// dX sum stay f32, as in the JAX reference.  A bf16-exact operand drops
+// its 3xTF32 passes (f32 x bf16: two, bf16 x bf16: one), which leaves the
+// bits as they are.
 
 #include "field_pass.cuh"
 #include "trunk_mma.cuh"
@@ -78,13 +90,14 @@ namespace {
 
 // ------------------------------------------------- CUDA cores, wide widths
 
-template <int G, int V>
+template <int G, int V, class M>
 __global__ void __launch_bounds__(kThreads)
-fused_field_forward_kernel(const float* __restrict__ z,
-                           const float* __restrict__ dx, Trunk trunk,
-                           const float* __restrict__ head_w,
-                           const float* __restrict__ head_b,
-                           float* __restrict__ out, int batch, int hidden,
+fused_field_forward_kernel(const typename M::Storage* __restrict__ z,
+                           const typename M::Storage* __restrict__ dx,
+                           TrunkOf<typename M::Storage> trunk,
+                           const typename M::Storage* __restrict__ head_w,
+                           const typename M::Storage* __restrict__ head_b,
+                           typename M::Storage* __restrict__ out, int batch, int hidden,
                            int hh, int n_in) {
   extern __shared__ __align__(16) float smem[];
   const int dmax = max(hidden, hh);
@@ -108,41 +121,42 @@ fused_field_forward_kernel(const float* __restrict__ z,
   // written back).
   for (int e = tid; e < kRows * hidden; e += kThreads) {
     const int r = e / hidden, k = e - r * hidden;
-    xa[k * kRows + r] = r < rows ? z[(size_t)row0 * hidden + e] : 0.f;
+    const float v = r < rows ? widen(z[(size_t)row0 * hidden + e]) : 0.f;
+    xa[k * kRows + r] = M::kRound ? bf16_round(v) : v;
   }
   for (int e = tid; e < kRows * n_in; e += kThreads) {
     const int r = e / n_in;
-    dxs[e] = r < rows ? dx[(size_t)row0 * n_in + e] : 0.f;
+    dxs[e] = r < rows ? widen(dx[(size_t)row0 * n_in + e]) : 0.f;
   }
   __syncthreads();
 
   // Trunk (xa -> xb -> xa ...), then the head's strip at h0.
-  const float* u = trunk_forward<V>(xa, xb, xa, trunk, hidden, hh, wbuf, red);
+  const float* u = trunk_forward<V, M>(xa, xb, xa, trunk, hidden, hh, wbuf, red);
   float out_acc[2];
-  head_strip<G, V>(out_acc, u, head_w, head_b, dxs, hidden, hh, n_in, h0, wbuf, red);
+  head_strip<G, V, M>(out_acc, u, head_w, head_b, dxs, hidden, hh, n_in, h0, wbuf, red);
   if (lead) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = 2 * pair + r;
       if (h < hidden && row < rows)
-        out[(size_t)(row0 + row) * hidden + h] = out_acc[r];
+        put(out + (size_t)(row0 + row) * hidden + h, out_acc[r]);
     }
   }
 }
 
-template <int G, int V>
-int launch_cuda_cores(const float* z, const float* dx, const Trunk& trunk,
-                      const float* head_w, const float* head_b, float* out, int batch,
-                      int hidden, int hh, int n_in, cudaStream_t stream) {
+template <int G, int V, class M, class T = typename M::Storage>
+int launch_cuda_cores(const T* z, const T* dx, const TrunkOf<T>& trunk, const T* head_w,
+                      const T* head_b, T* out, int batch, int hidden, int hh, int n_in,
+                      cudaStream_t stream) {
   const int dmax = hidden > hh ? hidden : hh;
   const size_t smem = sizeof(float) *
       ((size_t)dmax * kRows + (size_t)hh * kRows + ((kRows * n_in + 3) & ~3) +
        kRed + wbuf_floats(G));
   static size_t smem_set = 48 * 1024;  // the default dynamic limit
-  const int err = reserve_smem(fused_field_forward_kernel<G, V>, smem, smem_set);
+  const int err = reserve_smem(fused_field_forward_kernel<G, V, M>, smem, smem_set);
   if (err) return err;
   const dim3 grid((batch + kRows - 1) / kRows, (hidden + kLanes - 1) / kLanes);
-  fused_field_forward_kernel<G, V><<<grid, kThreads, smem, stream>>>(
+  fused_field_forward_kernel<G, V, M><<<grid, kThreads, smem, stream>>>(
       z, dx, trunk, head_w, head_b, out, batch, hidden, hh, n_in);
   return (int)cudaGetLastError();
 }
@@ -193,12 +207,13 @@ HeadForwardGrid head_forward_grid(int batch, int hidden, int hh, int n_in) {
 // order, the next one staged while the current one computes.  The product's
 // loop runs over zero-filled rows and columns to a fixed count and has no
 // branch.
-template <int MT, int V>
+template <int MT, int V, class M = F32>
 __global__ void __launch_bounds__(kThreads, 1)
-head_forward(const float* __restrict__ dx, const float* __restrict__ u_last,
-             const float* __restrict__ head_w, const float* __restrict__ head_b,
-             float* __restrict__ out, int batch, int hidden, int hh, int n_in, int hstrips,
-             int cpg) {
+head_forward(const typename M::Storage* __restrict__ dx, const float* __restrict__ u_last,
+             const typename M::Storage* __restrict__ head_w,
+             const typename M::Storage* __restrict__ head_b,
+             typename M::Storage* __restrict__ out, int batch, int hidden, int hh, int n_in,
+             int hstrips, int cpg) {
   constexpr int RT = 16 * MT;
   extern __shared__ __align__(16) float smem[];
   const int kp = pad16(hh), ldu = kp + 4;
@@ -219,16 +234,17 @@ head_forward(const float* __restrict__ dx, const float* __restrict__ u_last,
 
   auto load = [&](int i, int buf) {
     const size_t col0 = (size_t)i * hidden + h0;
-    stage<V, kThreads>(ws + buf * kp * kLdW, kLdW, head_w + col0, ih, kp, kStrip, hh, ncols);
+    stage<V, kThreads, M::kRound>(ws + buf * kp * kLdW, kLdW, head_w + col0, ih, kp, kStrip,
+                                  hh, ncols);
     if (tid < RT)
-      cp_async<1>(dxs + buf * RT + tid, tid < rows ? dx + (size_t)(row0 + tid) * n_in + i : dx,
-                  tid < rows);
+      copy_in<1>(dxs + buf * RT + tid, tid < rows ? dx + (size_t)(row0 + tid) * n_in + i : dx,
+                 tid < rows);
     if (tid < kStrip / V)
-      cp_async<V>(bs + buf * kStrip + V * tid, V * tid < ncols ? head_b + col0 + V * tid : head_b,
-                  V * tid < ncols);
+      copy_in<V>(bs + buf * kStrip + V * tid, V * tid < ncols ? head_b + col0 + V * tid : head_b,
+                 V * tid < ncols);
   };
 
-  stage<V, kThreads>(us, ldu, u_last + (size_t)row0 * hh, hh, RT, kp, rows, hh);
+  stage<V, kThreads, M::kRound>(us, ldu, u_last + (size_t)row0 * hh, hh, RT, kp, rows, hh);
   load(i_begin, 0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -262,7 +278,8 @@ head_forward(const float* __restrict__ dx, const float* __restrict__ u_last,
 #pragma unroll
         for (int n = 0; n < MT; ++n) {
           const float* wp = wsb + (8 * (ks + h) + t) * kLdW + 8 * (n1 + n) + gq;
-          mma_3xtf32(pre_hi[h][n], pre_lo[h][n], fa, frag_b(wp[0], wp[4 * kLdW]));
+          mma_3xtf32<M::kExactAct, M::kExactW>(pre_hi[h][n], pre_lo[h][n], fa,
+                                               frag_b(wp[0], wp[4 * kLdW]));
         }
       }
     }
@@ -286,7 +303,7 @@ head_forward(const float* __restrict__ dx, const float* __restrict__ u_last,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = 16 * m1 + gq + 8 * (e / 2), col = 8 * (n1 + n) + 2 * t + e % 2;
-        if (r < rows && col < ncols) out[(size_t)(row0 + r) * hidden + h0 + col] = acc[n][e];
+        if (r < rows && col < ncols) put(out + (size_t)(row0 + r) * hidden + h0 + col, acc[n][e]);
       }
     return;
   }
@@ -308,19 +325,19 @@ head_forward(const float* __restrict__ dx, const float* __restrict__ u_last,
     const int r = e / kStrip, c = e % kStrip;
     float s = 0.f;
     for (int q = 0; q < groups; ++q) s += cluster.map_shared_rank(part, q)[r * kLdS + c];
-    if (r < rows && c < ncols) out[(size_t)(row0 + r) * hidden + h0 + c] = s;
+    if (r < rows && c < ncols) put(out + (size_t)(row0 + r) * hidden + h0 + c, s);
   }
   cluster.sync();  // every block's partial stays until all ranks have read it
 }
 
-template <int MT, int V>
-cudaError_t launch_head_forward(const HeadForwardGrid& G, const float* dx, const float* u_last,
-                                const float* head_w, const float* head_b, float* out,
-                                int batch, int hidden, int hh, int n_in, cudaStream_t s) {
+template <int MT, int V, class M, class T = typename M::Storage>
+cudaError_t launch_head_forward(const HeadForwardGrid& G, const T* dx, const float* u_last,
+                                const T* head_w, const T* head_b, T* out, int batch,
+                                int hidden, int hh, int n_in, cudaStream_t s) {
   const size_t smem = head_forward_smem(MT, hh);
-  const cudaError_t err = reserve_smem<head_forward<MT, V>>(smem);
+  const cudaError_t err = reserve_smem<head_forward<MT, V, M>>(smem);
   if (err != cudaSuccess) return err;
-  return launch_cluster_y(head_forward<MT, V>, dim3(G.row_tiles * G.hstrips, G.groups),
+  return launch_cluster_y(head_forward<MT, V, M>, dim3(G.row_tiles * G.hstrips, G.groups),
                           dim3(kThreads), smem, s, G.groups, dx, u_last, head_w, head_b, out,
                           batch, hidden, hh, n_in, G.hstrips, G.cpg);
 }
@@ -354,16 +371,16 @@ int head_clusters_at_once(const HeadForwardGrid& G, int hh) {
   return n;
 }
 
-template <int V>
-cudaError_t launch(const float* z, const float* dx, const Trunk& trunk, const float* head_w,
-                   const float* head_b, float* out, float* u_last, int batch, int hidden,
-                   int hh, int n_in, cudaStream_t s) {
-  cudaError_t err = launch_trunk_forward<V, false>(z, trunk, u_last, batch, hidden, hh, s);
+template <int V, class M, class T = typename M::Storage>
+cudaError_t launch(const T* z, const T* dx, const TrunkOf<T>& trunk, const T* head_w,
+                   const T* head_b, T* out, float* u_last, int batch, int hidden, int hh,
+                   int n_in, cudaStream_t s) {
+  cudaError_t err = launch_trunk_forward<V, false, M>(z, trunk, u_last, batch, hidden, hh, s);
   if (err != cudaSuccess) return err;
   const HeadForwardGrid G = head_forward_grid(batch, hidden, hh, n_in);
-  const auto head = G.mt == 4   ? launch_head_forward<4, V>
-                    : G.mt == 2 ? launch_head_forward<2, V>
-                                : launch_head_forward<1, V>;
+  const auto head = G.mt == 4   ? launch_head_forward<4, V, M>
+                    : G.mt == 2 ? launch_head_forward<2, V, M>
+                                : launch_head_forward<1, V, M>;
   err = head(G, dx, u_last, head_w, head_b, out, batch, hidden, hh, n_in, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -380,18 +397,54 @@ bool valid(int batch, int hidden, int hh, int n_in, int n_trunk) {
 bool tensor_cores(int hidden, int hh) { return hidden <= tc::kMaxDim && hh <= tc::kMaxDim; }
 
 // Fills either path's trunk (the same fields); returns whether every
-// weight is 16-byte aligned.
-template <class T>
-bool fill_trunk(T& trunk, const float* const* trunk_w, const float* const* trunk_b,
+// weight is aligned for 4-element loads.
+template <class Tr, class T>
+bool fill_trunk(Tr& trunk, const void* const* trunk_w, const void* const* trunk_b,
                 int n_trunk) {
   bool aligned = true;
   for (int l = 0; l < kMaxTrunk; ++l) {
-    trunk.w[l] = l < n_trunk ? trunk_w[l] : nullptr;
-    trunk.b[l] = l < n_trunk ? trunk_b[l] : nullptr;
-    if (l < n_trunk) aligned = aligned && aligned16(trunk_w[l]);
+    trunk.w[l] = l < n_trunk ? static_cast<const T*>(trunk_w[l]) : nullptr;
+    trunk.b[l] = l < n_trunk ? static_cast<const T*>(trunk_b[l]) : nullptr;
+    if (l < n_trunk) aligned = aligned && aligned_vec4<T>(trunk_w[l]);
   }
   trunk.n = n_trunk;
   return aligned;
+}
+
+// One call in operand mode M (the entry point's body).
+template <class M, class T = typename M::Storage>
+int forward(const void* zp, const void* dxp, const void* const* trunk_w,
+            const void* const* trunk_b, int n_trunk, const void* head_wp, const void* head_bp,
+            void* outp, float* scratch, long long scratch_floats, int batch, int hidden, int hh,
+            int n_in, cudaStream_t s) {
+  const T* z = static_cast<const T*>(zp);
+  const T* dx = static_cast<const T*>(dxp);
+  const T* head_w = static_cast<const T*>(head_wp);
+  const T* head_b = static_cast<const T*>(head_bp);
+  T* out = static_cast<T*>(outp);
+  if (!tensor_cores(hidden, hh)) {
+    TrunkOf<T> trunk;
+    const bool vec = fill_trunk<TrunkOf<T>, T>(trunk, trunk_w, trunk_b, n_trunk) &&
+                     hidden % 4 == 0 && hh % 4 == 0 && aligned_vec4<T>(head_w);
+    if (n_in == 1)
+      return vec ? launch_cuda_cores<1, 4, M>(z, dx, trunk, head_w, head_b, out, batch, hidden,
+                                              hh, n_in, s)
+                 : launch_cuda_cores<1, 1, M>(z, dx, trunk, head_w, head_b, out, batch, hidden,
+                                              hh, n_in, s);
+    return vec ? launch_cuda_cores<kHeadGroups, 4, M>(z, dx, trunk, head_w, head_b, out, batch,
+                                                      hidden, hh, n_in, s)
+               : launch_cuda_cores<kHeadGroups, 1, M>(z, dx, trunk, head_w, head_b, out, batch,
+                                                      hidden, hh, n_in, s);
+  }
+  if (scratch_floats < (long long)batch * hh) return (int)cudaErrorInvalidValue;
+  tc::TrunkOf<T> trunk;
+  const bool vec = fill_trunk<tc::TrunkOf<T>, T>(trunk, trunk_w, trunk_b, n_trunk) &&
+                   hidden % 4 == 0 && hh % 4 == 0 && aligned_vec4<T>(z) &&
+                   aligned_vec4<T>(head_w) && aligned_vec4<T>(head_b) && aligned16(scratch);
+  return (int)(vec ? tc::launch<4, M>(z, dx, trunk, head_w, head_b, out, scratch, batch, hidden,
+                                      hh, n_in, s)
+                   : tc::launch<1, M>(z, dx, trunk, head_w, head_b, out, scratch, batch, hidden,
+                                      hh, n_in, s));
 }
 
 }  // namespace
@@ -430,39 +483,25 @@ int oncde_fused_field_forward_grid(int batch, int hidden, int hh, int n_in, int*
 }
 
 // Launches on `stream`; returns the first CUDA error that is not 0 (0 on
-// success).  trunk_w / trunk_b are host arrays of n_trunk device pointers;
-// scratch holds scratch_floats floats.
-int oncde_fused_field_forward(const float* z, const float* dx,
-                              const float* const* trunk_w,
-                              const float* const* trunk_b, int n_trunk,
-                              const float* head_w, const float* head_b,
-                              float* out, float* scratch, long long scratch_floats,
-                              int batch, int hidden, int hh, int n_in, void* stream) {
+// success).  Every input and the output are stored as `dtype` (0: float32,
+// 1: bfloat16); `precision` 1 rounds every product's operands to bf16 (0:
+// they stay as stored).  trunk_w / trunk_b are host arrays of n_trunk
+// device pointers; scratch holds scratch_floats floats.
+int oncde_fused_field_forward(const void* z, const void* dx, const void* const* trunk_w,
+                              const void* const* trunk_b, int n_trunk, const void* head_w,
+                              const void* head_b, void* out, float* scratch,
+                              long long scratch_floats, int batch, int hidden, int hh,
+                              int n_in, int dtype, int precision, void* stream) {
   if (!valid(batch, hidden, hh, n_in, n_trunk)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!tensor_cores(hidden, hh)) {
-    Trunk trunk;
-    const bool vec = fill_trunk(trunk, trunk_w, trunk_b, n_trunk) && hidden % 4 == 0 &&
-                     hh % 4 == 0 && aligned16(head_w);
-    if (n_in == 1)
-      return vec ? launch_cuda_cores<1, 4>(z, dx, trunk, head_w, head_b, out, batch, hidden,
-                                           hh, n_in, s)
-                 : launch_cuda_cores<1, 1>(z, dx, trunk, head_w, head_b, out, batch, hidden,
-                                           hh, n_in, s);
-    return vec ? launch_cuda_cores<kHeadGroups, 4>(z, dx, trunk, head_w, head_b, out, batch,
-                                                   hidden, hh, n_in, s)
-               : launch_cuda_cores<kHeadGroups, 1>(z, dx, trunk, head_w, head_b, out, batch,
-                                                   hidden, hh, n_in, s);
-  }
-  if (scratch_floats < (long long)batch * hh) return (int)cudaErrorInvalidValue;
-  tc::Trunk trunk;
-  const bool vec = fill_trunk(trunk, trunk_w, trunk_b, n_trunk) && hidden % 4 == 0 &&
-                   hh % 4 == 0 && aligned16(z) && aligned16(head_w) && aligned16(head_b) &&
-                   aligned16(scratch);
-  return (int)(vec ? tc::launch<4>(z, dx, trunk, head_w, head_b, out, scratch, batch, hidden,
-                                   hh, n_in, s)
-                   : tc::launch<1>(z, dx, trunk, head_w, head_b, out, scratch, batch, hidden,
-                                   hh, n_in, s));
+  const auto call = dtype == 0 && precision == 0   ? &forward<F32>
+                    : dtype == 0 && precision == 1 ? &forward<Mode<float, true>>
+                    : dtype == 1 && precision == 0 ? &forward<Mode<__nv_bfloat16, false>>
+                    : dtype == 1 && precision == 1 ? &forward<Mode<__nv_bfloat16, true>>
+                                                   : nullptr;
+  if (call == nullptr) return (int)cudaErrorInvalidValue;
+  return call(z, dx, trunk_w, trunk_b, n_trunk, head_w, head_b, out, scratch, scratch_floats,
+              batch, hidden, hh, n_in, s);
 }
 
 const char* oncde_cuda_error_string(int err) {

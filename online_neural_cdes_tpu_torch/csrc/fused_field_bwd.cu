@@ -1,5 +1,6 @@
 // Fused CDE vector field, backward (vector-Jacobian product), for Hopper
-// (sm_90a), f32 in and out, products on the tensor cores in 3xTF32.
+// (sm_90a), float32 or bfloat16 storage, products on the tensor cores in
+// 3xTF32 (fewer passes on bf16-exact operands).
 //
 // Replaces the TPU kernel online_neural_cdes_tpu/ops/kernels.py::
 // _backward_pallas / _make_bwd_kernel (pl.pallas_call at kernels.py:367).
@@ -92,6 +93,18 @@
 // to the next multiple of 16; outputs past the edges are not stored.
 // Scratch is allocated by the caller (oncde_fused_field_backward_scratch
 // gives its size in floats); the kernel allocates nothing.
+//
+// Operand modes (mma_tf32.cuh's Mode), each launch instantiated for the
+// four (storage, precision) pairs; the float32 / "float32" one is the code
+// above, unchanged.  The reference is autograd (jax.vjp) through the plain
+// forward, and the kernel rounds where it does.  Scratch (u_l, dv_l, dpre,
+// the partials) stays f32.  bf16 storage: inputs widened where staged,
+// each output (dz, ddx, every weight and bias grad) rounded once, after its
+// last sum.  Precision "bfloat16": the products' operands (u_l, the
+// weights) rounded where staged, and each cotangent of a rounded operand
+// rounded after its full sum: du_n (after the groups' partials), each
+// du_{l-1} and dz, and every dW (after the cross-block sum).  The biases,
+// dpre and ddx are not products' operands and keep f32.
 
 #include "trunk_mma.cuh"
 
@@ -109,14 +122,17 @@ constexpr int kLdD = kWgN + 8;
 constexpr int kWgStage = kWgRows * (kLdX + kLdD);
 constexpr int kProblems = 1 + kMaxTrunk;  // dW_o, then dW_1..dW_n
 
-// One weight gradient W = X^T D (M x N), b = sum_b D, over the batch.
+// One weight gradient W = X^T D (M x N), b = sum_b D, over the batch.  W
+// and b are stored in the mode's storage type; X is f32 scratch or, for
+// dW_1, z in the storage type (x_storage).
 struct GradProblem {
-  const float* x;  // (B, M), leading dimension m
+  const void* x;   // (B, M), leading dimension m
   const float* d;  // (B, N), leading dimension n
-  float* w;
-  float* b;
+  void* w;
+  void* b;
   int m, n;
   int tiles_n, tile0;  // output tiles in n; the first tile's block index
+  bool x_storage;
 };
 
 struct GradProblems {
@@ -220,11 +236,12 @@ __device__ __forceinline__ int owned_col(int rank, int c_loc) {
 // rows; the group's strips run in order, the next one staged while the
 // current one computes.  Both products' loops run over zero-filled rows
 // and columns to fixed counts and have no branch.
-template <int MT, int NQ, int V>
+template <int MT, int NQ, int V, class M>
 __global__ void __launch_bounds__(kThreads, 1)
-head_backward(const float* __restrict__ dx, const float* __restrict__ g,
-              const float* __restrict__ u_last, const float* __restrict__ head_w,
-              const float* __restrict__ head_b, float* __restrict__ dpre,
+head_backward(const typename M::Storage* __restrict__ dx,
+              const typename M::Storage* __restrict__ g, const float* __restrict__ u_last,
+              const typename M::Storage* __restrict__ head_w,
+              const typename M::Storage* __restrict__ head_b, float* __restrict__ dpre,
               float* __restrict__ dupart, float* __restrict__ ddxpart, int batch,
               int hidden, int hh, int n_in, int hstrips, int strips, int spg) {
   constexpr int RT = 16 * MT;
@@ -252,18 +269,19 @@ head_backward(const float* __restrict__ dx, const float* __restrict__ g,
     const int i = s / hstrips, h0 = (s - i * hstrips) * kStrip;
     const int ncols = min(kStrip, hidden - h0);
     const size_t col0 = (size_t)i * hidden + h0;
-    stage<V, kThreads>(ws + buf * kw * kLdW, kLdW, head_w + col0, ih, kw, kStrip, hh, ncols);
+    stage<V, kThreads, M::kRound>(ws + buf * kw * kLdW, kLdW, head_w + col0, ih, kw, kStrip,
+                                  hh, ncols);
     stage<V, kThreads>(gs + buf * RT * kLdS, kLdS, g + (size_t)row0 * hidden + h0, hidden,
                        RT, kStrip, rows, ncols);
     if (tid < RT)
-      cp_async<1>(dxs + buf * RT + tid, tid < rows ? dx + (size_t)(row0 + tid) * n_in + i : dx,
-                  tid < rows);
+      copy_in<1>(dxs + buf * RT + tid, tid < rows ? dx + (size_t)(row0 + tid) * n_in + i : dx,
+                 tid < rows);
     if (tid < kStrip / V)
-      cp_async<V>(bs + buf * kStrip + V * tid, V * tid < ncols ? head_b + col0 + V * tid : head_b,
-                  V * tid < ncols);
+      copy_in<V>(bs + buf * kStrip + V * tid, V * tid < ncols ? head_b + col0 + V * tid : head_b,
+                 V * tid < ncols);
   };
 
-  stage<V, kThreads>(us, ldu, u_last + (size_t)row0 * hh, hh, RT, kp, rows, hh);
+  stage<V, kThreads, M::kRound>(us, ldu, u_last + (size_t)row0 * hh, hh, RT, kp, rows, hh);
   load(s_begin, 0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -309,7 +327,8 @@ head_backward(const float* __restrict__ dx, const float* __restrict__ g,
 #pragma unroll
         for (int n = 0; n < MT; ++n) {
           const float* wp = wsb + (8 * (ks + h) + t) * kLdW + 8 * (n1 + n) + gq;
-          mma_3xtf32(pre_hi[h][n], pre_lo[h][n], fa, frag_b(wp[0], wp[4 * kLdW]));
+          mma_3xtf32<M::kExactAct, M::kExactW>(pre_hi[h][n], pre_lo[h][n], fa,
+                                               frag_b(wp[0], wp[4 * kLdW]));
         }
       }
     }
@@ -358,7 +377,8 @@ head_backward(const float* __restrict__ dx, const float* __restrict__ g,
         const float* wr = wsb + (8 * (j2 + NS2 * q) + gq) * kLdW + 8 * ks + t;
         const FragB fb = frag_b(wr[0], wr[4]);
 #pragma unroll
-        for (int m = 0; m < M2; ++m) mma_3xtf32(du_hi[m][q], du_lo[m][q], fa[m], fb);
+        for (int m = 0; m < M2; ++m)
+          mma_3xtf32<false, M::kExactW>(du_hi[m][q], du_lo[m][q], fa[m], fb);
       }
     }
   }
@@ -392,13 +412,13 @@ head_backward(const float* __restrict__ dx, const float* __restrict__ g,
 // its rows of W_l, staged while the previous layer computed.  As in
 // trunk_forward, the MMA loop runs over zeros to a multiple of 16 and has
 // no branch.
-template <int V, int NQ>
+template <int V, int NQ, class M>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTThreads, 1)
 trunk_backward(const float* __restrict__ dupart, int groups,
                const float* __restrict__ ddxpart, int hstrips,
-               const float* __restrict__ acts, Trunk trunk, float* __restrict__ dv,
-               float* __restrict__ dz, float* __restrict__ ddx, int batch, int hidden,
-               int hh, int n_in) {
+               const float* __restrict__ acts, TrunkOf<typename M::Storage> trunk,
+               float* __restrict__ dv, typename M::Storage* __restrict__ dz,
+               typename M::Storage* __restrict__ ddx, int batch, int hidden, int hh, int n_in) {
   namespace cg = cooperative_groups;
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
@@ -424,12 +444,12 @@ trunk_backward(const float* __restrict__ dupart, int groups,
   // Stages W_l's owned rows and u_l's owned columns (slot l % 2).
   auto load = [&](int l) {
     const int d_in = l == 0 ? hidden : hh;
-    const float* w = layer_w(trunk, l);
+    const auto* w = layer_w(trunk, l);
 #pragma unroll
     for (int sg = 0; sg < NQ; ++sg) {
       const int r0 = sg * kSeg * kCluster + kSeg * rank;
-      stage<V, kTThreads>(slots + ((l % 2) * sw + sg * kSeg) * ldb, ldb,
-                          w + (size_t)r0 * hh, hh, kSeg, kph, d_in - r0, hh);
+      stage<V, kTThreads, M::kRound>(slots + ((l % 2) * sw + sg * kSeg) * ldb, ldb,
+                                     w + (size_t)r0 * hh, hh, kSeg, kph, d_in - r0, hh);
     }
     for (int sg = 0; sg < swh / kSeg; ++sg) {
       const int c0 = sg * kSeg * kCluster + kSeg * rank;
@@ -473,7 +493,7 @@ trunk_backward(const float* __restrict__ dupart, int groups,
 #pragma unroll
     for (int u = 0; u < kPerT; ++u) {
       const int e = tid + u * kTThreads, r = e / swh, c = owned_col(rank, e % swh);
-      if (r < kRowTile && c < kph) du[r * ldt + c] = s[u];
+      if (r < kRowTile && c < kph) du[r * ldt + c] = M::kRound ? bf16_round(s[u]) : s[u];
     }
   }
   for (int e = rank * kTThreads + tid; e < kRowTile * n_in; e += kCluster * kTThreads) {
@@ -486,7 +506,7 @@ trunk_backward(const float* __restrict__ dupart, int groups,
       float s = 0.f;
 #pragma unroll
       for (int q = 0; q < kMaxDim / kStrip; ++q) s += v[q];
-      ddx[(size_t)(row0 + r) * n_in + i] = s;
+      put(ddx + (size_t)(row0 + r) * n_in + i, s);
     }
   }
   cp_async_wait<0>();
@@ -552,7 +572,7 @@ trunk_backward(const float* __restrict__ dupart, int groups,
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
           const float* wp = wsl + kSeg * q * ldb + 8 * (ks + h);
-          mma_3xtf32(hi[h][q], lo[h][q], fa, frag_b(wp[0], wp[4]));
+          mma_3xtf32<M::kExactAct, M::kExactW>(hi[h][q], lo[h][q], fa, frag_b(wp[0], wp[4]));
         }
       }
     }
@@ -564,10 +584,11 @@ trunk_backward(const float* __restrict__ dupart, int groups,
         for (int e = 0; e < 4; ++e) {
           const int r = g + 8 * (e / 2), col = 8 * j + 2 * t + e % 2;
           const float v = (hi[0][q][e] + lo[0][q][e]) + (hi[1][q][e] + lo[1][q][e]);
+          const float vr = M::kRound ? bf16_round(v) : v;
           if (l > 0)
-            du[r * ldt + col] = v;
+            du[r * ldt + col] = vr;
           else if (r < rows && col < hidden)
-            dz[(size_t)(row0 + r) * hidden + col] = v;
+            put(dz + (size_t)(row0 + r) * hidden + col, vr);
         }
       }
     }
@@ -585,9 +606,10 @@ trunk_backward(const float* __restrict__ dupart, int groups,
 // ranges of one tile form a thread-block cluster: each block leaves its
 // partial in shared memory and rank 0 sums them in rank order through
 // distributed shared memory and writes W and b.
-template <int V>
+template <int V, class M>
 __global__ void __launch_bounds__(kWgThreads, 1)
 weight_grad(GradProblems P, int batch) {
+  using T = typename M::Storage;
   extern __shared__ __align__(16) float smem[];  // [kWgRing][X: kWgRows x kLdX, D: x kLdD]
   GradProblem pr = P.p[0];
 #pragma unroll
@@ -608,8 +630,13 @@ weight_grad(GradProblems P, int batch) {
   auto load = [&](int c) {
     const int r0 = b_begin + c * kWgRows;
     float* st = smem + (c % kWgRing) * kWgStage;
-    stage<V, kWgThreads>(st, kLdX, pr.x + (size_t)r0 * pr.m + m0, pr.m, kWgRows, kWgM,
-                         b_end - r0, pr.m - m0);
+    if (M::kBf16 && pr.x_storage)
+      stage<V, kWgThreads, M::kRound>(st, kLdX, static_cast<const T*>(pr.x) + (size_t)r0 * pr.m + m0,
+                                      pr.m, kWgRows, kWgM, b_end - r0, pr.m - m0);
+    else
+      stage<V, kWgThreads, M::kRound>(st, kLdX,
+                                      static_cast<const float*>(pr.x) + (size_t)r0 * pr.m + m0,
+                                      pr.m, kWgRows, kWgM, b_end - r0, pr.m - m0);
     stage<V, kWgThreads>(st + kWgRows * kLdX, kLdD, pr.d + (size_t)r0 * pr.n + n0, pr.n,
                          kWgRows, kWgN, b_end - r0, pr.n - n0);
   };
@@ -645,7 +672,8 @@ weight_grad(GradProblems P, int batch) {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 2; ++ni) mma_3xtf32(hi[mi][ni], lo[mi][ni], fa[mi], fb[ni]);
+        for (int ni = 0; ni < 2; ++ni)
+          mma_3xtf32<M::kRound, false>(hi[mi][ni], lo[mi][ni], fa[mi], fb[ni]);
     }
     if (bias) {
 #pragma unroll 8
@@ -654,6 +682,11 @@ weight_grad(GradProblems P, int batch) {
   }
   cp_async_wait<0>();
 
+  // A weight grad is the cotangent of a rounded operand under precision
+  // "bfloat16": rounded once, after the whole sum.
+  const auto put_w = [&](size_t e, float v) {
+    put(static_cast<T*>(pr.w) + e, M::kRound ? bf16_round(v) : v);
+  };
   if (P.split == 1) {
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -663,9 +696,9 @@ weight_grad(GradProblems P, int batch) {
         for (int e = 0; e < 4; ++e) {
           const int m = m0 + wm + 16 * mi + g + 8 * (e / 2);
           const int n = n0 + wn + 8 * ni + 2 * t + e % 2;
-          if (m < pr.m && n < pr.n) pr.w[(size_t)m * pr.n + n] = hi[mi][ni][e] + lo[mi][ni][e];
+          if (m < pr.m && n < pr.n) put_w((size_t)m * pr.n + n, hi[mi][ni][e] + lo[mi][ni][e]);
         }
-    if (bias && n0 + tid < pr.n) pr.b[n0 + tid] = bacc;
+    if (bias && n0 + tid < pr.n) put(static_cast<T*>(pr.b) + n0 + tid, bacc);
     return;
   }
   // The range's partial tile ([kWgM][kWgN], then b's kWgN) in shared memory.
@@ -691,9 +724,9 @@ weight_grad(GradProblems P, int batch) {
     for (int r = 0; r < P.split; ++r) s += cluster.map_shared_rank(part, r)[e];
     const int m = m0 + e / kWgN, n = n0 + e % kWgN;
     if (e < kWgM * kWgN) {
-      if (m < pr.m && n < pr.n) pr.w[(size_t)m * pr.n + n] = s;
+      if (m < pr.m && n < pr.n) put_w((size_t)m * pr.n + n, s);
     } else if (tm == 0 && n < pr.n) {
-      pr.b[n] = s;
+      put(static_cast<T*>(pr.b) + n, s);
     }
   }
   cluster.sync();  // every block's partial stays until all ranks have read it
@@ -709,25 +742,23 @@ bool valid(int batch, int hidden, int hh, int n_in, int n_trunk) {
          (long long)n_in * ((hidden + kStrip - 1) / kStrip) <= 65535;
 }
 
-template <int MT, int NQ, int V>
-cudaError_t launch_head(dim3 blocks, size_t smem, cudaStream_t s, const float* dx,
-                        const float* g, const float* u_last, const float* head_w,
-                        const float* head_b, float* scratch, const Layout& L, int batch,
-                        int hidden, int hh, int n_in) {
-  const cudaError_t err = reserve_smem<head_backward<MT, NQ, V>>(smem);
+template <int MT, int NQ, int V, class M, class T = typename M::Storage>
+cudaError_t launch_head(dim3 blocks, size_t smem, cudaStream_t s, const T* dx, const T* g,
+                        const float* u_last, const T* head_w, const T* head_b, float* scratch,
+                        const Layout& L, int batch, int hidden, int hh, int n_in) {
+  const cudaError_t err = reserve_smem<head_backward<MT, NQ, V, M>>(smem);
   if (err != cudaSuccess) return err;
-  head_backward<MT, NQ, V><<<blocks, kThreads, smem, s>>>(
+  head_backward<MT, NQ, V, M><<<blocks, kThreads, smem, s>>>(
       dx, g, u_last, head_w, head_b, scratch + L.dpre, scratch + L.dupart, scratch + L.ddxpart,
       batch, hidden, hh, n_in, L.hstrips, L.strips, L.head.spg);
   return cudaGetLastError();
 }
 
-template <int V>
-cudaError_t launch(const float* z, const float* dx, const float* g, const Trunk& trunk,
-                   const float* head_w, const float* head_b, float* dz, float* ddx,
-                   float* const* dtrunk_w, float* const* dtrunk_b, float* dhead_w,
-                   float* dhead_b, float* scratch, const Layout& L, int batch, int hidden,
-                   int hh, int n_in, cudaStream_t s) {
+template <int V, class M, class T = typename M::Storage>
+cudaError_t launch(const T* z, const T* dx, const T* g, const TrunkOf<T>& trunk,
+                   const T* head_w, const T* head_b, T* dz, T* ddx, void* const* dtrunk_w,
+                   void* const* dtrunk_b, T* dhead_w, T* dhead_b, float* scratch,
+                   const Layout& L, int batch, int hidden, int hh, int n_in, cudaStream_t s) {
   const int n_trunk = trunk.n;
   float* acts = scratch + L.acts;
   float* dv = scratch + L.dv;
@@ -735,29 +766,30 @@ cudaError_t launch(const float* z, const float* dx, const float* g, const Trunk&
   const int trunk_blocks = cdiv(batch, kRowTile) * kCluster;
   cudaError_t err;
 
-  if ((err = launch_trunk_forward<V, true>(z, trunk, acts, batch, hidden, hh, s)) != cudaSuccess)
+  if ((err = launch_trunk_forward<V, true, M>(z, trunk, acts, batch, hidden, hh, s)) !=
+      cudaSuccess)
     return err;
 
   const HeadGrid& H = L.head;
   size_t smem = head_smem_bytes(H.mt, hh);
   const dim3 head_blocks(H.row_tiles, H.groups);
   const bool nq2 = head_nq(hh) == 2;
-  const auto head = H.mt == 4 ? launch_head<4, 2, V>
-                    : H.mt == 2 ? (nq2 ? launch_head<2, 2, V> : launch_head<2, 4, V>)
-                                : (nq2 ? launch_head<1, 2, V> : launch_head<1, 4, V>);
+  const auto head = H.mt == 4 ? launch_head<4, 2, V, M>
+                    : H.mt == 2 ? (nq2 ? launch_head<2, 2, V, M> : launch_head<2, 4, V, M>)
+                                : (nq2 ? launch_head<1, 2, V, M> : launch_head<1, 4, V, M>);
   err = head(head_blocks, smem, s, dx, g, u_last, head_w, head_b, scratch, L, batch, hidden, hh,
              n_in);
   if (err != cudaSuccess) return err;
 
   smem = trunk_backward_smem(hidden, hh);
   if (owned_segs(hidden > hh ? hidden : hh) == 2) {
-    if ((err = reserve_smem<trunk_backward<V, 2>>(smem)) != cudaSuccess) return err;
-    trunk_backward<V, 2><<<trunk_blocks, kTThreads, smem, s>>>(
+    if ((err = reserve_smem<trunk_backward<V, 2, M>>(smem)) != cudaSuccess) return err;
+    trunk_backward<V, 2, M><<<trunk_blocks, kTThreads, smem, s>>>(
         scratch + L.dupart, H.groups, scratch + L.ddxpart, L.hstrips, acts, trunk, dv, dz,
         ddx, batch, hidden, hh, n_in);
   } else {
-    if ((err = reserve_smem<trunk_backward<V, 1>>(smem)) != cudaSuccess) return err;
-    trunk_backward<V, 1><<<trunk_blocks, kTThreads, smem, s>>>(
+    if ((err = reserve_smem<trunk_backward<V, 1, M>>(smem)) != cudaSuccess) return err;
+    trunk_backward<V, 1, M><<<trunk_blocks, kTThreads, smem, s>>>(
         scratch + L.dupart, H.groups, scratch + L.ddxpart, L.hstrips, acts, trunk, dv, dz,
         ddx, batch, hidden, hh, n_in);
   }
@@ -770,16 +802,41 @@ cudaError_t launch(const float* z, const float* dx, const float* g, const Trunk&
   P.p[0].b = dhead_b;
   for (int l = 0; l < n_trunk; ++l) {
     GradProblem& p = P.p[1 + l];
-    p.x = l == 0 ? z : acts + (size_t)(l - 1) * batch * hh;
+    p.x = l == 0 ? static_cast<const void*>(z) : acts + (size_t)(l - 1) * batch * hh;
+    p.x_storage = l == 0;
     p.d = dv + (size_t)l * batch * hh;
     p.w = dtrunk_w[l];
     p.b = dtrunk_b[l];
   }
-  if ((err = reserve_smem<weight_grad<V>>(kWgSmemBytes)) != cudaSuccess) return err;
-  err = launch_cluster_y(weight_grad<V>, dim3(P.tiles, P.split), dim3(kWgThreads), kWgSmemBytes,
-                         s, P.split, P, batch);
+  if ((err = reserve_smem<weight_grad<V, M>>(kWgSmemBytes)) != cudaSuccess) return err;
+  err = launch_cluster_y(weight_grad<V, M>, dim3(P.tiles, P.split), dim3(kWgThreads),
+                         kWgSmemBytes, s, P.split, P, batch);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// One call in operand mode M (the entry point's body).
+template <class M, class T = typename M::Storage>
+int backward(const void* z, const void* dx, const void* g, const void* const* trunk_w,
+             const void* const* trunk_b, int n_trunk, const void* head_w, const void* head_b,
+             void* dz, void* ddx, void* const* dtrunk_w, void* const* dtrunk_b, void* dhead_w,
+             void* dhead_b, float* scratch, const Layout& L, int batch, int hidden, int hh,
+             int n_in, cudaStream_t s) {
+  TrunkOf<T> trunk;
+  bool vec = hidden % 4 == 0 && hh % 4 == 0 && aligned_vec4<T>(z) && aligned_vec4<T>(g) &&
+             aligned_vec4<T>(head_w) && aligned_vec4<T>(head_b) && aligned16(scratch);
+  for (int l = 0; l < kMaxTrunk; ++l) {
+    trunk.w[l] = l < n_trunk ? static_cast<const T*>(trunk_w[l]) : nullptr;
+    trunk.b[l] = l < n_trunk ? static_cast<const T*>(trunk_b[l]) : nullptr;
+    if (l < n_trunk) vec = vec && aligned_vec4<T>(trunk_w[l]);
+  }
+  trunk.n = n_trunk;
+  const auto go = vec ? launch<4, M> : launch<1, M>;
+  return (int)go(static_cast<const T*>(z), static_cast<const T*>(dx), static_cast<const T*>(g),
+                 trunk, static_cast<const T*>(head_w), static_cast<const T*>(head_b),
+                 static_cast<T*>(dz), static_cast<T*>(ddx), dtrunk_w, dtrunk_b,
+                 static_cast<T*>(dhead_w), static_cast<T*>(dhead_b), scratch, L, batch, hidden,
+                 hh, n_in, s);
 }
 
 }  // namespace
@@ -797,34 +854,29 @@ long long oncde_fused_field_backward_scratch(int batch, int hidden, int hh, int 
 int oncde_fused_field_backward_max_dim() { return kMaxDim; }
 
 // Launches on `stream`; returns the first CUDA error that is not 0 (0 on
-// success).  trunk_w / trunk_b / dtrunk_w / dtrunk_b are host arrays of
-// n_trunk device pointers; scratch holds scratch_floats floats.
-int oncde_fused_field_backward(const float* z, const float* dx, const float* g,
-                               const float* const* trunk_w,
-                               const float* const* trunk_b, int n_trunk,
-                               const float* head_w, const float* head_b, float* dz,
-                               float* ddx, float* const* dtrunk_w,
-                               float* const* dtrunk_b, float* dhead_w,
-                               float* dhead_b, float* scratch,
-                               long long scratch_floats, int batch, int hidden,
-                               int hh, int n_in, void* stream) {
+// success).  Every input and output is stored as `dtype` (0: float32, 1:
+// bfloat16); `precision` 1 rounds every product's operands to bf16 (0:
+// they stay as stored).  trunk_w / trunk_b / dtrunk_w / dtrunk_b are host
+// arrays of n_trunk device pointers; scratch holds scratch_floats floats.
+int oncde_fused_field_backward(const void* z, const void* dx, const void* g,
+                               const void* const* trunk_w, const void* const* trunk_b,
+                               int n_trunk, const void* head_w, const void* head_b, void* dz,
+                               void* ddx, void* const* dtrunk_w, void* const* dtrunk_b,
+                               void* dhead_w, void* dhead_b, float* scratch,
+                               long long scratch_floats, int batch, int hidden, int hh,
+                               int n_in, int dtype, int precision, void* stream) {
   if (!valid(batch, hidden, hh, n_in, n_trunk)) return (int)cudaErrorInvalidValue;
   const Layout L = layout(batch, hidden, hh, n_in, n_trunk);
   if (scratch_floats < (long long)L.total) return (int)cudaErrorInvalidValue;
-  Trunk trunk;
-  bool vec = hidden % 4 == 0 && hh % 4 == 0 && aligned16(z) && aligned16(g) &&
-             aligned16(head_w) && aligned16(head_b) && aligned16(scratch);
-  for (int l = 0; l < kMaxTrunk; ++l) {
-    trunk.w[l] = l < n_trunk ? trunk_w[l] : nullptr;
-    trunk.b[l] = l < n_trunk ? trunk_b[l] : nullptr;
-    if (l < n_trunk) vec = vec && aligned16(trunk_w[l]);
-  }
-  trunk.n = n_trunk;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(vec ? launch<4>(z, dx, g, trunk, head_w, head_b, dz, ddx, dtrunk_w, dtrunk_b,
-                               dhead_w, dhead_b, scratch, L, batch, hidden, hh, n_in, s)
-                   : launch<1>(z, dx, g, trunk, head_w, head_b, dz, ddx, dtrunk_w, dtrunk_b,
-                               dhead_w, dhead_b, scratch, L, batch, hidden, hh, n_in, s));
+  const auto call = dtype == 0 && precision == 0   ? &backward<F32>
+                    : dtype == 0 && precision == 1 ? &backward<Mode<float, true>>
+                    : dtype == 1 && precision == 0 ? &backward<Mode<__nv_bfloat16, false>>
+                    : dtype == 1 && precision == 1 ? &backward<Mode<__nv_bfloat16, true>>
+                                                   : nullptr;
+  if (call == nullptr) return (int)cudaErrorInvalidValue;
+  return call(z, dx, g, trunk_w, trunk_b, n_trunk, head_w, head_b, dz, ddx, dtrunk_w, dtrunk_b,
+              dhead_w, dhead_b, scratch, L, batch, hidden, hh, n_in,
+              static_cast<cudaStream_t>(stream));
 }
 
 const char* oncde_cuda_error_string(int err) {

@@ -28,14 +28,57 @@
 // mma_3xtf32 keeps two accumulators: hi takes the big products and lo the
 // two cross terms, so a warp has twice the independent MMA chains in
 // flight; the product is hi + lo.
+//
+// bf16 operands.  The field kernels also take bf16 storage and the
+// precision "bfloat16" (both operands of every product rounded to bf16
+// first), with f32 accumulation, as the JAX package's _mm.  A bf16 value
+// has 8 significant bits and TF32 holds 11, so it is exact in TF32: its
+// small part is 0, and a pass that multiplies by it adds exactly 0 to an
+// accumulator.  mma_3xtf32<EA, EB> drops those passes when the A (EA) or B
+// (EB) operand is known at compile time to be bf16-exact: f32 x bf16 takes
+// two passes, bf16 x bf16 one, with the bits of the three passes on the
+// same values.  Mode names a kernel's operand mode (the storage type and
+// the precision) and which of its operands are then bf16-exact.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
+
+// A field kernel's operand mode: every input and output is stored as T
+// (float or __nv_bfloat16); with R (precision "bfloat16") each product's
+// operands are rounded to bf16 where they are staged.  Sums, activations
+// and scratch stay f32; outputs are rounded to T once, when written.
+template <class T, bool R>
+struct Mode {
+  using Storage = T;
+  static constexpr bool kBf16 = !std::is_same<T, float>::value;
+  static constexpr bool kRound = R;
+  static constexpr bool kExactW = kBf16 || R;  // weights in a product are bf16-exact
+  static constexpr bool kExactAct = R;         // and so are the activations
+};
+using F32 = Mode<float, false>;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Round to nearest even bf16, as an f32.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// Writes v in the output's storage type (bf16: rounded to nearest even).
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Whether a pointer of element type T can be read V = 4 elements a load.
+template <class T>
+bool aligned_vec4(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & (4 * sizeof(T) - 1)) == 0;
+}
 
 // x rounded to TF32 (nearest, ties away from zero), as an f32.
 __device__ __forceinline__ float tf32_round(float x) {
@@ -108,12 +151,14 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// (hi + lo) += a b in 3xTF32.
+// (hi + lo) += a b in 3xTF32, less the passes whose small part is 0 (EA: a
+// is bf16-exact, EB: b is).
+template <bool EA = false, bool EB = false>
 __device__ __forceinline__ void mma_3xtf32(float (&hi)[4], float (&lo)[4], const FragA& a,
                                            const FragB& b) {
-  mma_tf32(lo, a.small, b.big);
+  if (!EA) mma_tf32(lo, a.small, b.big);
   mma_tf32(hi, a.big, b.big);
-  mma_tf32(lo, a.big, b.small);
+  if (!EB) mma_tf32(lo, a.big, b.small);
 }
 
 }  // namespace

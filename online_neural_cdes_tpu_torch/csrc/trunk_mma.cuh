@@ -15,6 +15,14 @@
 // Everything here is in namespace tc (tensor cores), so that a source can
 // also include field_pass.cuh, whose CUDA-core passes use some of the same
 // names (Trunk, kThreads, cp_async, trunk_forward).
+//
+// Operand modes (mma_tf32.cuh's Mode).  A float operand reaches shared
+// memory by cp.async; a bf16 one, or a float one that a product rounds to
+// bf16 (precision "bfloat16"), is read into registers, widened or rounded
+// there and stored as floats, so every tile in shared memory holds f32
+// values and the MMA loops are the same in every mode.  The trunk pass
+// rounds what the next product reads (z, each layer's output on its way to
+// the peers' tiles), never u_l itself: the backward's relu masks read it.
 
 #pragma once
 
@@ -48,11 +56,13 @@ constexpr int kStrip = 64;
 constexpr int kLdS = kStrip + 4;  // g and dpre strips (4 mod 8: row-wise reads)
 constexpr int kLdW = kStrip + 8;  // W_o strip (8 mod 32: column-wise reads)
 
-struct Trunk {
-  const float* w[kMaxTrunk];  // layer l: (d_in, hh) row-major, d_in = H for l = 0
-  const float* b[kMaxTrunk];  // (hh,)
+template <class T>
+struct TrunkOf {
+  const T* w[kMaxTrunk];  // layer l: (d_in, hh) row-major, d_in = H for l = 0
+  const T* b[kMaxTrunk];  // (hh,)
   int n;
 };
+using Trunk = TrunkOf<float>;
 
 __host__ __device__ constexpr int pad8(int n) { return (n + 7) & ~7; }
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
@@ -77,18 +87,88 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// V elements at src as floats (widened from bf16; rounded to bf16 if R),
+// or zeros when !valid.  With V = 4, src is aligned to 4 elements.
+template <int V, bool R, class T>
+__device__ __forceinline__ void load_vec(float (&v)[V], const T* src, bool valid) {
+  if (!valid) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = 0.f;
+    return;
+  }
+  if constexpr (V == 4 && std::is_same<T, float>::value) {
+    const float4 q = *reinterpret_cast<const float4*>(src);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (V == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(src);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+    v[0] = __low2float(lo), v[1] = __high2float(lo), v[2] = __low2float(hi),
+    v[3] = __high2float(hi);
+  } else {
+    v[0] = widen(*src);
+  }
+  if (R) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = bf16_round(v[i]);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* dst, const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    dst[0] = v[0];
+}
+
+// V elements from src into shared memory at dst as floats, zeros when
+// !valid (src is then any readable address): cp.async for a float source
+// kept as it is, else a load widened (bf16) or rounded to bf16 (R) in
+// registers.
+template <int V, bool R = false, class T>
+__device__ __forceinline__ void copy_in(float* dst, const T* src, bool valid) {
+  if constexpr (std::is_same<T, float>::value && !R) {
+    cp_async<V>(dst, src, valid);
+  } else {
+    float v[V];
+    load_vec<V, R>(v, src, valid);
+    store_vec<V>(dst, v);
+  }
+}
+
 // Stages rows x cols (cols a multiple of V) of a row-major matrix at src
 // (leading dimension ld) into shared memory at dst (leading dimension
 // lds); entries at rows >= rvalid or columns >= cvalid read as 0.  With
-// V = 4, ld, cvalid and src are multiples of 4 floats.
-template <int V, int NT>
-__device__ __forceinline__ void stage(float* dst, int lds, const float* src, size_t ld,
-                                      int rows, int cols, int rvalid, int cvalid) {
+// V = 4, ld, cvalid and src are multiples of 4 elements.  A float source
+// kept as it is goes by cp.async; a bf16 source, or one rounded to bf16
+// (R), by loads into registers, kIn of them in flight a thread.
+template <int V, int NT, bool R = false, class T>
+__device__ __forceinline__ void stage(float* dst, int lds, const T* src, size_t ld, int rows,
+                                      int cols, int rvalid, int cvalid) {
   const int per_row = cols / V;
-  for (int e = threadIdx.x; e < rows * per_row; e += NT) {
-    const int r = e / per_row, c = (e - r * per_row) * V;
-    const bool ok = r < rvalid && c < cvalid;
-    cp_async<V>(dst + r * lds + c, ok ? src + (size_t)r * ld + c : src, ok);
+  if constexpr (std::is_same<T, float>::value && !R) {
+    for (int e = threadIdx.x; e < rows * per_row; e += NT) {
+      const int r = e / per_row, c = (e - r * per_row) * V;
+      const bool ok = r < rvalid && c < cvalid;
+      cp_async<V>(dst + r * lds + c, ok ? src + (size_t)r * ld + c : src, ok);
+    }
+  } else {
+    constexpr int kIn = 4;
+    const int total = rows * per_row;
+    for (int e0 = threadIdx.x; e0 < total; e0 += kIn * NT) {
+      float v[kIn][V];
+#pragma unroll
+      for (int j = 0; j < kIn; ++j) {
+        const int e = e0 + j * NT, r = e / per_row, c = (e - r * per_row) * V;
+        load_vec<V, R>(v[j], src + (size_t)r * ld + c, e < total && r < rvalid && c < cvalid);
+      }
+#pragma unroll
+      for (int j = 0; j < kIn; ++j) {
+        const int e = e0 + j * NT, r = e / per_row, c = (e - r * per_row) * V;
+        if (e < total) store_vec<V>(dst + r * lds + c, v[j]);
+      }
+    }
   }
 }
 
@@ -104,15 +184,17 @@ __device__ __forceinline__ void cluster_wait() {
 
 // trunk.w[l] / trunk.b[l] without indexing the parameter by a runtime l
 // (which would copy the struct to local memory).
-__device__ __forceinline__ const float* layer_w(const Trunk& t, int l) {
-  const float* p = t.w[0];
+template <class T>
+__device__ __forceinline__ const T* layer_w(const TrunkOf<T>& t, int l) {
+  const T* p = t.w[0];
 #pragma unroll
   for (int q = 1; q < kMaxTrunk; ++q)
     if (q == l) p = t.w[q];
   return p;
 }
-__device__ __forceinline__ const float* layer_b(const Trunk& t, int l) {
-  const float* p = t.b[0];
+template <class T>
+__device__ __forceinline__ const T* layer_b(const TrunkOf<T>& t, int l) {
+  const T* p = t.b[0];
 #pragma unroll
   for (int q = 1; q < kMaxTrunk; ++q)
     if (q == l) p = t.b[q];
@@ -138,11 +220,12 @@ size_t trunk_forward_smem(int hidden, int hh) {
 // memory), then the cluster syncs.  A block stages only its columns of
 // each W_l, the next layer's while the current one computes.  K runs to a
 // multiple of 16 over zeros and every warp computes its NQ tiles, so the
-// MMA loop has no branch.
-template <int V, int NQ, bool ALL>
+// MMA loop has no branch.  M is the operand mode (mma_tf32.cuh); acts
+// are f32 in every mode.
+template <int V, int NQ, bool ALL, class M = F32>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTThreads, 1)
-trunk_forward(const float* __restrict__ z, Trunk trunk, float* __restrict__ acts,
-              int batch, int hidden, int hh) {
+trunk_forward(const typename M::Storage* __restrict__ z, TrunkOf<typename M::Storage> trunk,
+              float* __restrict__ acts, int batch, int hidden, int hh) {
   namespace cg = cooperative_groups;
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
@@ -164,12 +247,12 @@ trunk_forward(const float* __restrict__ z, Trunk trunk, float* __restrict__ acts
 
   auto load = [&](int l) {
     const int d_in = l == 0 ? hidden : hh;
-    const float* w = layer_w(trunk, l);
+    const auto* w = layer_w(trunk, l);
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
       const int c0 = q * kSeg * kCluster + kSeg * rank;
-      stage<V, kTThreads>(slots + (l % 2) * kmax * ldw + q * kSeg, ldw, w + c0, hh,
-                          pad16(d_in), kSeg, d_in, hh - c0);
+      stage<V, kTThreads, M::kRound>(slots + (l % 2) * kmax * ldw + q * kSeg, ldw, w + c0, hh,
+                                     pad16(d_in), kSeg, d_in, hh - c0);
     }
   };
 
@@ -178,8 +261,8 @@ trunk_forward(const float* __restrict__ z, Trunk trunk, float* __restrict__ acts
   // l + 1 reads them, or before the block exits).
   cluster_arrive();
   load(0);
-  stage<V, kTThreads>(xs, ldt, z + (size_t)row0 * hidden, hidden, kRowTile, pad16(hidden),
-                      rows, hidden);
+  stage<V, kTThreads, M::kRound>(xs, ldt, z + (size_t)row0 * hidden, hidden, kRowTile,
+                                 pad16(hidden), rows, hidden);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -199,14 +282,14 @@ trunk_forward(const float* __restrict__ z, Trunk trunk, float* __restrict__ acts
     const int d_in = l == 0 ? hidden : hh;
     const float* wsl = slots + (l % 2) * kmax * ldw + 8 * warp + g;
     const float* xa = xs + cur * tile;
-    const float* __restrict__ b = layer_b(trunk, l);
+    const auto* __restrict__ b = layer_b(trunk, l);
     float bias[NQ][2];
 #pragma unroll
     for (int q = 0; q < NQ; ++q)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * (j0 + 16 * q) + 2 * t + e;
-        bias[q][e] = col < hh ? b[col] : 0.f;
+        bias[q][e] = col < hh ? widen(b[col]) : 0.f;
       }
     // Even and odd k-steps in separate accumulators: four MMA chains a tile.
     float hi[2][NQ][4] = {}, lo[2][NQ][4] = {};
@@ -219,7 +302,8 @@ trunk_forward(const float* __restrict__ z, Trunk trunk, float* __restrict__ acts
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
           const float* wp = wsl + (8 * (ks + h) + t) * ldw + kSeg * q;
-          mma_3xtf32(hi[h][q], lo[h][q], fa, frag_b(wp[0], wp[4 * ldw]));
+          mma_3xtf32<M::kExactAct, M::kExactW>(hi[h][q], lo[h][q], fa,
+                                               frag_b(wp[0], wp[4 * ldw]));
         }
       }
     }
@@ -241,8 +325,8 @@ trunk_forward(const float* __restrict__ z, Trunk trunk, float* __restrict__ acts
         for (int h = 0; h < 2; ++h) {  // rows g and g + 8, columns 2t, 2t + 1
           const int off = nxt + (g + 8 * h) * ldt + 8 * j + 2 * t;
           float2 big, small;
-          tf32_split(v[q][2 * h], big.x, small.x);
-          tf32_split(v[q][2 * h + 1], big.y, small.y);
+          tf32_split(M::kRound ? bf16_round(v[q][2 * h]) : v[q][2 * h], big.x, small.x);
+          tf32_split(M::kRound ? bf16_round(v[q][2 * h + 1]) : v[q][2 * h + 1], big.y, small.y);
 #pragma unroll
           for (int p = 0; p < kCluster; ++p) {
             *reinterpret_cast<float2*>(peer[p] + off) = big;
@@ -283,18 +367,21 @@ cudaError_t reserve_smem(size_t smem) {
 
 // Launches trunk_forward over the batch: a cluster of four blocks per 16
 // rows, NQ = owned_segs(hh) column segments a rank.
-template <int V, bool ALL>
-cudaError_t launch_trunk_forward(const float* z, const Trunk& trunk, float* acts, int batch,
-                                 int hidden, int hh, cudaStream_t s) {
+template <int V, bool ALL, class M = F32>
+cudaError_t launch_trunk_forward(const typename M::Storage* z,
+                                 const TrunkOf<typename M::Storage>& trunk, float* acts,
+                                 int batch, int hidden, int hh, cudaStream_t s) {
   const int blocks = cdiv(batch, kRowTile) * kCluster;
   const size_t smem = trunk_forward_smem(hidden, hh);
   cudaError_t err;
   if (owned_segs(hh) == 2) {
-    if ((err = reserve_smem<trunk_forward<V, 2, ALL>>(smem)) != cudaSuccess) return err;
-    trunk_forward<V, 2, ALL><<<blocks, kTThreads, smem, s>>>(z, trunk, acts, batch, hidden, hh);
+    if ((err = reserve_smem<trunk_forward<V, 2, ALL, M>>(smem)) != cudaSuccess) return err;
+    trunk_forward<V, 2, ALL, M><<<blocks, kTThreads, smem, s>>>(z, trunk, acts, batch, hidden,
+                                                                hh);
   } else {
-    if ((err = reserve_smem<trunk_forward<V, 1, ALL>>(smem)) != cudaSuccess) return err;
-    trunk_forward<V, 1, ALL><<<blocks, kTThreads, smem, s>>>(z, trunk, acts, batch, hidden, hh);
+    if ((err = reserve_smem<trunk_forward<V, 1, ALL, M>>(smem)) != cudaSuccess) return err;
+    trunk_forward<V, 1, ALL, M><<<blocks, kTThreads, smem, s>>>(z, trunk, acts, batch, hidden,
+                                                                hh);
   }
   return cudaGetLastError();
 }

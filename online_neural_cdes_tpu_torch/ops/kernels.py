@@ -16,6 +16,13 @@ CUDA-core kernel above that); on a CPU tensor it runs the plain version
 ``_forward_reference``.  The choice follows the tensor's device only:
 nothing falls back from the kernel to the plain version.
 
+Both kernels take float32 or bfloat16 storage (every operand of one
+dtype) and the JAX op's ``precision``: ``"float32"`` multiplies the
+operands as stored, ``"bfloat16"`` rounds each product's two operands to
+bf16 first.  Every product accumulates in float32 (:func:`_mm`), the bias
+add, relu, tanh and the dX sum stay float32, and only the results are
+rounded to the storage dtype.
+
 The gradient is a ``torch.autograd.Function`` whose backward is the same
 kind of pair: on a CUDA tensor the Hopper kernel ``csrc/fused_field_bwd.cu``
 (the port of ``_backward_pallas``), on a CPU tensor
@@ -64,6 +71,7 @@ fused_field_kernel = CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # head_w, head_b, out
      ctypes.c_void_p, ctypes.c_longlong,                 # scratch, its floats
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, HH, I
+     ctypes.c_int, ctypes.c_int,                         # storage dtype, precision
      ctypes.c_void_p],                                   # stream
 )
 
@@ -80,8 +88,13 @@ fused_field_bwd_kernel = CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p,                   # dhead_w, dhead_b
      ctypes.c_void_p, ctypes.c_longlong,                 # scratch, its floats
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, HH, I
+     ctypes.c_int, ctypes.c_int,                         # storage dtype, precision
      ctypes.c_void_p],                                   # stream
 )
+
+# The field kernels' codes for the storage dtype and the precision.
+STORAGE = (torch.float32, torch.bfloat16)
+PRECISIONS = ("float32", "bfloat16")
 
 # The whole-interval RK4 kernel's two entry points (one library).
 _RK4_HEAD = [ctypes.c_void_p, ctypes.c_void_p, _PTRS, _PTRS, ctypes.c_int,  # z, dx, trunk
@@ -111,15 +124,29 @@ def pack_fused_params(field_params, hidden_dim: int, input_dim: int) -> dict:
     }
 
 
-def _forward_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
+def _mm(a, b, precision):
+    """a @ b with at least float32 accumulation (the JAX package's ``_mm``):
+    ``precision="bfloat16"`` rounds both operands to bf16 first; the
+    product runs at ``promote(a.dtype, float32)``, so bf16 operands
+    accumulate in float32 and a float64 run stays float64."""
+    if precision == "bfloat16":
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    acc = torch.promote_types(a.dtype, torch.float32)
+    return a.to(acc) @ b.to(acc)
+
+
+def _forward_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
+                       precision="float32"):
     """Plain PyTorch version of the fused field (the JAX package's
-    ``_forward_reference``).  Handles a head wider than ``hidden_dim`` per
-    channel by slicing the extra columns off."""
+    ``_forward_reference``): the products through :func:`_mm`, the bias
+    add, relu, tanh and the dX sum at its accumulator dtype, only the
+    result cast to ``z.dtype``.  Handles a head wider than ``hidden_dim``
+    per channel by slicing the extra columns off."""
     hp = head_w.shape[-1] // input_dim
     u = z
     for layer in trunk:
-        u = torch.relu(u @ layer["w"] + layer["b"])
-    a = torch.tanh(u @ head_w + head_b)  # (B, I*Hp)
+        u = torch.relu(_mm(u, layer["w"], precision) + layer["b"])
+    a = torch.tanh(_mm(u, head_w, precision) + head_b)  # (B, I*Hp)
     a = a.reshape(a.shape[:-1] + (input_dim, hp))
     out = torch.sum(a * dx[..., :, None], dim=-2)
     return out[..., :hidden_dim].to(z.dtype)
@@ -140,17 +167,27 @@ def _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim, input_dim, lead=(
     return [(name, t, tuple(lead) + shape) for name, t, shape in operands]
 
 
-def _check_operands(what, operands, device, n_trunk):
+def _check_precision(precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
+def _check_operands(what, operands, device, n_trunk, dtypes=(torch.float32,)):
     """Raise on anything a kernel does not take: another device, a dtype
-    other than float32, a non-contiguous operand, a wrong shape, 0 or more
-    than MAX_TRUNK trunk layers."""
+    not in ``dtypes`` or operands of more than one dtype, a non-contiguous
+    operand, a wrong shape, 0 or more than MAX_TRUNK trunk layers."""
     if not 1 <= n_trunk <= MAX_TRUNK:
         raise ValueError(f"{what} takes 1..{MAX_TRUNK} trunk layers, got {n_trunk}")
+    dtype = operands[0][1].dtype
     for name, t, shape in operands:
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, z on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what} takes float32; {name} is {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{what} takes {names}; {name} is {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what} takes operands of one dtype; z is {dtype}, "
+                            f"{name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
         if t.shape != shape:
@@ -183,12 +220,14 @@ def _forward_scratch_floats(batch, hidden_dim, hh, input_dim, n_trunk) -> int:
     return int(fn(batch, hidden_dim, hh, input_dim, n_trunk))
 
 
-def _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
+def _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
+                    precision="float32"):
     """Launch ``csrc/fused_field.cu`` on the current stream; raises on
     anything the kernel does not take (:func:`_check_operands`)."""
+    _check_precision(precision)
     _check_operands("fused field kernel",
                     _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
-                                     input_dim), z.device, len(trunk))
+                                     input_dim), z.device, len(trunk), STORAGE)
     batch, hh = z.shape[0], head_w.shape[0]
     out = torch.empty((batch, hidden_dim), dtype=z.dtype, device=z.device)
     if batch == 0:
@@ -200,29 +239,35 @@ def _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
         _pointers(l["b"] for l in trunk), len(trunk),
         head_w.data_ptr(), head_b.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), n_scratch, batch, hidden_dim, hh, input_dim,
+        STORAGE.index(z.dtype), PRECISIONS.index(precision),
         torch.cuda.current_stream().cuda_stream,
     )
     return out
 
 
-def _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
+def _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim, precision="float32"):
     if z.is_cuda:
-        return _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
-    return _forward_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
+        return _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
+                               precision)
+    return _forward_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
+                              precision)
 
 
-def _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim):
+def _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
+                        precision="float32"):
     """Plain PyTorch version of the fused field's VJP: autograd through
     :func:`_forward_reference`, as the JAX package's default route
-    (``jax.vjp`` of its ``_forward_reference``).  Returns ``(dtrunk, dhw,
-    dhb, dz, ddx)`` with ``dtrunk = [{"w", "b"}, ...]``, the order of
-    ``_backward_pallas``."""
+    (``jax.vjp`` of its ``_forward_reference``), so it rounds where that
+    does: a bf16 leaf's cotangent to bf16 after its full sum and, under
+    ``precision="bfloat16"``, each product's cotangent for an operand cast
+    to bf16.  Returns ``(dtrunk, dhw, dhb, dz, ddx)`` with ``dtrunk =
+    [{"w", "b"}, ...]``, the order of ``_backward_pallas``."""
     leaves = [t.detach().requires_grad_()
               for t in (z, dx, head_w, head_b, *_flat_trunk(trunk))]
     z_, dx_, hw_, hb_, *flat = leaves
     with torch.enable_grad():
         out = _forward_reference(_unflat_trunk(flat), hw_, hb_, z_, dx_, hidden_dim,
-                                 input_dim)
+                                 input_dim, precision)
         dz, ddx, dhw, dhb, *dflat = torch.autograd.grad(out, leaves, g)
     return _unflat_trunk(dflat), dhw, dhb, dz, ddx
 
@@ -236,17 +281,19 @@ def _backward_scratch_floats(batch, hidden_dim, hh, input_dim, n_trunk) -> int:
     return int(fn(batch, hidden_dim, hh, input_dim, n_trunk))
 
 
-def _backward_kernel(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim):
+def _backward_kernel(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
+                     precision="float32"):
     """Launch ``csrc/fused_field_bwd.cu`` on the current stream.  Same
     checks as :func:`_forward_kernel`, plus g (B, H); the library refuses
     any other shape it does not take (H or HH above its tile width), and
     the wrapper raises on that.  Returns what :func:`_backward_reference`
     returns."""
+    _check_precision(precision)
     batch, hh = z.shape[0], head_w.shape[0]
     _check_operands("fused field backward kernel",
                     _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
                                      input_dim) + [("g", g, (batch, hidden_dim))],
-                    z.device, len(trunk))
+                    z.device, len(trunk), STORAGE)
     dz, ddx = torch.empty_like(z), torch.empty_like(dx)
     dtrunk = [{"w": torch.empty_like(l["w"]), "b": torch.empty_like(l["b"])}
               for l in trunk]
@@ -269,24 +316,29 @@ def _backward_kernel(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim):
         head_w.data_ptr(), head_b.data_ptr(), dz.data_ptr(), ddx.data_ptr(),
         _pointers(l["w"] for l in dtrunk), _pointers(l["b"] for l in dtrunk),
         dhw.data_ptr(), dhb.data_ptr(), scratch.data_ptr(), n_scratch,
-        batch, hidden_dim, hh, input_dim, torch.cuda.current_stream().cuda_stream,
+        batch, hidden_dim, hh, input_dim, STORAGE.index(z.dtype),
+        PRECISIONS.index(precision), torch.cuda.current_stream().cuda_stream,
     )
     return dtrunk, dhw, dhb, dz, ddx
 
 
-def _backward(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim):
+def _backward(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
+              precision="float32"):
     if z.is_cuda:
-        return _backward_kernel(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim)
-    return _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim)
+        return _backward_kernel(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
+                                precision)
+    return _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
+                               precision)
 
 
 class _FusedField(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, hidden_dim, input_dim, z, dx, head_w, head_b, *trunk_flat):
-        ctx.dims = (hidden_dim, input_dim)
+    def forward(ctx, hidden_dim, input_dim, precision, z, dx, head_w, head_b,
+                *trunk_flat):
+        ctx.dims = (hidden_dim, input_dim, precision)
         ctx.save_for_backward(z, dx, head_w, head_b, *trunk_flat)
         return _forward(_unflat_trunk(trunk_flat), head_w, head_b, z, dx,
-                        hidden_dim, input_dim)
+                        hidden_dim, input_dim, precision)
 
     @staticmethod
     def backward(ctx, g):
@@ -294,29 +346,33 @@ class _FusedField(torch.autograd.Function):
         dtrunk, dhw, dhb, dz, ddx = _backward(
             _unflat_trunk(trunk_flat), head_w, head_b, z, dx, g.contiguous(),
             *ctx.dims)
-        return (None, None, dz, ddx, dhw, dhb, *_flat_trunk(dtrunk))
+        return (None, None, None, dz, ddx, dhw, dhb, *_flat_trunk(dtrunk))
 
 
 def fused_matmul_field(trunk, head_w, head_b, z, dx, hidden_dim: int,
-                       input_dim: int) -> torch.Tensor:
+                       input_dim: int, precision: str = "float32") -> torch.Tensor:
     """out = einsum('bih,bi->bh', tanh(trunk(z) @ head_w + head_b), dx).
 
     trunk: list of {'w', 'b'} relu layers; head_w: (HH, I*H)
     contraction-major; z: (..., H); dx: (..., I) with the same leading
     dims, flattened to the kernel's (B, H) and (B, I) and restored.
-    Returns (..., H).  CUDA tensors go through the Hopper kernels (float32,
-    contiguous, or they raise); CPU tensors through the plain versions (any
-    float dtype).
+    ``precision="bfloat16"`` rounds every product's operands to bf16
+    (float32 accumulation, as the JAX op).  Returns (..., H) in z's dtype.
+    CUDA tensors go through the Hopper kernels (float32 or bfloat16, one
+    dtype, contiguous, or they raise); CPU tensors through the plain
+    versions (any float dtype).
     """
+    _check_precision(precision)
     lead = z.shape[:-1]
     z = z.reshape(-1, hidden_dim)
     dx = dx.reshape(-1, input_dim)
     flat = _flat_trunk(trunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (z, dx, head_w, head_b, *flat)):
-        out = _FusedField.apply(hidden_dim, input_dim, z, dx, head_w, head_b, *flat)
+        out = _FusedField.apply(hidden_dim, input_dim, precision, z, dx, head_w, head_b,
+                                *flat)
     else:
-        out = _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
+        out = _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim, precision)
     return out.reshape(lead + (hidden_dim,))
 
 
@@ -349,9 +405,14 @@ def _rk4_interval_multi_reference(trunk, head_w, head_b, z, dx, hidden_dim, inpu
 
 
 def _check_rk4_call(what, trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
-    """What both interval ops refuse on every device: a padded head (the
+    """What both interval ops refuse on every device: bf16 or f16 storage
+    (ROADMAP B1-rk4: the JAX ops step such a state in float32, which
+    neither the kernel nor the plain version does yet), a padded head (the
     JAX ops' unpadded-packing assert) and a gradient request (they have no
     VJP)."""
+    if z.dtype in (torch.bfloat16, torch.float16):
+        raise TypeError(f"{what} takes float32 or float64, not {z.dtype}: reduced-"
+                        "precision storage of the interval ops is ROADMAP item B1-rk4")
     if head_w.shape[-1] != input_dim * hidden_dim:
         raise ValueError(
             f"{what} takes the unpadded head (pack_fused_params): head_w has "
@@ -420,7 +481,7 @@ def fused_rk4_interval(trunk, head_w, head_b, z, dx, hidden_dim: int,
     dX/dt * dt.  Shapes as in :func:`fused_matmul_field`, 2-D, with the
     unpadded head (HH, I*H).  A CUDA tensor launches the Hopper kernel
     (float32, contiguous, or it raises); a CPU tensor runs
-    :func:`_rk4_interval_reference` in any float dtype.  No gradient."""
+    :func:`_rk4_interval_reference` in float32 or float64.  No gradient."""
     _check_rk4_call("fused_rk4_interval", trunk, head_w, head_b, z, dx, hidden_dim,
                     input_dim)
     if z.is_cuda:

@@ -54,7 +54,10 @@ def _axpy_leaf(y: torch.Tensor, h, ks, cs) -> torch.Tensor:
         if isinstance(h, torch.Tensor):
             acc = acc + h * c * k
         else:
-            acc = torch.add(acc, k, alpha=h * c)
+            # alpha rounded through the leaf's dtype: the CPU's add rounds it
+            # to a bf16 state's dtype, the card's keeps it in f32, so a bf16
+            # state would step differently on the two (no change in f32/f64).
+            acc = torch.add(acc, k, alpha=_step_size(h * c, y))
     return acc
 
 

@@ -169,15 +169,20 @@ class Predictor:
                 static = np.concatenate(
                     [static, np.repeat(static[:1], nb - n, axis=0)], axis=0
                 )
+        # The requests go in at the model's dtype (a bf16 model serves in
+        # bf16, as the stepper does).
+        dtype = getattr(self.model, "dtype", torch.float32)
         with torch.inference_mode():
-            inputs = self.coeff_fn(_to_device(padded, self.device))
+            inputs = self.coeff_fn(_to_device(padded, self.device, dtype))
             if static is not None:
-                inputs = (_to_device(static, self.device), inputs)
+                inputs = (_to_device(static, self.device, dtype), inputs)
             return self.model(inputs), lengths
 
     def _collect(self, device_out, lengths) -> List[np.ndarray]:
         """Copy a dispatched batch to the host (the sync point) and strip
         the padding per request."""
+        if device_out.dtype in (torch.bfloat16, torch.float16):
+            device_out = device_out.float()  # numpy holds no bf16
         out = device_out.cpu().numpy()
         results = []
         for i, L in enumerate(lengths):

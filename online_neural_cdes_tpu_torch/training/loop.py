@@ -106,7 +106,7 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
         # their own dtype; the forward and backward run on parameters and
         # float inputs cast to compute_dtype, and gradients return through
         # the casts.  On the card the fused field's kernels take float32
-        # only, so bfloat16 raises there (ROADMAP item B1).
+        # and bfloat16.
         cdt = _compute_dtype(compute_dtype)
 
         def preds_fn(inputs):

@@ -21,6 +21,15 @@ rounds them, sums in float64):
 3xTF32 meets those gates; a single TF32 pass (big*big alone) does not.
 The one-pass cases are the reason the kernels split: they document, before
 any chip time, that one pass of the tensor cores is not an f32 product.
+
+bf16 operands (bf16 storage, or precision "bfloat16"): a bf16 value has 8
+significant bits, so it is exact in TF32 and its small part is 0.  The
+kernels drop the passes that multiply by such a part (f32 x bf16: two
+passes, bf16 x bf16: one); the emulation shows that this leaves the
+3xTF32 product's bits as they are, and that the forward kernel's bf16
+arithmetic meets the one-ulp gate of ``chip_smoke.py`` against the plain
+version in bf16.  Under precision "bfloat16" that gate also refuses the
+same arithmetic with the operands left unrounded.
 """
 
 import numpy as np
@@ -67,6 +76,25 @@ def mm_3xtf32(a, b):
 
 def mm_1xtf32(a, b):
     return (tf32(a).astype(np.float64) @ tf32(b).astype(np.float64)).astype(np.float32)
+
+
+def mm_passes(a, b, exact_a, exact_b):
+    """The kernels' product with the passes they run (mma_tf32.cuh's
+    mma_3xtf32<EA, EB>): the 3xTF32 terms in the same order, less the ones
+    that multiply by a small part the kernel knows to be 0."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    f = np.float64
+    acc = ab.astype(f) @ bb.astype(f)
+    if not exact_b:
+        acc = acc + ab.astype(f) @ bs.astype(f)
+    if not exact_a:
+        acc = acc + as_.astype(f) @ bb.astype(f)
+    return acc.astype(np.float32)
+
+
+def bf16(x):
+    """x rounded to bf16 (nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16().float().numpy()
 
 
 def backward_emulated(mm, trunk, head_w, head_b, z, dx, g, n_in):
@@ -220,6 +248,99 @@ def test_3xtf32_meets_the_forward_gate(shape):
 def test_one_tf32_pass_misses_the_forward_gate(shape):
     ratio = forward_gate_ratio(mm_1xtf32, shape)
     assert ratio > 10.0, ratio
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_reduced_passes_equal_3xtf32_on_bf16_operands(shape):
+    """At the flagship's product shapes: a bf16 value's TF32 small part is
+    0, so the two-pass f32 x bf16 product and the one-pass bf16 x bf16
+    product equal the three-pass product to the bit."""
+    trunk, head_w, _, z, _, _ = inputs(shape)
+    a, w16 = z, bf16(head_w)
+    np.testing.assert_array_equal(split(w16)[1], 0)
+    np.testing.assert_array_equal(mm_passes(a, w16, False, True), mm_3xtf32(a, w16))
+    a16 = bf16(a)
+    np.testing.assert_array_equal(mm_passes(a16, w16, True, True), mm_3xtf32(a16, w16))
+    u = np.maximum(mm_3xtf32(z, trunk[0]["w"]), 0)
+    np.testing.assert_array_equal(mm_passes(u, bf16(trunk[1]["w"]), False, True),
+                                  mm_3xtf32(u, bf16(trunk[1]["w"])))
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bf16_forward_meets_the_one_ulp_gate(shape, precision):
+    """The forward kernel in bf16 storage, emulated: bf16 operands widened
+    to f32, products in the passes the kernel runs (under "bfloat16" the
+    activations rounded to bf16 before each product), tanh, the bias and
+    the dX sum in float32 in the kernel's order, the output rounded to
+    bf16; against the plain version in bf16 within chip_smoke.py's gate:
+    |err| <= 2^-7 |want| + atol max|want|, atol 1e-5 (2^-8 under
+    "bfloat16", where a rounded activation that lands on its neighbour
+    reaches every sum downstream)."""
+    batch, hidden, hh, n_in, n_trunk = shape
+    trunk, head_w, head_b, z, dx, _ = inputs(shape)
+    trunk = [{k: bf16(v) for k, v in layer.items()} for layer in trunk]
+    head_w, head_b, z, dx = (bf16(t) for t in (head_w, head_b, z, dx))
+    rnd = precision == "bfloat16"
+    mm = ((lambda a, b: mm_passes(bf16(a), b, True, True)) if rnd
+          else (lambda a, b: mm_passes(a, b, False, True)))
+    got = bf16(forward_emulated(mm, trunk, head_w, head_b, z, dx, n_in)).astype(np.float64)
+    t16 = lambda x: torch.from_numpy(x).bfloat16()
+    want = kernels._forward_reference(
+        [{k: t16(v) for k, v in layer.items()} for layer in trunk], t16(head_w),
+        t16(head_b), t16(z), t16(dx), hidden, n_in, precision).double().numpy()
+    atol = (2.0 ** -8 if rnd else 1e-5) * np.abs(want).max()
+    np.testing.assert_array_less(np.abs(got - want), 2.0 ** -7 * np.abs(want) + atol + 1e-300)
+    assert float((got == want).mean()) >= 0.99
+
+
+# chip_smoke.py's gates under precision "bfloat16": in f32 storage the
+# output is not rounded and its gate is 2^-10 |want| + 2^-11 max|want|; in
+# bf16 storage 2^-7 |want| + 2^-8 max|want| with 80% of the bits equal.
+F32_OUT_RTOL, F32_OUT_ATOL_PER_MAX = 2.0 ** -10, 2.0 ** -11
+ROUNDED_RTOL, ROUNDED_ATOL_PER_MAX, ROUNDED_MIN_EQUAL = 2.0 ** -7, 2.0 ** -8, 0.80
+
+
+def rounded_gate(got, want, storage):
+    """(whether ``got`` passes chip_smoke.py's gate for precision "bfloat16"
+    in ``storage``, the share of its error bound it uses)."""
+    err, scale = np.abs(got - want), np.abs(want).max()
+    if storage == "float32":
+        tol, equal = F32_OUT_RTOL * np.abs(want) + F32_OUT_ATOL_PER_MAX * scale, 1.0
+    else:
+        tol = ROUNDED_RTOL * np.abs(want) + ROUNDED_ATOL_PER_MAX * scale
+        equal = float((got == want).mean())
+    share = float((err / tol).max())
+    return share <= 1.0 and equal >= ROUNDED_MIN_EQUAL, share
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_rounded_mode_gate_refuses_operands_left_unrounded(shape, storage):
+    """Precision "bfloat16", emulated: the forward kernel with each
+    product's operands rounded to bf16 meets chip_smoke.py's gate for that
+    mode against the plain version, and the same arithmetic on the operands
+    as stored (the kernel's "float32" instantiation, the control that
+    chip_smoke.py runs on the card) is refused."""
+    batch, hidden, hh, n_in, n_trunk = shape
+    trunk, head_w, head_b, z, dx, _ = inputs(shape)
+    cast = bf16 if storage == "bfloat16" else (lambda x: x)
+    trunk = [{k: cast(v) for k, v in layer.items()} for layer in trunk]
+    head_w, head_b, z, dx = (cast(t) for t in (head_w, head_b, z, dx))
+    stored = lambda x: torch.from_numpy(x).to(getattr(torch, storage))
+    want = kernels._forward_reference(
+        [{k: stored(v) for k, v in layer.items()} for layer in trunk], stored(head_w),
+        stored(head_b), stored(z), stored(dx), hidden, n_in, "bfloat16").double().numpy()
+
+    def emulated(mm):
+        return cast(forward_emulated(mm, trunk, head_w, head_b, z, dx, n_in)).astype(np.float64)
+
+    rounded = emulated(lambda a, b: mm_passes(bf16(a), bf16(b), True, True))
+    as_stored = emulated(lambda a, b: mm_passes(a, b, False, storage == "bfloat16"))
+    ok, share = rounded_gate(rounded, want, storage)
+    assert ok, share
+    ok, share = rounded_gate(as_stored, want, storage)
+    assert not ok, share
 
 
 def test_forward_channel_groups_follow_the_kernels_grid():
