@@ -119,12 +119,18 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5   # the sums run in another order
 # interval kernel refuse it).
 FWD_WIDE = [(3, 320, 264, 2, 1)]
 # The whole-interval RK4 kernel: the forward sweep plus bench.py's parity
-# shape; timed at the training step's two shapes and the serving batch;
-# its K-replica form at K = 1..4 on the training shape and K = 3 on a
-# ragged one, and timed at K = 2 and 4.
-RK4_SWEEP = SWEEP + [(256, 128, 64, 21, 2)]
-RK4_TIMED = [(512, 128, 128, 21, 2), (512, 128, 128, 1, 2), (64, 128, 128, 21, 2)]
-RK4_MULTI = [(TRAIN_SHAPE, (1, 2, 3, 4)), ((5, 96, 196, 21, 3), (3,))]
+# shape (all on the tensor-core route) and widths above 256, where the
+# library takes the CUDA-core route (the forward's wide shape; a ragged
+# one with I=1, H and HH not multiples of 4); timed at the training step's
+# two shapes, the serving batch and a wide training batch; its K-replica
+# form at K = 1..4 on the training shape, K = 3 on a ragged shape of each
+# route, and timed at K = 2 and 4.
+RK4_WIDE = FWD_WIDE + [(7, 290, 263, 1, 2)]
+RK4_SWEEP = SWEEP + [(256, 128, 64, 21, 2)] + RK4_WIDE
+RK4_TIMED = [(512, 128, 128, 21, 2), (512, 128, 128, 1, 2), (64, 128, 128, 21, 2),
+             (512, 320, 264, 21, 2)]
+RK4_MULTI = [(TRAIN_SHAPE, (1, 2, 3, 4)), ((5, 96, 196, 21, 3), (3,)),
+             ((5, 290, 263, 5, 2), (3,))]
 RK4_MULTI_TIMED = (2, 4)
 # Backward kernel vs its plain version, each of the six groups: |err| <=
 # BWD_RTOL |want| + BWD_ATOL_REL max|want|.  Weight grads sum B rows (and
@@ -273,7 +279,8 @@ def field_bwd_cost(B, Hd, HHd, I, n, elem=4):
 
 def mode_products(kind, B, Hd, HHd, I, n, dtype, precision):
     """(operations, a is bf16, b is bf16) of each product group of one call
-    of the forward or backward kernel in a (storage, precision) mode, an
+    of the forward, backward or interval kernel in a (storage, precision)
+    mode (the interval's: f32 products, bf16 storage only), an
     operand being bf16 where the reference holds it in bf16: z, dX and the
     weights in bf16 storage; every product's operands under "bfloat16"
     (in the backward, the cotangents of rounded operands too); the
@@ -284,6 +291,9 @@ def mode_products(kind, B, Hd, HHd, I, n, dtype, precision):
     rest = 2 * B * (n - 1) * HHd * HHd           # later layers: u W_l
     head = 2 * B * HHd * I * Hd                  # u_n W_o
     fwd = [(first, w16, w16), (rest, rnd, w16), (head, rnd, w16)]
+    if kind == "interval":   # bf16 storage: only stage 1's z is bf16 among the inputs
+        return [(first, stored, stored), (3 * first + 4 * rest, False, stored),
+                (4 * head, False, stored), (4 * 2 * B * I * Hd, False, stored)]
     if kind == "forward":
         return fwd + [(2 * B * I * Hd, False, stored)]   # the dX sum
     return fwd + [(head, False, w16),                   # du_n = dpre W_o^T
@@ -309,11 +319,11 @@ def mode_bounds(products, nbytes, pk):
             "bound_tc_us": max(t_tc, t_bytes) * 1e6}
 
 
-def rk4_cost(B, Hd, HHd, I, n, K=1):
+def rk4_cost(B, Hd, HHd, I, n, K=1, elem=4):
     """One RK4 interval: four field evaluations' operations; the bytes of
-    one (z, dX and the weights read once, the state written once); K
-    replicas K times both."""
-    flops, nbytes = field_cost(B, Hd, HHd, I, n)
+    one (z, dX and the weights read once, the state written once), ``elem``
+    bytes an element; K replicas K times both."""
+    flops, nbytes = field_cost(B, Hd, HHd, I, n, elem)
     return K * 4 * flops, K * nbytes
 
 
@@ -790,47 +800,89 @@ def stacked_fields(gen, K, shape, device):
 
 
 def phase_kernel_rk4(pk):
-    """The whole-interval RK4 kernel (both entry points) against its plain
-    version over the sweep; the K-replica form bit for bit against K single
-    launches; a width beyond the library's limit refused with no launch;
-    CUDA-event times beside the bound and the plain version's time."""
+    """The whole-interval RK4 kernel (both entry points, through the public
+    ops) against its plain version over the sweep, in f32 and in bf16
+    storage; each shape's route and grid, the library's own choice, with
+    shapes on both routes; repeats, rows against a smaller batch and the
+    K-replica form bit for bit against single launches; a width beyond the
+    library's limit refused with no launch; CUDA-event times in f32 and
+    bf16 beside the bounds and the plain version's time, with each launch's
+    device time."""
     from online_neural_cdes_tpu_torch.ops import kernels
 
     gen = torch.Generator().manual_seed(3)
-    errors, multi_errors, timings, multi_timings = [], [], {}, {}
+    sweep, sweep_bf16, multi_errors = [], [], []
+    timings, multi_timings, bf16_timed = {}, {}, {}
     with torch.inference_mode():
         for shape in RK4_SWEEP:
             B, Hd, HHd, I, n = shape
-            trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
-            got = kernels.fused_rk4_interval(trunk, head_w, head_b, z, dx, Hd, I)
-            want = kernels._rk4_interval_reference(trunk, head_w, head_b, z, dx, Hd, I)
+            field = random_field(gen, *shape, "cuda")
+            want = kernels._rk4_interval_reference(*field, Hd, I)
+            field16 = cast_field(field, torch.bfloat16)
+            want16 = kernels._rk4_interval_reference(*field16, Hd, I)
+            row = {"shape": list(shape), "grid": kernels.rk4_grid(B, Hd, HHd, I, n)}
+            name = row["grid"]["route"]
+            got = kernels.fused_rk4_interval(*field, Hd, I)
+            again = kernels.fused_rk4_interval(*field, Hd, I)
+            got16 = kernels.fused_rk4_interval(*field16, Hd, I)
+            again16 = kernels.fused_rk4_interval(*field16, Hd, I)
             torch.cuda.synchronize()
             if got.shape != (B, Hd) or not torch.isfinite(got).all():
-                raise AssertionError(f"RK4 kernel output at {shape}: shape "
+                raise AssertionError(f"RK4 kernel ({name}) at {shape}: shape "
                                      f"{tuple(got.shape)} or non-finite values")
+            if not (torch.equal(got, again) and torch.equal(got16, again16)):
+                raise AssertionError(f"RK4 kernel ({name}) at {shape}: two calls on "
+                                     "the same inputs differ")
             torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
-                                       msg=lambda m: f"RK4 kernel at {shape}: {m}")
-            errors.append({"shape": list(shape),
-                           "max_abs_err": float((got - want).abs().max())})
+                                       msg=lambda m: f"RK4 kernel ({name}) at {shape}: {m}")
+            err = (got - want).abs()
+            row["max_abs_err"] = float(err.max())
+            row["gate_share"] = float((err / (KERNEL_RTOL * want.abs() + KERNEL_ATOL)).max())
+            sweep_bf16.append({"shape": list(shape), "route": name, **ulp_gate(
+                f"RK4 kernel ({name}) bf16 at {shape}", got16, want16, "float32")})
+            if row["grid"]["route"] == "tensor cores" and B > 1:
+                # The first rows of a smaller batch: the same bits.
+                part = [t for t in field[:3]] + [field[3][:B // 2].contiguous(),
+                                                 field[4][:B // 2].contiguous()]
+                half = kernels.fused_rk4_interval(*part, Hd, I)
+                if not torch.equal(half, got[:B // 2]):
+                    raise AssertionError(f"RK4 kernel at {shape}: rows differ between "
+                                         f"B={B} and B={B // 2}")
+                row["rows_vs_half_batch"] = "bit-identical"
+            sweep.append(row)
+        routes = {row["grid"]["route"] for row in sweep}
+        if routes != {"tensor cores", "cuda cores"}:
+            raise AssertionError(f"the RK4 sweep reached the routes {sorted(routes)}, "
+                                 "not both")
         for shape, ks in RK4_MULTI:
             B, Hd, HHd, I, n = shape
             for K in ks:
-                stacked, fields = stacked_fields(gen, K, shape, "cuda")
-                got = kernels.fused_rk4_interval_multi(*stacked, Hd, I)
-                singles = torch.stack([kernels.fused_rk4_interval(*f, Hd, I)
-                                       for f in fields])
-                want = kernels._rk4_interval_multi_reference(*stacked, Hd, I)
-                torch.cuda.synchronize()
-                if not torch.equal(got, singles):
-                    raise AssertionError(
-                        f"K-replica RK4 kernel at {shape}, K={K}: differs from K single "
-                        f"launches by {float((got - singles).abs().max())}")
-                torch.testing.assert_close(
-                    got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
-                    msg=lambda m: f"K-replica RK4 kernel at {shape}, K={K}: {m}")
-                multi_errors.append({"shape": list(shape), "K": K,
-                                     "max_abs_err": float((got - want).abs().max()),
-                                     "vs_single_launches": "bit-identical"})
+                for dtype in (torch.float32, torch.bfloat16):
+                    stacked, fields = stacked_fields(gen, K, shape, "cuda")
+                    if dtype == torch.bfloat16:
+                        stacked = (*cast_field(stacked[:5], dtype),)
+                        fields = [cast_field(f, dtype) for f in fields]
+                    got = kernels.fused_rk4_interval_multi(*stacked, Hd, I)
+                    singles = torch.stack([kernels.fused_rk4_interval(*f, Hd, I)
+                                           for f in fields])
+                    want = kernels._rk4_interval_multi_reference(*stacked, Hd, I)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, singles):
+                        raise AssertionError(
+                            f"K-replica RK4 kernel {dtype} at {shape}, K={K}: differs from "
+                            f"K single launches by {float((got - singles).abs().max())}")
+                    entry = {"shape": list(shape), "K": K, "dtype": str(dtype).removeprefix("torch."),
+                             "route": kernels.rk4_grid(B, Hd, HHd, I, n, K)["route"],
+                             "vs_single_launches": "bit-identical"}
+                    if dtype == torch.float32:
+                        torch.testing.assert_close(
+                            got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                            msg=lambda m: f"K-replica RK4 kernel at {shape}, K={K}: {m}")
+                        entry["max_abs_err"] = float((got - want).abs().max())
+                    else:
+                        entry.update(ulp_gate(f"K-replica RK4 kernel bf16 at {shape}, K={K}",
+                                              got, want, "float32"))
+                    multi_errors.append(entry)
         # A width beyond the library's limit: refused, nothing launched.
         wide = kernels.rk4_max_dim() + 1
         stacked, (field,) = stacked_fields(gen, 1, (2, wide, 64, 1, 1), "cuda")
@@ -851,14 +903,23 @@ def phase_kernel_rk4(pk):
 
         for shape in RK4_TIMED:
             B, Hd, HHd, I, n = shape
-            args = (*random_field(gen, *shape, "cuda"), Hd, I)
+            field = random_field(gen, *shape, "cuda")
+            args = (*field, Hd, I)
+            call = lambda: kernels.fused_rk4_interval(*args)
             timings[shape] = {
-                "shape": list(shape),
-                "kernel_us": device_us(lambda: kernels.fused_rk4_interval(*args),
-                                       reps=100),
-                "plain_us": device_us(lambda: kernels._rk4_interval_reference(*args),
-                                      reps=5),
-                **bounds(*rk4_cost(*shape), pk), "blocks": -(-B // 8)}
+                "shape": list(shape), "kernel_us": device_us(call, reps=100),
+                "plain_us": device_us(lambda: kernels._rk4_interval_reference(*args), reps=5),
+                **bounds(*rk4_cost(*shape), pk), **kernels.rk4_grid(B, Hd, HHd, I, n),
+                "per_launch": per_launch(call)}
+            args16 = (*cast_field(field, torch.bfloat16), Hd, I)
+            call16 = lambda: kernels.fused_rk4_interval(*args16)
+            bf16_timed[shape] = {
+                "mode": "bfloat16/float32", "shape": list(shape),
+                "route": timings[shape]["route"], "kernel_us": device_us(call16, reps=100),
+                "plain_us": device_us(lambda: kernels._rk4_interval_reference(*args16), reps=5),
+                **mode_bounds(mode_products("interval", *shape, torch.bfloat16, "float32"),
+                              rk4_cost(*shape, elem=2)[1], pk),
+                "per_launch": per_launch(call16)}
         for K in RK4_MULTI_TIMED:
             B, Hd, HHd, I, n = TRAIN_SHAPE
             args = (*stacked_fields(gen, K, TRAIN_SHAPE, "cuda")[0], Hd, I)
@@ -868,14 +929,18 @@ def phase_kernel_rk4(pk):
                                        reps=100),
                 "plain_us": device_us(
                     lambda: kernels._rk4_interval_multi_reference(*args), reps=2),
-                **bounds(*rk4_cost(*TRAIN_SHAPE, K=K), pk), "blocks": K * -(-B // 8)}
+                **bounds(*rk4_cost(*TRAIN_SHAPE, K=K), pk),
+                **kernels.rk4_grid(B, Hd, HHd, I, n, K)}
     emit("kernel_rk4", tolerance={"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
-         sweep=errors, multi=multi_errors, refused_width=wide,
+         sweep=sweep, repeat="bit-identical", multi=multi_errors, refused_width=wide,
+         bf16={"tolerance": BF16_TOLERANCE, "sweep": sweep_bf16,
+               "timed": list(bf16_timed.values())},
          timed=list(timings.values()), timed_multi=list(multi_timings.values()),
          library="none: no single PyTorch call computes an RK4 interval of the "
                  "fused field")
-    return (max(e["max_abs_err"] for e in errors),
-            max(e["max_abs_err"] for e in multi_errors), timings, multi_timings)
+    max_err = max(row["max_abs_err"] for row in sweep)
+    max_err_multi = max(e["max_abs_err"] for e in multi_errors if e["dtype"] == "float32")
+    return max_err, max_err_multi, timings, multi_timings, bf16_timed
 
 
 def flagship_model(device, interpolation="rectilinear", dtype=torch.float32):
@@ -1416,8 +1481,13 @@ def phase_chains():
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=CHAIN_RTOL, atol=CHAIN_ATOL_REL * scale,
                                msg=lambda m: f"interval chain vs cdeint: {m}")
-    emit("chains", pair_probe=probe["variants"], interleave=inter["variants"],
-         parity=inter["parity"], launches=launches,
+    per_interval = {  # device us a chain step: an interval, or an even-odd pair
+        kind: {path: probe["variants"][f"{kind}_{path}"]["device_us"]
+               for path in ("stages", "interval")} for kind in ("even", "odd", "pair")}
+    per_interval.update({f"K={k}": {path: inter["variants"][f"k{k}_{path}"]["device_us"]
+                                    for path in ("launches", "interleave")} for k in (2, 4)})
+    emit("chains", per_interval_us=per_interval, pair_probe=probe["variants"],
+         interleave=inter["variants"], parity=inter["parity"], launches=launches,
          model_chain={"intervals": got.shape[-2] - 1,
                       "max_abs_err": float((got - want).abs().max()),
                       "gate_share": gate_share(got.cpu(), want.cpu(), CHAIN_RTOL,
@@ -1616,7 +1686,8 @@ def main(argv=None) -> int:
     if "kernel_bwd" in phases:
         max_err_bwd, timings_bwd, timings_bwd_bf16 = phase_kernel_bwd(pk)
     if "kernel_rk4" in phases:
-        max_err_rk4, max_err_multi, timings_rk4, timings_multi = phase_kernel_rk4(pk)
+        (max_err_rk4, max_err_multi, timings_rk4, timings_multi,
+         timings_rk4_bf16) = phase_kernel_rk4(pk)
     if phases & {"predictor", "stepper"}:
         model, requests, static, outs, serve_launches = phase_predictor()
     if "stepper" in phases:
@@ -1660,9 +1731,14 @@ def main(argv=None) -> int:
             ("fused_matmul_field_bwd", "fused_field_bwd.cu", 367, "backward",
              max_err_bwd, timings_bwd, timings_bwd_bf16, "train_step"),
             ("fused_rk4_interval", "fused_rk4_interval.cu", 511, "rk4", max_err_rk4,
-             timings_rk4, None, "interval_chain")):
+             timings_rk4, timings_rk4_bf16, "interval_chain")):
         entry = kernel_entry(kernel, source, replaces, by_path[main_path][key], err, tm)
         entry["launches_by_path"] = paths(key)
+        if key == "rk4":  # each timed shape's route and grid
+            entry["routes"] = [{"shape": t["shape"], "route": t["route"],
+                                "cluster": t.get("cluster"), "rows": t.get("rows"),
+                                "blocks": t["blocks"]}
+                               for t in tm.values()]
         if tm_bf16 is not None:
             entry["by_dtype"] = [{"mode": t["mode"], "shape": t["shape"], **times(t)}
                                  for t in tm_bf16.values()]
@@ -1675,7 +1751,10 @@ def main(argv=None) -> int:
         "launches": chain_launches["rk4_multi"], "max_abs_err": max_err_multi,
         **times(timings_multi[k_main]), "library_ms": None, "K": k_main,
         "timed_shape": list(TRAIN_SHAPE),
-        "by_K": [{"K": k, **times(t)} for k, t in timings_multi.items()],
+        "by_K": [{"K": k, **times(t), "route": t["route"], "rows": t.get("rows"),
+                  "clusters": t.get("clusters"),
+                  "clusters_at_once": t.get("clusters_at_once")}
+                 for k, t in timings_multi.items()],
         "launches_by_path": paths("rk4_multi")})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)

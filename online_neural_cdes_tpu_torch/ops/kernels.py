@@ -38,9 +38,12 @@ The head is packed contraction-major, (HH, I*H), unpadded: the TPU's
 counterparts of the JAX ops of the same names: one whole RK4 (3/8) interval
 of the fused field with a constant dX, for one model or for K stacked
 replicas, in one launch of ``csrc/fused_rk4_interval.cu`` on a CUDA
-tensor; their plain versions step ``solvers.tree_fixed_step("rk4")`` over
-:func:`_forward_reference`.  Like the JAX ops (bare ``pallas_call``s),
-they have no gradient.
+tensor (a cluster kernel on the tensor cores for H and HH up to 256, a
+CUDA-core kernel above; the library picks by shape); their plain versions
+step ``solvers.tree_fixed_step("rk4")`` over :func:`_forward_reference`.
+Both take float32 or bfloat16 storage and, as the JAX ops, step in float32
+on widened operands and round only the result to the state's dtype.  Like
+the JAX ops (bare ``pallas_call``s), they have no gradient.
 """
 
 from __future__ import annotations
@@ -100,11 +103,12 @@ PRECISIONS = ("float32", "bfloat16")
 _RK4_HEAD = [ctypes.c_void_p, ctypes.c_void_p, _PTRS, _PTRS, ctypes.c_int,  # z, dx, trunk
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]    # head_w, head_b, out
 _DIMS = [ctypes.c_int] * 4                                         # B, H, HH, I
+_RK4_TAIL = [ctypes.c_int, ctypes.c_void_p]                   # storage dtype, stream
 fused_rk4_kernel = CudaKernel("fused_rk4_interval.cu", "oncde_fused_rk4_interval",
-                              _RK4_HEAD + _DIMS + [ctypes.c_void_p])
+                              _RK4_HEAD + _DIMS + _RK4_TAIL)
 fused_rk4_multi_kernel = CudaKernel(
     "fused_rk4_interval.cu", "oncde_fused_rk4_interval_multi",
-    _RK4_HEAD + [ctypes.c_int] + _DIMS + [ctypes.c_void_p])     # ..., K, B, H, HH, I
+    _RK4_HEAD + [ctypes.c_int] + _DIMS + _RK4_TAIL)            # ..., K, B, H, HH, I, ...
 
 
 def pack_fused_params(field_params, hidden_dim: int, input_dim: int) -> dict:
@@ -382,13 +386,29 @@ def fused_matmul_field(trunk, head_w, head_b, z, dx, hidden_dim: int,
 # ---------------------------------------------------------------------------
 
 
+def _widened(trunk, head_w, head_b, z, dx):
+    """Every operand of a reduced-precision call widened to float32 (float32
+    and float64 operands as they are)."""
+    if z.dtype not in (torch.bfloat16, torch.float16):
+        return trunk, head_w, head_b, z, dx
+    f = lambda t: t.float()
+    return ([{k: f(v) for k, v in layer.items()} for layer in trunk], f(head_w), f(head_b),
+            f(z), f(dx))
+
+
 def _rk4_interval_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
     """Plain version of :func:`fused_rk4_interval`: the port's RK4 (3/8)
     stepper from t=0 to 1 over :func:`_forward_reference` -- the
-    composition the JAX package holds its kernel against."""
+    composition the JAX package holds its kernel against.  A bf16 call
+    steps in float32 on its widened operands and rounds the result once to
+    bf16, the JAX kernel's arithmetic (``z`` and ``dx`` cast to f32, f32
+    products, the output in ``z.dtype``)."""
+    wide = _widened(trunk, head_w, head_b, z, dx)
+    trunk_, head_w_, head_b_, z_, dx_ = wide
     step = solvers.tree_fixed_step("rk4")
-    return step(lambda t, zz: _forward_reference(trunk, head_w, head_b, zz, dx,
-                                                 hidden_dim, input_dim), 0.0, 1.0, z)
+    out = step(lambda t, zz: _forward_reference(trunk_, head_w_, head_b_, zz, dx_,
+                                                hidden_dim, input_dim), 0.0, 1.0, z_)
+    return out.to(z.dtype)
 
 
 def _replica(trunk, head_w, head_b, r):
@@ -405,14 +425,13 @@ def _rk4_interval_multi_reference(trunk, head_w, head_b, z, dx, hidden_dim, inpu
 
 
 def _check_rk4_call(what, trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
-    """What both interval ops refuse on every device: bf16 or f16 storage
-    (ROADMAP B1-rk4: the JAX ops step such a state in float32, which
-    neither the kernel nor the plain version does yet), a padded head (the
-    JAX ops' unpadded-packing assert) and a gradient request (they have no
-    VJP)."""
-    if z.dtype in (torch.bfloat16, torch.float16):
-        raise TypeError(f"{what} takes float32 or float64, not {z.dtype}: reduced-"
-                        "precision storage of the interval ops is ROADMAP item B1-rk4")
+    """What both interval ops refuse on every device: float16 storage (the
+    port's interval ops take float32, bfloat16 and, on the CPU, float64, as
+    its field ops), a padded head (the JAX ops' unpadded-packing assert)
+    and a gradient request (they have no VJP)."""
+    if z.dtype == torch.float16:
+        raise TypeError(f"{what} takes float32 or bfloat16 (and float64 on the CPU), "
+                        f"not {z.dtype}")
     if head_w.shape[-1] != input_dim * hidden_dim:
         raise ValueError(
             f"{what} takes the unpadded head (pack_fused_params): head_w has "
@@ -425,10 +444,30 @@ def _check_rk4_call(what, trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
             "torch.no_grad() or on tensors that do not require grad")
 
 
+def rk4_grid(batch, hidden_dim, hh, input_dim, n_trunk, replicas=1) -> dict:
+    """The interval kernel's launch geometry for a call, as its library
+    states it (for reports): the route it takes (the library picks it by
+    the widths: the tensor cores up to 256, the CUDA cores above) and, on
+    the tensor cores, the cluster size, rows a tile, clusters, blocks,
+    clusters the card holds at once, shared memory a block, channels a head
+    group, k rows a head chunk and state columns a rank."""
+    fn = fused_rk4_kernel.helper("oncde_fused_rk4_grid", [ctypes.c_int] * 6
+                                 + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int)
+    grid = (ctypes.c_int * 9)()
+    taken = fn(replicas, batch, hidden_dim, hh, input_dim, n_trunk, grid)
+    if taken < 0:
+        return {"route": None}
+    if taken == 0:
+        return {"route": "cuda cores", "blocks": grid[3]}
+    keys = ("cluster", "rows", "clusters", "blocks", "clusters_at_once", "smem_bytes",
+            "channels_per_group", "k_rows_per_chunk", "strip")
+    return {"route": "tensor cores", **dict(zip(keys, grid))}
+
+
 @functools.lru_cache(maxsize=1)
 def rk4_max_dim() -> int:
-    """The largest H and HH the interval kernel takes (its shared-memory
-    budget), as its library states it."""
+    """The largest H and HH the interval kernel takes (the CUDA-core
+    route's shared-memory budget), as its library states it."""
     return int(fused_rk4_kernel.helper("oncde_fused_rk4_max_dim", [], ctypes.c_int)())
 
 
@@ -447,7 +486,7 @@ def _rk4_launch(kernel, what, z, dx, trunk, head_w, head_b, hidden_dim, input_di
     kernel(z.data_ptr(), dx.data_ptr(), _pointers(l["w"] for l in trunk),
            _pointers(l["b"] for l in trunk), len(trunk), head_w.data_ptr(),
            head_b.data_ptr(), out.data_ptr(), *lead, z.shape[-2], hidden_dim, hh,
-           input_dim, torch.cuda.current_stream().cuda_stream)
+           input_dim, STORAGE.index(z.dtype), torch.cuda.current_stream().cuda_stream)
     return out
 
 
@@ -456,7 +495,7 @@ def _rk4_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
     :func:`_forward_kernel`, then the library's width limit."""
     _check_operands("fused RK4 interval kernel",
                     _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
-                                     input_dim), z.device, len(trunk))
+                                     input_dim), z.device, len(trunk), STORAGE)
     return _rk4_launch(fused_rk4_kernel, "fused RK4 interval kernel", z, dx, trunk,
                        head_w, head_b, hidden_dim, input_dim)
 
@@ -469,7 +508,7 @@ def _rk4_multi_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim):
                          f"{tuple(z.shape)}, head_w {tuple(head_w.shape)}")
     _check_operands(what, _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
                                            input_dim, lead=z.shape[:1]),
-                    z.device, len(trunk))
+                    z.device, len(trunk), STORAGE)
     return _rk4_launch(fused_rk4_multi_kernel, what, z, dx, trunk, head_w, head_b,
                        hidden_dim, input_dim, replicas=z.shape[0])
 
@@ -480,8 +519,10 @@ def fused_rk4_interval(trunk, head_w, head_b, z, dx, hidden_dim: int,
     constant increment ``dx`` (B, I): a caller with knot spacing dt passes
     dX/dt * dt.  Shapes as in :func:`fused_matmul_field`, 2-D, with the
     unpadded head (HH, I*H).  A CUDA tensor launches the Hopper kernel
-    (float32, contiguous, or it raises); a CPU tensor runs
-    :func:`_rk4_interval_reference` in float32 or float64.  No gradient."""
+    (float32 or bfloat16, one dtype, contiguous, or it raises); a CPU tensor
+    runs :func:`_rk4_interval_reference` in float32, bfloat16 or float64.
+    A bf16 state steps in float32 and only the result is rounded to bf16,
+    as the JAX op.  No gradient."""
     _check_rk4_call("fused_rk4_interval", trunk, head_w, head_b, z, dx, hidden_dim,
                     input_dim)
     if z.is_cuda:

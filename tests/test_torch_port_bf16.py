@@ -373,13 +373,109 @@ def test_cpu_bf16_training_step_and_forward_launch_no_kernel():
 
 
 @pytest.mark.parametrize("op", ["fused_rk4_interval", "fused_rk4_interval_multi"])
-def test_rk4_ops_refuse_bf16_naming_their_roadmap_item(op):
-    (trunk, head_w, head_b, z, dx), _ = _field_args(torch.bfloat16)
+def test_rk4_ops_refuse_float16(op):
+    """The interval ops take float32 and bfloat16 (and float64 on the CPU),
+    as the field ops; float16 is refused on every device, before any
+    launch, with a message that names what they take."""
+    (trunk, head_w, head_b, z, dx), _ = _field_args(torch.float16)
     if op.endswith("multi"):
         trunk = [{k: v[None] for k, v in layer.items()} for layer in trunk]
         head_w, head_b, z, dx = (t[None] for t in (head_w, head_b, z, dx))
-    with torch.no_grad(), pytest.raises(TypeError, match="B1-rk4"):
+    before = (kernels.fused_rk4_kernel.launches, kernels.fused_rk4_multi_kernel.launches)
+    with torch.no_grad(), pytest.raises(TypeError, match="float32 or bfloat16"):
         getattr(kernels, op)(trunk, head_w, head_b, z, dx, 4, 3)
+    assert (kernels.fused_rk4_kernel.launches,
+            kernels.fused_rk4_multi_kernel.launches) == before
+
+
+# ------------------------------------------------- whole-interval RK4 in bf16
+
+# The flagship field's width at a small batch, and a ragged one (H and HH
+# not multiples of 8, three trunk layers).
+RK4_SHAPES = [(16, 128, 128, 21, 2), (5, 96, 196, 21, 3)]
+RK4_REPLICAS = 3
+
+
+def _stacked(args_list):
+    """K single calls' operands in the K-replica op's stacked layouts."""
+    trunk = [{k: np.stack([a[0][l][k] for a in args_list]) for k in ("w", "b")}
+             for l in range(len(args_list[0][0]))]
+    return (trunk, *(np.stack([a[i] for a in args_list]) for i in range(1, 5)))
+
+
+def _bf16_both(args):
+    """numpy operands (trunk, head_w, head_b, z, dx) as bf16 JAX arrays and
+    bf16 torch tensors."""
+    j = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).bfloat16()
+    trunk, *rest = args
+    return (([{k: j(v) for k, v in layer.items()} for layer in trunk], *map(j, rest)),
+            ([{k: t(v) for k, v in layer.items()} for layer in trunk], *map(t, rest)))
+
+
+@pytest.mark.parametrize("shape", RK4_SHAPES, ids=_ids)
+def test_bf16_rk4_interval_matches_pallas_kernel_interpret(shape):
+    """``fused_rk4_interval`` in bf16 storage against the TPU kernel in
+    Pallas interpret mode (as ``test_torch_port_rk4.py`` runs it in
+    float32): both widen the operands, step in float32 and round the result
+    once to bf16; within one bf16 ulp, >= 99% equal to the bit."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    batch, hidden, hh, n_in, n_trunk = shape
+    jargs, targs = _bf16_both(_inputs(shape, seed=21)[:5])
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_kernels.fused_rk4_interval(*jargs, hidden, n_in)
+    got = kernels.fused_rk4_interval(*targs, hidden, n_in)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert got.shape == (batch, hidden)
+    _ulp_gate("out", got, want, "float32")
+
+
+@pytest.mark.parametrize("shape", RK4_SHAPES, ids=_ids)
+def test_bf16_rk4_interval_multi_matches_pallas_kernel_interpret(shape):
+    """``fused_rk4_interval_multi`` in bf16 storage, K=3 replicas with their
+    own weights, against the TPU kernel in interpret mode; the same gate."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    batch, hidden, hh, n_in, n_trunk = shape
+    jargs, targs = _bf16_both(_stacked([_inputs(shape, seed=40 + r)[:5]
+                                        for r in range(RK4_REPLICAS)]))
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_kernels.fused_rk4_interval_multi(*jargs, hidden, n_in)
+    got = kernels.fused_rk4_interval_multi(*targs, hidden, n_in)
+    assert got.dtype == torch.bfloat16 and got.shape == (RK4_REPLICAS, batch, hidden)
+    _ulp_gate("out", got, want, "float32")
+
+
+def test_stepping_rk4_in_bf16_misses_the_jax_reference():
+    """What the plain version must not do: the RK4 stepper on bf16 tensors
+    rounds every field evaluation, every stage input and every update to
+    bf16, where the JAX op steps in float32 and rounds only the result.  At
+    the flagship width fewer than two thirds of that arithmetic's outputs
+    equal the interpreted kernel's bits; the port's plain version matches
+    at least 99%."""
+    from jax.experimental.pallas import tpu as pltpu
+    from online_neural_cdes_tpu_torch.ops import solvers
+
+    shape = RK4_SHAPES[0]
+    batch, hidden, hh, n_in, n_trunk = shape
+    jargs, targs = _bf16_both(_inputs(shape, seed=22)[:5])
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_kernels.fused_rk4_interval(*jargs, hidden, n_in)
+                          .astype(jnp.float32))
+    trunk, head_w, head_b, z, dx = targs
+
+    def field_in_bf16(t, zz):
+        u = zz
+        for layer in trunk:
+            u = torch.relu(u @ layer["w"] + layer["b"])
+        a = torch.tanh(u @ head_w + head_b).reshape(-1, n_in, hidden)
+        return torch.sum(a * dx[..., :, None], dim=-2)
+
+    stepped = solvers.tree_fixed_step("rk4")(field_in_bf16, 0.0, 1.0, z)
+    assert stepped.dtype == torch.bfloat16
+    assert float((stepped.float().numpy() == want).mean()) < 2 / 3
+    _ulp_gate("out", kernels.fused_rk4_interval(*targs, hidden, n_in), want, "float32")
 
 
 def test_predictor_serves_a_bf16_model_in_its_dtype():

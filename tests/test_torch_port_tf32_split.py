@@ -18,6 +18,11 @@ rounds them, sums in float64):
   against ``kernels._forward_reference`` in float64 with the forward's
   gate on the card, |err| <= 1e-4 |want| + 1e-5 (absolute).
 
+- the whole-interval RK4 kernel's tensor-core route (``csrc/rk4_mma.cuh``):
+  four stages of trunk and head products with the channels summed in its
+  subset order, held against ``kernels._rk4_interval_reference`` in float64
+  with the forward's gate, at both training shapes.
+
 3xTF32 meets those gates; a single TF32 pass (big*big alone) does not.
 The one-pass cases are the reason the kernels split: they document, before
 any chip time, that one pass of the tensor cores is not an f32 product.
@@ -29,7 +34,10 @@ passes, bf16 x bf16: one); the emulation shows that this leaves the
 3xTF32 product's bits as they are, and that the forward kernel's bf16
 arithmetic meets the one-ulp gate of ``chip_smoke.py`` against the plain
 version in bf16.  Under precision "bfloat16" that gate also refuses the
-same arithmetic with the operands left unrounded.
+same arithmetic with the operands left unrounded.  The interval kernel in
+bf16 storage drops passes only where the operand is bf16-exact (the weights,
+and z in stage 1's first layer): marking a later stage's f32 input exact
+misses the plain version's bits.
 """
 
 import numpy as np
@@ -350,3 +358,116 @@ def test_forward_channel_groups_follow_the_kernels_grid():
     assert channels_per_group(512, 128, 1) == 1
     assert channels_per_group(64, 128, 21) == 3
     assert channels_per_group(17, 42, 5) == 1
+
+
+# ------------------------------------------- the whole-interval RK4 kernel
+
+# (B, H, HH, I, n_trunk): the interval kernel's training shapes.
+RK4_SHAPES = [(512, 128, 128, 21, 2), (512, 128, 128, 1, 2)]
+# csrc/rk4_mma.cuh at H=128: a cluster of four blocks, each owning a strip
+# of h = 32 state columns; 8 warps over its h / 8 = 4 n8 tiles leave S = 2
+# channel subsets, channel i in subset i % S.
+RK4_SUBSETS = 2
+
+
+def rk4_interval_emulated(mm_at, trunk, head_w, head_b, z, dx, n_in, subsets=RK4_SUBSETS):
+    """One RK4 (3/8) interval as the tensor-core interval kernel computes
+    it: every product through ``mm_at(stage, layer)`` (layer n: the head),
+    bias, relu and tanh in float32; each subset s of the channels (i % S ==
+    s) sums fma(tanh(pre_i + b_i), dX_i, acc) in channel order, and the
+    subsets' partials are added in subset order; the state updates in
+    float32 with the kernel's expressions."""
+    f32 = np.float32
+    batch, hidden = z.shape
+    n = len(trunk)
+
+    def field(stage, x):
+        u = x
+        for l, layer in enumerate(trunk):
+            u = np.maximum(mm_at(stage, l)(u, layer["w"]) + layer["b"], 0).astype(f32)
+        a = np.tanh(mm_at(stage, n)(u, head_w) + head_b).astype(f32)
+        a = a.reshape(batch, n_in, hidden)
+        parts = []
+        for s in range(min(subsets, n_in)):
+            acc = np.zeros((batch, hidden), f32)
+            for i in range(s, n_in, subsets):
+                acc = (a[:, i].astype(np.float64) * dx[:, i:i + 1] + acc).astype(f32)
+            parts.append(acc)
+        k = parts[0]
+        for p in parts[1:]:
+            k = (k + p).astype(f32)
+        return k
+
+    third = f32(1.0 / 3.0)
+    z0 = z.astype(f32)
+    k1 = field(0, z0)
+    k2 = field(1, (z0 + third * k1).astype(f32))
+    k3 = field(2, ((z0 + k2).astype(f32) - third * k1).astype(f32))
+    k4 = field(3, (((z0 + k1).astype(f32) - k2).astype(f32) + k3).astype(f32))
+    return (z0 + ((k1 + f32(3) * (k2 + k3)).astype(f32) + k4).astype(f32)
+            * f32(0.125)).astype(f32)
+
+
+def rk4_plain(trunk, head_w, head_b, z, dx, n_in, dtype):
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+    return kernels._rk4_interval_reference(
+        [{k: t(v) for k, v in layer.items()} for layer in trunk], t(head_w), t(head_b),
+        t(z), t(dx), z.shape[1], n_in).double().numpy()
+
+
+@pytest.mark.parametrize("shape", RK4_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_rk4_interval_3xtf32_meets_the_kernel_gate(shape):
+    """The interval kernel's 3xTF32 products in its channel-subset order,
+    over one interval, held to the plain version in float64 within
+    chip_smoke.py's gate for the kernel, |err| <= 1e-4 |want| + 1e-5; one
+    TF32 pass a product does not meet it."""
+    batch, hidden, hh, n_in, n_trunk = shape
+    trunk, head_w, head_b, z, dx, _ = inputs(shape)
+    want = rk4_plain(trunk, head_w, head_b, z, dx, n_in, torch.float64)
+
+    def ratio(mm):
+        got = rk4_interval_emulated(lambda s, l: mm, trunk, head_w, head_b, z, dx, n_in)
+        err = np.abs(got.astype(np.float64) - want)
+        return float((err / (FWD_RTOL * np.abs(want) + FWD_ATOL)).max())
+
+    assert ratio(mm_3xtf32) < 1.0
+    assert ratio(mm_1xtf32) > 10.0
+
+
+def test_rk4_interval_bf16_drops_only_passes_on_bf16_exact_operands():
+    """bf16 storage, emulated at the flagship shape: the weights are
+    bf16-exact (every product drops its weight's small-part pass) and so
+    is stage 1's first-layer operand z; the kernel's result, rounded once to
+    bf16, meets chip_smoke.py's one-ulp gate against the plain version in
+    bf16 with >= 99% of the bits equal.  Marking stage 2's first-layer
+    operand (z + k1 / 3, an f32 sum) bf16-exact too drops real low-order
+    bits: its products differ from the three-pass ones, and the result
+    misses the plain version's bits."""
+    shape = RK4_SHAPES[0]
+    batch, hidden, hh, n_in, n_trunk = shape
+    trunk, head_w, head_b, z, dx, _ = inputs(shape, seed=1)
+    trunk = [{k: bf16(v) for k, v in layer.items()} for layer in trunk]
+    head_w, head_b, z, dx = (bf16(t) for t in (head_w, head_b, z, dx))
+    want = rk4_plain(trunk, head_w, head_b, z, dx, n_in, torch.bfloat16)
+
+    def kernel_mm(exact_a_stages):
+        return lambda s, l: (lambda a, b: mm_passes(a, b, l == 0 and s in exact_a_stages,
+                                                    True))
+
+    def readings(exact_a_stages):
+        got = bf16(rk4_interval_emulated(kernel_mm(exact_a_stages), trunk, head_w, head_b,
+                                         z, dx, n_in)).astype(np.float64)
+        err = np.abs(got - want)
+        share = float((err / (2.0 ** -7 * np.abs(want) + 1e-5 * np.abs(want).max())).max())
+        return share, float((got == want).mean())
+
+    share, equal = readings({0})
+    assert share <= 1.0 and equal >= 0.99, (share, equal)
+    # The same products as three passes: dropping z's small part changes no bit.
+    np.testing.assert_array_equal(mm_passes(z, trunk[0]["w"], True, True),
+                                  mm_3xtf32(z, trunk[0]["w"]))
+    x2 = (z + np.float32(1.0 / 3.0) * np.tanh(z)).astype(np.float32)  # an f32 stage input
+    assert not np.array_equal(mm_passes(x2, trunk[0]["w"], True, True),
+                              mm_3xtf32(x2, trunk[0]["w"]))
+    share_wrong, equal_wrong = readings({0, 1})
+    assert share_wrong > 1.0 and equal_wrong < 0.99, (share_wrong, equal_wrong)
