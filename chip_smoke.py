@@ -69,6 +69,14 @@ controls, and prints one JSON line per phase:
 14. bench_bf16_leg -- the JAX package's bf16 parity leg (bench.py): the
                 flagship field in bf16 storage under precision "bfloat16",
                 forward and gradient, the card against the CPU.
+15. adaptive -- dopri5 with the paper's bounded step: the JAX bench's
+                config 3 (Hermite, B=512, L=24, C=9, H=HH=32, adjoint=False,
+                MSE) trained a few steps, and the flagship with the adjoint
+                serving one predict and taking one training step; gradients
+                and outputs against the CPU port, kernel launches against the
+                solvers' own evaluation counts, NFE, host reads, times and
+                profiles.  The kernel phases also hold and time both field
+                kernels at config 3's shape (512, 32, 32, 9, 2).
 
 Then a line with every kernel's numbers, a line with the run's seconds, a
 line with the card's name and power limit as ``nvidia-smi`` gives them,
@@ -235,6 +243,16 @@ LOSS_BF16_TOL = 0.06
 # A bf16 predict, card against CPU over 222 intervals: at most this share of
 # the CPU's own bf16-vs-f32 distance (same weights), for the same reason.
 PREDICT_BF16_RATIO = 1.0
+# Adaptive solves.  The JAX bench's config 3 (bench.py:368-405, Beijing TSR
+# shapes): B=512 series of L=24 hourly observations, C=9 channels with time
+# in channel 0, H=HH=32, two trunk layers, Hermite cubic, dopri5 with the
+# paper's bounded step (min_step=0.5, atol 1e-5, rtol 1e-3), adjoint=False,
+# MSE on one target per series; its field kernels run at CFG3_SHAPE.  Then
+# the flagship under dopri5 with the adjoint: one predict and one B=512
+# training step.
+CFG3_B, CFG3_L, CFG3_C, CFG3_H = 512, 24, 9, 32
+CFG3_SHAPE = (CFG3_B, CFG3_H, CFG3_H, CFG3_C, 2)
+CFG3_STEPS = 5
 
 
 def emit(phase: str, **fields):
@@ -576,7 +594,7 @@ def phase_kernel(pk):
     gen = torch.Generator().manual_seed(1)
     errors, timings = [], {}
     with torch.inference_mode():
-        for shape in SWEEP + FWD_WIDE:
+        for shape in SWEEP + [CFG3_SHAPE] + FWD_WIDE:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
             got = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
@@ -596,7 +614,7 @@ def phase_kernel(pk):
                            "gate_share": float((err / (KERNEL_RTOL * want.abs()
                                                        + KERNEL_ATOL)).max()),
                            "path": forward_grid(B, Hd, HHd, I)["path"]})
-        for shape in TIMED:
+        for shape in TIMED + [CFG3_SHAPE]:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
             call = lambda: kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
@@ -679,7 +697,7 @@ def phase_kernel_bwd(pk):
 
     gen = torch.Generator().manual_seed(2)
     errors, timings = [], {}
-    for shape in SWEEP:
+    for shape in SWEEP + [CFG3_SHAPE]:
         B, Hd, HHd, I, n = shape
         trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
         g = random_cotangent(gen, B, Hd, "cuda")
@@ -688,7 +706,7 @@ def phase_kernel_bwd(pk):
         again = kernels._backward(*args)
         want = kernels._backward_reference(*args)
         torch.cuda.synchronize()
-        worst = {}
+        worst, share = {}, 0.0
         for (name, gt), (_, ag), (_, wt) in zip(bwd_groups(got), bwd_groups(again),
                                                  bwd_groups(want)):
             if gt.shape != wt.shape or not torch.isfinite(gt).all():
@@ -702,7 +720,8 @@ def phase_kernel_bwd(pk):
                                        atol=BWD_ATOL_REL * scale, msg=lambda m: (
                                            f"backward kernel at {shape}, {name}: {m}"))
             worst[name] = float((gt - wt).abs().max())
-        errors.append({"shape": list(shape), "max_abs_err": worst})
+            share = max(share, gate_share(gt.cpu(), wt.cpu(), BWD_RTOL, BWD_ATOL_REL * scale))
+        errors.append({"shape": list(shape), "max_abs_err": worst, "gate_share": share})
     # A width the kernel's tiles cannot hold: the library refuses it, the
     # wrapper raises, and nothing launches.
     trunk, head_w, head_b, z, dx = random_field(gen, 2, 257, 64, 1, 1, "cuda")
@@ -717,7 +736,7 @@ def phase_kernel_bwd(pk):
         raise AssertionError("backward kernel took H=257")
     if kernels.fused_field_bwd_kernel.launches != launches:
         raise AssertionError("backward kernel launched at H=257")
-    for shape in [(512, 128, 128, 21, 2), (512, 128, 128, 1, 2)]:
+    for shape in TRAIN_SHAPES + [CFG3_SHAPE]:
         B, Hd, HHd, I, n = shape
         trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
         args = (trunk, head_w, head_b, z, dx, random_cotangent(gen, B, Hd, "cuda"),
@@ -943,13 +962,14 @@ def phase_kernel_rk4(pk):
     return max_err, max_err_multi, timings, multi_timings, bf16_timed
 
 
-def flagship_model(device, interpolation="rectilinear", dtype=torch.float32):
+def flagship_model(device, interpolation="rectilinear", dtype=torch.float32,
+                   solver="rk4"):
     from online_neural_cdes_tpu_torch import NeuralCDE
 
     return NeuralCDE(
         input_dim=C, hidden_dim=H, output_dim=1, static_dim=STATIC,
         hidden_hidden_dim=HH, num_layers=N_LAYERS, interpolation=interpolation,
-        solver="rk4", return_sequences=True,
+        solver=solver, return_sequences=True,
         generator=torch.Generator().manual_seed(0), device=device, dtype=dtype,
     )
 
@@ -1021,35 +1041,46 @@ def phase_predictor():
     return model, requests, static, outs, launches
 
 
-def profile_call(fn):
+def profile_call(fn, host=True):
     """One call of ``fn`` (ending in a synchronize) under torch.profiler:
     device time by kernel name and the device's busy share of the call's
-    wall time."""
+    wall time, from the profiler's raw events, and the host's kernel
+    launches; with ``host``, the host ops by self time too (their tracing
+    and ``key_averages`` take about a minute a million events, so the
+    adaptive flagship's calls leave them out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    start = time.perf_counter()
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            entry = by_name.setdefault(evt.name[:60], [0, 0.0])
+    by_name, launches = {}, 0
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
+            entry = by_name.setdefault(evt.name()[:60], [0, 0.0])
             entry[0] += 1
-            entry[1] += evt.time_range.elapsed_us() / 1e3
+            entry[1] += evt.duration_ns() / 1e6
+        elif evt.name().startswith("cudaLaunchKernel"):
+            launches += 1
     device_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": device_ms if by_name else "not measured",
-            "device_busy_share": device_ms / wall_ms if by_name else "not measured",
-            "device_events": sum(n for n, _ in by_name.values()),
-            "top": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top],
-            "host_top": [{"name": e.key[:60], "count": e.count,
-                          "self_cpu_ms": e.self_cpu_time_total / 1e3} for e in host]}
+    out = {"wall_ms": wall_ms,
+           "device_busy_ms": device_ms if by_name else "not measured",
+           "device_busy_share": device_ms / wall_ms if by_name else "not measured",
+           "device_events": sum(n for n, _ in by_name.values()),
+           "top": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top],
+           "host_kernel_launches": launches}
+    if host:
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+        out["host_top"] = [{"name": e.key[:60], "count": e.count,
+                            "self_cpu_ms": e.self_cpu_time_total / 1e3} for e in ops]
+    out["seconds"] = time.perf_counter() - start
+    return out
 
 
 def phase_stepper(model, requests, static, outs):
@@ -1146,6 +1177,24 @@ def slice_grads(model, inputs, labels, rows, compute_dtype=None):
     return {name: p.grad.detach().clone() for name, p in model.named_parameters()}
 
 
+def grad_gate(what, got, want):
+    """Card against CPU parameter gradients, each tensor within GRAD_RTOL
+    |want| + GRAD_ATOL_REL max|want|; returns the worst error per max and
+    gate share."""
+    grad_err, grad_share = {}, 0.0
+    for name, w in want.items():
+        g = got[name].cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}card gradient of {name} is not finite")
+        atol = GRAD_ATOL_REL * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=atol,
+                                   msg=lambda m: f"{what}gradient of {name}: {m}")
+        grad_err[name] = float((g - w).abs().max() / w.abs().max())
+        grad_share = max(grad_share, gate_share(g, w, GRAD_RTOL, atol))
+    return {"max_err_per_max": max(grad_err.values()), "gate_share": grad_share,
+            "rtol": GRAD_RTOL, "atol_per_max": GRAD_ATOL_REL}
+
+
 def phase_train():
     from online_neural_cdes_tpu_torch.training.loop import make_train_step
 
@@ -1160,16 +1209,7 @@ def phase_train():
     got = slice_grads(model, inputs, labels, GRAD_ROWS)
     want = slice_grads(model_cpu, tuple(t.cpu() for t in inputs), labels.cpu(),
                        GRAD_ROWS)
-    grad_err, grad_share = {}, 0.0
-    for name, w in want.items():
-        g = got[name].cpu()
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"card gradient of {name} is not finite")
-        atol = GRAD_ATOL_REL * float(w.abs().max())
-        torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=atol,
-                                   msg=lambda m: f"gradient of {name}: {m}")
-        grad_err[name] = float((g - w).abs().max() / w.abs().max())
-        grad_share = max(grad_share, gate_share(g, w, GRAD_RTOL, atol))
+    grads_vs_cpu = grad_gate("", got, want)
 
     step = make_train_step(model, loss="bce", lr=TRAIN_LR)
     loss, launches = counted(lambda: step(inputs, labels, 1.0))   # the main path
@@ -1193,9 +1233,7 @@ def phase_train():
     profile = profile_call(lambda: step(inputs, labels, 1.0))
     emit("train", batch=TRAIN_B, knots=2 * TRAIN_L - 1, intervals=intervals,
          kernel_launches=launches, expected_launches=expected,
-         grads_vs_cpu={"rows": GRAD_ROWS, "max_err_per_max": max(grad_err.values()),
-                       "gate_share": grad_share, "rtol": GRAD_RTOL,
-                       "atol_per_max": GRAD_ATOL_REL},
+         grads_vs_cpu={"rows": GRAD_ROWS, **grads_vs_cpu},
          losses=[float(v) for v in losses], train_step_ms=percentiles(step_ms),
          peak_memory_mb=peak_mb, profile=profile)
     return launches, step_summary(step_ms, peak_mb, profile)
@@ -1640,6 +1678,271 @@ def phase_toy():
              seconds_cpu=cpu["seconds"])
 
 
+def config3(device):
+    """The config 3 model (random weights from a seed) and its batch: the
+    Hermite coefficients and one normal target per series."""
+    from online_neural_cdes_tpu_torch import (
+        NeuralCDE, hermite_cubic_coefficients_with_backward_differences)
+
+    model = NeuralCDE(input_dim=CFG3_C, hidden_dim=CFG3_H, output_dim=1,
+                      hidden_hidden_dim=CFG3_H, num_layers=2, interpolation="hermite",
+                      return_sequences=False, adjoint=False, solver="dopri5",
+                      generator=torch.Generator().manual_seed(0), device=device)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(CFG3_B, CFG3_L, CFG3_C)).astype(np.float32)
+    x[:, :, 0] = np.arange(CFG3_L)
+    labels = rng.normal(size=(CFG3_B,)).astype(np.float32)
+    coeffs = hermite_cubic_coefficients_with_backward_differences(
+        torch.from_numpy(x).to(device))
+    return model, coeffs, torch.from_numpy(labels).to(device)
+
+
+def solve_counted(fn):
+    """``counted(fn)`` with the solvers' counts (``solvers.COUNTS``) set to
+    0 just before too: (fn's result, launches, solver counts)."""
+    from online_neural_cdes_tpu_torch.ops import solvers
+
+    def run():
+        solvers.reset_counts()
+        return fn()
+
+    out, launches = counted(run)
+    return out, launches, {kind: dict(c) for kind, c in solvers.COUNTS.items()}
+
+
+def expect_evals(what, launches, counts):
+    """Kernel launches equal the field evaluations the solvers counted: the
+    forward kernel once per evaluation (forward and reverse solves' nfe,
+    the replay's evaluations and the adjoint's f(t_i, y_i)), the backward
+    kernel once per reverse-solve evaluation and replayed evaluation."""
+    get = lambda kind, key: counts.get(kind, {}).get(key, 0)
+    expect_launches(what, launches,
+                    forward=(get("forward", "nfe") + get("reverse", "nfe")
+                             + get("reverse", "evals") + get("replay", "evals")),
+                    backward=get("reverse", "nfe") + get("replay", "evals"))
+
+
+def solve_stats(counts, kind="forward"):
+    return {k: counts.get(kind, {}).get(k, 0)
+            for k in ("solves", "nfe", "accepted", "rejected", "reads", "evals")}
+
+
+@contextmanager
+def recording_steps(steps):
+    """Appends each accepted step of the adaptive solves run inside, as its
+    controller records it ((t0, dt, t1, t1_eval, reseed)), to ``steps``."""
+    from online_neural_cdes_tpu_torch.ops import solvers
+
+    attempt = solvers._Controller.attempt
+
+    def recorded(ctl, s):
+        new, step = attempt(ctl, s)
+        if step is not None:
+            steps.append(step)
+        return new, step
+
+    solvers._Controller.attempt = recorded
+    try:
+        yield steps
+    finally:
+        solvers._Controller.attempt = attempt
+
+
+@contextmanager
+def following_steps(steps):
+    """The adaptive solves run inside take the recorded accepted steps in
+    their order instead of deciding, with the port's own stage arithmetic:
+    the CPU follows the card's step grid, so the two are held against each
+    other on one discretisation (a 3xTF32 round-off that flips one
+    decision would otherwise move the whole grid)."""
+    from online_neural_cdes_tpu_torch.ops import solvers
+
+    attempt, queue = solvers._Controller.attempt, iter(steps)
+
+    def follow(ctl, s):
+        step = next(queue)
+        t0, dt, t1, t1_eval, reseed = step
+        if t0 != s.t1:
+            raise AssertionError(f"following the card's steps: a step from {t0} "
+                                 f"where the solve stands at {s.t1}")
+        y1, f1, _, k = solvers._runge_kutta_step(ctl.func, s.y1, s.f1, t0, dt,
+                                                 ctl.tableau, t1_eval, error=False)
+        if reseed is not None:
+            f1 = ctl.func(reseed, y1)
+        return solvers._RKState(y1=y1, f1=f1, t0=t0, t1=t1, dt=dt, nfe=s.nfe,
+                                accepted=s.accepted + 1, rejected=s.rejected,
+                                last=(s.y1, y1, k, dt)), step
+
+    solvers._Controller.attempt = follow
+    try:
+        yield
+    finally:
+        solvers._Controller.attempt = attempt
+    if next(queue, None) is not None:
+        raise AssertionError("following the card's steps: steps left over")
+
+
+def mse_grads(model, coeffs, labels):
+    """(predictions, parameter gradients) of the train step's masked MSE."""
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+
+    model.zero_grad(set_to_none=True)
+    preds = model(coeffs)
+    masked_temporal_loss(make_loss("mse"), preds, labels).backward()
+    return preds.detach(), {name: p.grad.detach().clone()
+                            for name, p in model.named_parameters()}
+
+
+def phase_adaptive():
+    """dopri5 on the card.  Config 3: the differentiable solve's replay
+    gives the no-grad solve's outputs to the bit; gradients against the
+    CPU port on the full batch; one training step's launches equal the
+    solver's own counts (replay: 6 per accepted step plus f0); step times,
+    profile, NFE and host reads.  The flagship with the adjoint: one
+    ``Predictor.predict`` against the CPU's and one B=512 training step
+    through ``odeint_adjoint``, gradients against the CPU on GRAD_ROWS rows,
+    launches against the counts (reverse: its nfe plus one f(t_i, y_i) per
+    output interval).  Each model's card and CPU nfe / accepted / rejected
+    are printed; a 3xTF32 round-off may flip a step decision, so they are
+    not gated, and the flagship's CPU is held to the card on the card's
+    own step grid (``following_steps``), with its distance on its own
+    steps printed beside."""
+    from online_neural_cdes_tpu_torch import Predictor
+    from online_neural_cdes_tpu_torch.ops import solvers
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+
+    t_phase = time.perf_counter()
+    per_step = len(solvers.ADAPTIVE_METHODS["dopri5"].c_sol) - 1
+    paths = {}
+
+    # -- config 3 --------------------------------------------------------
+    model, coeffs, labels = config3("cuda")
+    model_cpu, coeffs_cpu, labels_cpu = config3("cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        solve_out = model(coeffs)
+    (preds, got), launches, counts = solve_counted(lambda: mse_grads(model, coeffs, labels))
+    if not torch.equal(preds, solve_out):
+        raise AssertionError("config 3: the replay's outputs differ from the no-grad solve's")
+    expect_evals("config 3 forward and backward", launches, counts)
+    solvers.reset_counts()
+    _, want = mse_grads(model_cpu, coeffs_cpu, labels_cpu)
+    cpu_counts = {kind: dict(c) for kind, c in solvers.COUNTS.items()}
+    grads = grad_gate("config 3: ", got, want)
+
+    step = make_train_step(model, loss="mse")
+    loss, launches, counts = solve_counted(lambda: step(coeffs, labels, 1.0))  # the main path
+    expect_evals("config 3 train step", launches, counts)
+    fwd = counts["forward"]
+    if counts["replay"]["evals"] != fwd["accepted"] * per_step + fwd["solves"]:
+        raise AssertionError(f"config 3 replay: {counts['replay']['evals']} evaluations "
+                             f"for {fwd['accepted']} accepted steps")
+    paths["config3_train_step"] = launches
+    losses, step_ms = [float(loss)], []
+    for _ in range(CFG3_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(coeffs, labels, 1.0)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"config 3 losses not finite: {losses}")
+    profile = profile_call(lambda: step(coeffs, labels, 1.0))
+    emit("adaptive", model="config3", source="bench.py:368-405", batch=CFG3_B,
+         length=CFG3_L, shape=list(CFG3_SHAPE), solver="dopri5 min_step=0.5",
+         adjoint=False, kernel_launches=launches, solver_counts=counts,
+         host_reads_per_step=sum(c["reads"] for c in counts.values()),
+         card=solve_stats(counts), cpu=solve_stats(cpu_counts),
+         replay_equals_solve="bit-identical", grads_vs_cpu={"rows": CFG3_B, **grads},
+         losses=losses, train_step_ms=percentiles(step_ms),
+         device_busy_ms=profile["device_busy_ms"],
+         device_busy_share=profile["device_busy_share"], profile=profile,
+         seconds=time.perf_counter() - t_phase)
+
+    # -- the flagship, dopri5 with the adjoint ---------------------------
+    t_part = time.perf_counter()
+    model = flagship_model("cuda", solver="dopri5")
+    model_cpu = flagship_model("cpu", solver="dopri5")
+    model_cpu.load_state_dict(model.state_dict())
+    requests, static = make_requests()
+    pred = Predictor(model, coeff_fn=rectilinear_coeffs, batch_buckets=(1, 64),
+                     length_multiple=LENGTH_MULTIPLE, device="cuda")
+    pred_cpu = Predictor(model_cpu, coeff_fn=rectilinear_coeffs, batch_buckets=(1, 64),
+                         length_multiple=LENGTH_MULTIPLE, device="cpu")
+    steps = []
+    with recording_steps(steps):
+        outs, launches, counts = solve_counted(lambda: pred.predict(requests,
+                                                                    static=static))
+    expect_evals("flagship dopri5 predict", launches, counts)
+    paths["predict"] = launches
+    solvers.reset_counts()
+    t0 = time.perf_counter()
+    outs_free = pred_cpu.predict(requests, static=static)   # the CPU's own steps
+    cpu_counts = {kind: dict(c) for kind, c in solvers.COUNTS.items()}
+    with following_steps(steps):
+        outs_cpu = pred_cpu.predict(requests, static=static)
+    cpu_seconds = time.perf_counter() - t0
+    err = share = free_err = 0.0
+    for r, g, c, f in zip(requests, outs, outs_cpu, outs_free):
+        if g.shape != (len(r), 1) or not np.isfinite(g).all():
+            raise AssertionError(f"dopri5 predictor output shape {g.shape} or non-finite")
+        np.testing.assert_allclose(g, c, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+        err = max(err, float(np.abs(g - c).max()))
+        share = max(share, gate_share(g, c, SERVE_RTOL, SERVE_ATOL))
+        free_err = max(free_err, float(np.abs(g - f).max()))
+    t0 = time.perf_counter()
+    pred.predict(requests, static=static)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    profile = profile_call(lambda: pred.predict(requests, static=static), host=False)
+    emit("adaptive", model="flagship", path="predict", solver="dopri5 min_step=0.5",
+         requests=N_REQUESTS, kernel_launches=launches, solver_counts=counts,
+         host_reads=sum(c["reads"] for c in counts.values()),
+         card=solve_stats(counts), cpu=solve_stats(cpu_counts),
+         vs_cpu_on_the_cards_steps={"max_abs_err": err, "gate_share": share,
+                                    "rtol": SERVE_RTOL, "atol": SERVE_ATOL},
+         vs_cpu_on_its_own_steps={"max_abs_err": free_err, "gated": False},
+         predict_ms=predict_ms, device_busy_ms=profile["device_busy_ms"],
+         device_busy_share=profile["device_busy_share"], profile=profile,
+         cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_part)
+    t_part = time.perf_counter()
+
+    inputs, lab = train_batch("cuda")
+    steps = []
+    solvers.reset_counts()
+    with recording_steps(steps):
+        got = slice_grads(model, inputs, lab, GRAD_ROWS)
+    rows_counts = {kind: dict(c) for kind, c in solvers.COUNTS.items()}
+    t0 = time.perf_counter()
+    with following_steps(steps):   # the forward solve's steps, then each reverse solve's
+        want = slice_grads(model_cpu, tuple(t.cpu() for t in inputs), lab.cpu(),
+                           GRAD_ROWS)
+    cpu_seconds = time.perf_counter() - t0
+    grads = grad_gate("flagship dopri5: ", got, want)
+    step = make_train_step(model, loss="bce", lr=TRAIN_LR)
+    t0 = time.perf_counter()
+    loss, launches, counts = solve_counted(lambda: step(inputs, lab, 1.0))  # the main path
+    step_ms = (time.perf_counter() - t0) * 1e3
+    expect_evals("flagship dopri5 train step", launches, counts)
+    intervals = 2 * TRAIN_L - 2
+    if counts["reverse"]["evals"] != intervals:
+        raise AssertionError(f"flagship adjoint: {counts['reverse']['evals']} output "
+                             f"evaluations for {intervals} intervals")
+    paths["train_step"] = launches
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"flagship dopri5 loss not finite: {loss}")
+    profile = profile_call(lambda: step(inputs, lab, 1.0), host=False)
+    emit("adaptive", model="flagship", path="train_step", solver="dopri5 min_step=0.5",
+         adjoint=True, batch=TRAIN_B, intervals=intervals, kernel_launches=launches,
+         solver_counts=counts, host_reads_per_step=sum(c["reads"] for c in counts.values()),
+         card={"forward": solve_stats(counts), "reverse": solve_stats(counts, "reverse")},
+         card_rows={"rows": GRAD_ROWS, "forward": solve_stats(rows_counts),
+                    "reverse": solve_stats(rows_counts, "reverse")},
+         grads_vs_cpu_on_the_cards_steps={"rows": GRAD_ROWS, **grads},
+         loss=float(loss), train_step_ms=step_ms, device_busy_ms=profile["device_busy_ms"],
+         device_busy_share=profile["device_busy_share"], profile=profile,
+         cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_part,
+         phase_seconds=time.perf_counter() - t_phase)
+    return {f"adaptive_{k}": v for k, v in paths.items()}
+
+
 def times(t):
     return {"ms": t["kernel_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
@@ -1660,7 +1963,8 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
 
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
-          "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg")
+          "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg",
+          "adaptive")
 
 
 def main(argv=None) -> int:
@@ -1707,6 +2011,8 @@ def main(argv=None) -> int:
         predict_bf16_launches = phase_predict_bf16()
     if "bench_bf16_leg" in phases:
         phase_bench_bf16_leg()
+    if "adaptive" in phases:
+        adaptive_launches = phase_adaptive()
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
@@ -1719,7 +2025,7 @@ def main(argv=None) -> int:
     by_path = {"predict": serve_launches, "train_step": train_launches,
                "hermite_predict": hermite_serve, "hermite_train_step": hermite_train,
                "interval_chain": chain_launches, "train_step_bf16": train_bf16_launches,
-               "predict_bf16": predict_bf16_launches}
+               "predict_bf16": predict_bf16_launches, **adaptive_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}

@@ -6,7 +6,7 @@ on an NVIDIA Hopper card: plain tensor code is PyTorch, and the TPU's
 Pallas kernels become hand-written CUDA kernels (``csrc/``), built at
 first use.  It imports neither JAX nor the JAX package.
 
-Three slices are ported: serving and training of an NCDE with a
+Ported so far: serving and training of an NCDE with a
 fixed-grid solver under every interpolation scheme of the JAX package
 (linear, rectilinear, natural cubic, Hermite, smoothed linear) -- the
 coefficient builders and splines, the fused vector field with its forward
@@ -16,7 +16,10 @@ NaN-masked losses and the Adam train steps (``training``), and the
 Brownian-motion toy (``data.toy``, ``experiments.sim_bm_toy``) -- and the
 whole-interval RK4 kernels (``ops.kernels.fused_rk4_interval`` and its
 K-replica form) with their interval-chain experiments
-(``experiments.pair_probe``, ``experiments.interleave_experiment``).
+(``experiments.pair_probe``, ``experiments.interleave_experiment``); and
+the adaptive Runge-Kutta solvers (``ops.solvers.odeint``,
+``ops.cdeint.odeint_adjoint``, the generic ``cdeint`` path), so a
+``NeuralCDE(solver="dopri5")`` serves and trains too.
 ``ROADMAP.md`` lists what comes next.
 """
 

@@ -1,8 +1,9 @@
 """The Neural CDE model.
 
 PyTorch counterpart of the JAX package's ``models/ncde.py`` for the fixed
-solvers and every spline of its registry (linear, rectilinear, natural
-cubic, Hermite, and linear with cubic or quintic smoothing).
+and adaptive Runge-Kutta solvers and every spline of its registry (linear,
+rectilinear, natural cubic, Hermite, and linear with cubic or quintic
+smoothing).
 ``NeuralCDE`` is an ``nn.Module``: the constructor takes the JAX
 dataclass's fields and makes the parameters (``field``, ``initial``,
 ``final``, under the JAX pytree's names) from a ``torch.Generator``;
@@ -16,8 +17,9 @@ trunk -> head -> contraction op for every H and B: on the card that is the
 hand-written kernel ``csrc/fused_field.cu``.  A forward that needs
 gradients (grad mode on, parameters or inputs requiring grad) goes through
 ``cdeint``'s interval adjoint (``adjoint=True``, the default) or autograd
-through the scan; every reverse stage then runs the field's backward
-kernel ``csrc/fused_field_bwd.cu`` on the card.
+through the scan, and an adaptive solver's through ``odeint_adjoint`` or
+the differentiable solve's replay; every reverse stage then runs the
+field's backward kernel ``csrc/fused_field_bwd.cu`` on the card.
 """
 
 from __future__ import annotations
@@ -105,15 +107,19 @@ class NeuralCDE(nn.Module):
                  + ("explicit_adams", "implicit_adams", "scipy_solver"))
         if solver not in valid:
             raise ValueError(f"unknown solver {solver!r}; one of {sorted(valid)}")
-        if solver not in _solvers.FIXED_METHODS:
+        if solver in ("explicit_adams", "implicit_adams", "scipy_solver"):
             raise NotImplementedError(
                 f"solver={solver!r} is not ported yet (ROADMAP item 12: the "
-                "adaptive and multistep solvers)"
+                "Adams solvers and scipy_solver)"
             )
-        if adjoint_method is not None and adjoint_method not in _solvers.FIXED_METHODS:
+        # The piece scan's reverse solve is fixed-grid; the adaptive path's
+        # may be adaptive too.
+        adjoint_methods = tuple(_solvers.FIXED_METHODS)
+        if solver in _solvers.ADAPTIVE_METHODS:
+            adjoint_methods += tuple(_solvers.ADAPTIVE_METHODS)
+        if adjoint_method is not None and adjoint_method not in adjoint_methods:
             raise ValueError(
-                f"adjoint_method {adjoint_method!r} must be one of "
-                f"{_solvers.FIXED_METHODS}"
+                f"adjoint_method {adjoint_method!r} must be one of {adjoint_methods}"
             )
         self.input_dim = input_dim
         self.hidden_dim = hidden_dim
@@ -174,8 +180,14 @@ class NeuralCDE(nn.Module):
 
     @property
     def solver_settings(self) -> dict:
-        """rk4 preset: one step per knot interval (substeps=1 on the piece
-        scan).  The adaptive presets come with their solvers."""
+        """The reference's presets (ncde.py:129-134): dopri5 with the
+        bounded step ``min_step=0.5``, the other adaptive methods with plain
+        tolerances, and the fixed methods one step per knot interval
+        (substeps=1 on the piece scan)."""
+        if self.solver == "dopri5":
+            return dict(atol=1e-5, rtol=1e-3, options={"min_step": 0.5})
+        if self.solver in _solvers.ADAPTIVE_METHODS:
+            return dict(atol=1e-5, rtol=1e-3, options={})
         return dict(atol=1e-5, rtol=1e-3,
                     options={"substeps": 1, "unroll": self.solver_unroll})
 
@@ -224,10 +236,12 @@ class NeuralCDE(nn.Module):
         (``pack_fused_params``).  A rectilinear model adds its time
         channel's head columns as contiguous ``head_w_time`` (HH, H) and
         ``head_b_time`` (H,): the time-advance intervals contract against
-        that channel only.  Packed once per forward, outside the scan."""
+        that channel only (the piece scan's; an adaptive model's field takes
+        ``trunk``, ``head_w`` and ``head_b`` alone, as the JAX model's).
+        Packed once per forward, outside the scan."""
         H = self.hidden_dim
         packed = pack_fused_params(self.field.params, H, self.input_dim)
-        if self.interpolation == "rectilinear":
+        if self.interpolation == "rectilinear" and self.solver in _solvers.FIXED_METHODS:
             k = self.rectilinear_time_channel
             packed["head_w_time"] = packed["head_w"][:, k * H:(k + 1) * H].contiguous()
             packed["head_b_time"] = packed["head_b"][k * H:(k + 1) * H].contiguous()
@@ -247,7 +261,7 @@ class NeuralCDE(nn.Module):
                                       z, dx, H, I)
 
         even_func = None
-        if self.interpolation == "rectilinear":
+        if self.interpolation == "rectilinear" and self.solver in _solvers.FIXED_METHODS:
             k = self.rectilinear_time_channel
 
             def even_func(t, z, dx, fp):

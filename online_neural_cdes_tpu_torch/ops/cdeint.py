@@ -1,17 +1,17 @@
-"""``cdeint``: the fixed-grid piece-scan solve of dz = f(z) dX, and its
-interval adjoint.
+"""``cdeint``: the fixed-grid piece-scan solve of dz = f(z) dX with its
+interval adjoint, the generic path over ``odeint``, and ``odeint_adjoint``.
 
-PyTorch counterpart of the fixed-grid branch of the JAX package's
-``ops/cdeint.py``: ``_piece_field``, ``_fixed_scan_forward``, the paired
-rectilinear scan ``_fixed_scan_forward_paired``, the interval adjoints
-``_fixed_cde_adjoint`` / ``_fixed_cde_adjoint_paired`` with their shared
-``_interval_adjoint_bwd``, and the fixed-method branch of ``cdeint`` with
+PyTorch counterpart of the JAX package's ``ops/cdeint.py``: ``_piece_field``,
+``_fixed_scan_forward``, the paired rectilinear scan
+``_fixed_scan_forward_paired``, the interval adjoints ``_fixed_cde_adjoint``
+/ ``_fixed_cde_adjoint_paired`` with their shared ``_interval_adjoint_bwd``,
+``_make_cde_field``, ``odeint_adjoint``, and ``cdeint`` with
 ``return_stats``.  The scans are Python loops over the knot intervals;
 inside interval i the field is pinned to piece i of the control.  Step
 sizes are host floats from the spline's knot times (``host_grid``), so a
 solve on the card enqueues its kernels without reading anything back.
 
-Gradients:
+Gradients of the piece scan:
 
 - ``adjoint=True``: a ``torch.autograd.Function`` whose forward is the scan
   under no grad, keeping the knot states, and whose backward re-integrates
@@ -26,8 +26,11 @@ Gradients:
   ``options={"remat": True}`` as ``torch.utils.checkpoint`` per interval
   (per interval pair on the paired scan).
 
-The adaptive solvers behind the generic branch come with a later slice
-(ROADMAP item 12).
+The generic path (adaptive methods, other output times) solves with
+``solvers.odeint`` over the field at ``X.derivative(t)``; ``adjoint=True``
+differentiates by ``odeint_adjoint`` (the augmented state integrated in
+reverse, each reverse stage one forward and one backward launch of the
+fused field), ``adjoint=False`` by the differentiable solve's replay.
 """
 
 from __future__ import annotations
@@ -36,12 +39,36 @@ import math
 from functools import partial
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from online_neural_cdes_tpu_torch.ops import solvers
+from online_neural_cdes_tpu_torch.utils.tree import flatten
 
-__all__ = ["cdeint"]
+__all__ = ["cdeint", "odeint_adjoint"]
+
+
+def _make_cde_field(func, vector_field_type: str):
+    """The generic path's field: dz/dt = func(t, z, X'(t), args) with
+    ``theta = (X, args)`` (JAX ``_make_cde_field``), so the adjoint's
+    cotangents reach the spline's tensors.  ``X.derivative`` looks the
+    piece up on the device (the right-hand piece at a knot)."""
+
+    if vector_field_type == "matmul_fused":
+
+        def vf(t, z, theta):
+            X_, args = theta
+            return func(t, z, X_.derivative(t), args)
+
+    elif vector_field_type in ("matmul", "evaluate", "derivative"):
+        raise NotImplementedError(
+            f"vector_field_type={vector_field_type!r} is not ported yet "
+            "(ROADMAP item 14: the rest of the model zoo)"
+        )
+    else:
+        raise ValueError(f"Unknown vector_field_type {vector_field_type!r}")
+    return vf
 
 
 def _piece_field(spline_cls, func, vector_field_type: str):
@@ -126,34 +153,6 @@ def _fixed_scan_forward_paired(pf_even, pf_odd, z0, grid_t, pieces, args,
 # ---------------------------------------------------------------------------
 # Interval adjoint
 # ---------------------------------------------------------------------------
-
-
-def _flatten(tree):
-    """Tensor leaves of nested dicts/lists/tuples, and a function that
-    rebuilds the tree from a list of new leaves."""
-    if isinstance(tree, torch.Tensor):
-        return [tree], lambda leaves: leaves[0]
-    if isinstance(tree, dict):
-        keys = list(tree)
-        parts = [_flatten(tree[k]) for k in keys]
-    elif isinstance(tree, (list, tuple)):
-        keys = None
-        parts = [_flatten(v) for v in tree]
-    else:
-        return [], lambda leaves: tree
-    sizes = [len(p[0]) for p in parts]
-    leaves = [t for p in parts for t in p[0]]
-
-    def rebuild(new):
-        out, pos = [], 0
-        for (_, sub), n in zip(parts, sizes):
-            out.append(sub(new[pos:pos + n]))
-            pos += n
-        if keys is not None:
-            return dict(zip(keys, out))
-        return type(tree)(out)
-
-    return leaves, rebuild
 
 
 def _interval_adjoint_bwd(step, pf, piece, piece_wrt, t0, t1, z_end, a, args,
@@ -301,6 +300,184 @@ class _FixedCDEAdjointPaired(_FixedCDEAdjoint):
         return rev.grads(a + grad_zs[0])
 
 
+# ---------------------------------------------------------------------------
+# Adjoint odeint (generic; the adaptive path, and public)
+# ---------------------------------------------------------------------------
+
+
+class _AdjointSetup:
+    """What ``_OdeintAdjoint`` needs besides tensors: the field, the
+    forward and reverse solves' settings, and how to rebuild the state and
+    ``args`` from flat leaves."""
+
+    def __init__(self, func, rebuild_y, n_y, rebuild_args, rtol, atol, method,
+                 options, adjoint_options):
+        self.func = func
+        self.rebuild_y, self.n_y, self.rebuild_args = rebuild_y, n_y, rebuild_args
+        self.rtol, self.atol, self.method = rtol, atol, method
+        self.options = options
+        adj = dict(adjoint_options or {})
+        self.adj_method = adj.pop("method", method)
+        self.adj_rtol = adj.pop("rtol", rtol)
+        self.adj_atol = adj.pop("atol", atol)
+        # 'seminorm': adapt steps on the (y, a) blocks only, ignoring the
+        # parameter-gradient block (reference adjoint.py:235-281).  Other
+        # norm values pass through to the reverse solver.
+        norm = adj.pop("norm", None)
+        self.seminorm = norm == "seminorm"
+        adj_options = adj or dict(options)
+        if norm is not None and not self.seminorm:
+            adj_options = {**adj_options, "norm": norm}
+        # The reverse pass integrates in s = -tau, so declared
+        # discontinuities at tau0 sit at s = -tau0.
+        for key in ("step_t", "jump_t"):
+            if adj_options.get(key) is not None:
+                grid = adj_options[key]
+                adj_options = {**adj_options, key: -(grid if isinstance(grid, torch.Tensor)
+                                                      else np.asarray(grid))}
+        self.adj_options = adj_options
+
+    def solve(self, y_leaves, t, arg_leaves):
+        return solvers.odeint(self.func, self.rebuild_y(list(y_leaves)), t,
+                              self.rebuild_args(list(arg_leaves)), rtol=self.rtol,
+                              atol=self.atol, method=self.method,
+                              options=dict(self.options))
+
+
+class _OdeintAdjoint(torch.autograd.Function):
+    """JAX ``_odeint_adjoint``: the forward solve with no autograd graph;
+    the backward integrates the augmented state ``(y, a, vt, args_bar)``
+    in reverse over each output interval, in the substituted time s = -tau
+    (so it runs forward in s), with the forward's solver or
+    ``adjoint_options``'.  Every leaf of ``args`` gets its cotangent
+    integrated (its block is part of the error norm) whether or not it
+    requires grad, and ``vt``, the output times' gradient, is integrated
+    always.  Inputs ``(setup, t, *y0 leaves, *arg leaves)``; outputs the
+    state's leaves at every output time."""
+
+    @staticmethod
+    def forward(ctx, setup, t, *leaves):
+        ys = setup.solve(leaves[:setup.n_y], t, leaves[setup.n_y:])
+        ys = tuple(flatten(ys)[0])
+        ctx.setup = setup
+        ctx.save_for_backward(t, *leaves[setup.n_y:], *ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, *grad_ys):
+        setup = ctx.setup
+        t, *rest = ctx.saved_tensors
+        n_y = setup.n_y
+        arg_leaves, ys = rest[:len(rest) - n_y], rest[len(rest) - n_y:]
+        grad_ys = [torch.zeros_like(y) if g is None else g for g, y in zip(grad_ys, ys)]
+        args_d = [leaf.detach() for leaf in arg_leaves]
+        args_tree = setup.rebuild_args(args_d)
+        func = setup.func
+        dtype = ys[0].dtype
+        device = ys[0].device
+
+        def aug_dynamics(s, aug, _):
+            """(-f, a df/dy, a df/dtau, a df/dargs) at tau = -s: the
+            reference's augmented dynamics (adjoint.py:73-106) under the
+            s-substitution.  An input f does not use gets a zero
+            cotangent, as ``jax.vjp`` gives."""
+            y, a = aug[:n_y], aug[n_y:2 * n_y]
+            with torch.enable_grad():
+                tau = (-s).detach().requires_grad_()
+                y_ = [leaf.detach().requires_grad_() for leaf in y]
+                th = [leaf.detach().requires_grad_() for leaf in args_d]
+                f = flatten(func(tau, setup.rebuild_y(y_), setup.rebuild_args(th)))[0]
+                inputs = [tau, *y_, *th]
+                vjps = torch.autograd.grad(f, inputs, list(a), allow_unused=True)
+            vjps = [torch.zeros_like(x) if v is None else v for v, x in zip(vjps, inputs)]
+            return (*[-fl.detach() for fl in f], *vjps[1:1 + n_y], vjps[0],
+                    *vjps[1 + n_y:])
+
+        t_host = solvers._host(t)
+        a = [torch.zeros_like(y[0]) for y in ys]
+        vt = torch.zeros((), dtype=dtype, device=device)
+        args_bar = [torch.zeros_like(leaf) for leaf in args_d]
+        t_bar = [None] * len(t_host)
+        opts = dict(setup.adj_options)
+        if setup.seminorm:
+            opts["error_weights"] = [1.0] * (2 * n_y + 1) + [0.0] * len(args_d)
+        with solvers.counting_as("reverse"):
+            for i in range(len(t_host) - 1, 0, -1):
+                y_i = [y[i] for y in ys]
+                g_i = [g[i] for g in grad_ys]
+                # Moving output time t_i shifts where the loss samples the
+                # trajectory: dL/dt_i = g_i . f(t_i, y_i), and the integrated
+                # vjp_t drops by the same (reference adjoint.py:116-124).
+                t_i = torch.full((), float(t_host[i]), dtype=t.dtype, device=device)
+                f_i = flatten(func(t_i, setup.rebuild_y(y_i), args_tree))[0]
+                solvers._count(evals=1)
+                dl_dt = sum((g * f).sum() for g, f in zip(g_i, f_i)).to(dtype)
+                vt = vt - dl_dt
+                a = [al + gl for al, gl in zip(a, g_i)]
+                s_span = np.array([-t_host[i], -t_host[i - 1]], dtype=t_host.dtype)
+                path = solvers.odeint(aug_dynamics, (*y_i, *a, vt, *args_bar), s_span,
+                                      rtol=setup.adj_rtol, atol=setup.adj_atol,
+                                      method=setup.adj_method, options=dict(opts))
+                aug1 = [p[-1] for p in path]
+                a, vt, args_bar = aug1[n_y:2 * n_y], aug1[2 * n_y], aug1[2 * n_y + 1:]
+                t_bar[i] = dl_dt
+        a = [al + g[0] for al, g in zip(a, grad_ys)]
+        t_bar[0] = vt
+        t_grad = (torch.stack(t_bar).to(t.dtype).to(t.device)
+                  if ctx.needs_input_grad[1] else None)
+        need_args = ctx.needs_input_grad[2 + n_y:]
+        return (None, t_grad, *a,
+                *[bar if need else None for bar, need in zip(args_bar, need_args)])
+
+
+def odeint_adjoint(
+    func: Callable[[Any, Any, Any], Any],
+    y0,
+    t,
+    args=None,
+    *,
+    rtol: float = 1e-7,
+    atol: float = 1e-9,
+    method: str = "dopri5",
+    options: Optional[dict] = None,
+    adjoint_options: Optional[dict] = None,
+):
+    """``odeint`` whose gradient integrates the adjoint system backwards
+    (O(1) memory in the solve's length).  ``adjoint_options`` may set the
+    reverse solve's ``method`` / ``rtol`` / ``atol`` / ``norm``
+    (``"seminorm"`` leaves the parameter-gradient block out of the step
+    control) and its solver options (by default the forward's).  Gradients
+    reach ``y0``, ``t`` and the tensors of ``args`` (nested dicts, lists,
+    tuples and splines).  With no gradient needed it is ``odeint``."""
+    if not isinstance(t, torch.Tensor):
+        t = torch.as_tensor(np.asarray(t))
+    # Resolve grid-from-step_size against the concrete output times: the
+    # reverse solves integrate one output interval at a time.
+    options = dict(options or {})
+    if "step_size" in options:
+        options["substeps"] = _resolve_substeps(options, solvers._host(t))
+        options.pop("step_size")
+    if adjoint_options and "step_size" in adjoint_options:
+        adjoint_options = dict(adjoint_options)
+        adjoint_options["substeps"] = _resolve_substeps(adjoint_options,
+                                                        solvers._host(t))
+        adjoint_options.pop("step_size")
+    y_leaves, rebuild_y = flatten(y0)
+    arg_leaves, rebuild_args = flatten(args)
+    if not (torch.is_grad_enabled() and any(
+            x.requires_grad for x in (t, *y_leaves, *arg_leaves))):
+        return solvers.odeint(func, y0, t, args, rtol=rtol, atol=atol, method=method,
+                              options=options)
+    setup = _AdjointSetup(func, rebuild_y, len(y_leaves), rebuild_args, rtol, atol,
+                          method, options, adjoint_options)
+    return rebuild_y(list(_OdeintAdjoint.apply(setup, t, *y_leaves, *arg_leaves)))
+
+
+# ---------------------------------------------------------------------------
+# cdeint
+# ---------------------------------------------------------------------------
+
+
 def _t_matches_grid(t, grid_t, spline) -> bool:
     """True iff the requested times are the spline's full knot grid or its
     2-point interval -- the piece scan's contract.  A device tensor's
@@ -328,6 +505,45 @@ def _resolve_substeps(options: dict, grid) -> int:
         spacing = max(b - a for a, b in zip(grid[:-1], grid[1:]))
         return max(1, math.ceil(spacing / float(options["step_size"]) - 1e-9))
     return 1
+
+
+def _generic_cdeint(X, func, z0, t, args, adjoint, vector_field_type, method, atol,
+                    rtol, options, adjoint_options, return_stats):
+    """JAX ``cdeint``'s generic branch (see :func:`cdeint`)."""
+    vf = _make_cde_field(func, vector_field_type)
+    theta = (X, args)
+    if not t.requires_grad:
+        # The solvers step with host times: the knot grid's host copy, or
+        # one read of the times.
+        t = (torch.tensor(X.host_grid(), dtype=t.dtype) if t is X.grid_points
+             else torch.from_numpy(solvers._host(t)))
+    if "step_size" in options:
+        options["substeps"] = _resolve_substeps(options, solvers._host(t))
+        options.pop("step_size")
+    if adjoint_options and "step_size" in adjoint_options:
+        adjoint_options = dict(adjoint_options)
+        adjoint_options["substeps"] = _resolve_substeps(adjoint_options,
+                                                        solvers._host(t))
+        adjoint_options.pop("step_size")
+    stats = None
+    if adjoint:
+        if return_stats:
+            # Adaptive NFE is data-dependent: one more forward solve.
+            with torch.no_grad():
+                _, stats = solvers.odeint(vf, z0, t, theta, rtol=rtol, atol=atol,
+                                          method=method, options=dict(options),
+                                          return_stats=True)
+        zs = odeint_adjoint(vf, z0, t, theta, rtol=rtol, atol=atol, method=method,
+                            options=options, adjoint_options=adjoint_options)
+    else:
+        zs, stats = solvers.odeint(vf, z0, t, theta, rtol=rtol, atol=atol,
+                                   method=method,
+                                   options={**options, "differentiable": True},
+                                   return_stats=True)
+    zs = torch.movedim(zs, 0, -2)
+    if return_stats:
+        return zs, stats
+    return zs
 
 
 def cdeint(
@@ -368,9 +584,16 @@ def cdeint(
     ``options={"remat": True}`` recomputing each interval in the backward.
     Gradients reach ``z0``, the tensors of ``args`` (any nesting of dicts,
     lists and tuples) and the spline's coefficients.  ``atol``/``rtol``
-    belong to the adaptive solvers, which a later slice ports.
+    belong to the generic path.
+
+    Any other ``t``, a spline without the piece API, or a method outside
+    ``FIXED_METHODS`` takes the generic path: ``odeint`` over the field
+    ``func(t, z, X.derivative(t), args)``, differentiated by
+    ``odeint_adjoint`` (``adjoint=True``; ``return_stats`` then costs one
+    more forward solve under no grad) or by the differentiable solve, the
+    accepted-step grid replayed with grad (``adjoint=False``).
+    ``even_func`` is not used there.
     """
-    del atol, rtol
     options = dict(options or {})
     t = torch.as_tensor(t)
     grid_t = X.grid_points
@@ -383,11 +606,8 @@ def cdeint(
         and _t_matches_grid(t, grid_t, X)
     )
     if not use_piece_scan:
-        raise NotImplementedError(
-            f"cdeint with method={method!r} or output times other than the "
-            "knot grid / its interval is not ported yet (ROADMAP item 12: "
-            "the generic cdeint path and the adaptive solvers)"
-        )
+        return _generic_cdeint(X, func, z0, t, args, adjoint, vector_field_type, method,
+                               atol, rtol, options, adjoint_options, return_stats)
     adj = dict(adjoint_options or {})
     adj_method = str(adj.get("method", method))
     if adj_method not in solvers.FIXED_METHODS:
@@ -412,7 +632,7 @@ def cdeint(
            if paired else (pf,))
 
     piece_keys = sorted(pieces)
-    arg_leaves, rebuild_args = _flatten(args)
+    arg_leaves, rebuild_args = flatten(args)
     leaves = [pieces[k] for k in piece_keys] + arg_leaves
     if adjoint and torch.is_grad_enabled() and any(
             t_.requires_grad for t_ in (z0, *leaves)):

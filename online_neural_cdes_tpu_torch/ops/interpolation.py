@@ -260,7 +260,9 @@ class _InterpolationBase:
     (..., T, C)) in ``evaluate`` / ``derivative``.  Splines with a
     piece-wise API (``piece_data``, ``piece_derivative``,
     ``piece_evaluate``) feed the fixed-grid solver one interval at a
-    time."""
+    time.  ``tree_fields`` names a spline's tensors in the JAX dataclass's
+    pytree order (``utils.tree.flatten``): the generic solver's adjoint
+    integrates a cotangent for each."""
 
     t: torch.Tensor
     t_host: Optional[tuple]
@@ -303,6 +305,8 @@ class LinearInterpolation(_InterpolationBase):
     (:meth:`piece_data`, :meth:`piece_derivative`) feeds the fixed-grid
     solver one interval at a time.
     """
+
+    tree_fields = ("coeffs", "t")
 
     def __init__(self, coeffs: torch.Tensor, t: torch.Tensor,
                  t_host: Optional[tuple] = None):
@@ -358,6 +362,8 @@ class CubicSpline(_InterpolationBase):
     :func:`natural_cubic_coeffs` or
     :func:`hermite_cubic_coefficients_with_backward_differences`: per
     piece, x(t0+s) = a + b s + (two_c/2) s^2 + (three_d/3) s^3."""
+
+    tree_fields = ("a", "b", "two_c", "three_d", "t")
 
     def __init__(self, a, b, two_c, three_d, t, t_host=None):
         self.a, self.b, self.two_c, self.three_d = a, b, two_c, three_d  # (..., L-1, C)
@@ -416,6 +422,8 @@ class TupleControl(_InterpolationBase):
     """Several controls batched into one: ``evaluate``/``derivative``
     return tuples, one entry per control.  All controls must share the same
     interval; ``grid_points`` requires them to share knots."""
+
+    tree_fields = ("controls",)
 
     def __init__(self, controls: tuple):
         self.controls = controls
@@ -514,6 +522,8 @@ class SmoothLinearInterpolation(_InterpolationBase):
     """Linear interpolation with its kinks smoothed by cubic/quintic
     matching polynomials in an eps-region after each interior knot.  Knot
     spacing must be the default unit grid, as in the reference."""
+
+    tree_fields = ("coeffs", "matching_coeffs", "t")
 
     def __init__(self, coeffs, matching_coeffs, t, eps: float, t_host=None):
         self.coeffs = coeffs                    # (..., L, C)

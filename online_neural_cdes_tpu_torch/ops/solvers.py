@@ -1,34 +1,210 @@
-"""Fixed-grid Runge-Kutta steppers.
+"""ODE solvers: fixed-grid and adaptive Runge-Kutta, and ``odeint``.
 
-PyTorch counterpart of the fixed-grid part of the JAX package's
-``ops/solvers.py``: ``FIXED_METHODS``, ``FIXED_NFE_PER_STEP`` and
-``tree_fixed_step`` (Euler, midpoint, and the RK4 3/8 rule the reference
-uses for ``method='rk4'``).  The state is one tensor, or a tuple of tensors
-(the adjoint's augmented state); a field may return ``None`` for a leaf
-whose derivative is zero.  Time arithmetic stays in the times' own type (a
-Python float or a tensor); the state update casts the step size to each
-leaf's dtype, the mixed-precision convention of the JAX package, so every
-leaf keeps its own dtype.  The adaptive solvers, ``odeint`` and ``odeint_event`` come
-with a later slice (ROADMAP item 12).
+PyTorch counterpart of the JAX package's ``ops/solvers.py``:
+
+- the fixed-grid steppers (Euler, midpoint, and the RK4 3/8 rule the
+  reference uses for ``method='rk4'``): ``tree_fixed_step`` for the piece
+  scan of ``cdeint``, and the per-state steppers of ``odeint``'s fixed
+  grid (``_fixed_grid_integrate``, ``_grid_constructor_integrate``);
+- the adaptive Runge-Kutta solvers (``ADAPTIVE_METHODS``: dopri5, bosh3,
+  fehlberg2, adaptive_heun, dopri8 / dop853) with the reference's
+  ``min_step`` / ``max_step`` bounds, ``step_t`` / ``jump_t``
+  discontinuities, per-leaf mixed error norms, the quartic dense output,
+  and the differentiable solve (``options={"differentiable": True}``):
+  the accepted-step grid found under no grad, then replayed with grad.
+
+The JAX package runs the accept/reject controller on the device inside a
+``lax.while_loop``.  Here it runs on the host: the stages, the error
+estimate and the dense output are tensor code on the state's device, and
+the controller reads one number per attempted step (the error ratio) and
+one per solve for the initial step (its norms, stacked).  Every controller
+quantity (``t0``, ``t1``, ``dt``, the ratio, the tolerances) is a numpy
+scalar of the state's dtype, as the JAX package does its time arithmetic
+in ``y0.dtype``.  A field receives its time as a 0-d tensor on the state's
+device (made by a fill, so no host-to-device copy waits on the card).
+
+``COUNTS`` holds what the adaptive solves did since ``reset_counts()``, by
+kind of solve: the forward solves, ``odeint_adjoint``'s reverse solves and
+the differentiable solve's replay (``counting_as``): solves, nfe, accepted
+and rejected steps, host reads, and field evaluations made outside a
+solve's own nfe.
+
+A state is one tensor or a tuple of tensors (any nesting of tuples, lists
+and dicts); its leaves step together and, as the JAX package's ravelled
+state, share one dtype (float32 or float64).  The Adams solvers,
+``scipy_solver``, ``odeint_event`` and bf16 states come with a later slice
+(ROADMAP item 12).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import bisect
+import contextlib
+import dataclasses
+import math
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["FIXED_METHODS", "FIXED_NFE_PER_STEP", "ADAPTIVE_METHODS",
-           "tree_fixed_step"]
+from online_neural_cdes_tpu_torch.utils.tree import flatten
+
+__all__ = ["odeint", "FIXED_METHODS", "FIXED_NFE_PER_STEP", "ADAPTIVE_METHODS",
+           "ButcherTableau", "tree_fixed_step", "COUNTS", "reset_counts",
+           "counting_as"]
 
 FIXED_METHODS = ("euler", "midpoint", "rk4")
 FIXED_NFE_PER_STEP = {"euler": 1, "midpoint": 2, "rk4": 4}
-# Names of the JAX package's adaptive solvers: accepted by the model's
-# validation, refused when solved (not ported yet).
-ADAPTIVE_METHODS = ("dopri5", "bosh3", "fehlberg2", "adaptive_heun",
-                    "dopri8", "dop853")
+_UNPORTED = ("explicit_adams", "implicit_adams", "scipy_solver")
 
+
+# ---------------------------------------------------------------------------
+# Butcher tableaux
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ButcherTableau:
+    alpha: tuple            # (s-1,) nodes
+    beta: tuple             # rows of the lower-triangular stage matrix
+    c_sol: tuple            # (s,) solution weights
+    c_error: tuple          # (s,) error weights (solution - embedded)
+    order: int              # order used by the step-size controller
+    mid: Optional[tuple] = None   # optional dense-output midpoint weights
+    # DOP853-style blended error: when set, the ratio combines the 5th-order
+    # (c_error) and 3rd-order (c_error_alt) estimates as in Hairer's DOP853.
+    c_error_alt: Optional[tuple] = None
+
+
+DOPRI5 = ButcherTableau(
+    alpha=(1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0),
+    beta=(
+        (1 / 5,),
+        (3 / 40, 9 / 40),
+        (44 / 45, -56 / 15, 32 / 9),
+        (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+        (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+        (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+    ),
+    c_sol=(35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0),
+    c_error=(
+        35 / 384 - 5179 / 57600,
+        0.0,
+        500 / 1113 - 7571 / 16695,
+        125 / 192 - 393 / 640,
+        -2187 / 6784 + 92097 / 339200,
+        11 / 84 - 187 / 2100,
+        -1 / 40,
+    ),
+    order=5,
+    mid=(
+        6025192743 / 30085553152 / 2,
+        0.0,
+        51252292925 / 65400821598 / 2,
+        -2691868925 / 45128329728 / 2,
+        187940372067 / 1594534317056 / 2,
+        -1776094331 / 19743644256 / 2,
+        11237099 / 235043384 / 2,
+    ),
+)
+
+BOSH3 = ButcherTableau(
+    alpha=(1 / 2, 3 / 4, 1.0),
+    beta=((1 / 2,), (0.0, 3 / 4), (2 / 9, 1 / 3, 4 / 9)),
+    c_sol=(2 / 9, 1 / 3, 4 / 9, 0.0),
+    c_error=(2 / 9 - 7 / 24, 1 / 3 - 1 / 4, 4 / 9 - 1 / 3, -1 / 8),
+    order=3,
+)
+
+FEHLBERG2 = ButcherTableau(
+    alpha=(1 / 2, 1.0),
+    beta=((1 / 2,), (1 / 256, 255 / 256)),
+    c_sol=(1 / 512, 255 / 256, 1 / 512),
+    c_error=(1 / 512 - 1 / 256, 0.0, 1 / 512),
+    order=2,
+)
+
+ADAPTIVE_HEUN = ButcherTableau(
+    alpha=(1.0,),
+    beta=((1.0,),),
+    c_sol=(1 / 2, 1 / 2),
+    c_error=(-1 / 2, 1 / 2),
+    order=2,
+)
+
+
+def _dop853_tableau() -> ButcherTableau:
+    """Hairer's DOP853 (8th order, 12 stages + an FSAL-style 13th used by
+    the blended 5th/3rd-order error estimator).  Coefficients are taken
+    from scipy's published tables rather than retyped."""
+    from scipy.integrate._ivp import dop853_coefficients as dc
+
+    n = dc.N_STAGES  # 12
+    alpha = tuple(map(float, dc.C[1:n])) + (1.0,)
+    beta = tuple(tuple(map(float, dc.A[i][:i])) for i in range(1, n))
+    # 13th stage at t1 with the solution weights: k[12] = f(t1, y1).
+    beta = beta + (tuple(map(float, dc.B)),)
+    c_sol = tuple(map(float, dc.B)) + (0.0,)
+    return ButcherTableau(
+        alpha=alpha,
+        beta=beta,
+        c_sol=c_sol,
+        c_error=tuple(map(float, dc.E5)),
+        c_error_alt=tuple(map(float, dc.E3)),
+        order=8,
+    )
+
+
+DOP853 = _dop853_tableau()
+
+ADAPTIVE_METHODS = {
+    "dopri5": DOPRI5,
+    "bosh3": BOSH3,
+    "fehlberg2": FEHLBERG2,
+    "adaptive_heun": ADAPTIVE_HEUN,
+    "dopri8": DOP853,
+    "dop853": DOP853,
+}
+
+
+# ---------------------------------------------------------------------------
+# Counts of the adaptive solves
+# ---------------------------------------------------------------------------
+
+COUNTS: dict = {}
+_KIND = ["forward"]
+_COUNT_KEYS = ("solves", "nfe", "accepted", "rejected", "reads", "evals")
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+
+
+@contextlib.contextmanager
+def counting_as(kind: str):
+    """Solves inside the block count under ``COUNTS[kind]``."""
+    _KIND.append(kind)
+    try:
+        yield
+    finally:
+        _KIND.pop()
+
+
+def _count(**amounts) -> None:
+    entry = COUNTS.setdefault(_KIND[-1], dict.fromkeys(_COUNT_KEYS, 0))
+    for key, value in amounts.items():
+        entry[key] += int(value)
+
+
+def _read(x: torch.Tensor) -> list:
+    """One device-to-host read of the controller (counted)."""
+    _count(reads=1)
+    return x.reshape(-1).tolist()
+
+
+# ---------------------------------------------------------------------------
+# Fixed-grid steppers of the piece scan (tuple states, host step sizes)
+# ---------------------------------------------------------------------------
 
 _HOST_ROUND = {torch.float64: float, torch.float32: np.float32,
                torch.float16: np.float16}
@@ -112,3 +288,759 @@ def tree_fixed_step(method: str, live: Optional[int] = None):
         raise ValueError(f"No fixed-grid stepper {method!r}")
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Leaf-list arithmetic.  Inside odeint a state is a list of tensors (its
+# leaves) and ``func(t, leaves) -> leaves``.  Host scalars multiply as
+# Python floats holding the exact value of the state-dtype scalar.  The
+# ``torch._foreach_*`` ops do each elementwise op on every leaf in one
+# launch on the card (the adjoint's augmented state has a leaf per
+# parameter tensor), with the same arithmetic as one op per leaf.
+# ---------------------------------------------------------------------------
+
+_NUMPY = {torch.float64: np.float64, torch.float32: np.float32}
+
+
+def _lincomb(cs, ks):
+    """sum(c * k for c, k in zip(cs, ks) if c != 0) for each leaf, terms
+    added left to right (the JAX step's association), or None when every
+    coefficient is 0."""
+    terms = [(c, k) for c, k in zip(cs, ks) if c != 0]
+    if not terms:
+        return None
+    acc = torch._foreach_mul(terms[0][1], terms[0][0])
+    for c, k in terms[1:]:
+        acc = torch._foreach_add(acc, torch._foreach_mul(k, c))
+    return acc
+
+
+def _add_scaled(y, h, s):
+    """y + h * s leaf by leaf (``s`` None: y)."""
+    if s is None:
+        return list(y)
+    return torch._foreach_add(y, torch._foreach_mul(s, float(h)))
+
+
+def _norms(xs, weights=None):
+    """Per leaf ||x w|| (a list of 0-d tensors); leaves whose weight is 0
+    give None."""
+    weights = weights or [None] * len(xs)
+    live = [i for i, w in enumerate(weights)
+            if not (isinstance(w, (int, float)) and w == 0)]
+    scaled = [xs[i] if weights[i] is None or isinstance(weights[i], (int, float))
+              and weights[i] == 1 else xs[i] * weights[i] for i in live]
+    out = [None] * len(xs)
+    for i, n in zip(live, torch._foreach_norm(scaled) if scaled else []):
+        out[i] = n
+    return out
+
+
+def _rms(norms, count: int) -> torch.Tensor:
+    """sqrt(sum of the given leaves' sums of squares / count)."""
+    return torch.sqrt(torch.stack(norms).square().sum() / count)
+
+
+# ---------------------------------------------------------------------------
+# Norms and step-size control (reference misc.py:18-89 semantics)
+# ---------------------------------------------------------------------------
+
+def _leaf_weight_counts(leaves, weights):
+    """Per leaf: the number of entries with a nonzero weight."""
+    counts = []
+    for leaf, w in zip(leaves, weights):
+        if w is None:
+            counts.append(leaf.numel())
+        elif isinstance(w, (int, float)):
+            counts.append(leaf.numel() if w != 0 else 0)
+        else:
+            counts.append(int(_read((w != 0).sum())[0]) if w.is_cuda
+                          else int((w != 0).sum()))
+    return counts
+
+
+def _weights_per_leaf(error_weights, leaves):
+    """``error_weights`` (a flat tensor over the ravelled state, as the JAX
+    package takes it, or a list with one entry per leaf: None, a number or
+    a tensor) as one entry per leaf."""
+    if error_weights is None:
+        return [None] * len(leaves)
+    if isinstance(error_weights, (list, tuple)):
+        return list(error_weights)
+    flat = torch.as_tensor(error_weights).to(leaves[0].device)
+    out, pos = [], 0
+    for leaf in leaves:
+        out.append(flat[pos:pos + leaf.numel()].reshape(leaf.shape).to(leaf.dtype))
+        pos += leaf.numel()
+    return out
+
+
+class _ErrorNorm:
+    """The scaled error norm of a step: a weighted RMS over each block of
+    leaves, max-combined across blocks (the reference's ``_mixed_norm``;
+    one block for a tensor state or ``norm="rms"``, one per leaf
+    otherwise); DOP853's blended 5th/3rd-order ratio within each block."""
+
+    def __init__(self, leaves, weights, per_leaf: bool):
+        self.weights = _weights_per_leaf(weights, leaves)
+        counts = _leaf_weight_counts(leaves, self.weights)
+        idx = list(range(len(leaves)))
+        self.blocks = [[i] for i in idx] if per_leaf else [idx]
+        self.counts = [max(sum(counts[i] for i in b), 1) for b in self.blocks]
+
+    def ratio(self, r):
+        """max over blocks of sqrt(sum((r w)^2) / count), a 0-d tensor (a
+        block whose weights are all 0 gives 0)."""
+        norms = _norms(r, self.weights)
+        live = [i for i, n in enumerate(norms) if n is not None]
+        if not live:
+            return torch.zeros((), dtype=r[0].dtype, device=r[0].device)
+        if len(self.blocks) == 1:
+            return _rms([norms[i] for i in live], self.counts[0])
+        # One block per leaf: ||r_i w_i|| / sqrt(count_i), for every leaf in
+        # one launch.
+        return _max_combine(torch._foreach_div([norms[i] for i in live],
+                                               [math.sqrt(self.counts[i]) for i in live]))
+
+    def blended(self, e5, e3, dt_abs):
+        """DOP853's blended ratio in each block, max-combined."""
+        n5, n3 = _norms(e5, self.weights), _norms(e3, self.weights)
+        out = []
+        for block, n in zip(self.blocks, self.counts):
+            live = [i for i in block if n5[i] is not None]
+            if not live:
+                out.append(torch.zeros((), dtype=e5[0].dtype, device=e5[0].device))
+                continue
+            s5 = torch.stack([n5[i] for i in live]).square().sum()
+            s3 = torch.stack([n3[i] for i in live]).square().sum()
+            denom = s5 + 0.01 * s3
+            val = dt_abs * s5 / torch.sqrt(torch.clamp(denom, min=1e-30) * float(n))
+            out.append(torch.where(denom > 0.0, val, torch.zeros_like(val)))
+        return _max_combine(out)
+
+
+def _max_combine(norms):
+    """The largest of the blocks' ratios (NaN if any is NaN)."""
+    return norms[0] if len(norms) == 1 else torch.stack(norms).max()
+
+
+def _optimal_step_size(last_step, error_ratio, safety, ifactor, dfactor, order):
+    """Reference misc.py:80-89 on host scalars of the state's dtype."""
+    S = type(last_step)
+    if error_ratio == 0:
+        return last_step * ifactor
+    dfac = S(1) if error_ratio < 1 else dfactor
+    factor = np.minimum(ifactor, np.maximum(
+        safety / error_ratio ** S(1.0 / order), dfac))
+    return S(last_step * factor)
+
+
+def _select_initial_step(func, t0, y0, order, rtol, atol, f0):
+    """Hairer, Norsett & Wanner heuristic (reference misc.py:32-71): the
+    norms and h0 on the device, read once (d0, d1, d2 and h0 stacked)."""
+    S = type(t0)
+    scale = torch._foreach_add(torch._foreach_mul(torch._foreach_abs(y0), float(rtol)),
+                               float(atol))
+    n = sum(yl.numel() for yl in y0)
+
+    def rms(xs):
+        return _rms(_norms(torch._foreach_div(xs, scale)), n)
+
+    d0, d1 = rms(y0), rms(f0)
+    small = (d0 < 1e-5) | (d1 < 1e-5)
+    h0 = torch.where(small, torch.full_like(d0, 1e-6),
+                     0.01 * d0 / torch.where(d1 == 0, torch.ones_like(d1), d1))
+    y1 = [yl + h0 * fl for yl, fl in zip(y0, f0)]
+    f1 = func(float(t0) + h0, y1)
+    d2 = rms(torch._foreach_sub(f1, f0)) / h0
+    d0_, d1_, d2_, h0_ = (S(v) for v in _read(torch.stack([d0, d1, d2, h0])))
+    with np.errstate(all="ignore"):
+        if d1_ <= 1e-15 and d2_ <= 1e-15:
+            h1 = np.maximum(S(1e-6), h0_ * S(1e-3))
+        else:
+            h1 = (S(0.01) / np.maximum(d1_, d2_)) ** S(1.0 / float(order + 1))
+        return S(np.minimum(S(100.0) * h0_, h1))
+
+
+# ---------------------------------------------------------------------------
+# Runge-Kutta single step + 4th-order dense output (interp.py:1-48)
+# ---------------------------------------------------------------------------
+
+def _runge_kutta_step(func, y0, f0, t0, dt, tableau: ButcherTableau,
+                      t1_eval=None, error=True):
+    """One explicit RK step.  Returns (y1, f1, error, k_stages); ``error``
+    False skips the error estimate (None).
+
+    ``t1_eval``, when given, replaces the evaluation time of stages with
+    alpha == 1 (the step's right endpoint) -- used to evaluate the *left*
+    limit when the step lands on a declared discontinuity (the reference's
+    Perturb.PREV, rk_common.py:41-86)."""
+    S = type(dt)
+    k = [f0]
+    for alpha_i, beta_row in zip(tableau.alpha, tableau.beta):
+        ti = t0 + dt * S(alpha_i)
+        if alpha_i == 1.0 and t1_eval is not None:
+            ti = t1_eval
+        k.append(func(ti, _add_scaled(y0, dt, _lincomb(beta_row, k))))
+    y1 = _add_scaled(y0, dt, _lincomb(tableau.c_sol, k))
+    err = None
+    if error:
+        err = torch._foreach_mul(_lincomb(tableau.c_error, k), float(dt))
+    return y1, k[-1], err, k
+
+
+def _interp_fit(y0, y1, y_mid, f0, f1, dt):
+    """Quartic fit matching y0, y1, y_mid, f0, f1 on one step; per leaf
+    the five coefficients, highest power first."""
+    S = type(dt)
+    h, h2 = float(dt), float(S(2) * dt)
+    out = []
+    for y0l, y1l, yml, f0l, f1l in zip(y0, y1, y_mid, f0, f1):
+        a = (f1l - f0l) * h2 - (y1l + y0l) * 8.0 + yml * 16.0
+        b = (f0l * 5.0 - f1l * 3.0) * h + y0l * 18.0 + y1l * 14.0 - yml * 32.0
+        c = (f1l - f0l * 4.0) * h - y0l * 11.0 - y1l * 5.0 + yml * 16.0
+        d = f0l * h
+        out.append((a, b, c, d, y0l))
+    return out
+
+
+def _interp_evaluate(coeffs, x):
+    """The quartic dense output at x = (t - t0) / (t1 - t0) (a host scalar
+    or a tensor), Horner's rule per leaf."""
+    if not isinstance(x, torch.Tensor):
+        x = float(x)
+    out = []
+    for leaf in coeffs:
+        acc = leaf[0]
+        for c in leaf[1:]:
+            acc = acc * x + c
+        out.append(acc)
+    return out
+
+
+def _fit_from_stages(y0, y1, k, dt, tableau: ButcherTableau):
+    S = type(dt)
+    if tableau.mid is not None:
+        y_mid = _add_scaled(y0, dt, _lincomb(tableau.mid, k))
+    else:
+        # Cubic-Hermite midpoint: exact for methods of order <= 3.
+        q = float(S(0.125) * dt)
+        y_mid = [(a + b) * 0.5 + (k0 - kl) * q
+                 for a, b, k0, kl in zip(y0, y1, k[0], k[-1])]
+    return _interp_fit(y0, y1, y_mid, k[0], k[-1], dt)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-grid solvers (reference solvers.py:77-119, fixed_grid.py, the RK4
+# 3/8-rule of rk_common.py:106-114).  Time arithmetic stays in the times'
+# dtype; state updates cast dt to the state dtype (rk_common.py:136-138).
+# ---------------------------------------------------------------------------
+
+def _euler_step(func, t0, dt, y0, S):
+    h = float(S(dt))
+    return [yl + fl * h for yl, fl in zip(y0, func(t0, y0))], 1
+
+
+def _midpoint_step(func, t0, dt, y0, S):
+    h = S(dt)
+    y_mid = [yl + fl * float(S(0.5) * h) for yl, fl in zip(y0, func(t0, y0))]
+    k2 = func(t0 + type(dt)(0.5) * dt, y_mid)
+    return [yl + fl * float(h) for yl, fl in zip(y0, k2)], 2
+
+
+def _rk4_38_step(func, t0, dt, y0, S):
+    """RK4 3/8-rule -- the variant the reference uses for method='rk4'
+    (rk_common.py:106-114 ``rk4_alt_step_func``)."""
+    T = type(dt)
+    h = S(dt)
+    third, hf = float(h / S(3.0)), float(h)
+    k1 = func(t0, y0)
+    k2 = func(t0 + dt / T(3.0), [y + a * third for y, a in zip(y0, k1)])
+    k3 = func(t0 + T(2.0) * dt / T(3.0),
+              [y + (b - a / 3.0) * hf for y, a, b in zip(y0, k1, k2)])
+    k4 = func(t0 + dt, [y + (a - b + c) * hf for y, a, b, c in zip(y0, k1, k2, k3)])
+    return [y + ((a + (b + c) * 3.0 + d) * hf) * 0.125
+            for y, a, b, c, d in zip(y0, k1, k2, k3, k4)], 4
+
+
+_FIXED_STEPS = {
+    "euler": _euler_step,
+    "midpoint": _midpoint_step,
+    "rk4": _rk4_38_step,
+}
+
+
+def _stats(nfe, accepted, rejected, **extra):
+    out = {"nfe": torch.tensor(int(nfe), dtype=torch.int32),
+           "accepted": torch.tensor(int(accepted), dtype=torch.int32),
+           "rejected": torch.tensor(int(rejected), dtype=torch.int32)}
+    out.update({k: torch.tensor(v) for k, v in extra.items()})
+    return out
+
+
+def _fixed_grid_integrate(func, y0, t, S, method, substeps=1, remat=False):
+    """``substeps`` equal RK sub-steps per output interval of ``t`` (host
+    times).  Returns (ys per leaf, stats) with ys[i] = y(t[i])."""
+    step_fn = _FIXED_STEPS[method]
+    T = type(t[0])
+
+    def interval(t0, t1, *y):
+        dt = (t1 - t0) / T(substeps)
+        y = list(y)
+        for i in range(substeps):
+            y, _ = step_fn(func, t0 if i == 0 else t0 + T(i) * dt, dt, y, S)
+        return tuple(y)
+
+    if remat and torch.is_grad_enabled():
+        run = lambda t0, t1, y: checkpoint(interval, t0, t1, *y, use_reentrant=False)
+    else:
+        run = lambda t0, t1, y: interval(t0, t1, *y)
+    states = [list(y0)]
+    for t0, t1 in zip(t[:-1], t[1:]):
+        states.append(list(run(t0, t1, states[-1])))
+    n_steps = (len(t) - 1) * substeps
+    return _stack(states), _stats(n_steps * FIXED_NFE_PER_STEP[method], n_steps, 0)
+
+
+def _grid_constructor_integrate(func, y0, t, S, method, grid, remat=False):
+    """Fixed-grid integration over a custom grid spanning [t[0], t[-1]];
+    the requested times are recovered by linear interpolation between grid
+    states (the reference's default ``interp="linear"``)."""
+    if not (np.isclose(grid[0], t[0]) and np.isclose(grid[-1], t[-1])):
+        raise ValueError(
+            "grid_constructor must return a grid spanning exactly "
+            f"[t[0], t[-1]] = [{t[0]}, {t[-1]}]; got [{grid[0]}, {grid[-1]}]."
+        )
+    ys_grid, stats = _fixed_grid_integrate(func, y0, grid, S, method, 1, remat)
+    # Grids may be decreasing (reverse-time integration).
+    sgn = grid.dtype.type(1.0 if grid[-1] >= grid[0] else -1.0)
+    keys = sgn * grid
+    outs = []
+    for tj in t.astype(grid.dtype):
+        i = int(np.clip(np.searchsorted(keys, sgn * tj, side="right") - 1,
+                        0, len(grid) - 2))
+        t0_, t1_ = grid[i], grid[i + 1]
+        denom = t1_ - t0_ if t1_ != t0_ else grid.dtype.type(1)
+        w = S(np.clip((tj - t0_) / denom, 0.0, 1.0))
+        outs.append([ys[i] * float(S(1) - w) + ys[i + 1] * float(w) for ys in ys_grid])
+    return _stack(outs), stats
+
+
+def _stack(states):
+    """A list of states (leaf lists) -> per leaf, the states stacked."""
+    return [torch.stack([s[i] for s in states]) for i in range(len(states[0]))]
+
+
+# ---------------------------------------------------------------------------
+# Adaptive solver (reference rk_common.py:216-305 semantics incl. the
+# min_step/max_step modification), the controller on the host
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _RKState:
+    y1: list
+    f1: list
+    t0: Any
+    t1: Any
+    dt: Any
+    nfe: int
+    accepted: int
+    rejected: int
+    # The last accepted step's (y0, y1, stages, dt), for its dense output,
+    # and that output once fitted.
+    last: Optional[tuple] = None
+    fit: Optional[list] = None
+
+
+def _special_grids(tableau: ButcherTableau, t, S, step_t, jump_t):
+    """Sorted (special_t, jump_t) discontinuity grids (host arrays of the
+    state's dtype)."""
+    step_t = (np.zeros((0,), S) if step_t is None
+              else np.sort(_host(step_t).astype(S)))
+    if tableau.mid is None and tableau.order > 4:
+        # High-order tableau without a matching dense output (DOP853): land
+        # exactly on the requested times instead of interpolating with the
+        # (order-3) Hermite fallback.
+        step_t = np.sort(np.concatenate([step_t, t[1:].astype(S)]))
+    jump_t = (np.zeros((0,), S) if jump_t is None
+              else np.sort(_host(jump_t).astype(S)))
+    return np.sort(np.concatenate([step_t, jump_t])), jump_t
+
+
+class _Controller:
+    """The accept/reject controller with the reference's min/max-step
+    semantics (``_adaptive_machinery``): ``start()`` then ``attempt(s)``
+    per step; ``attempt`` reads the error ratio once."""
+
+    def __init__(self, func, y0, t, tableau, rtol, atol, min_step, max_step,
+                 first_step, safety, ifactor, dfactor, step_t=None, jump_t=None,
+                 error_weights=None, error_blocks=False):
+        S = _NUMPY[y0[0].dtype]
+        self.S, self.func, self.y0, self.tableau = S, func, y0, tableau
+        self.t = t.astype(S)
+        self.rtol, self.atol = S(rtol), S(atol)
+        self.min_step, self.max_step = S(min_step), S(max_step)
+        self.min_step_given = min_step > 0
+        self.first_step = first_step
+        self.safety, self.ifactor, self.dfactor = S(safety), S(ifactor), S(dfactor)
+        self.n_stages = len(tableau.c_sol)
+        self.special, self.jumps = _special_grids(tableau, self.t, S, step_t, jump_t)
+        self.norm = _ErrorNorm(y0, error_weights, error_blocks)
+
+    def start(self) -> _RKState:
+        S, t0 = self.S, self.t[0]
+        f0 = self.func(t0, self.y0)
+        nfe = 1
+        with torch.no_grad():
+            if self.first_step is None:
+                dt0 = _select_initial_step(self.func, t0, self.y0, self.tableau.order - 1,
+                                           self.rtol, self.atol, f0)
+                nfe += 1
+            else:
+                dt0 = S(self.first_step)
+        if self.min_step_given:
+            dt0 = np.maximum(dt0, self.min_step)
+        dt0 = S(np.minimum(dt0, self.max_step))
+        return _RKState(y1=list(self.y0), f1=f0, t0=t0, t1=t0, dt=dt0, nfe=nfe,
+                        accepted=0, rejected=0)
+
+    def clamp(self, t0, dt):
+        """(dt, t1, t1_eval): the step clamped onto the next declared
+        discontinuity, with its endpoint stages' time (the left limit when
+        it lands on one)."""
+        t1 = t0 + dt
+        if self.special.shape[0] == 0:
+            return dt, t1, None
+        n = self.special.shape[0]
+        nxt_i = int(np.searchsorted(self.special, t0, side="right"))
+        nxt = self.special[min(nxt_i, n - 1)]
+        if nxt_i < n and t0 < nxt < t1:
+            t1 = nxt
+        dt = self.S(t1 - t0)
+        lands = bool((self.special == t1).any())
+        return dt, t1, (np.nextafter(t1, t0) if lands else t1)
+
+    def jump_reseed(self, t1):
+        """The time just past a declared jump that t1 lands on, else None."""
+        if self.jumps.shape[0] and bool((self.jumps == t1).any()):
+            return np.nextafter(t1, t1 + self.S(1))
+        return None
+
+    def error_ratio(self, err, y0, y1, k, dt) -> torch.Tensor:
+        tab = self.tableau
+        scale = torch._foreach_add(torch._foreach_mul(torch._foreach_maximum(
+            torch._foreach_abs(y0), torch._foreach_abs(y1)), float(self.rtol)),
+            float(self.atol))
+        if tab.c_error_alt is None:
+            return self.norm.ratio(torch._foreach_div(err, scale))
+        # DOP853 blended 5th/3rd-order error (Hairer; scipy semantics).
+        err5 = torch._foreach_div(torch._foreach_div(err, float(dt)), scale)
+        err3 = torch._foreach_div(_lincomb(tab.c_error_alt, k), scale)
+        return self.norm.blended(err5, err3, float(abs(dt)))
+
+    def attempt(self, s: _RKState):
+        """One attempted step: (new state, the step's (t0, dt, t1, t1_eval,
+        reseed time) if accepted else None)."""
+        S = self.S
+        t0 = s.t1
+        dt, t1, t1_eval = self.clamp(t0, s.dt)
+        y1, f1, err, k = _runge_kutta_step(self.func, s.y1, s.f1, t0, dt, self.tableau,
+                                           t1_eval)
+        ratio = S(_read(self.error_ratio(err, s.y1, y1, k, dt))[0])
+        accept = bool(ratio <= 1.0)
+        if dt > self.max_step:
+            accept = False
+        if dt <= self.min_step:
+            accept = True
+        with np.errstate(all="ignore"):
+            dt_next = _optimal_step_size(dt, ratio, self.safety, self.ifactor,
+                                         self.dfactor, self.tableau.order)
+            dt_next = S(np.minimum(np.maximum(dt_next, self.min_step), self.max_step))
+        nfe = s.nfe + self.n_stages - 1
+        if not accept:
+            return dataclasses.replace(s, dt=dt_next, nfe=nfe, rejected=s.rejected + 1), None
+        reseed = self.jump_reseed(t1)
+        if reseed is not None:
+            # An accepted step ending exactly on a declared jump must not
+            # seed the next step's FSAL stage with the left-side derivative
+            # (the reference's Perturb.NEXT, rk_common.py:295-297).
+            f1 = self.func(reseed, y1)
+            nfe += 1
+        new = _RKState(y1=y1, f1=f1, t0=t0, t1=t1, dt=dt_next, nfe=nfe,
+                       accepted=s.accepted + 1, rejected=s.rejected,
+                       last=(s.y1, y1, k, dt))
+        return new, (t0, dt, t1, t1_eval, reseed)
+
+    def output(self, s: _RKState, t_out):
+        """y(t_out) from the last accepted step's dense output."""
+        if s.fit is None:
+            s.fit = _fit_from_stages(*s.last[:3], s.last[3], self.tableau)
+        with np.errstate(all="ignore"):
+            x = self.S((t_out - s.t0) / (s.t1 - s.t0))
+        return _interp_evaluate(s.fit, x)
+
+
+def _nan_like(y):
+    return [torch.full_like(l, float("nan")) for l in y]
+
+
+def _adaptive_integrate(func, y0, t, tableau, max_num_steps, **kw):
+    ctl = _Controller(func, y0, t, tableau, **kw)
+    s = ctl.start()
+    t = ctl.t
+    outs = [list(y0)]
+    for t_out in t[1:]:
+        # s.dt > 0 fails when the controller collapses (a NaN state makes the
+        # ratio NaN, which propagates into dt): exit instead of spinning.
+        while t_out > s.t1 and s.accepted + s.rejected < max_num_steps and s.dt > 0:
+            s, _ = ctl.attempt(s)
+        if t_out <= t[0]:
+            outs.append(list(y0))
+        elif t_out > s.t1:
+            # Budget exhausted (or controller collapsed) before t_out:
+            # NaN-poison instead of extrapolating the dense output.
+            outs.append(_nan_like(y0))
+        else:
+            outs.append(ctl.output(s, t_out))
+    _count(solves=1, nfe=s.nfe, accepted=s.accepted, rejected=s.rejected)
+    return _stack(outs), _stats(s.nfe, s.accepted, s.rejected)
+
+
+def _adaptive_integrate_diff(func, y0, t, t_tensor, tableau, max_num_steps, max_steps,
+                             needs_grad, **kw):
+    """Reverse-differentiable adaptive solve (discretise-then-optimise).
+
+    With no gradient needed, the plain solve.  Otherwise the controller
+    first finds the accepted-step grid under no grad (at most
+    ``max_steps`` steps), then the trajectory is replayed over that grid
+    with grad, with the same stage arithmetic, so the replay's dense
+    outputs are the values and autograd differentiates them; step sizes
+    are constants, as in the adjoint.  Outputs the grid did not reach
+    (budget exhausted, ``stats["grid_exhausted"]``) are NaN, and NaN
+    cotangents are zeroed.  A ``t_tensor`` that requires grad gets its
+    gradient through the dense-output evaluation."""
+    if not needs_grad:
+        ys, stats = _adaptive_integrate(func, y0, t, tableau, max_num_steps, **kw)
+        stats["grid_exhausted"] = torch.tensor(False)
+        return ys, stats
+    ctl = _Controller(func, y0, t, tableau, **kw)
+    t = ctl.t
+    t_end = t[-1]
+    steps = []
+    with torch.no_grad():
+        s = ctl.start()
+        while (s.t1 < t_end and s.accepted + s.rejected < max_num_steps
+               and len(steps) < max_steps and s.dt > 0):
+            s, step = ctl.attempt(s)
+            if step is not None:
+                steps.append(step)
+    _count(solves=1, nfe=s.nfe, accepted=s.accepted, rejected=s.rejected)
+    exhausted = bool(s.t1 < t_end)
+    ts_full = [t[0]] + [step[2] for step in steps]
+
+    # Which recorded step each output falls in (its left end < t_out <= its
+    # right end), as the recorded-output lookup of the JAX package.
+    wanted = {}
+    for j, t_out in enumerate(t[1:]):
+        if t_out <= t[0] or (exhausted and t_out > s.t1) or not steps:
+            continue
+        i = min(max(bisect.bisect_left(ts_full, t_out) - 1, 0), len(steps) - 1)
+        wanted.setdefault(i, []).append(j)
+
+    outs = [None] * (len(t) - 1)
+    with counting_as("replay"):
+        f = func(ts_full[0], y0)
+        y, evals = list(y0), 1
+        for i, (a, dt, b, t1_eval, reseed) in enumerate(steps):
+            y1, f1, _, k = _runge_kutta_step(func, y, f, a, dt, tableau, t1_eval,
+                                             error=False)
+            evals += len(tableau.c_sol) - 1
+            if i in wanted:
+                fit = _fit_from_stages(y, y1, k, dt, tableau)
+                denom = b - a if b != a else ctl.S(1)
+                for j in wanted[i]:
+                    if t_tensor is not None and t_tensor.requires_grad:
+                        x = (t_tensor[j + 1].to(y0[0].dtype) - float(a)) / float(denom)
+                    else:
+                        x = ctl.S((t[j + 1] - a) / denom)
+                    outs[j] = _interp_evaluate(fit, x)
+            if reseed is not None:
+                f1 = func(reseed, y1)
+                evals += 1
+            y, f = y1, f1
+        _count(evals=evals)
+    for j, t_out in enumerate(t[1:]):
+        if outs[j] is None:
+            outs[j] = list(y0) if t_out <= t[0] else _nan_like(y0)
+    ys = _stack([list(y0)] + outs)
+    for leaf in ys:
+        if leaf.requires_grad:
+            # NaN rows of the cotangent (poisoned outputs) would corrupt every
+            # gradient; zero them -- the loss is already NaN-loud.
+            leaf.register_hook(lambda g: torch.where(torch.isnan(g), torch.zeros_like(g), g))
+    stats = _stats(s.nfe, s.accepted, s.rejected, grid_exhausted=exhausted)
+    return ys, stats
+
+
+def _resolve_max_steps(max_steps_opt, t, min_step, step_t, jump_t):
+    """Accepted-step budget of the differentiable adaptive solve.  With a
+    bounded step (``min_step > 0``) the exact worst case is span/min_step
+    plus one clamped landing per declared discontinuity; otherwise a
+    length-based heuristic."""
+    if max_steps_opt is not None:
+        return int(max_steps_opt)
+    n_special = 0
+    for extra in (step_t, jump_t):
+        if extra is not None:
+            n_special += int(_host(extra).shape[0])
+    if min_step > 0:
+        span = float(t[-1] - t[0])
+        return int(np.ceil(span / min_step + 1e-9)) + n_special + 4
+    return 16 * int(t.shape[0]) + n_special + 64
+
+
+def _substeps_from_options(options: dict, t) -> int:
+    """Grid-from-step_size contract (reference solvers.py:77-88): an
+    explicit ``substeps`` wins; otherwise ``ceil(max spacing of t /
+    step_size)`` steps per output interval; else one."""
+    substeps = int(options.pop("substeps", 0))
+    step_size = options.pop("step_size", None)
+    if substeps:
+        return substeps
+    if step_size is not None:
+        spacing = float(np.max(np.diff(_host(t))))
+        return max(1, int(np.ceil(spacing / float(step_size) - 1e-9)))
+    return 1
+
+
+def _host(x) -> np.ndarray:
+    """Times or grids as a host array (one counted read for a device
+    tensor)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.device.type != "cpu":
+            _count(reads=1)
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# Public entry point
+# ---------------------------------------------------------------------------
+
+def odeint(
+    func: Callable[[Any, Any, Any], Any],
+    y0,
+    t,
+    args: Any = None,
+    *,
+    rtol: float = 1e-7,
+    atol: float = 1e-9,
+    method: str = "dopri5",
+    options: Optional[dict] = None,
+    return_stats: bool = False,
+):
+    """Integrate dy/dt = func(t, y, args) from t[0] through t, returning y at
+    every requested time (ys[0] == y0), time-major.  API of the JAX
+    package's ``odeint``: ``options`` understands ``step_size`` /
+    ``substeps`` / ``remat`` / ``grid_constructor`` (fixed grid) and
+    ``min_step`` / ``max_step`` / ``first_step`` / ``safety`` / ``ifactor``
+    / ``dfactor`` / ``max_num_steps`` / ``step_t`` / ``jump_t`` /
+    ``error_weights`` / ``differentiable`` / ``max_steps`` (adaptive); a
+    tuple state's error is normed per leaf and max-combined unless
+    ``options={"norm": "rms"}``.  ``func`` gets its time as a 0-d tensor on
+    the state's device (the state's dtype on the adaptive path, the times'
+    on the fixed grid).  ``return_stats`` adds ``{"nfe", "accepted",
+    "rejected"}`` (and ``"grid_exhausted"`` for a differentiable solve).
+    """
+    options = dict(options or {})
+    leaves, rebuild = flatten(y0)
+    dtype = leaves[0].dtype
+    for leaf in leaves[1:]:
+        dtype = torch.promote_types(dtype, leaf.dtype)
+    if dtype not in _NUMPY:
+        raise NotImplementedError(
+            f"odeint of a {dtype} state is not ported yet (ROADMAP item 12: bf16 "
+            "states); it takes float32 and float64")
+    S = _NUMPY[dtype]
+    dtypes = [leaf.dtype for leaf in leaves]
+    y = [leaf.to(dtype) for leaf in leaves]
+    device = y[0].device
+    t_tensor = t if isinstance(t, torch.Tensor) else None
+    t_host = _host(t)
+    per_leaf = not isinstance(y0, torch.Tensor)
+    if options.pop("norm", None) == "rms":
+        per_leaf = False
+
+    def make_func(time_dtype):
+        def flat_func(tt, yy):
+            if not isinstance(tt, torch.Tensor):
+                tt = torch.full((), float(tt), dtype=time_dtype, device=device)
+            state = rebuild([l.to(d) for l, d in zip(yy, dtypes)])
+            return [l.to(dtype) for l in flatten(func(tt, state, args))[0]]
+        return flat_func
+
+    if method in FIXED_METHODS:
+        remat = bool(options.pop("remat", False))
+        grid_constructor = options.pop("grid_constructor", None)
+        time_dtype = torch.from_numpy(t_host[:0]).dtype
+        flat_func = make_func(time_dtype)
+        if grid_constructor is not None:
+            if "step_size" in options or options.get("substeps"):
+                raise ValueError(
+                    "step_size and grid_constructor are mutually exclusive arguments.")
+            grid = _host(grid_constructor(func, y0, t_tensor if t_tensor is not None
+                                          else torch.from_numpy(t_host)))
+            ys, stats = _grid_constructor_integrate(flat_func, y, t_host, S, method,
+                                                    grid, remat)
+        else:
+            substeps = _substeps_from_options(options, t_host)
+            ys, stats = _fixed_grid_integrate(flat_func, y, t_host, S, method, substeps,
+                                              remat)
+    elif method in _UNPORTED:
+        raise NotImplementedError(
+            f"odeint method={method!r} is not ported yet (ROADMAP item 12: the "
+            "Adams solvers and scipy_solver)")
+    elif method in ADAPTIVE_METHODS:
+        flat_func = make_func(dtype)
+        differentiable = bool(options.pop("differentiable", False))
+        max_steps_opt = options.pop("max_steps", None)
+        kwargs = dict(
+            rtol=rtol, atol=atol,
+            min_step=float(options.pop("min_step", 0.0)),
+            max_step=float(options.pop("max_step", float("inf"))),
+            first_step=options.pop("first_step", None),
+            safety=float(options.pop("safety", 0.9)),
+            ifactor=float(options.pop("ifactor", 10.0)),
+            dfactor=float(options.pop("dfactor", 0.2)),
+            step_t=options.pop("step_t", None),
+            jump_t=options.pop("jump_t", None),
+            error_weights=options.pop("error_weights", None),
+            error_blocks=per_leaf,
+        )
+        max_num_steps = int(options.pop("max_num_steps", 2**31 - 1))
+        tab = ADAPTIVE_METHODS[method]
+        if differentiable:
+            # DOP853 lands exactly on every output time, costing up to
+            # len(t)-1 extra steps.
+            n_landings = len(t_host) - 1 if (tab.mid is None and tab.order > 4) else 0
+            max_steps = _resolve_max_steps(
+                max_steps_opt, t_host, kwargs["min_step"], kwargs["step_t"],
+                kwargs["jump_t"]) + (0 if max_steps_opt is not None else n_landings)
+            arg_leaves = flatten(args)[0]
+            needs_grad = torch.is_grad_enabled() and any(
+                x.requires_grad for x in (*y, *arg_leaves,
+                                          *([t_tensor] if t_tensor is not None else [])))
+            ys, stats = _adaptive_integrate_diff(flat_func, y, t_host, t_tensor, tab,
+                                                 max_num_steps, max_steps, needs_grad,
+                                                 **kwargs)
+        else:
+            ys, stats = _adaptive_integrate(flat_func, y, t_host, tab, max_num_steps,
+                                            **kwargs)
+    else:
+        raise ValueError(f"Unknown method {method!r}")
+
+    ys = rebuild([l.to(d) for l, d in zip(ys, dtypes)])
+    if return_stats:
+        return ys, stats
+    return ys

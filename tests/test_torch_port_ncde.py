@@ -142,7 +142,7 @@ def test_neural_cde_packs_time_slice_contiguously():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(solver="implicit_adams"), "ROADMAP item 12"),
-    (dict(solver="dopri5"), "ROADMAP item 12"),
+    (dict(solver="explicit_adams"), "ROADMAP item 12"),
     (dict(vector_field="gru"), "ROADMAP item 14"),
     (dict(vector_field_type="evaluate"), "ROADMAP item 14"),
 ])

@@ -512,15 +512,27 @@ def test_cdeint_paired_scan_is_used_for_rectilinear_controls(monkeypatch):
 
 
 def test_cdeint_refuses_unported_branches():
+    """The Adams methods and the unfused fields are refused; output times
+    [0, 2] inside the knot grid take the generic path, as in JAX."""
     coeffs, z0, jf, jparams, tf, H, C = _cdeint_case(10, rectilinear=False)
     spline = interpolation.LinearInterpolation.create(torch.from_numpy(coeffs))
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         torch_cdeint_mod.cdeint(spline, lambda t, z, p: tf(t, z),
                                 torch.from_numpy(z0), spline.interval,
-                                method="dopri5")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        torch_cdeint_mod.cdeint(spline, lambda t, z, p: tf(t, z),
-                                torch.from_numpy(z0), torch.tensor([0.0, 2.0]))
+                                method="explicit_adams")
+    tp = kernels.pack_fused_params(tf.params, H, C)
+    got, gstats = torch_cdeint_mod.cdeint(
+        spline, lambda t, z, dx, p: kernels.fused_matmul_field(
+            p["trunk"], p["head_w"], p["head_b"], z, dx, H, C),
+        torch.from_numpy(z0), torch.tensor([0.0, 2.0], dtype=torch.float64), tp,
+        options={"substeps": 2}, return_stats=True)
+    want, wstats = jax_cdeint_mod.cdeint(
+        jax_interp.LinearInterpolation.create(jnp.asarray(coeffs)),
+        lambda t, z, p: jf.apply(p, t, z), jnp.asarray(z0), jnp.asarray([0.0, 2.0]),
+        jparams, options={"substeps": 2}, return_stats=True)
+    close(got, want)
+    for key in ("nfe", "accepted", "rejected"):
+        assert int(gstats[key]) == int(wstats[key])
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         torch_cdeint_mod.cdeint(spline, lambda t, z, p: tf(t, z),
                                 torch.from_numpy(z0), spline.interval,
