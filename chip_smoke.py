@@ -77,6 +77,15 @@ controls, and prints one JSON line per phase:
                 solvers' own evaluation counts, NFE, host reads, times and
                 profiles.  The kernel phases also hold and time both field
                 kernels at config 3's shape (512, 32, 32, 9, 2).
+16. zoo      -- every model string of the JAX harness's registry and every
+                vector field: the stacked and attention NCDEs at the
+                flagship widths, the JAX bench's config 4 ODE-RNN and GRU-dt,
+                GRU-D and the other GRU variants, the flagship with each
+                plain field; each serves one request batch and takes Adam
+                steps against a CPU copy (outputs, 16-row gradients), with
+                its kernel launches, host waits, step times and profile.
+                The kernel phases also hold and time both field kernels at
+                the zoo's (512 | 64, 128, 128, 128, 3).
 
 Then a line with every kernel's numbers, a line with the run's seconds, a
 line with the card's name and power limit as ``nvidia-smi`` gives them,
@@ -253,6 +262,40 @@ PREDICT_BF16_RATIO = 1.0
 CFG3_B, CFG3_L, CFG3_C, CFG3_H = 512, 24, 9, 32
 CFG3_SHAPE = (CFG3_B, CFG3_H, CFG3_H, CFG3_C, 2)
 CFG3_STEPS = 5
+# The model zoo.  Kernels 1-2 at every shape the zoo's NCDEs give them
+# (three trunk layers): the stacked NCDE's (HH=128; I=21 for layer 0,
+# I = H = 128 for layer 1) and the attention NCDE's (HH=15, the JAX
+# model's fixed trunk width; I=21 for the encoder, 128 for the attention
+# and final NCDEs), each at the training batch and the serving bucket, in
+# the f32 sweep and timed.  The JAX bench's config 4 (bench.py:409-448,
+# SpeechCommands shapes): B=1024 series of L=89 observations, C=21
+# channels, 10 classes, cross-entropy.  The flagship with each field other
+# than original/matmul (plain PyTorch on the card, as the JAX package's
+# non-fused branch), fewer timed steps since each step runs ~50,000 small
+# launches; the fourth entry marks a model that is chaotic under random
+# weights (the low-rank field: the CPU's own f32 and f64 predictions part
+# by up to 2.8 late in a series, tenfold every ten observations), held
+# only where the CPU's f32 resolves its result against f64: a request's
+# rows, and the gradient loss's observations, before the first where that
+# distance passes ZOO_RESOLVED of the gate.  The attention model's keep
+# mask (weight > 1/L) may differ between the card's 3xTF32 field and the
+# CPU's f32 at a weight within ATTN_FLIP_RTOL of 1/L; its rows are left out
+# of the comparison and every such weight is printed.  A relu input within
+# ~1e-7 of its row's scale of 0 may take the other side on the card and on
+# the CPU (products in 3xTF32 against f32, or summed in another order), and
+# one such decision moves the gradients it reaches by up to ~1e-2 of their
+# max (PERF.md); a row whose input cotangents show it leaves the gradient
+# comparison, at most ZOO_MAX_DROPPED of GRAD_ROWS rows.
+ZOO_HH_ATTN = 15
+ZOO_SHAPES = [(b, H, hh, i, 3) for hh in (HH, ZOO_HH_ATTN) for i in (C, H)
+              for b in (TRAIN_B, N_REQUESTS)]
+CFG4_B, CFG4_L, CFG4_CLASSES = 1024, 89, 10
+ZOO_STEPS, ZOO_FIELD_STEPS = 5, 3
+ZOO_FIELDS = [("gru", "matmul", None, False), ("minimal", "matmul", None, False),
+              ("sparse", "matmul", 0.5, False), ("low-rank", "matmul", 0.5, True),
+              ("original", "evaluate", None, False), ("original", "derivative", None, False)]
+ATTN_FLIP_RTOL = 1e-5
+ZOO_RESOLVED, ZOO_MAX_DROPPED = 0.1, GRAD_ROWS // 4
 
 
 def emit(phase: str, **fields):
@@ -594,7 +637,7 @@ def phase_kernel(pk):
     gen = torch.Generator().manual_seed(1)
     errors, timings = [], {}
     with torch.inference_mode():
-        for shape in SWEEP + [CFG3_SHAPE] + FWD_WIDE:
+        for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + FWD_WIDE:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
             got = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
@@ -614,7 +657,7 @@ def phase_kernel(pk):
                            "gate_share": float((err / (KERNEL_RTOL * want.abs()
                                                        + KERNEL_ATOL)).max()),
                            "path": forward_grid(B, Hd, HHd, I)["path"]})
-        for shape in TIMED + [CFG3_SHAPE]:
+        for shape in TIMED + [CFG3_SHAPE] + ZOO_SHAPES:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
             call = lambda: kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
@@ -697,7 +740,7 @@ def phase_kernel_bwd(pk):
 
     gen = torch.Generator().manual_seed(2)
     errors, timings = [], {}
-    for shape in SWEEP + [CFG3_SHAPE]:
+    for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES:
         B, Hd, HHd, I, n = shape
         trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
         g = random_cotangent(gen, B, Hd, "cuda")
@@ -736,7 +779,7 @@ def phase_kernel_bwd(pk):
         raise AssertionError("backward kernel took H=257")
     if kernels.fused_field_bwd_kernel.launches != launches:
         raise AssertionError("backward kernel launched at H=257")
-    for shape in TRAIN_SHAPES + [CFG3_SHAPE]:
+    for shape in TRAIN_SHAPES + [CFG3_SHAPE] + ZOO_SHAPES:
         B, Hd, HHd, I, n = shape
         trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
         args = (trunk, head_w, head_b, z, dx, random_cotangent(gen, B, Hd, "cuda"),
@@ -963,14 +1006,14 @@ def phase_kernel_rk4(pk):
 
 
 def flagship_model(device, interpolation="rectilinear", dtype=torch.float32,
-                   solver="rk4"):
+                   solver="rk4", **kw):
     from online_neural_cdes_tpu_torch import NeuralCDE
 
     return NeuralCDE(
         input_dim=C, hidden_dim=H, output_dim=1, static_dim=STATIC,
         hidden_hidden_dim=HH, num_layers=N_LAYERS, interpolation=interpolation,
         solver=solver, return_sequences=True,
-        generator=torch.Generator().manual_seed(0), device=device, dtype=dtype,
+        generator=torch.Generator().manual_seed(0), device=device, dtype=dtype, **kw,
     )
 
 
@@ -1943,6 +1986,453 @@ def phase_adaptive():
     return {f"adaptive_{k}": v for k, v in paths.items()}
 
 
+
+# ---------------------------------------------------------------- zoo
+
+
+def linear_coeffs(x):
+    from online_neural_cdes_tpu_torch import linear_interpolation_coeffs
+
+    return linear_interpolation_coeffs(x)
+
+
+def cfg4_batch(holes=False):
+    """The JAX bench's config 4 batch (bench.py:419-427): B=1024 series of
+    L=89 observations, C=21 channels with time arange(L)/L in channel 0,
+    one of 10 classes each; with ``holes``, 30% of the non-time values NaN.
+    Host arrays, and the per-channel nanmean (NaN -> 0) as feature means."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(CFG4_B, CFG4_L, C)).astype(np.float32)
+    x[:, :, 0] = np.arange(CFG4_L) / CFG4_L
+    labels = rng.integers(0, CFG4_CLASSES, size=(CFG4_B,)).astype(np.float32)
+    if holes:
+        drop = rng.random(size=x.shape) < 0.3
+        drop[..., 0] = False
+        x[drop] = np.nan
+    means = np.nanmean(x.reshape(-1, C), axis=0)
+    means[np.isnan(means)] = 0.0
+    return x, labels, means.astype(np.float32)
+
+
+def take_rows(inputs, rows):
+    """The batch rows ``rows`` (a slice or an index tensor) of a tensor or a
+    tuple of tensors."""
+    if isinstance(inputs, torch.Tensor):
+        return inputs[rows.to(inputs.device) if isinstance(rows, torch.Tensor) else rows]
+    return tuple(take_rows(t, rows) for t in inputs)
+
+
+def to_device(inputs, device, dtype=None):
+    if isinstance(inputs, torch.Tensor):
+        return inputs.to(device=device, dtype=dtype)
+    return tuple(to_device(t, device, dtype) for t in inputs)
+
+
+def zoo_grads(model, inputs, labels, loss):
+    """(parameter gradients, input cotangents) of the train step's masked
+    loss: the parameters the loss does not reach have none; one cotangent
+    (or None) for each input tensor, in the inputs' order."""
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+
+    model.zero_grad(set_to_none=True)
+    single = isinstance(inputs, torch.Tensor)
+    leaves = tuple(t.detach().clone().requires_grad_()
+                   for t in ((inputs,) if single else inputs))
+    preds = model(leaves[0] if single else leaves)
+    masked_temporal_loss(make_loss(loss), preds, labels).backward()
+    return ({name: p.grad.detach().clone() for name, p in model.named_parameters()
+             if p.grad is not None}, tuple(t.grad for t in leaves))
+
+
+def row_shares(got, want):
+    """Each batch row's share of its gate on the input cotangents: row r of
+    every input within GRAD_RTOL |want| + GRAD_ATOL_REL max|want[r]|."""
+    shares = None
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        g = g.cpu().double().reshape(len(w), -1)
+        w = w.double().reshape(len(w), -1)
+        err = (g - w).abs()
+        gate = GRAD_RTOL * w.abs() + GRAD_ATOL_REL * w.abs().amax(dim=1, keepdim=True)
+        s = torch.where(err == 0, torch.zeros_like(err), err / gate).amax(dim=1)
+        shares = s if shares is None else torch.maximum(shares, s)
+    return shares.tolist()
+
+
+def host_syncs(fn):
+    """(fn's result, the operations it ran that made the host wait for the
+    card): ``torch.cuda.set_sync_debug_mode("warn")``'s warnings."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message)[:100] for w in caught if "synchroniz" in str(w.message)]
+
+
+def resolved_rows(want, want64, rtol, atol):
+    """How many of one request's rows (time first) the CPU's f32 result
+    resolves: the rows before the first where its own distance from f64
+    passes ZOO_RESOLVED of the gate atol + rtol |want|.  A chaotic model
+    magnifies round-off along the series until f32 no longer decides the
+    output; past that row the card's result cannot be held to the CPU's."""
+    want, want64 = (np.asarray(a, np.float64).reshape(len(a) if np.ndim(a) > 1 else 1, -1)
+                    for a in (want, want64))
+    past = (np.abs(want - want64) > ZOO_RESOLVED * (atol + rtol * np.abs(want))).any(axis=1)
+    return int(np.argmax(past)) if past.any() else len(want)
+
+
+def zoo_grad_gate(name, model, model_cpu, model64, batch, lab, loss):
+    """The card's parameter gradients of the train step's loss on ``batch``
+    against the CPU's, each tensor within GRAD_RTOL |want| + GRAD_ATOL_REL
+    max|want|.  With ``model64`` (a chaotic model) the loss covers only the
+    observations the CPU's f32 forward resolves against its f64 one
+    (:func:`resolved_rows`).  A row whose input cotangents differ past
+    their gate (:func:`row_shares`) took another relu or keep-mask
+    decision somewhere in the series, which moves every gradient it reaches
+    by far more than round-off; up to ZOO_MAX_DROPPED such rows leave the
+    loss, each printed, and the gradients are taken again without them.
+    Returns (the line, the host's waits on the card in the first card
+    forward and backward)."""
+    batch_cpu, lab = to_device(batch, "cpu"), lab.cpu().clone()
+    line = {"rows": len(lab)}
+    if model64 is not None:
+        with torch.no_grad():
+            want = model_cpu(batch_cpu)
+            want64 = model64(to_device(batch_cpu, "cpu", torch.float64))
+        k = resolved_rows(want.transpose(0, 1).numpy(), want64.transpose(0, 1).numpy(),
+                          SERVE_RTOL, SERVE_ATOL)
+        if k == 0:
+            raise AssertionError(f"{name}: the CPU's f32 resolves no observation")
+        lab[:, k:] = float("nan")
+        line["observations"] = k
+    lab_card = lab.cuda()
+    (got, got_in), syncs = host_syncs(lambda: zoo_grads(model, batch, lab_card, loss))
+    want, want_in = zoo_grads(model_cpu, batch_cpu, lab, loss)
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: the card's gradients reach {sorted(got)}, the "
+                             f"CPU's {sorted(want)}")
+    if not all(torch.isfinite(g).all() for g in (*got.values(),
+                                                  *(t for t in got_in if t is not None))):
+        raise AssertionError(f"{name}: card gradients not finite")
+    shares = row_shares(got_in, want_in)
+    dropped = {r: s for r, s in enumerate(shares) if not s <= 1.0}
+    if len(dropped) > ZOO_MAX_DROPPED:
+        raise AssertionError(f"{name}: {len(dropped)} of {len(shares)} rows' input "
+                             f"cotangents differ past their gate: {dropped}")
+    line.update(input_cotangent_share=max(s for s in shares if s <= 1.0),
+                dropped_rows=dropped)
+    if dropped:
+        lab[list(dropped)] = float("nan")
+        got, _ = zoo_grads(model, batch, lab.cuda(), loss)
+        want, _ = zoo_grads(model_cpu, batch_cpu, lab, loss)
+    per = {n: gate_share(got[n].cpu(), w, GRAD_RTOL, GRAD_ATOL_REL * float(w.abs().max()))
+           for n, w in want.items()}
+    failed = {n: s for n, s in per.items() if not s <= 1.0}
+    if failed:
+        raise AssertionError(f"{name}: card gradients past their gate: {failed}")
+    line.update(tensors=len(want), gate_share=max(per.values()),
+                max_err_per_max=max(float((got[n].cpu() - w).abs().max() / w.abs().max())
+                                    for n, w in want.items()),
+                rtol=GRAD_RTOL, atol_per_max=GRAD_ATOL_REL)
+    if model64 is not None:
+        want64, _ = zoo_grads(model64, to_device(batch_cpu, "cpu", torch.float64),
+                              lab.double(), loss)
+        line["cpu_f32_vs_f64_share"] = max(
+            gate_share(w, want64[n], GRAD_RTOL, GRAD_ATOL_REL * float(want64[n].abs().max()))
+            for n, w in want.items())
+    return line, syncs
+
+
+def zoo_case(name, model_string, make, inputs, labels, loss, expected_step,
+             serve=None, expected_serve=0, steps=ZOO_STEPS, rows=None, source=None,
+             gate_syncs=False, resolve=False, **facts):
+    """One zoo model on the card (``make(device, dtype)`` builds it; the
+    CPU copy takes the card's weights): one request batch (``serve``: the
+    Predictor's settings, or a function of the models that runs a forward)
+    against the same call on the CPU in f32 within SERVE_RTOL / SERVE_ATOL
+    (with ``resolve``, a chaotic model, on each request's rows that f32
+    resolves against f64: :func:`resolved_rows`); the gradients on
+    GRAD_ROWS rows (``rows``) against the CPU's (:func:`zoo_grad_gate`);
+    the host's waits on the card in that forward and backward (gated to 0
+    with ``gate_syncs``); one Adam step, counted and profiled, its kernel
+    launches gated to ``expected_step`` (forward, backward), then ``steps``
+    timed steps.  Returns the launches by path."""
+    from online_neural_cdes_tpu_torch import Predictor
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+
+    t0 = time.perf_counter()
+    model, model_cpu = make("cuda"), make("cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    model64 = None
+    if resolve:
+        model64 = make("cpu", torch.float64)
+        model64.load_state_dict({k: v.double() for k, v in model_cpu.state_dict().items()})
+    out = {"model": name, "model_string": model_string, "source": source, **facts}
+    paths = {}
+    if isinstance(serve, dict):
+        requests, static = make_requests()
+        static = static if serve.get("accept_static", True) else None
+        kw = dict(batch_buckets=(1, N_REQUESTS), length_multiple=LENGTH_MULTIPLE,
+                  **{k: v for k, v in serve.items() if k != "coeff_fn"})
+        pred = Predictor(model, coeff_fn=serve["coeff_fn"]("cuda"), **kw, device="cuda")
+        got, launches = counted(lambda: pred.predict(requests, static=static))
+        expect_launches(f"{name}: one predict", launches, forward=expected_serve)
+        want, want64 = (None if m is None else
+                        Predictor(m, coeff_fn=serve["coeff_fn"]("cpu"), **kw,
+                                  device="cpu").predict(requests, static=static)
+                        for m in (model_cpu, model64))
+        share, compared, total = 0.0, 0, 0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.shape != w.shape or not np.isfinite(g).all():
+                raise AssertionError(f"{name}: predictor output shape {g.shape} (CPU "
+                                     f"{w.shape}) or non-finite")
+            n = None if want64 is None else resolved_rows(w, want64[i], SERVE_RTOL,
+                                                          SERVE_ATOL)
+            g, w = (a.reshape(len(a) if a.ndim > 1 else 1, -1) for a in (g, w))
+            n = len(w) if n is None else n
+            if n:
+                share = max(share, gate_share(g[:n], w[:n], SERVE_RTOL, SERVE_ATOL))
+            compared, total = compared + n, total + len(w)
+        if not share <= 1.0:
+            raise AssertionError(f"{name}: predict, card vs CPU past its gate (share {share})")
+        lat = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            pred.predict(requests, static=static)
+            lat.append((time.perf_counter() - t1) * 1e3)
+        paths["predict"] = launches
+        vs_cpu = {"gate_share": share, "rows_compared": compared, "rows": total,
+                  "max_abs_err": max(float(np.abs(g - w).max()) for g, w in zip(got, want)),
+                  "rtol": SERVE_RTOL, "atol": SERVE_ATOL}
+        if want64 is not None:
+            vs_cpu.update(resolved_share=ZOO_RESOLVED, cpu_f32_vs_f64=max(
+                float(np.abs(w - w64).max()) for w, w64 in zip(want, want64)))
+        out["predict"] = {"requests": N_REQUESTS, "kernel_launches": launches,
+                          "vs_cpu": vs_cpu, "predict_ms": percentiles(lat)}
+    elif serve is not None:
+        out["forward"], paths["forward"] = serve(model, model_cpu)
+
+    rows = slice(0, GRAD_ROWS) if rows is None else rows
+    out["grads_vs_cpu"], syncs = zoo_grad_gate(name, model, model_cpu, model64,
+                                               take_rows(inputs, rows),
+                                               take_rows(labels, rows), loss)
+    if gate_syncs and syncs:
+        raise AssertionError(f"{name}: its forward and backward made the host wait on the "
+                             f"card {len(syncs)} times: {syncs[:3]}")
+    out["host_syncs_forward_backward"] = len(syncs)
+
+    step = make_train_step(model, loss=loss, lr=TRAIN_LR)
+    first = {}
+
+    def first_step():
+        first["loss"], first["syncs"] = host_syncs(lambda: step(inputs, labels, 1.0))
+
+    profile, launches = counted(lambda: profile_call(first_step, host=False))  # the main path
+    expect_launches(f"{name}: one training step", launches,
+                    forward=expected_step[0], backward=expected_step[1])
+    paths["train_step"] = launches
+    losses, step_ms = [float(first["loss"])], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(step(inputs, labels, 1.0))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: training losses not finite: {losses}")
+    emit("zoo", **out, kernel_launches=launches, expected_launches=list(expected_step),
+         host_syncs_per_step=len(first["syncs"]), losses=losses,
+         train_step_ms=percentiles(step_ms),
+         device_busy_ms=profile["device_busy_ms"],
+         device_busy_share=profile["device_busy_share"],
+         host_kernel_launches_per_step=profile["host_kernel_launches"],
+         device_by_kernel=profile["top"][:5], seconds=time.perf_counter() - t0)
+    return {f"zoo_{name}_{path}": counts for path, counts in paths.items()}
+
+
+def attention_forward(inputs, rows, expected):
+    """The attention model's request batch: one forward of ``rows`` rows of
+    ``inputs`` on the card, its ``expected`` forward kernel launches, held
+    against the same forward on the CPU on the rows whose keep masks agree;
+    every entry whose mask differs must have its weight within
+    ATTN_FLIP_RTOL of 1/L on both (a 3xTF32 round-off that moves it across
+    the threshold).  Returns (its line, launches)."""
+
+    def run(model, model_cpu):
+        batch = take_rows(inputs, slice(0, rows))
+        with torch.inference_mode():
+            got, launches = counted(lambda: model(batch))
+            expect_launches("attention: one forward", launches, forward=expected)
+            _, w_card = model.attention_weights(batch)
+            batch_cpu = to_device(batch, "cpu")
+            want = model_cpu(batch_cpu)
+            _, w_cpu = model_cpu.attention_weights(batch_cpu)
+        w_card = w_card.cpu()
+        length = w_card.shape[-1]
+        flips = (w_card > 1.0 / length) != (w_cpu > 1.0 / length)
+        for w in (w_card, w_cpu):
+            near = (w[flips] - 1.0 / length).abs() <= ATTN_FLIP_RTOL / length
+            if not near.all():
+                raise AssertionError("attention: a keep mask differs between card and CPU "
+                                     "at a weight not within "
+                                     f"{ATTN_FLIP_RTOL} of 1/L: {w[flips][~near][:4]}")
+        same = ~flips.any(dim=-1)
+        got = got.cpu()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"attention: output shape {tuple(got.shape)} or non-finite")
+        torch.testing.assert_close(got[same], want[same], rtol=SERVE_RTOL, atol=SERVE_ATOL)
+        line = {"rows": rows, "rows_whose_mask_differs": int((~same).sum()),
+                "flipped_entries": int(flips.sum()),
+                "flipped_weight_vs_1_over_L": (w_card[flips] * length - 1).abs().tolist()[:8],
+                "kept_per_row": {"min": int((w_card > 1.0 / length).sum(-1).min()),
+                                 "max": int((w_card > 1.0 / length).sum(-1).max())},
+                "vs_cpu": {"max_abs_err": float((got[same] - want[same]).abs().max()),
+                           "gate_share": gate_share(got[same], want[same], SERVE_RTOL,
+                                                    SERVE_ATOL),
+                           "rtol": SERVE_RTOL, "atol": SERVE_ATOL},
+                "kernel_launches": launches}
+        return line, launches
+
+    return run
+
+
+def agreeing_rows(make, inputs, n):
+    """The first GRAD_ROWS of ``n`` rows whose attention keep masks agree on
+    the card and the CPU (same weights), as an index tensor."""
+    model, model_cpu = make("cuda"), make("cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    batch = take_rows(inputs, slice(0, n))
+    with torch.inference_mode():
+        _, w = model.attention_weights(batch)
+        _, w_cpu = model_cpu.attention_weights(to_device(batch, "cpu"))
+    length = w.shape[-1]
+    agree = ((w.cpu() > 1.0 / length) == (w_cpu > 1.0 / length)).all(dim=-1)
+    rows = torch.nonzero(agree).flatten()[:GRAD_ROWS]
+    if rows.numel() < GRAD_ROWS:
+        raise AssertionError(f"attention: only {rows.numel()} of {n} rows keep the same "
+                             "states on card and CPU")
+    return rows
+
+
+def phase_zoo():
+    """The model zoo on the card: every model string of the JAX harness's
+    registry and every vector field, each through ``zoo_case``.  The NCDE
+    models' field kernels launch 4(L-1) forward a layer a forward, and
+    8(L-1) forward plus 4(L-1) backward a layer a step that the loss
+    differentiates (the attention model's attention NCDE feeds only its
+    keep mask: a forward alone); the plain models launch none and, for the
+    recurrent ones, make the host wait on the card nowhere in a forward and
+    backward."""
+    from online_neural_cdes_tpu_torch import (GRUD, ODERNN, RNN, AttentionNeuralCDE,
+                                              StackedNeuralCDE, prepare_gru_variant_data)
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+
+    t_phase = time.perf_counter()
+    paths = {}
+    gen = lambda: torch.Generator().manual_seed(0)
+    n = TRAIN_L - 1                       # linear intervals of the flagship batch
+    inputs, labels = train_batch("cuda", coeff_fn=linear_coeffs)
+    serve_linear = {"coeff_fn": lambda device: linear_coeffs}
+
+    def stacked(device, dtype=torch.float32):
+        return StackedNeuralCDE(input_dim=C, hidden_dims=(H, H), output_dim=1,
+                                hidden_hidden_dim=HH, static_dim=STATIC,
+                                return_sequences=True, device=device, dtype=dtype,
+                                generator=gen())
+
+    paths.update(zoo_case(
+        "stacked", "ncde-stacked", stacked, inputs, labels, "bce", (2 * 8 * n, 2 * 4 * n),
+        serve=serve_linear, expected_serve=2 * 4 * (-(-MAX_LEN // LENGTH_MULTIPLE)
+                                                    * LENGTH_MULTIPLE - 1),
+        source="bench.py:451-482 widths, hidden_dims=(128, 128)",
+        field_shapes=[[TRAIN_B, H, HH, C, 3], [TRAIN_B, H, HH, H, 3]]))
+
+    def attention(device, dtype=torch.float32, use_sparsemax=False):
+        return AttentionNeuralCDE(input_dim=C, hidden_dim=H, output_dim=1, static_dim=STATIC,
+                                  sparsemax=use_sparsemax, device=device, dtype=dtype,
+                                  generator=gen())
+
+    one_label = labels[:, -1].contiguous()
+    attn_step = (2 * 8 * n + 4 * n, 2 * 4 * n)
+    paths.update(zoo_case(
+        "attention", "ncde-attention", attention, inputs, one_label, "bce", attn_step,
+        serve=attention_forward(inputs, N_REQUESTS, 3 * 4 * n),
+        rows=agreeing_rows(attention, inputs, 2 * GRAD_ROWS),
+        source="bench.py:451-482 widths, statics in all three NCDEs, the JAX model's HH=15",
+        field_shapes=[[TRAIN_B, H, ZOO_HH_ATTN, C, 3], [TRAIN_B, H, ZOO_HH_ATTN, H, 3]]))
+    sparse_attn = attention("cuda", use_sparsemax=True)
+    step = make_train_step(sparse_attn, loss="bce", lr=TRAIN_LR)
+    loss, launches = counted(lambda: step(inputs, one_label, 1.0))
+    expect_launches("attention with sparsemax: one training step", launches,
+                    forward=attn_step[0], backward=attn_step[1])
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"attention with sparsemax: loss {float(loss)}")
+    emit("zoo", model="attention_sparsemax", model_string="ncde-attention",
+         kernel_launches=launches, loss=float(loss))
+    paths["zoo_attention_sparsemax_train_step"] = launches
+    del inputs, labels, one_label, sparse_attn, step
+
+    # Config 4 (bench.py:409-448): the ODE-RNN and GRU-dt baselines, and
+    # the other GRU variants on the same shapes with holes.
+    x, labels, means = cfg4_batch()
+    xh, labels_h, means_h = cfg4_batch(holes=True)
+    labels, labels_h = (torch.from_numpy(v).cuda() for v in (labels, labels_h))
+
+    def variant_serve(variant, m):
+        def coeff_fn(device):
+            md = torch.from_numpy(m).to(device)
+            return lambda batch: prepare_gru_variant_data(batch, variant, md)
+        return {"coeff_fn": coeff_fn, "pad_forward_fill": False, "accept_static": False}
+
+    def odernn(device, dtype=torch.float32):
+        return ODERNN(input_dim=C, hidden_dim=32, output_dim=CFG4_CLASSES,
+                      hidden_hidden_dim=32, num_layers=2, device=device, dtype=dtype,
+                      generator=gen())
+
+    paths.update(zoo_case(
+        "odernn", "odernn", odernn, torch.from_numpy(x).cuda(), labels, "ce", (0, 0),
+        serve=variant_serve("gru", means), gate_syncs=True, source="bench.py:419-427",
+        serve_inputs="prepare_gru_variant_data(requests, 'gru', means)"))
+    width = {"gru": 1, "gru-intensity": 2, "gru-dt": 2, "gru-dt-intensity": 3}
+    for variant in ("gru-dt", "gru-d", "gru", "gru-intensity", "gru-dt-intensity"):
+        holes = variant != "gru-dt"
+        data, m, lab = (xh, means_h, labels_h) if holes else (x, means, labels)
+        prepared = prepare_gru_variant_data(torch.from_numpy(data).cuda(), variant,
+                                            torch.from_numpy(m).cuda() if holes else None)
+        if variant == "gru-d":
+            def make(device, dtype=torch.float32):
+                return GRUD(input_dim=C, hidden_dim=64, output_dim=CFG4_CLASSES,
+                            feature_means=torch.from_numpy(means_h), device=device,
+                            dtype=dtype, generator=gen())
+        else:
+            def make(device, dtype=torch.float32, k=width[variant]):
+                return RNN(input_dim=C * k, hidden_dim=64, output_dim=CFG4_CLASSES,
+                           device=device, dtype=dtype, generator=gen())
+        paths.update(zoo_case(
+            variant, variant, make, prepared, lab, "ce", (0, 0),
+            serve=variant_serve(variant, m), gate_syncs=True,
+            source="bench.py:429-431" if not holes else "bench.py:419 shapes, 30% NaN"))
+
+    # The flagship with each other field: the plain field on the card.
+    inputs, labels = train_batch("cuda")
+    for kind, vf_type, sparsity, chaotic in ZOO_FIELDS:
+        def make(device, dtype=torch.float32, k=kind, t=vf_type, s=sparsity):
+            return flagship_model(device, dtype=dtype, vector_field=k, vector_field_type=t,
+                                  sparsity=s)
+        paths.update(zoo_case(
+            f"ncde_{kind}_{vf_type}", "ncde", make, inputs, labels, "bce", (0, 0),
+            serve={"coeff_fn": lambda device: rectilinear_coeffs}, steps=ZOO_FIELD_STEPS,
+            resolve=chaotic, source="chip_smoke.py::flagship_model, the field changed"))
+    emit("zoo", seconds=time.perf_counter() - t_phase)
+    return paths
+
+
 def times(t):
     return {"ms": t["kernel_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
@@ -1964,7 +2454,7 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
           "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg",
-          "adaptive")
+          "adaptive", "zoo")
 
 
 def main(argv=None) -> int:
@@ -2013,6 +2503,8 @@ def main(argv=None) -> int:
         phase_bench_bf16_leg()
     if "adaptive" in phases:
         adaptive_launches = phase_adaptive()
+    if "zoo" in phases:
+        zoo_launches = phase_zoo()
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
@@ -2025,7 +2517,7 @@ def main(argv=None) -> int:
     by_path = {"predict": serve_launches, "train_step": train_launches,
                "hermite_predict": hermite_serve, "hermite_train_step": hermite_train,
                "interval_chain": chain_launches, "train_step_bf16": train_bf16_launches,
-               "predict_bf16": predict_bf16_launches, **adaptive_launches}
+               "predict_bf16": predict_bf16_launches, **adaptive_launches, **zoo_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}

@@ -19,7 +19,11 @@ K-replica form) with their interval-chain experiments
 (``experiments.pair_probe``, ``experiments.interleave_experiment``); and
 the adaptive Runge-Kutta solvers (``ops.solvers.odeint``,
 ``ops.cdeint.odeint_adjoint``, the generic ``cdeint`` path), so a
-``NeuralCDE(solver="dopri5")`` serves and trains too.
+``NeuralCDE(solver="dopri5")`` serves and trains too; and the model zoo:
+every vector field kind and type (``models.vector_fields``), the stacked
+and attention NCDEs, ODE-RNN, GRU-D and the GRU/RNN baselines
+(``models``), so every model of the JAX harness's registry builds, trains
+and serves.
 ``ROADMAP.md`` lists what comes next.
 """
 
@@ -38,7 +42,17 @@ from online_neural_cdes_tpu_torch.ops.interpolation import (  # noqa: F401
     natural_cubic_spline_coeffs,
     prepare_rectilinear_interpolation,
 )
-from online_neural_cdes_tpu_torch.models import NeuralCDE, VectorField  # noqa: F401
+from online_neural_cdes_tpu_torch.models import (  # noqa: F401
+    GRUD,
+    ODERNN,
+    RNN,
+    AttentionNeuralCDE,
+    NeuralCDE,
+    StackedNeuralCDE,
+    VectorField,
+    prepare_gru_variant_data,
+    sparsemax,
+)
 from online_neural_cdes_tpu_torch.serving import (  # noqa: F401
     OnlineNCDEStepper,
     Predictor,

@@ -12,14 +12,19 @@ the coefficient array, or a ``(static, coeffs)`` pair when ``static_dim``
 is set.
 
 The model runs on ``device`` (the CUDA card unless ``device="cpu"`` is
-asked for; with neither it raises).  The field goes through the fused
-trunk -> head -> contraction op for every H and B: on the card that is the
-hand-written kernel ``csrc/fused_field.cu``.  A forward that needs
+asked for; with neither it raises).  The ``original`` field with
+``vector_field_type="matmul"`` goes through the fused trunk -> head ->
+contraction op for every H and B: on the card that is the hand-written
+kernel ``csrc/fused_field.cu``.  Every other kind (``gru``, ``minimal``,
+``sparse``, ``low-rank``) and the ``evaluate``/``derivative`` types take
+the plain field, ``VectorField.apply``, as the JAX model's non-fused
+branch does (the JAX package has no kernel for them).  A forward that needs
 gradients (grad mode on, parameters or inputs requiring grad) goes through
 ``cdeint``'s interval adjoint (``adjoint=True``, the default) or autograd
 through the scan, and an adaptive solver's through ``odeint_adjoint`` or
-the differentiable solve's replay; every reverse stage then runs the
-field's backward kernel ``csrc/fused_field_bwd.cu`` on the card.
+the differentiable solve's replay; every reverse stage of the fused
+field then runs its backward kernel ``csrc/fused_field_bwd.cu`` on the
+card.
 """
 
 from __future__ import annotations
@@ -163,11 +168,18 @@ class NeuralCDE(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.field.out["w"].device
+        return self.field.trunk[0]["w"].device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.field.out["w"].dtype
+        return self.field.trunk[0]["w"].dtype
+
+    @property
+    def uses_fused_field(self) -> bool:
+        """Whether the field goes through the fused op (and its kernels on
+        the card): the ``original`` kind with ``vector_field_type="matmul"``,
+        whatever ``fused`` says."""
+        return self.vector_field == "original" and self.vector_field_type == "matmul"
 
     @property
     def initial_dim(self) -> int:
@@ -249,12 +261,22 @@ class NeuralCDE(nn.Module):
 
     def make_solve_func(self, h0: torch.Tensor):
         """The field handed to the solver: ``(func, even_func, field_args,
-        vf_type)``.  Every state goes through the fused op, whatever H, its
-        batch and its leading dims (an unbatched series, extra batch dims).
-        ``fused`` is kept as a field of the JAX model; the port has only the
-        fused op, which computes what the JAX unfused field does."""
+        vf_type)``.  The original/matmul field goes through the fused op
+        for every state, whatever H, its batch and its leading dims (an
+        unbatched series, extra batch dims); ``fused=False`` is accepted
+        and ignored there, since the fused op computes what the JAX unfused
+        field does and on the card the kernel is never skipped.  Every
+        other field is the plain ``VectorField.apply`` of the field's
+        tensors, with ``vf_type = vector_field_type``."""
         del h0
         H, I = self.hidden_dim, self.input_dim
+        if not self.uses_fused_field:
+            field = self.field
+
+            def plain(t, z, field_params):
+                return field.apply(field_params, t, z)
+
+            return plain, None, field.params, self.vector_field_type
 
         def func(t, z, dx, fp):
             return fused_matmul_field(fp["trunk"], fp["head_w"], fp["head_b"],

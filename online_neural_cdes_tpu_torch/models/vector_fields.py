@@ -1,16 +1,25 @@
 """Neural CDE vector fields.
 
-PyTorch counterpart of the JAX package's ``models/vector_fields.py`` for
-``kind="original"`` with ``vector_field_type="matmul"``: an H -> HH MLP
-trunk with a ReLU after every layer, then a tanh head reshaped to
-(..., H, I).  The module holds ``trunk`` (a list of ``{"w", "b"}`` layers)
-and ``out`` under the JAX pytree's names.  The gated, sparse and low-rank
-kinds and the ``evaluate``/``derivative`` field types come with a later
-slice (ROADMAP item 14).
+PyTorch counterpart of the JAX package's ``models/vector_fields.py``: the
+shared H -> HH MLP trunk (a ReLU after every layer) with one output head
+per kind -- ``original`` (tanh), ``minimal`` and ``gru`` (sigmoid-gated
+tanh), ``sparse`` (a masked dense head) and ``low-rank`` (a product of two
+thin heads).  ``apply`` returns the (..., H, I) field matrix for
+``vector_field_type="matmul"`` and (..., H) for ``"evaluate"`` and
+``"derivative"``, whose trunk reads the state concatenated with the
+control's value or derivative (H + I inputs).
+
+The module holds its tensors under the JAX pytree's names (``trunk``,
+``out``, ``sig``, ``tanh``, ``reset``, ``m_h``, ``m_o``), so its
+``state_dict`` keys are the pytree's paths.  The sparse kind's 0/1
+connectivity ``mask`` is a persistent buffer: it is in the ``state_dict``
+(``params_from_jax`` loads it) and the optimizer never sees it, as JAX's
+Adam sees a zero gradient behind its ``stop_gradient``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -29,7 +38,8 @@ VECTOR_FIELDS = ("original", "gru", "minimal", "sparse", "low-rank")
 
 
 class VectorField(nn.Module):
-    """f_theta: hidden state (..., H) -> field matrix (..., H, I)."""
+    """f_theta: hidden state (..., H) -> field matrix (..., H, I), or
+    (..., H + I) -> (..., H) for the ``evaluate``/``derivative`` types."""
 
     def __init__(self, input_dim: int, hidden_dim: int,
                  hidden_hidden_dim: int = 15, num_layers: int = 1,
@@ -47,12 +57,16 @@ class VectorField(nn.Module):
                 f"unknown vector_field_type {vector_field_type!r}; one of "
                 "(matmul, evaluate, derivative)"
             )
-        if kind != "original" or vector_field_type != "matmul" or sparsity is not None:
-            raise NotImplementedError(
-                f"vector field kind={kind!r}, vector_field_type="
-                f"{vector_field_type!r}, sparsity={sparsity!r} is not ported "
-                "yet (ROADMAP item 14: the rest of the model zoo)"
-            )
+        if kind in ("sparse", "low-rank"):
+            if sparsity is None:
+                raise ValueError(
+                    f"vector field {kind!r} requires sparsity= "
+                    "(reference: 'sparse methods must have a sparsity!')"
+                )
+            if vector_field_type != "matmul":
+                raise ValueError(f"vector field {kind!r} takes vector_field_type='matmul' only")
+        if kind in ("gru", "minimal") and sparsity is not None:
+            raise ValueError("sparsity not implemented for gated methods")
         self.input_dim = input_dim
         self.hidden_dim = hidden_dim
         self.hidden_hidden_dim = hidden_hidden_dim
@@ -60,33 +74,99 @@ class VectorField(nn.Module):
         self.sparsity = sparsity
         self.vector_field_type = vector_field_type
         self.kind = kind
+
+        def linear(d_in, d_out):
+            return nn.ParameterDict(linear_init(generator, d_in, d_out, dtype, device))
+
         self.trunk = nn.ModuleList(
             nn.ParameterDict(layer)
             for layer in mlp_init(generator, self.trunk_dims(), dtype, device)
         )
-        self.out = nn.ParameterDict(
-            linear_init(generator, hidden_hidden_dim, self.output_dim, dtype, device)
-        )
+        hh, out = hidden_hidden_dim, self.output_dim
+        if kind in ("original", "sparse"):
+            self.out = linear(hh, out)
+        elif kind == "minimal":
+            self.sig, self.tanh = linear(hh, out), linear(hh, out)
+        elif kind == "gru":
+            self.reset = linear(self.initial_dim, self.initial_dim)
+            self.sig, self.tanh = linear(hh, out), linear(hh, out)
+        else:  # low-rank
+            self.m_h = linear(hh, hidden_dim * self.rank)
+            self.m_o = linear(hh, self.rank * input_dim)
+        if kind == "sparse":
+            # Static connectivity with the requested density (the masked
+            # dense analogue of the reference's sparse layers).
+            keep = torch.rand((hh, out), generator=generator, dtype=torch.float64) >= sparsity
+            self.register_buffer("mask", keep.to(dtype=dtype, device=device))
+
+    @property
+    def matmul(self) -> bool:
+        return self.vector_field_type == "matmul"
 
     @property
     def initial_dim(self) -> int:
-        return self.hidden_dim
+        return self.hidden_dim if self.matmul else self.hidden_dim + self.input_dim
 
     @property
     def output_dim(self) -> int:
-        return self.hidden_dim * self.input_dim
+        return self.hidden_dim * self.input_dim if self.matmul else self.hidden_dim
+
+    @property
+    def rank(self) -> int:
+        return int(math.ceil(self.input_dim * (1.0 - self.sparsity)))
 
     def trunk_dims(self):
         return [self.initial_dim] + [self.hidden_hidden_dim] * max(self.num_layers, 1)
 
     @property
     def params(self) -> dict:
-        """The parameters as the JAX pytree lays them out:
-        ``{"trunk": [{"w", "b"}, ...], "out": {"w", "b"}}``."""
-        return {"trunk": list(self.trunk), "out": self.out}
+        """The tensors as the JAX pytree lays them out, in plain dicts and
+        lists (``{"trunk": [{"w", "b"}, ...], "out": {"w", "b"}, ...}``):
+        the ``args`` a solver carries to :meth:`apply`."""
+        tree = {"trunk": [{"w": layer["w"], "b": layer["b"]} for layer in self.trunk]}
+        for name in ("out", "sig", "tanh", "reset", "m_h", "m_o"):
+            if hasattr(self, name):
+                p = getattr(self, name)
+                tree[name] = {"w": p["w"], "b": p["b"]}
+        if self.kind == "sparse":
+            tree["mask"] = self.mask
+        return tree
+
+    def _head(self, params, h):
+        def trunk(x):
+            return mlp_apply(params["trunk"], x, final_activation=torch.relu)
+
+        if self.kind == "original":
+            return torch.tanh(linear_apply(params["out"], trunk(h)))
+        if self.kind == "minimal":
+            u = trunk(h)
+            return (torch.sigmoid(linear_apply(params["sig"], u))
+                    * torch.tanh(linear_apply(params["tanh"], u)))
+        if self.kind == "gru":
+            inner = trunk(h)
+            reset = trunk(torch.sigmoid(linear_apply(params["reset"], h)) * h)
+            return (torch.sigmoid(linear_apply(params["sig"], inner))
+                    * torch.tanh(linear_apply(params["tanh"], reset)))
+        u = trunk(h)
+        if self.kind == "sparse":
+            p = params["out"]
+            # The mask takes no gradient (JAX's stop_gradient).
+            return torch.tanh(u @ (p["w"] * params["mask"].detach().to(p["w"].dtype))
+                              + p["b"])
+        m_h = linear_apply(params["m_h"], u).reshape(u.shape[:-1] + (self.hidden_dim,
+                                                                    self.rank))
+        m_o = linear_apply(params["m_o"], u).reshape(u.shape[:-1] + (self.rank,
+                                                                    self.input_dim))
+        return torch.tanh(m_h @ m_o)
+
+    def apply(self, params: dict, t, h: torch.Tensor) -> torch.Tensor:
+        """The field at ``h`` with the tensors ``params`` (laid out as
+        :attr:`params`), so a solver can differentiate through them."""
+        del t
+        out = self._head(params, h)
+        if self.matmul and self.kind != "low-rank":
+            out = out.reshape(h.shape[:-1] + (self.hidden_dim, self.input_dim))
+        return out
 
     def forward(self, t, h: torch.Tensor) -> torch.Tensor:
-        # ReLU after every trunk layer, including the last.
-        u = mlp_apply(self.trunk, h, final_activation=torch.relu)
-        out = torch.tanh(linear_apply(self.out, u))
-        return out.reshape(h.shape[:-1] + (self.hidden_dim, self.input_dim))
+        return self.apply(self.params, t, h)

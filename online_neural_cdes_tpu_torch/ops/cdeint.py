@@ -6,8 +6,10 @@ PyTorch counterpart of the JAX package's ``ops/cdeint.py``: ``_piece_field``,
 ``_fixed_scan_forward_paired``, the interval adjoints ``_fixed_cde_adjoint``
 / ``_fixed_cde_adjoint_paired`` with their shared ``_interval_adjoint_bwd``,
 ``_make_cde_field``, ``odeint_adjoint``, and ``cdeint`` with
-``return_stats``.  The scans are Python loops over the knot intervals;
-inside interval i the field is pinned to piece i of the control.  Step
+``return_stats``, for the fused field (``"matmul_fused"``) and the plain
+``"matmul"``, ``"evaluate"`` and ``"derivative"`` fields.  The scans are
+Python loops over the knot intervals; inside interval i the field is
+pinned to piece i of the control.  Step
 sizes are host floats from the spline's knot times (``host_grid``), so a
 solve on the card enqueues its kernels without reading anything back.
 
@@ -19,7 +21,8 @@ Gradients of the piece scan:
   reverse with the same steppers.  Each reverse stage evaluates the field
   on detached inputs under ``torch.enable_grad()`` and takes
   ``torch.autograd.grad`` with the adjoint as the cotangent, so on the card
-  it is one forward and one backward launch of the fused field's kernels.
+  the fused field makes one forward and one backward launch of its
+  kernels.
   Used only when some input requires grad and grad mode is on; a serving
   forward never builds it.
 - ``adjoint=False``: autograd straight through the scan, with
@@ -27,10 +30,10 @@ Gradients of the piece scan:
   (per interval pair on the paired scan).
 
 The generic path (adaptive methods, other output times) solves with
-``solvers.odeint`` over the field at ``X.derivative(t)``; ``adjoint=True``
-differentiates by ``odeint_adjoint`` (the augmented state integrated in
-reverse, each reverse stage one forward and one backward launch of the
-fused field), ``adjoint=False`` by the differentiable solve's replay.
+``solvers.odeint`` over the field at ``X.derivative(t)`` (or ``X(t)``);
+``adjoint=True`` differentiates by ``odeint_adjoint`` (the augmented state
+integrated in reverse, each reverse stage one field evaluation and its
+VJP), ``adjoint=False`` by the differentiable solve's replay.
 """
 
 from __future__ import annotations
@@ -49,43 +52,78 @@ from online_neural_cdes_tpu_torch.utils.tree import flatten
 __all__ = ["cdeint", "odeint_adjoint"]
 
 
-def _make_cde_field(func, vector_field_type: str):
-    """The generic path's field: dz/dt = func(t, z, X'(t), args) with
-    ``theta = (X, args)`` (JAX ``_make_cde_field``), so the adjoint's
-    cotangents reach the spline's tensors.  ``X.derivative`` looks the
-    piece up on the device (the right-hand piece at a knot)."""
+def _contract(mat, dx):
+    """The field matrix against the control's derivative, (..., H, I) x
+    (..., I) -> (..., H)."""
+    return torch.einsum("...hi,...i->...h", mat, dx)
 
-    if vector_field_type == "matmul_fused":
+
+def _make_cde_field(func, vector_field_type: str):
+    """The generic path's field dz/dt with ``theta = (X, args)`` (JAX
+    ``_make_cde_field``), so the adjoint's cotangents reach the spline's
+    tensors: ``"matmul"``, ``func(t, z, args)`` (..., H, I) contracted with
+    X'(t) (a ``TupleControl``: one matrix per control, summed);
+    ``"evaluate"`` / ``"derivative"``, ``func(t, [z, X(t)] or [z, X'(t)],
+    args)``; ``"matmul_fused"``, ``func(t, z, X'(t), args)``.
+    ``X.derivative`` / ``X.evaluate`` look the piece up on the device (the
+    right-hand piece at a knot)."""
+
+    if vector_field_type == "matmul":
+
+        def vf(t, z, theta):
+            X_, args = theta
+            mat, dx = func(t, z, args), X_.derivative(t)
+            if isinstance(dx, tuple):
+                if not (isinstance(mat, tuple) and len(mat) == len(dx)):
+                    raise ValueError("a TupleControl needs one field matrix per control")
+                return sum(_contract(m, d) for m, d in zip(mat, dx))
+            return _contract(mat, dx)
+
+    elif vector_field_type in ("evaluate", "derivative"):
+
+        def vf(t, z, theta):
+            X_, args = theta
+            vals = X_.evaluate(t) if vector_field_type == "evaluate" else X_.derivative(t)
+            vals = vals if isinstance(vals, tuple) else (vals,)
+            return func(t, torch.cat([z, *vals], dim=-1), args)
+
+    elif vector_field_type == "matmul_fused":
 
         def vf(t, z, theta):
             X_, args = theta
             return func(t, z, X_.derivative(t), args)
 
-    elif vector_field_type in ("matmul", "evaluate", "derivative"):
-        raise NotImplementedError(
-            f"vector_field_type={vector_field_type!r} is not ported yet "
-            "(ROADMAP item 14: the rest of the model zoo)"
-        )
     else:
         raise ValueError(f"Unknown vector_field_type {vector_field_type!r}")
     return vf
 
 
 def _piece_field(spline_cls, func, vector_field_type: str):
-    """Piece-pinned field: pf(piece, t, frac, z, args) with frac = t - t0.
-    The port's fields are fused: ``func(t, z, dx, args)`` returns the
-    contracted (..., H) derivative."""
+    """Piece-pinned field: pf(piece, t, frac, z, args) with frac = t - t0,
+    for the field types of :func:`_make_cde_field`."""
 
-    if vector_field_type == "matmul_fused":
+    if vector_field_type == "matmul":
+
+        def pf(piece, t, frac, z, args):
+            return _contract(func(t, z, args), spline_cls.piece_derivative(piece, frac))
+
+    elif vector_field_type == "evaluate":
+
+        def pf(piece, t, frac, z, args):
+            return func(t, torch.cat([z, spline_cls.piece_evaluate(piece, frac)], dim=-1),
+                        args)
+
+    elif vector_field_type == "derivative":
+
+        def pf(piece, t, frac, z, args):
+            return func(t, torch.cat([z, spline_cls.piece_derivative(piece, frac)], dim=-1),
+                        args)
+
+    elif vector_field_type == "matmul_fused":
 
         def pf(piece, t, frac, z, args):
             return func(t, z, spline_cls.piece_derivative(piece, frac), args)
 
-    elif vector_field_type in ("matmul", "evaluate", "derivative"):
-        raise NotImplementedError(
-            f"vector_field_type={vector_field_type!r} is not ported yet "
-            "(ROADMAP item 14: the rest of the model zoo)"
-        )
     else:
         raise ValueError(f"Unknown vector_field_type {vector_field_type!r}")
 
@@ -566,10 +604,12 @@ def cdeint(
     """Solve dz = f(t, z) dX(t), returning z at the requested times with
     the time axis at position -2: ``(..., len(t), hidden)``.
 
-    ``func(t, z, dx, args)`` is a fused field (``vector_field_type=
-    "matmul_fused"``): it returns f(z) contracted with dX/dt, (..., H).
-    The unfused ``"matmul"`` field, which returns the (..., H, I) matrix,
-    comes back with the model zoo (ROADMAP item 14).
+    ``vector_field_type``: ``"matmul_fused"``, ``func(t, z, dx, args)``
+    returns f(z) contracted with dX/dt, (..., H); ``"matmul"``,
+    ``func(t, z, args)`` returns the (..., H, I) matrix, contracted here
+    (a ``TupleControl`` sums one matrix per control); ``"evaluate"`` /
+    ``"derivative"``, ``func(t, [z, X(t)] or [z, dX/dt], args)`` returns
+    dz/dt, (..., H).
 
     ``t`` is the spline's full knot grid (return sequences) or its 2-point
     interval (final state only).  ``even_func``: an optional cheap field

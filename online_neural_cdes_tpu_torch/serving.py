@@ -270,10 +270,13 @@ class OnlineNCDEStepper:
     Each new observation appends two control pieces -- a time advance (only
     the time channel moves) and a value update (time held) -- so the state
     advances without re-solving the history, and after ``k`` steps it
-    equals the offline model's row ``k``.  Both pieces go through the fused
-    field: the value update with all I = C channels, the time advance with
-    the time channel's head slice (I = 1), the same arithmetic as the full
-    contraction since the other channels' dX are exact zeros.
+    equals the offline model's row ``k``.  The original field goes through
+    the fused op: the value update with all I = C channels, the time
+    advance with the time channel's head slice (I = 1), the same arithmetic
+    as the full contraction since the other channels' dX are exact zeros.
+    Any other matmul field is the plain field matrix contracted with the
+    piece's dX (the time advance's zero in every other channel), as the
+    JAX stepper does.
 
     Missing values (NaN) hold their last observed value; NaNs in the first
     observation are zeroed.
@@ -310,32 +313,44 @@ class OnlineNCDEStepper:
         self._rk_step = _solvers.tree_fixed_step(model.solver)
         # Packed once: the stepper serves the weights the model holds now.
         with torch.inference_mode():
-            self._packed = model.packed_field()
+            self._packed = model.packed_field() if model.uses_fused_field else None
 
     def _tensor(self, x) -> torch.Tensor:
         return _to_device(x, self.device, self.dtype)
 
-    def _piece(self, trunk, head_w, head_b, z, dx):
-        """One solver step over one unit-length control piece."""
-        H, I = self.model.hidden_dim, dx.shape[-1]
-
-        def f(tt, zz):
-            return fused_matmul_field(trunk, head_w, head_b, zz, dx, H, I)
-
-        return self._rk_step(f, 0.0, 1.0, z)
+    def _piece(self, field, z, dx):
+        """One solver step over one unit-length control piece of the field
+        ``field(z, dx) -> dz/dt``."""
+        return self._rk_step(lambda tt, zz: field(zz, dx), 0.0, 1.0, z)
 
     def _advance(self, z, x_prev, x_new):
-        packed = self._packed
         ch = self.model.rectilinear_time_channel
         filled = torch.where(torch.isnan(x_new), x_prev, x_new)
-        dx_time = (filled[..., ch] - x_prev[..., ch]).unsqueeze(-1)
         dx_vals = filled - x_prev
         dx_vals[..., ch] = 0.0
-        trunk = packed["trunk"]
-        z = self._piece(trunk, packed["head_w_time"], packed["head_b_time"],
-                        z, dx_time)                   # time-advance piece
-        z = self._piece(trunk, packed["head_w"], packed["head_b"],
-                        z, dx_vals)                   # value-update piece
+        packed, H = self._packed, self.model.hidden_dim
+        if packed is None:
+            field = self.model.field
+            dx_time = torch.zeros_like(filled)
+            dx_time[..., ch] = filled[..., ch] - x_prev[..., ch]
+
+            def time_field(zz, dx):
+                return torch.einsum("...hi,...i->...h", field(0.0, zz), dx)
+
+            value_field = time_field
+        else:
+            dx_time = (filled[..., ch] - x_prev[..., ch]).unsqueeze(-1)
+
+            def time_field(zz, dx):
+                return fused_matmul_field(packed["trunk"], packed["head_w_time"],
+                                          packed["head_b_time"], zz, dx, H, 1)
+
+            def value_field(zz, dx):
+                return fused_matmul_field(packed["trunk"], packed["head_w"],
+                                          packed["head_b"], zz, dx, H, dx.shape[-1])
+
+        z = self._piece(time_field, z, dx_time)       # time-advance piece
+        z = self._piece(value_field, z, dx_vals)      # value-update piece
         return z, filled, self.readout(z)
 
     def init(self, x0):

@@ -18,8 +18,9 @@ import math
 from typing import Optional, Sequence
 
 import torch
+from torch import nn
 
-__all__ = ["linear_init", "linear_apply", "mlp_init", "mlp_apply"]
+__all__ = ["linear_init", "linear_apply", "mlp_init", "mlp_apply", "param_tree"]
 
 
 def linear_init(generator: torch.Generator, in_dim: int, out_dim: int,
@@ -57,3 +58,15 @@ def mlp_apply(layers, x: torch.Tensor, activation=torch.relu,
         elif final_activation is not None:
             x = final_activation(x)
     return x
+
+
+def param_tree(tree):
+    """A JAX-layout parameter tree as modules under the same names, so a
+    module's ``state_dict`` keys are the tree's paths: a dict of tensors
+    becomes an ``nn.ParameterDict``, any other dict an ``nn.ModuleDict``, a
+    list an ``nn.ModuleList``."""
+    if isinstance(tree, list):
+        return nn.ModuleList(param_tree(v) for v in tree)
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict(tree)
+    return nn.ModuleDict({k: param_tree(v) for k, v in tree.items()})

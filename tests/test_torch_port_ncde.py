@@ -143,8 +143,6 @@ def test_neural_cde_packs_time_slice_contiguously():
 @pytest.mark.parametrize("kw,match", [
     (dict(solver="implicit_adams"), "ROADMAP item 12"),
     (dict(solver="explicit_adams"), "ROADMAP item 12"),
-    (dict(vector_field="gru"), "ROADMAP item 14"),
-    (dict(vector_field_type="evaluate"), "ROADMAP item 14"),
 ])
 def test_unported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -512,8 +512,9 @@ def test_cdeint_paired_scan_is_used_for_rectilinear_controls(monkeypatch):
 
 
 def test_cdeint_refuses_unported_branches():
-    """The Adams methods and the unfused fields are refused; output times
-    [0, 2] inside the knot grid take the generic path, as in JAX."""
+    """The Adams methods are refused; output times [0, 2] inside the knot
+    grid take the generic path, as in JAX; the unfused matmul field takes
+    the piece scan."""
     coeffs, z0, jf, jparams, tf, H, C = _cdeint_case(10, rectilinear=False)
     spline = interpolation.LinearInterpolation.create(torch.from_numpy(coeffs))
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
@@ -533,10 +534,14 @@ def test_cdeint_refuses_unported_branches():
     close(got, want)
     for key in ("nfe", "accepted", "rejected"):
         assert int(gstats[key]) == int(wstats[key])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        torch_cdeint_mod.cdeint(spline, lambda t, z, p: tf(t, z),
-                                torch.from_numpy(z0), spline.interval,
-                                vector_field_type="matmul")
+    # The unfused matmul field (the (..., H, I) matrix contracted by cdeint)
+    # on the piece scan, against JAX's.
+    close(torch_cdeint_mod.cdeint(spline, lambda t, z, p: tf(t, z),
+                                  torch.from_numpy(z0), spline.interval,
+                                  vector_field_type="matmul"),
+          jax_cdeint_mod.cdeint(jax_interp.LinearInterpolation.create(jnp.asarray(coeffs)),
+                                lambda t, z, p: jf.apply(jparams, t, z), jnp.asarray(z0),
+                                jnp.asarray([0.0, 5.0]), vector_field_type="matmul"))
 
 
 # ------------------------------------------------------ loader, convert
