@@ -38,7 +38,10 @@ controls, and prints one JSON line per phase:
    profile   -- one ``predict`` under torch.profiler: device time by kernel
                 and the device's busy share of the call.
 7. stepper   -- ``OnlineNCDEStepper`` over 64 streams x 99 ticks against
-                the predictor's rows, and tick latencies.
+                the predictor's rows, and tick latencies; a stepper keeps
+                serving its construction weights, to the bit, after the
+                model is updated in place, and serves the new ones once its
+                ``params`` are assigned.
 8. train     -- ``make_train_step`` (Adam, BCE, lr 5e-4, interval adjoint)
                 on a B=512 flagship batch: the kernels' launch counts for
                 one step, the card's gradients against the CPU port's on a
@@ -71,8 +74,10 @@ controls, and prints one JSON line per phase:
                 forward and gradient, the card against the CPU.
 15. adaptive -- dopri5 with the paper's bounded step: the JAX bench's
                 config 3 (Hermite, B=512, L=24, C=9, H=HH=32, adjoint=False,
-                MSE) trained a few steps, and the flagship with the adjoint
-                serving one predict and taking one training step; gradients
+                MSE) trained a few steps, config 3 with the adjoint taking
+                one step through odeint_adjoint's reverse dopri5 solve, and
+                the flagship with the adjoint serving one predict (its
+                training step was cut for the run's time, PERF.md); gradients
                 and outputs against the CPU port, kernel launches against the
                 solvers' own evaluation counts, NFE, host reads, times and
                 profiles.  The kernel phases also hold and time both field
@@ -86,6 +91,24 @@ controls, and prints one JSON line per phase:
                 its kernel launches, host waits, step times and profile.
                 The kernel phases also hold and time both field kernels at
                 the zoo's (512 | 64, 128, 128, 128, 3).
+
+17. logode   -- the JAX bench's config 6, the log-ODE NCDE at full size: a
+                B=256, L=4096, C=4 batch, ``apply_logsig_transform``
+                ("logsig-2-8") on the card against the CPU port, to
+                (256, 513, 10); H=HH=32, two trunk layers, linear, RK4, the
+                interval adjoint, BCE, Adam lr 1e-3: gradients against the
+                CPU port on 16 rows, a step's launches (4,096 / 2,048), step
+                times, profile and peak memory, then one step of the same
+                NCDE on the raw series (32,760 / 16,380 launches) and the
+                trained model's auc, auprc, precision, f1 and accuracy.  The
+                kernel phases also hold and time both field kernels at its
+                (256, 32, 32, 10 | 4, 2).
+18. solver_extras -- on config 3: each Adams method's forward and training
+                step against the CPU (launches equal to its nfe, no host read
+                for implicit_adams), ``scipy_solver`` on 8 rows, one
+                differentiable ``odeint_event`` whose field is the forward
+                kernel, and a bf16 dopri5 ``NeuralCDE`` forward and step
+                against the CPU's bf16.
 
 Then a line with every kernel's numbers, a line with the run's seconds, a
 line with the card's name and power limit as ``nvidia-smi`` gives them,
@@ -220,6 +243,17 @@ BF16_RTOL, BF16_ATOL_REL, BF16_ROUNDED_ATOL_REL = 2.0 ** -7, 1e-5, 2.0 ** -8
 BF16_F32_OUT_RTOL, BF16_F32_OUT_ATOL_REL = 2.0 ** -10, 2.0 ** -11
 BF16_MIN_EQUAL, BF16_EQUAL_MIN_SIZE = 0.99, 1000
 BF16_MIN_EQUAL_ROUNDED, BF16_EQUAL_MIN_SIZE_ROUNDED = 0.80, 100
+# A relu input near 0 falls on either side under two summation orders, and
+# under "bfloat16" an operand rounded to its neighbour moves it by an ulp of
+# its terms; the backward then differs by the whole gradient through that
+# unit in that row.  A backward row (dz, ddx) past its gate is held against
+# the plain version with one relu decision of that row taken the other way:
+# one of its BF16_FLIP_TRIES inputs nearest 0, each within BF16_FLIP_MARGIN
+# of its layer's largest in the row, the first that brings the row within
+# its gate.  At most BF16_MAX_FLIPS a shape; every group is then gated as
+# before against the plain version with those decisions taken, and each is
+# printed (``kernel_bwd`` line, ``bf16.relu_flips``).
+BF16_FLIP_MARGIN, BF16_FLIP_TRIES, BF16_MAX_FLIPS = 2.0 ** -8, 8, 4
 BF16_TOLERANCE = {"rtol": BF16_RTOL, "atol_per_max": BF16_ATOL_REL,
                   "atol_per_max_rounded": BF16_ROUNDED_ATOL_REL,
                   "f32_storage_rounded_output": {"rtol": BF16_F32_OUT_RTOL,
@@ -286,6 +320,27 @@ CFG3_STEPS = 5
 # one such decision moves the gradients it reaches by up to ~1e-2 of their
 # max (PERF.md); a row whose input cotangents show it leaves the gradient
 # comparison, at most ZOO_MAX_DROPPED of GRAD_ROWS rows.
+# The JAX bench's config 6 (bench.py:800-856): the log-ODE length-for-width
+# trade at full size.  B=256 series of L=4096 steps, C=4 channels (time in
+# channel 0), depth-2 log-signatures over 8-step windows -> 513 knots of 10
+# channels; H=HH=32, two trunk layers, linear, RK4, the interval adjoint,
+# BCE, Adam lr 1e-3.  Its field kernels run at LOGODE_SHAPES (the logsig
+# and the raw series).  The transform on the card against the CPU port's:
+# the same f32 formulas, the window cumsum over 512 windows summed in
+# another order, so |err| <= LOGSIG_RTOL |want| + LOGSIG_ATOL_REL max|want|.
+LOGODE_B, LOGODE_L, LOGODE_C, LOGODE_H, LOGODE_DEPTH, LOGODE_WINDOW = 256, 4096, 4, 32, 2, 8
+LOGODE_SHAPES = [(LOGODE_B, LOGODE_H, LOGODE_H, 10, 2),
+                 (LOGODE_B, LOGODE_H, LOGODE_H, LOGODE_C, 2)]
+LOGODE_LR, LOGODE_STEPS = 1e-3, 5
+LOGSIG_RTOL, LOGSIG_ATOL_REL = 1e-5, 1e-5
+# The rest of the solvers on config 3: scipy on SCIPY_ROWS rows (a host
+# solve of a SCIPY_ROWS x 32 state through solve_ivp, one card read per
+# right-hand side); the differentiable event's field is the forward kernel
+# at config 3's widths with a fixed dX; a bf16 dopri5 config 3 held to the
+# CPU's bf16 on the card's step grid, outputs within PREDICT_BF16_RATIO and
+# each gradient tensor within GRAD_BF16_RATIO of the CPU's own
+# bf16-vs-f32 distance.
+SCIPY_ROWS, EVENT_BISECTIONS = 8, 40
 ZOO_HH_ATTN = 15
 ZOO_SHAPES = [(b, H, hh, i, 3) for hh in (HH, ZOO_HH_ATTN) for i in (C, H)
               for b in (TRAIN_B, N_REQUESTS)]
@@ -637,7 +692,7 @@ def phase_kernel(pk):
     gen = torch.Generator().manual_seed(1)
     errors, timings = [], {}
     with torch.inference_mode():
-        for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + FWD_WIDE:
+        for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + FWD_WIDE + LOGODE_SHAPES:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
             got = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
@@ -657,7 +712,7 @@ def phase_kernel(pk):
                            "gate_share": float((err / (KERNEL_RTOL * want.abs()
                                                        + KERNEL_ATOL)).max()),
                            "path": forward_grid(B, Hd, HHd, I)["path"]})
-        for shape in TIMED + [CFG3_SHAPE] + ZOO_SHAPES:
+        for shape in TIMED + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
             call = lambda: kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
@@ -730,6 +785,89 @@ def bwd_groups(out):
     return groups
 
 
+def plain_bwd_flipped(field, g, Hd, I, precision, flips):
+    """``kernels._backward_reference`` with the relu decisions at ``flips``
+    ((layer, row, unit)) taken the other way: (its result, each trunk
+    layer's relu inputs).  With no flips it is the plain version to the
+    bit (relu(x) and x * (x > 0) round alike)."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    trunk, head_w, head_b, z, dx = field
+    leaves = [t.detach().requires_grad_()
+              for t in (z, dx, head_w, head_b, *kernels._flat_trunk(trunk))]
+    z_, dx_, hw_, hb_, *flat = leaves
+    pres = []
+    with torch.enable_grad():
+        u = z_
+        for l, layer in enumerate(kernels._unflat_trunk(flat)):
+            pre = kernels._mm(u, layer["w"], precision) + layer["b"]
+            keep = pre.detach() > 0
+            for fl, r, j in flips:
+                if fl == l:
+                    keep[r, j] = ~keep[r, j]
+            pres.append(pre.detach())
+            u = pre * keep.to(pre.dtype)
+        a = torch.tanh(kernels._mm(u, hw_, precision) + hb_)
+        a = a.reshape(a.shape[:-1] + (I, a.shape[-1] // I))
+        out = torch.sum(a * dx_[..., :, None], dim=-2)[..., :Hd].to(z.dtype)
+        dz, ddx, dhw, dhb, *dflat = torch.autograd.grad(out, leaves, g)
+    return (kernels._unflat_trunk(dflat), dhw, dhb, dz, ddx), pres
+
+
+def bwd_row_shares(got, want, precision):
+    """Each batch row's share of the bf16 gate (:func:`bf16_readings`) on
+    the per-row groups dz and ddx."""
+    atol = BF16_ROUNDED_ATOL_REL if precision == "bfloat16" else BF16_ATOL_REL
+    shares = None
+    for (name, gt), (_, wt) in zip(bwd_groups(got), bwd_groups(want)):
+        if name not in ("dz", "ddx"):
+            continue
+        g, w = gt.double(), wt.double()
+        gate = (atol * float(w.abs().max()) + BF16_RTOL * w.abs()).clamp_min(1e-300)
+        s = ((g - w).abs() / gate).amax(dim=1)
+        shares = s if shares is None else torch.maximum(shares, s)
+    return shares
+
+
+def bf16_relu_flips(what, field, g, Hd, I, precision, got, want):
+    """The relu decisions the kernel took the other way (BF16_FLIP_*): for
+    each backward row past its gate, the first of its decisions nearest 0
+    whose flip in the plain version brings the row within its gate.
+    Returns (flips, what each flip was) or raises naming the row that no
+    such decision explains."""
+    plain, pres = plain_bwd_flipped(field, g, Hd, I, precision, [])
+    for (name, p), (_, w) in zip(bwd_groups(plain), bwd_groups(want)):
+        if not torch.equal(p, w):
+            raise AssertionError(f"{what}: the flippable plain version differs from the "
+                                 f"plain version in {name}")
+    shares = bwd_row_shares(got, want, precision)
+    rows = [int(r) for r in torch.nonzero(shares > 1.0).flatten()]
+    if len(rows) > BF16_MAX_FLIPS:
+        raise AssertionError(f"{what}: {len(rows)} rows past their gate (at most "
+                             f"{BF16_MAX_FLIPS} relu decisions are located): {rows[:8]}")
+    flips, located = [], []
+    for r in rows:
+        candidates = []
+        for l, pre in enumerate(pres):
+            rel = pre[r].double().abs() / float(pre[r].double().abs().max())
+            candidates += [(float(rel[j]), l, int(j)) for j in torch.argsort(rel)[:BF16_FLIP_TRIES]
+                           if rel[j] <= BF16_FLIP_MARGIN]
+        for margin, l, j in sorted(candidates)[:BF16_FLIP_TRIES]:
+            trial, _ = plain_bwd_flipped(field, g, Hd, I, precision, flips + [(l, r, j)])
+            if float(bwd_row_shares(got, trial, precision)[r]) <= 1.0:
+                flips.append((l, r, j))
+                located.append({"row": r, "layer": l, "unit": j,
+                                "relu_input": float(pres[l][r, j]),
+                                "row_max": float(pres[l][r].abs().max()),
+                                "row_share_before": float(shares[r])})
+                break
+        else:
+            raise AssertionError(f"{what}: row {r} is past its gate (share "
+                                 f"{float(shares[r])}) and no relu decision within "
+                                 f"{BF16_FLIP_MARGIN} of its layer's largest explains it")
+    return flips, located
+
+
 def phase_kernel_bwd(pk):
     """The backward kernel against its plain version (autograd through the
     plain forward) over the forward's sweep, each group within
@@ -740,7 +878,7 @@ def phase_kernel_bwd(pk):
 
     gen = torch.Generator().manual_seed(2)
     errors, timings = [], {}
-    for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES:
+    for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES:
         B, Hd, HHd, I, n = shape
         trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
         g = random_cotangent(gen, B, Hd, "cuda")
@@ -779,7 +917,7 @@ def phase_kernel_bwd(pk):
         raise AssertionError("backward kernel took H=257")
     if kernels.fused_field_bwd_kernel.launches != launches:
         raise AssertionError("backward kernel launched at H=257")
-    for shape in TRAIN_SHAPES + [CFG3_SHAPE] + ZOO_SHAPES:
+    for shape in TRAIN_SHAPES + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES:
         B, Hd, HHd, I, n = shape
         trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
         args = (trunk, head_w, head_b, z, dx, random_cotangent(gen, B, Hd, "cuda"),
@@ -793,7 +931,7 @@ def phase_kernel_bwd(pk):
     # bf16: every group over the sweep in every mode, against autograd
     # through the plain forward in the same mode, and in the rounded modes
     # the control; times at the training shapes.
-    bf16_sweep, bf16_timed, controls = [], {}, []
+    bf16_sweep, bf16_timed, controls, relu_flips = [], {}, [], []
     for dtype, precision in BF16_MODES:
         mode = mode_name(dtype, precision)
         exact = precision == "bfloat16" and dtype == torch.float32
@@ -806,12 +944,20 @@ def phase_kernel_bwd(pk):
             again = kernels._backward(*args)
             want = kernels._backward_reference(*args)
             torch.cuda.synchronize()
-            groups = {}
-            for (name, gt), (_, ag), (_, wt) in zip(bwd_groups(got), bwd_groups(again),
-                                                     bwd_groups(want)):
+            for (name, gt), (_, ag) in zip(bwd_groups(got), bwd_groups(again)):
                 if not torch.equal(gt, ag):
                     raise AssertionError(f"backward kernel {mode} at {shape}: {name} differs "
                                          "between two calls on the same inputs")
+            if any(bf16_readings(gt, wt, precision, exact=exact and rounded_group(name))
+                   ["failed"] for (name, gt), (_, wt) in zip(bwd_groups(got),
+                                                             bwd_groups(want))):
+                flips, located = bf16_relu_flips(f"backward kernel {mode} at {shape}",
+                                                 field, cotangent, Hd, I, precision,
+                                                 got, want)
+                want, _ = plain_bwd_flipped(field, cotangent, Hd, I, precision, flips)
+                relu_flips += [{"mode": mode, "shape": list(shape), **f} for f in located]
+            groups = {}
+            for (name, gt), (_, wt) in zip(bwd_groups(got), bwd_groups(want)):
                 groups[name] = ulp_gate(f"backward kernel {mode} at {shape}, {name}", gt, wt,
                                         precision, exact=exact and rounded_group(name))
             if precision == "bfloat16":
@@ -842,6 +988,9 @@ def phase_kernel_bwd(pk):
          library="none: no single PyTorch call computes the fused field's VJP",
          bf16={"tolerance": BF16_TOLERANCE, "sweep": bf16_sweep, "repeat": "bit-identical",
                "exact_groups_f32_storage": "dz, dhead_w, dtrunk[*].w", "control": controls,
+               "relu_flips": relu_flips,
+               "flip_rule": {"margin_per_max": BF16_FLIP_MARGIN, "tries": BF16_FLIP_TRIES,
+                             "max_per_shape": BF16_MAX_FLIPS},
                "timed": list(bf16_timed.values())},
          f32_digest=f32_digests("backward"))
     expect_refused("backward kernel", controls)
@@ -1176,7 +1325,44 @@ def phase_stepper(model, requests, static, outs):
          vs_predictor={"max_abs_err": err, "gate_share": share, "rtol": STEP_RTOL,
                        "atol": STEP_ATOL},
          tick_ms=percentiles(ticks), step_many_64_ms=many_ms,
-         sequential_64_steps_ms=seq_ms)
+         sequential_64_steps_ms=seq_ms, snapshot=stepper_snapshot(model, static, x))
+
+
+def stepper_snapshot(model, static, x, ticks=4):
+    """A stepper serves the weights it was built with (ROADMAP C1): built on
+    a copy of the model that is then updated in place (0.05 N(0, 1) on
+    every parameter, as an optimizer step), its rows equal to the bit those
+    of a stepper built on a deep copy taken before the update; once its
+    ``params`` are assigned the model's new state, those of a stepper built
+    after the update."""
+    import copy
+
+    from online_neural_cdes_tpu_torch import OnlineNCDEStepper
+
+    def rows(stepper):
+        state, out = stepper.init(x[:, 0]), []
+        for k in range(1, ticks + 1):
+            state, y = stepper.step(state, x[:, k])
+            out.append(y)
+        return torch.stack(out)
+
+    live = copy.deepcopy(model)
+    held = OnlineNCDEStepper(live, static=static, device="cuda")
+    before = OnlineNCDEStepper(copy.deepcopy(live), static=static, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in live.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen).to(p.device))
+    kept = rows(held)
+    if not torch.equal(kept, rows(before)):
+        raise AssertionError("stepper: an in-place model update reached a running stepper")
+    after = rows(OnlineNCDEStepper(live, static=static, device="cuda"))
+    held.params = live.state_dict()
+    if not torch.equal(rows(held), after):
+        raise AssertionError("stepper: the assigned params are not the ones served")
+    return {"ticks": ticks, "after_in_place_update": "bit-identical to the construction copy",
+            "after_params_assignment": "bit-identical to a fresh stepper",
+            "update_moved_rows_by": float((after - kept).abs().max())}
 
 
 def rectilinear_coeffs(x):
@@ -1721,7 +1907,7 @@ def phase_toy():
              seconds_cpu=cpu["seconds"])
 
 
-def config3(device):
+def config3(device, adjoint=False):
     """The config 3 model (random weights from a seed) and its batch: the
     Hermite coefficients and one normal target per series."""
     from online_neural_cdes_tpu_torch import (
@@ -1729,7 +1915,7 @@ def config3(device):
 
     model = NeuralCDE(input_dim=CFG3_C, hidden_dim=CFG3_H, output_dim=1,
                       hidden_hidden_dim=CFG3_H, num_layers=2, interpolation="hermite",
-                      return_sequences=False, adjoint=False, solver="dopri5",
+                      return_sequences=False, adjoint=adjoint, solver="dopri5",
                       generator=torch.Generator().manual_seed(0), device=device)
     rng = np.random.default_rng(2)
     x = rng.normal(size=(CFG3_B, CFG3_L, CFG3_C)).astype(np.float32)
@@ -1841,15 +2027,18 @@ def phase_adaptive():
     gives the no-grad solve's outputs to the bit; gradients against the
     CPU port on the full batch; one training step's launches equal the
     solver's own counts (replay: 6 per accepted step plus f0); step times,
-    profile, NFE and host reads.  The flagship with the adjoint: one
-    ``Predictor.predict`` against the CPU's and one B=512 training step
-    through ``odeint_adjoint``, gradients against the CPU on GRAD_ROWS rows,
-    launches against the counts (reverse: its nfe plus one f(t_i, y_i) per
-    output interval).  Each model's card and CPU nfe / accepted / rejected
-    are printed; a 3xTF32 round-off may flip a step decision, so they are
-    not gated, and the flagship's CPU is held to the card on the card's
-    own step grid (``following_steps``), with its distance on its own
-    steps printed beside."""
+    profile, NFE and host reads.  Config 3 with the adjoint: one training
+    step through ``odeint_adjoint`` (the augmented reverse dopri5 solve),
+    gradients against the CPU on the full batch, launches against the
+    counts (reverse: its nfe plus one f(t_i, y_i) per output interval, one
+    reverse solve an interval).  The flagship with the adjoint: one
+    ``Predictor.predict`` against the CPU's, launches against the counts
+    (its B=512 training step is cut for the run's time; config 3 with the
+    adjoint runs the same reverse solve).  Each model's card and CPU nfe /
+    accepted / rejected are printed; a 3xTF32 round-off may flip a step
+    decision, so they are not gated, and with the adjoint the CPU is held
+    to the card on the card's own step grid (``following_steps``), with
+    the flagship's distance on its own steps printed beside."""
     from online_neural_cdes_tpu_torch import Predictor
     from online_neural_cdes_tpu_torch.ops import solvers
     from online_neural_cdes_tpu_torch.training.loop import make_train_step
@@ -1900,6 +2089,45 @@ def phase_adaptive():
          device_busy_share=profile["device_busy_share"], profile=profile,
          seconds=time.perf_counter() - t_phase)
 
+    # -- config 3 with the adjoint ---------------------------------------
+    t_part = time.perf_counter()
+    model, coeffs, labels = config3("cuda", adjoint=True)
+    model_cpu, coeffs_cpu, labels_cpu = config3("cpu", adjoint=True)
+    model_cpu.load_state_dict(model.state_dict())
+    steps = []
+    with recording_steps(steps):
+        _, got = mse_grads(model, coeffs, labels)
+    t0 = time.perf_counter()
+    with following_steps(steps):   # the forward solve's steps, then the reverse solve's
+        _, want = mse_grads(model_cpu, coeffs_cpu, labels_cpu)
+    cpu_seconds = time.perf_counter() - t0
+    grads = grad_gate("config 3 adjoint: ", got, want)
+    step = make_train_step(model, loss="mse")
+    t0 = time.perf_counter()
+    loss, launches, counts = solve_counted(lambda: step(coeffs, labels, 1.0))  # the main path
+    step_ms = (time.perf_counter() - t0) * 1e3
+    expect_evals("config 3 adjoint train step", launches, counts)
+    intervals = 1   # return_sequences=False: the one output interval
+    rev = counts.get("reverse", {})
+    if (rev.get("solves"), rev.get("evals")) != (intervals, intervals) or not rev.get("nfe"):
+        raise AssertionError(f"config 3 adjoint: reverse counts {rev} for {intervals} "
+                             "output interval")
+    if counts.get("replay", {}).get("evals", 0):
+        raise AssertionError("config 3 adjoint: the forward solve was replayed")
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"config 3 adjoint loss not finite: {loss}")
+    paths["config3_adjoint_train_step"] = launches
+    profile = profile_call(lambda: step(coeffs, labels, 1.0), host=False)
+    emit("adaptive", model="config3", path="adjoint_train_step",
+         solver="dopri5 min_step=0.5", adjoint=True, batch=CFG3_B, intervals=intervals,
+         kernel_launches=launches, solver_counts=counts,
+         host_reads_per_step=sum(c["reads"] for c in counts.values()),
+         card={"forward": solve_stats(counts), "reverse": solve_stats(counts, "reverse")},
+         grads_vs_cpu_on_the_cards_steps={"rows": CFG3_B, **grads}, loss=float(loss),
+         train_step_ms=step_ms, device_busy_ms=profile["device_busy_ms"],
+         device_busy_share=profile["device_busy_share"], profile=profile,
+         cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_part)
+
     # -- the flagship, dopri5 with the adjoint ---------------------------
     t_part = time.perf_counter()
     model = flagship_model("cuda", solver="dopri5")
@@ -1944,45 +2172,10 @@ def phase_adaptive():
          vs_cpu_on_its_own_steps={"max_abs_err": free_err, "gated": False},
          predict_ms=predict_ms, device_busy_ms=profile["device_busy_ms"],
          device_busy_share=profile["device_busy_share"], profile=profile,
-         cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_part)
-    t_part = time.perf_counter()
-
-    inputs, lab = train_batch("cuda")
-    steps = []
-    solvers.reset_counts()
-    with recording_steps(steps):
-        got = slice_grads(model, inputs, lab, GRAD_ROWS)
-    rows_counts = {kind: dict(c) for kind, c in solvers.COUNTS.items()}
-    t0 = time.perf_counter()
-    with following_steps(steps):   # the forward solve's steps, then each reverse solve's
-        want = slice_grads(model_cpu, tuple(t.cpu() for t in inputs), lab.cpu(),
-                           GRAD_ROWS)
-    cpu_seconds = time.perf_counter() - t0
-    grads = grad_gate("flagship dopri5: ", got, want)
-    step = make_train_step(model, loss="bce", lr=TRAIN_LR)
-    t0 = time.perf_counter()
-    loss, launches, counts = solve_counted(lambda: step(inputs, lab, 1.0))  # the main path
-    step_ms = (time.perf_counter() - t0) * 1e3
-    expect_evals("flagship dopri5 train step", launches, counts)
-    intervals = 2 * TRAIN_L - 2
-    if counts["reverse"]["evals"] != intervals:
-        raise AssertionError(f"flagship adjoint: {counts['reverse']['evals']} output "
-                             f"evaluations for {intervals} intervals")
-    paths["train_step"] = launches
-    if not np.isfinite(float(loss)):
-        raise AssertionError(f"flagship dopri5 loss not finite: {loss}")
-    profile = profile_call(lambda: step(inputs, lab, 1.0), host=False)
-    emit("adaptive", model="flagship", path="train_step", solver="dopri5 min_step=0.5",
-         adjoint=True, batch=TRAIN_B, intervals=intervals, kernel_launches=launches,
-         solver_counts=counts, host_reads_per_step=sum(c["reads"] for c in counts.values()),
-         card={"forward": solve_stats(counts), "reverse": solve_stats(counts, "reverse")},
-         card_rows={"rows": GRAD_ROWS, "forward": solve_stats(rows_counts),
-                    "reverse": solve_stats(rows_counts, "reverse")},
-         grads_vs_cpu_on_the_cards_steps={"rows": GRAD_ROWS, **grads},
-         loss=float(loss), train_step_ms=step_ms, device_busy_ms=profile["device_busy_ms"],
-         device_busy_share=profile["device_busy_share"], profile=profile,
          cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_part,
          phase_seconds=time.perf_counter() - t_phase)
+    # The flagship's adjoint training step (~73 s) is cut for the run's time
+    # (PERF.md); config 3 trains through the same reverse solve above.
     return {f"adaptive_{k}": v for k, v in paths.items()}
 
 
@@ -2433,6 +2626,356 @@ def phase_zoo():
     return paths
 
 
+# ---------------------------------------------------------------- log-ODE
+
+
+def logode_batch():
+    """Config 6's raw batch as ``bench.py`` makes it: B series of L steps,
+    C channels scaled by 0.1, time in channel 0, a label per series."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(LOGODE_B, LOGODE_L, LOGODE_C)).astype(np.float32) * 0.1
+    x[:, :, 0] = np.arange(LOGODE_L) / LOGODE_L
+    return x, (x[:, :, 1].sum(1) > 0).astype(np.float32)
+
+
+def logode_model(input_dim, device):
+    from online_neural_cdes_tpu_torch import NeuralCDE
+
+    return NeuralCDE(input_dim=input_dim, hidden_dim=LOGODE_H, output_dim=1,
+                     hidden_hidden_dim=LOGODE_H, num_layers=2, interpolation="linear",
+                     return_sequences=False, adjoint=True, solver="rk4",
+                     generator=torch.Generator().manual_seed(6), device=device)
+
+
+def bce_grads(model, coeffs, labels):
+    """Parameter gradients of the masked BCE of ``model(coeffs)``."""
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+
+    model.zero_grad(set_to_none=True)
+    masked_temporal_loss(make_loss("bce"), model(coeffs), labels).backward()
+    return {name: p.grad.detach().clone() for name, p in model.named_parameters()}
+
+
+def phase_logode(device="cuda"):
+    """The log-ODE NCDE of the JAX bench's config 6, nothing cut: the
+    transform on the card against the CPU port's; the model's gradients on
+    GRAD_ROWS rows against the CPU port's; one training step's launches
+    (8 / 4 per knot interval: the forward solve and the adjoint's reverse
+    stages), LOGODE_STEPS timed steps after one warm step, a profiled step
+    and the peak memory; one step of the same NCDE on the raw series; the
+    trained model's metrics on the batch (numpy, no scikit-learn)."""
+    from online_neural_cdes_tpu_torch import linear_interpolation_coeffs
+    from online_neural_cdes_tpu_torch.data.loader import apply_logsig_transform
+    from online_neural_cdes_tpu_torch.ops.logsig import logsignature_channels
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+    from online_neural_cdes_tpu_torch.training.metrics import METRICS
+
+    t_phase = time.perf_counter()
+    x, labels_np = logode_batch()
+    apply_logsig_transform(x[:2], LOGODE_DEPTH, LOGODE_WINDOW, device=device)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xl = apply_logsig_transform(x, LOGODE_DEPTH, LOGODE_WINDOW, device=device)
+    transform_ms = (time.perf_counter() - t0) * 1e3
+    xl_cpu = apply_logsig_transform(x, LOGODE_DEPTH, LOGODE_WINDOW, device="cpu")
+    channels = logsignature_channels(LOGODE_C, LOGODE_DEPTH)
+    knots = LOGODE_L // LOGODE_WINDOW + 1
+    if xl.shape != (LOGODE_B, knots, channels) or not np.isfinite(xl).all():
+        raise AssertionError(f"logsig transform: shape {xl.shape} or non-finite values")
+    atol = LOGSIG_ATOL_REL * float(np.abs(xl_cpu).max())
+    np.testing.assert_allclose(xl, xl_cpu, rtol=LOGSIG_RTOL, atol=atol)
+    transform = {"shape": list(xl.shape), "ms": transform_ms,
+                 "max_abs_err": float(np.abs(xl - xl_cpu).max()),
+                 "gate_share": gate_share(xl, xl_cpu, LOGSIG_RTOL, atol),
+                 "rtol": LOGSIG_RTOL, "atol_per_max": LOGSIG_ATOL_REL}
+
+    labels = torch.from_numpy(labels_np).to(device)
+    coeffs = linear_interpolation_coeffs(torch.from_numpy(xl).to(device))
+    model = logode_model(channels, device)
+    model_cpu = logode_model(channels, "cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    got = bce_grads(model, coeffs[:GRAD_ROWS], labels[:GRAD_ROWS])
+    want = bce_grads(model_cpu, coeffs[:GRAD_ROWS].cpu(), labels[:GRAD_ROWS].cpu())
+    grads = grad_gate("log-ODE: ", got, want)
+
+    intervals = knots - 1
+    step = make_train_step(model, loss="bce", lr=LOGODE_LR)
+    loss, launches = counted(lambda: step(coeffs, labels, 1.0))    # the main path
+    expect_launches("one log-ODE step", launches, forward=8 * intervals,
+                    backward=4 * intervals)
+    losses, step_ms = [float(loss)], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LOGODE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(coeffs, labels, 1.0)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    profile = profile_call(lambda: step(coeffs, labels, 1.0), host=False)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"log-ODE losses not finite: {losses}")
+    with torch.inference_mode():
+        preds = model(coeffs).float().cpu().numpy()
+    scores = {name: fn(preds, labels_np) for name, fn in METRICS.items()}
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"log-ODE metrics not finite: {scores}")
+    emit("logode", source="bench.py:800-856", batch=LOGODE_B, length=LOGODE_L,
+         channels=LOGODE_C, interpolation=f"logsig-{LOGODE_DEPTH}-{LOGODE_WINDOW}",
+         transform=transform, knots=knots, shape=list(LOGODE_SHAPES[0]),
+         grads_vs_cpu={"rows": GRAD_ROWS, **grads}, kernel_launches=launches,
+         losses=losses, train_step_ms=percentiles(step_ms), peak_memory_mb=peak_mb,
+         device_busy_ms=profile["device_busy_ms"],
+         device_busy_share=profile["device_busy_share"], profile=profile,
+         metrics=scores, seconds=time.perf_counter() - t_phase)
+
+    # The same NCDE on the raw series: one step, counted and timed.
+    t_part = time.perf_counter()
+    raw = logode_model(LOGODE_C, device)
+    raw_coeffs = linear_interpolation_coeffs(torch.from_numpy(x).to(device))
+    raw_step = make_train_step(raw, loss="bce", lr=LOGODE_LR)
+    t0 = time.perf_counter()
+    raw_loss, raw_launches = counted(lambda: raw_step(raw_coeffs, labels, 1.0))
+    raw_ms = (time.perf_counter() - t0) * 1e3
+    expect_launches("one raw-series step", raw_launches, forward=8 * (LOGODE_L - 1),
+                    backward=4 * (LOGODE_L - 1))
+    if not np.isfinite(float(raw_loss)):
+        raise AssertionError(f"raw-series loss not finite: {raw_loss}")
+    emit("logode", path="raw_series", knots=LOGODE_L, shape=list(LOGODE_SHAPES[1]),
+         kernel_launches=raw_launches, train_step_ms={"one_sample": raw_ms},
+         step_ratio_raw_over_logsig=raw_ms / float(np.median(step_ms)),
+         launch_ratio_raw_over_logsig=raw_launches["forward"] / launches["forward"],
+         seconds=time.perf_counter() - t_part, phase_seconds=time.perf_counter() - t_phase)
+    return {"logode_logsig_step": launches, "logode_raw_step": raw_launches}
+
+
+# ----------------------------------------------------------- solver extras
+
+
+def mse_input_cotangents(model, coeffs, labels):
+    """The masked MSE's gradient with respect to the coefficients."""
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+
+    coeffs = coeffs.detach().clone().requires_grad_()
+    model.zero_grad(set_to_none=True)
+    masked_temporal_loss(make_loss("mse"), model(coeffs), labels).backward()
+    return coeffs.grad
+
+
+def config3_model(device, solver, dtype=torch.float32):
+    from online_neural_cdes_tpu_torch import NeuralCDE
+
+    return NeuralCDE(input_dim=CFG3_C, hidden_dim=CFG3_H, output_dim=1,
+                     hidden_hidden_dim=CFG3_H, num_layers=2, interpolation="hermite",
+                     return_sequences=False, adjoint=False, solver=solver,
+                     generator=torch.Generator().manual_seed(0), device=device,
+                     dtype=dtype)
+
+
+def phase_solver_extras(device="cuda"):
+    """The rest of the solvers on config 3 (``bench.py:368-405``): each
+    Adams method's forward and one training step (launches equal to the
+    solver's nfe, backward too since autograd differentiates every field
+    call; no host read for implicit_adams; gradients against the CPU
+    port); ``scipy_solver`` forward on SCIPY_ROWS rows against the CPU;
+    one differentiable ``odeint_event`` with the forward kernel as its field
+    (event time, state and gradients against the CPU); a bf16 dopri5
+    ``NeuralCDE``: one forward and one step, held to the CPU's bf16 on the
+    card's step grid."""
+    from online_neural_cdes_tpu_torch import odeint, odeint_event
+    from online_neural_cdes_tpu_torch.ops import kernels, solvers
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+
+    t_phase = time.perf_counter()
+    _, coeffs, labels = config3(device)
+    _, coeffs_cpu, labels_cpu = config3("cpu")
+    paths = {}
+
+    # -- the Adams methods ------------------------------------------------
+    for method in ("explicit_adams", "implicit_adams"):
+        t_part = time.perf_counter()
+        model, model_cpu = config3_model(device, method), config3_model("cpu", method)
+        model_cpu.load_state_dict(model.state_dict())
+        model64 = config3_model("cpu", method, torch.float64)
+        model64.load_state_dict({k: v.double() for k, v in model.state_dict().items()})
+        with torch.inference_mode():
+            out, launches, counts = solve_counted(lambda: model(coeffs))
+            want, want64 = model_cpu(coeffs_cpu), model64(coeffs_cpu.double())
+        nfe = counts["forward"]["nfe"]
+        expect_launches(f"{method} forward", launches, forward=nfe)
+        # Explicit Adams-Bashforth of order up to 12 at one step a knot is
+        # unstable on config 3: it magnifies round-off until f32 no longer
+        # decides some series (``cpu_f32_vs_f64_max`` in the line).
+        # Each method is held on the series its CPU f32 resolves against
+        # f64 (within ZOO_RESOLVED of the gate): outputs on those whose
+        # outputs it resolves (at least half), gradients on the loss over
+        # those whose input cotangents it resolves too (at least a quarter).
+        keep = ((want - want64).abs() <= ZOO_RESOLVED * (
+            SERVE_ATOL + SERVE_RTOL * want.abs())).all(-1)
+        if int(keep.sum()) < CFG3_B // 2:
+            raise AssertionError(f"{method}: the CPU's f32 resolves {int(keep.sum())} "
+                                 f"of {CFG3_B} series")
+        torch.testing.assert_close(out.cpu()[keep], want[keep], rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL)
+        kept = lambda lab, rows: torch.where(rows.to(lab.device), lab,
+                                             torch.full_like(lab, np.nan))
+        shares = row_shares([mse_input_cotangents(model_cpu, coeffs_cpu,
+                                                  kept(labels_cpu, keep))],
+                            [mse_input_cotangents(model64, coeffs_cpu.double(),
+                                                  kept(labels_cpu, keep).double())])
+        grad_rows = keep & (torch.tensor(shares) <= ZOO_RESOLVED)
+        if int(grad_rows.sum()) < CFG3_B // 4:
+            raise AssertionError(f"{method}: the CPU's f32 resolves the gradients of "
+                                 f"{int(grad_rows.sum())} of {CFG3_B} series")
+        _, got = mse_grads(model, coeffs, kept(labels, grad_rows))
+        _, want_g = mse_grads(model_cpu, coeffs_cpu, kept(labels_cpu, grad_rows))
+        grads = grad_gate(f"{method}: ", got, want_g)
+        step = make_train_step(model, loss="mse")
+        t0 = time.perf_counter()
+        loss, step_launches, step_counts = solve_counted(lambda: step(coeffs, labels, 1.0))
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step_nfe = step_counts["forward"]["nfe"]
+        expect_launches(f"{method} train step", step_launches, forward=step_nfe,
+                        backward=step_nfe)
+        reads = counts["forward"]["reads"] + step_counts["forward"]["reads"]
+        if method == "implicit_adams" and reads:
+            raise AssertionError(f"implicit_adams read the card {reads} times")
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"{method} loss not finite: {loss}")
+        paths[f"{method}_train_step"] = step_launches
+        emit("solver_extras", path=method, model="config3", batch=CFG3_B,
+             kernel_launches={"forward_pass": launches, "train_step": step_launches},
+             nfe=nfe, host_reads=reads, resolved_series=int(keep.sum()),
+             cpu_f32_vs_f64_max=float((want - want64).abs().max()),
+             vs_cpu={"max_abs_err": float((out.cpu()[keep] - want[keep]).abs().max()),
+                     "gate_share": gate_share(out.cpu()[keep], want[keep], SERVE_RTOL,
+                                              SERVE_ATOL)},
+             grads_vs_cpu={"rows": int(grad_rows.sum()), **grads}, train_step_ms=step_ms,
+             seconds=time.perf_counter() - t_part)
+
+    # -- scipy_solver, forward only ---------------------------------------
+    t_part = time.perf_counter()
+    model, model_cpu = (config3_model(device, "scipy_solver"),
+                        config3_model("cpu", "scipy_solver"))
+    model_cpu.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        out, launches, counts = solve_counted(lambda: model(coeffs[:SCIPY_ROWS]))
+        solvers.reset_counts()
+        want = model_cpu(coeffs_cpu[:SCIPY_ROWS])
+        cpu_counts = dict(solvers.COUNTS["forward"])
+    expect_launches("scipy_solver forward", launches, forward=counts["forward"]["nfe"])
+    torch.testing.assert_close(out.cpu(), want, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    emit("solver_extras", path="scipy_solver", model="config3", rows=SCIPY_ROWS,
+         kernel_launches=launches, card=solve_stats(counts), cpu=cpu_counts,
+         vs_cpu={"max_abs_err": float((out.cpu() - want).abs().max()),
+                 "gate_share": gate_share(out.cpu(), want, SERVE_RTOL, SERVE_ATOL)},
+         seconds=time.perf_counter() - t_part)
+
+    # -- a differentiable event with the forward kernel as its field --------
+    t_part = time.perf_counter()
+    gen = torch.Generator().manual_seed(11)
+    field = random_field(gen, CFG3_B, CFG3_H, CFG3_H, CFG3_C, 2, "cpu")
+    trunk, head_w, head_b, z0, dx = field
+    dx = dx * 0.3
+    readout = torch.randn(CFG3_H, generator=gen) / CFG3_H ** 0.5
+
+    def event_case(dev):
+        """The field on ``dev`` with fresh leaves z0 and head_w (the event's
+        args) that take gradients."""
+        tr = [{k: v.to(dev) for k, v in layer.items()} for layer in trunk]
+        hb, d, r = head_b.to(dev), dx.to(dev), readout.to(dev)
+        z, hw = (t.detach().clone().to(dev).requires_grad_() for t in (z0, head_w))
+
+        def f(t, y, args):
+            return kernels.fused_matmul_field(tr, args, hb, y, d, CFG3_H, CFG3_C)
+
+        return f, z, hw, r
+
+    def level_of(dev):
+        # A short dopri5 solve of the same field puts the level in reach.
+        f, z, hw, r = event_case(dev)
+        with torch.no_grad():
+            ys = odeint(f, z, torch.tensor([0.0, 1.0]), hw, rtol=1e-5, atol=1e-7)
+        return float(0.5 * ((ys[0] @ r).mean() + (ys[1] @ r).mean()))
+
+    level = level_of("cpu")
+
+    def event_run(dev):
+        f, z, hw, r = event_case(dev)
+        event_fn = lambda t, y: (y @ r).mean() - level
+        solvers.reset_counts()
+        t_event, y_event = odeint_event(f, z, 0.0, event_fn, hw, rtol=1e-5, atol=1e-7,
+                                        bisection_iters=EVENT_BISECTIONS,
+                                        differentiable=True)
+        counts = dict(solvers.COUNTS["forward"])
+        (t_event + 0.1 * y_event.mean()).backward()
+        return t_event.detach(), y_event.detach(), z.grad, hw.grad, counts
+
+    (t_g, y_g, dz_g, dw_g, counts), launches = counted(lambda: event_run(device))
+    t_w, y_w, dz_w, dw_w, cpu_counts = event_run("cpu")
+    resolve = 4 * EVENT_BISECTIONS
+    # Forward: the solve's nfe, the re-solve and the Newton step's f (its
+    # ``evals``); the backward: the Newton step's f's VJP and the re-solve's.
+    expect_launches("differentiable event", launches,
+                    forward=counts["nfe"] + counts["evals"], backward=resolve + 1)
+    torch.testing.assert_close(t_g.cpu(), t_w, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    torch.testing.assert_close(y_g.cpu(), y_w, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    event_grads = grad_gate("event: ", {"z0": dz_g, "head_w": dw_g},
+                            {"z0": dz_w, "head_w": dw_w})
+    paths["event"] = launches
+    emit("solver_extras", path="odeint_event", field="forward kernel, config 3 widths",
+         batch=CFG3_B, event_time={"card": float(t_g), "cpu": float(t_w)},
+         kernel_launches=launches, card=counts, cpu=cpu_counts,
+         grads_vs_cpu=event_grads, seconds=time.perf_counter() - t_part)
+
+    # -- a bf16 dopri5 NeuralCDE -----------------------------------------
+    t_part = time.perf_counter()
+    model = config3_model(device, "dopri5", torch.bfloat16)
+    model_cpu = config3_model("cpu", "dopri5", torch.bfloat16)
+    model_cpu.load_state_dict(model.state_dict())
+    model_f32 = config3_model("cpu", "dopri5")
+    model_f32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    c16, c16_cpu = coeffs.bfloat16(), coeffs_cpu.bfloat16()
+    steps = []
+    with torch.inference_mode():
+        with recording_steps(steps):
+            out, launches, counts = solve_counted(lambda: model(c16))
+        with following_steps(steps):
+            want = model_cpu(c16_cpu)
+        want32 = model_f32(c16_cpu.float())
+    expect_evals("bf16 dopri5 forward", launches, counts)
+    dist = float((want.float() - want32).abs().max())
+    out_share = float((out.float().cpu() - want.float()).abs().max()) / dist
+    if not out_share <= PREDICT_BF16_RATIO:
+        raise AssertionError(f"bf16 dopri5 outputs: {out_share} of the CPU's "
+                             "bf16-vs-f32 distance")
+    steps = []
+    with recording_steps(steps):
+        _, got = mse_grads(model, c16, labels.bfloat16())
+    with following_steps(steps):
+        _, want_g = mse_grads(model_cpu, c16_cpu, labels_cpu.bfloat16())
+    _, want32_g = mse_grads(model_f32, c16_cpu.float(), labels_cpu)
+    shares = {name: float(torch.linalg.norm((got[name].float().cpu() - want_g[name].float()))
+                          / torch.linalg.norm(want_g[name].float() - want32_g[name]))
+              for name in want_g}
+    worst = max(shares, key=shares.get)
+    if not shares[worst] <= GRAD_BF16_RATIO:
+        raise AssertionError(f"bf16 dopri5 gradient of {worst}: {shares[worst]} of the "
+                             "CPU's bf16-vs-f32 distance")
+    step = make_train_step(model, loss="mse")
+    loss, step_launches, step_counts = solve_counted(
+        lambda: step(c16, labels.bfloat16(), 1.0))
+    expect_evals("bf16 dopri5 train step", step_launches, step_counts)
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"bf16 dopri5 loss not finite: {loss}")
+    paths["bf16_dopri5_train_step"] = step_launches
+    emit("solver_extras", path="bf16_dopri5", model="config3", batch=CFG3_B,
+         kernel_launches={"forward_pass": launches, "train_step": step_launches},
+         card=solve_stats(counts), outputs_share_of_bf16_vs_f32=out_share,
+         output_gate=PREDICT_BF16_RATIO, grad_shares_of_bf16_vs_f32=shares,
+         grad_gate=GRAD_BF16_RATIO, loss=float(loss),
+         seconds=time.perf_counter() - t_part, phase_seconds=time.perf_counter() - t_phase)
+    return {f"solver_extras_{k}": v for k, v in paths.items()}
+
+
 def times(t):
     return {"ms": t["kernel_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
@@ -2454,7 +2997,7 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
           "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg",
-          "adaptive", "zoo")
+          "adaptive", "zoo", "logode", "solver_extras")
 
 
 def main(argv=None) -> int:
@@ -2505,6 +3048,10 @@ def main(argv=None) -> int:
         adaptive_launches = phase_adaptive()
     if "zoo" in phases:
         zoo_launches = phase_zoo()
+    if "logode" in phases:
+        logode_launches = phase_logode()
+    if "solver_extras" in phases:
+        extras_launches = phase_solver_extras()
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
@@ -2517,7 +3064,8 @@ def main(argv=None) -> int:
     by_path = {"predict": serve_launches, "train_step": train_launches,
                "hermite_predict": hermite_serve, "hermite_train_step": hermite_train,
                "interval_chain": chain_launches, "train_step_bf16": train_bf16_launches,
-               "predict_bf16": predict_bf16_launches, **adaptive_launches, **zoo_launches}
+               "predict_bf16": predict_bf16_launches, **adaptive_launches, **zoo_launches,
+               **logode_launches, **extras_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}

@@ -23,7 +23,11 @@ the adaptive Runge-Kutta solvers (``ops.solvers.odeint``,
 every vector field kind and type (``models.vector_fields``), the stacked
 and attention NCDEs, ODE-RNN, GRU-D and the GRU/RNN baselines
 (``models``), so every model of the JAX harness's registry builds, trains
-and serves.
+and serves; and the rest of the solvers (the Adams methods,
+``scipy_solver``, ``odeint_event`` / ``combine_event_functions``, bf16
+states), the log-ODE transform (``ops.logsig``,
+``data.loader.apply_logsig_transform``) and the rank and threshold
+metrics without scikit-learn (``training.metrics``).
 ``ROADMAP.md`` lists what comes next.
 """
 
@@ -52,6 +56,11 @@ from online_neural_cdes_tpu_torch.models import (  # noqa: F401
     VectorField,
     prepare_gru_variant_data,
     sparsemax,
+)
+from online_neural_cdes_tpu_torch.ops.solvers import (  # noqa: F401
+    combine_event_functions,
+    odeint,
+    odeint_event,
 )
 from online_neural_cdes_tpu_torch.serving import (  # noqa: F401
     OnlineNCDEStepper,

@@ -1,17 +1,70 @@
-"""Ragged-batch padding for serving.
+"""Ragged-batch padding for serving, and the log-ODE transform of raw
+series.
 
-The port's own copy of ``pad_ragged`` from the JAX package's
-``data/loader.py`` (host-side numpy, unchanged semantics).  The rest of the
-data pipeline comes with a later slice (ROADMAP item 16).
+The port's own copies of ``pad_ragged``, ``parse_logsig_string`` and
+``apply_logsig_transform`` from the JAX package's ``data/loader.py``
+(unchanged semantics).  The transform runs on the card unless the caller
+asks for the CPU, and returns numpy, as the JAX package's does.  The rest
+of the data pipeline comes with a later slice (ROADMAP item 16).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["pad_ragged"]
+from online_neural_cdes_tpu_torch.ops.logsig import logsig_windows, num_windows
+from online_neural_cdes_tpu_torch.utils.device import resolve_device
+
+__all__ = ["pad_ragged", "parse_logsig_string", "apply_logsig_transform"]
+
+
+def parse_logsig_string(interpolation: str) -> Tuple[int, float]:
+    """'logsig-<depth>-<window>' -> (depth, window_length in observation-index
+    units).  e.g. 'logsig-2-8' = depth-2 log-signatures over 8-step windows."""
+    parts = interpolation.split("-")
+    if len(parts) != 3:
+        raise ValueError(
+            f"logsig interpolation key must be 'logsig-<depth>-<window>', "
+            f"got {interpolation!r}"
+        )
+    depth, window = int(parts[1]), float(parts[2])
+    if depth < 1 or window <= 0:
+        raise ValueError(f"invalid logsig depth/window in {interpolation!r}")
+    return depth, window
+
+
+def apply_logsig_transform(temporal, depth: int, window: float, chunk: int = 512,
+                           device=None) -> np.ndarray:
+    """Log-ODE preprocessing of raw (..., L, C) series in float32 (NaNs are
+    linearly in-filled by the transform), ``chunk`` series at a time on
+    ``device`` (the card unless ``device="cpu"``); returns numpy.  A ragged
+    corpus (an object array of (L_i, C) series) runs as one batch: every
+    series NaN-padded to the longest (the in-fill repeats the last row, so
+    pad rows have zero increments, Chen's identity), then each truncated to
+    its own window count."""
+    device = resolve_device(device)
+
+    def transform(block):
+        x = torch.from_numpy(np.asarray(block, np.float32)).to(device)
+        return logsig_windows(x, depth, window).cpu().numpy()
+
+    if temporal.dtype == object:
+        lens = [len(t) for t in temporal]
+        c = np.asarray(temporal[0]).shape[-1]
+        padded = np.full((len(temporal), max(lens), c), np.nan, np.float32)
+        for i, t in enumerate(temporal):
+            padded[i, : lens[i]] = np.asarray(t, np.float32)
+        full = np.concatenate([transform(padded[i: i + chunk])
+                               for i in range(0, len(padded), chunk)], axis=0)
+        out = np.empty(len(temporal), dtype=object)
+        for i, length in enumerate(lens):
+            out[i] = full[i, : num_windows(length - 1, window) + 1]
+        return out
+    return np.concatenate([transform(temporal[i: i + chunk])
+                           for i in range(0, len(temporal), chunk)], axis=0)
 
 
 def _round_up(n: int, multiple: int) -> int:

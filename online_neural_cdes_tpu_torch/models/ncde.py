@@ -1,9 +1,10 @@
 """The Neural CDE model.
 
-PyTorch counterpart of the JAX package's ``models/ncde.py`` for the fixed
-and adaptive Runge-Kutta solvers and every spline of its registry (linear,
-rectilinear, natural cubic, Hermite, and linear with cubic or quintic
-smoothing).
+PyTorch counterpart of the JAX package's ``models/ncde.py`` for every
+solver of its list (the fixed and adaptive Runge-Kutta methods, the Adams
+methods and the host ``scipy_solver``, forward only) and every spline of
+its registry (linear, rectilinear, natural cubic, Hermite, and linear with
+cubic or quintic smoothing).
 ``NeuralCDE`` is an ``nn.Module``: the constructor takes the JAX
 dataclass's fields and makes the parameters (``field``, ``initial``,
 ``final``, under the JAX pytree's names) from a ``torch.Generator``;
@@ -21,8 +22,9 @@ the plain field, ``VectorField.apply``, as the JAX model's non-fused
 branch does (the JAX package has no kernel for them).  A forward that needs
 gradients (grad mode on, parameters or inputs requiring grad) goes through
 ``cdeint``'s interval adjoint (``adjoint=True``, the default) or autograd
-through the scan, and an adaptive solver's through ``odeint_adjoint`` or
-the differentiable solve's replay; every reverse stage of the fused
+through the scan, and an adaptive or Adams solver's through
+``odeint_adjoint`` or autograd (an adaptive solve's through its replay);
+every reverse stage of the fused
 field then runs its backward kernel ``csrc/fused_field_bwd.cu`` on the
 card.
 """
@@ -112,16 +114,18 @@ class NeuralCDE(nn.Module):
                  + ("explicit_adams", "implicit_adams", "scipy_solver"))
         if solver not in valid:
             raise ValueError(f"unknown solver {solver!r}; one of {sorted(valid)}")
-        if solver in ("explicit_adams", "implicit_adams", "scipy_solver"):
-            raise NotImplementedError(
-                f"solver={solver!r} is not ported yet (ROADMAP item 12: the "
-                "Adams solvers and scipy_solver)"
-            )
-        # The piece scan's reverse solve is fixed-grid; the adaptive path's
-        # may be adaptive too.
+        if solver == "scipy_solver" and adjoint:
+            # A host solve: no gradient goes through it (the JAX model asserts).
+            raise ValueError(
+                "scipy_solver is a host solve: gradients cannot go through it -- "
+                "construct with adjoint=False and do not differentiate.")
+        # The piece scan's reverse solve is fixed-grid; the generic path's
+        # may use the forward's family too.
         adjoint_methods = tuple(_solvers.FIXED_METHODS)
         if solver in _solvers.ADAPTIVE_METHODS:
             adjoint_methods += tuple(_solvers.ADAPTIVE_METHODS)
+        if solver in _solvers.ADAMS_METHODS:
+            adjoint_methods += _solvers.ADAMS_METHODS
         if adjoint_method is not None and adjoint_method not in adjoint_methods:
             raise ValueError(
                 f"adjoint_method {adjoint_method!r} must be one of {adjoint_methods}"
@@ -193,13 +197,18 @@ class NeuralCDE(nn.Module):
     @property
     def solver_settings(self) -> dict:
         """The reference's presets (ncde.py:129-134): dopri5 with the
-        bounded step ``min_step=0.5``, the other adaptive methods with plain
-        tolerances, and the fixed methods one step per knot interval
-        (substeps=1 on the piece scan)."""
+        bounded step ``min_step=0.5``, the other adaptive methods and
+        ``scipy_solver`` with plain tolerances, the Adams methods one
+        multistep step per unit of the knot grid (``step_size=1``, resolved
+        by ``cdeint`` against the knot grid's host copy),
+        and the fixed methods one step per knot interval (substeps=1 on the
+        piece scan)."""
         if self.solver == "dopri5":
             return dict(atol=1e-5, rtol=1e-3, options={"min_step": 0.5})
-        if self.solver in _solvers.ADAPTIVE_METHODS:
+        if self.solver in _solvers.ADAPTIVE_METHODS or self.solver == "scipy_solver":
             return dict(atol=1e-5, rtol=1e-3, options={})
+        if self.solver in _solvers.ADAMS_METHODS:
+            return dict(atol=1e-5, rtol=1e-3, options={"step_size": 1})
         return dict(atol=1e-5, rtol=1e-3,
                     options={"substeps": 1, "unroll": self.solver_unroll})
 
@@ -243,16 +252,19 @@ class NeuralCDE(nn.Module):
             outputs = final(hidden[..., -1, :])
         return outputs
 
-    def packed_field(self) -> dict:
-        """The field's parameters packed for the fused op
-        (``pack_fused_params``).  A rectilinear model adds its time
+    def packed_field(self, field_params: Optional[dict] = None) -> dict:
+        """The field's parameters (``field_params``, laid out as
+        ``self.field.params``, by default the field's own) packed for the
+        fused op (``pack_fused_params``).  A rectilinear model adds its time
         channel's head columns as contiguous ``head_w_time`` (HH, H) and
         ``head_b_time`` (H,): the time-advance intervals contract against
         that channel only (the piece scan's; an adaptive model's field takes
         ``trunk``, ``head_w`` and ``head_b`` alone, as the JAX model's).
         Packed once per forward, outside the scan."""
         H = self.hidden_dim
-        packed = pack_fused_params(self.field.params, H, self.input_dim)
+        packed = pack_fused_params(
+            self.field.params if field_params is None else field_params, H,
+            self.input_dim)
         if self.interpolation == "rectilinear" and self.solver in _solvers.FIXED_METHODS:
             k = self.rectilinear_time_channel
             packed["head_w_time"] = packed["head_w"][:, k * H:(k + 1) * H].contiguous()

@@ -551,10 +551,15 @@ def _generic_cdeint(X, func, z0, t, args, adjoint, vector_field_type, method, at
     vf = _make_cde_field(func, vector_field_type)
     theta = (X, args)
     if not t.requires_grad:
-        # The solvers step with host times: the knot grid's host copy, or
-        # one read of the times.
-        t = (torch.tensor(X.host_grid(), dtype=t.dtype) if t is X.grid_points
-             else torch.from_numpy(solvers._host(t)))
+        # The solvers step with host times: the knot grid's host copy (all
+        # of it, or the end points for the spline's interval), or one read
+        # of the times.
+        if t is X.grid_points or t is X.interval:
+            grid = X.host_grid()
+            t = torch.tensor(grid if t is X.grid_points else (grid[0], grid[-1]),
+                             dtype=t.dtype)
+        else:
+            t = solvers._host_tensor(t)
     if "step_size" in options:
         options["substeps"] = _resolve_substeps(options, solvers._host(t))
         options.pop("step_size")

@@ -273,7 +273,13 @@ class _InterpolationBase:
 
     @property
     def interval(self) -> torch.Tensor:
-        return torch.stack([self.t[0], self.t[-1]])
+        # One tensor per spline (unless its times take gradients), so
+        # ``cdeint`` can tell it apart and take its end points from the host.
+        if self.t.requires_grad:
+            return torch.stack([self.t[0], self.t[-1]])
+        if getattr(self, "_interval", None) is None:
+            self._interval = torch.stack([self.t[0], self.t[-1]])
+        return self._interval
 
     def host_grid(self) -> tuple:
         """Knot times as Python floats (one device read if they were only

@@ -31,9 +31,20 @@ solve's own nfe.
 
 A state is one tensor or a tuple of tensors (any nesting of tuples, lists
 and dicts); its leaves step together and, as the JAX package's ravelled
-state, share one dtype (float32 or float64).  The Adams solvers,
-``scipy_solver``, ``odeint_event`` and bf16 states come with a later slice
-(ROADMAP item 12).
+state, share one dtype (float32, float64 or bfloat16).  A bf16 state's
+controller scalars are rounded to bf16 after every operation, as the JAX
+package does its controller arithmetic in the state's dtype; numpy has no
+bf16, so they round through a CPU bf16 tensor (``_Bf16``).
+
+Besides the Runge-Kutta methods: the Adams-Bashforth(-Moulton) multistep
+methods (``explicit_adams`` / ``implicit_adams``, fixed grid, order
+growing with the history to 12, the corrector's convergence test decided
+on the device), ``scipy_solver`` (a host solve through
+``scipy.integrate.solve_ivp``, one device read per right-hand side), and
+``odeint_event`` / ``combine_event_functions`` (an adaptive solve until an
+event function crosses zero, the crossing found by bisection on the dense
+output on the device; ``differentiable=True`` gives the event time its
+gradients by the implicit function theorem).
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional
 
@@ -50,13 +62,13 @@ from torch.utils.checkpoint import checkpoint
 
 from online_neural_cdes_tpu_torch.utils.tree import flatten
 
-__all__ = ["odeint", "FIXED_METHODS", "FIXED_NFE_PER_STEP", "ADAPTIVE_METHODS",
-           "ButcherTableau", "tree_fixed_step", "COUNTS", "reset_counts",
-           "counting_as"]
+__all__ = ["odeint", "odeint_event", "combine_event_functions", "FIXED_METHODS",
+           "FIXED_NFE_PER_STEP", "ADAPTIVE_METHODS", "ADAMS_METHODS", "ButcherTableau",
+           "tree_fixed_step", "COUNTS", "reset_counts", "counting_as"]
 
 FIXED_METHODS = ("euler", "midpoint", "rk4")
 FIXED_NFE_PER_STEP = {"euler": 1, "midpoint": 2, "rk4": 4}
-_UNPORTED = ("explicit_adams", "implicit_adams", "scipy_solver")
+ADAMS_METHODS = ("explicit_adams", "implicit_adams")
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +180,7 @@ ADAPTIVE_METHODS = {
 
 
 # ---------------------------------------------------------------------------
-# Counts of the adaptive solves
+# Counts of the adaptive, Adams, scipy and event solves
 # ---------------------------------------------------------------------------
 
 COUNTS: dict = {}
@@ -206,8 +218,68 @@ def _read(x: torch.Tensor) -> list:
 # Fixed-grid steppers of the piece scan (tuple states, host step sizes)
 # ---------------------------------------------------------------------------
 
-_HOST_ROUND = {torch.float64: float, torch.float32: np.float32,
-               torch.float16: np.float16}
+class _Bf16(float):
+    """A host scalar of a bf16 state: a float holding a bf16 value, every
+    arithmetic result rounded to bf16 (through a CPU tensor: numpy has no
+    bf16), as the JAX package's controller computes in the state's dtype."""
+
+    def __new__(cls, x=0.0):
+        return super().__new__(cls, torch.tensor(float(x), dtype=torch.bfloat16).item())
+
+    def __add__(self, o):
+        return _Bf16(float(self) + float(o))
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return _Bf16(float(self) - float(o))
+
+    def __rsub__(self, o):
+        return _Bf16(float(o) - float(self))
+
+    def __mul__(self, o):
+        return _Bf16(float(self) * float(o))
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return _Bf16(float(self) / float(o))
+
+    def __rtruediv__(self, o):
+        return _Bf16(float(o) / float(self))
+
+    def __pow__(self, o):
+        return _Bf16(float(self) ** float(o))
+
+    def __neg__(self):
+        return _Bf16(-float(self))
+
+    def __abs__(self):
+        return _Bf16(abs(float(self)))
+
+
+def _cast(x, S):
+    """A host array in the scalar type ``S`` (a bf16 state's: an object
+    array of ``_Bf16``)."""
+    x = np.asarray(x)
+    if S is _Bf16:
+        return np.array([_Bf16(v) for v in x.reshape(-1).tolist()],
+                        dtype=object).reshape(x.shape)
+    return x.astype(S)
+
+
+def _nextafter(x, toward):
+    """The next value of x's type after x towards ``toward``."""
+    if isinstance(x, _Bf16):
+        nxt = torch.nextafter(torch.tensor(float(x), dtype=torch.bfloat16),
+                              torch.tensor(float(toward), dtype=torch.bfloat16))
+        return _Bf16(nxt.item())
+    return np.nextafter(x, toward)
+
+
+# Host scalars of a state's dtype.
+_NUMPY = {torch.float64: np.float64, torch.float32: np.float32, torch.bfloat16: _Bf16}
+_HOST_ROUND = {**_NUMPY, torch.float16: np.float16}
 
 
 def _step_size(dt, y: torch.Tensor):
@@ -299,16 +371,16 @@ def tree_fixed_step(method: str, live: Optional[int] = None):
 # parameter tensor), with the same arithmetic as one op per leaf.
 # ---------------------------------------------------------------------------
 
-_NUMPY = {torch.float64: np.float64, torch.float32: np.float32}
-
-
 def _lincomb(cs, ks):
     """sum(c * k for c, k in zip(cs, ks) if c != 0) for each leaf, terms
     added left to right (the JAX step's association), or None when every
-    coefficient is 0."""
+    coefficient is 0.  Each c is rounded to the leaves' dtype first, as a
+    Python number meets an array in JAX (no change in f32 and f64)."""
     terms = [(c, k) for c, k in zip(cs, ks) if c != 0]
     if not terms:
         return None
+    S = _NUMPY[terms[0][1][0].dtype]
+    terms = [(float(S(c)), k) for c, k in terms]
     acc = torch._foreach_mul(terms[0][1], terms[0][0])
     for c, k in terms[1:]:
         acc = torch._foreach_add(acc, torch._foreach_mul(k, c))
@@ -548,19 +620,20 @@ def _midpoint_step(func, t0, dt, y0, S):
     return [yl + fl * float(h) for yl, fl in zip(y0, k2)], 2
 
 
-def _rk4_38_step(func, t0, dt, y0, S):
+def _rk4_38_step(func, t0, dt, y0, S, f0=None):
     """RK4 3/8-rule -- the variant the reference uses for method='rk4'
-    (rk_common.py:106-114 ``rk4_alt_step_func``)."""
+    (rk_common.py:106-114 ``rk4_alt_step_func``).  ``f0`` reuses a
+    derivative already taken at (t0, y0) as k1 (the Adams bootstrap)."""
     T = type(dt)
     h = S(dt)
     third, hf = float(h / S(3.0)), float(h)
-    k1 = func(t0, y0)
+    k1 = func(t0, y0) if f0 is None else f0
     k2 = func(t0 + dt / T(3.0), [y + a * third for y, a in zip(y0, k1)])
     k3 = func(t0 + T(2.0) * dt / T(3.0),
               [y + (b - a / 3.0) * hf for y, a, b in zip(y0, k1, k2)])
     k4 = func(t0 + dt, [y + (a - b + c) * hf for y, a, b, c in zip(y0, k1, k2, k3)])
     return [y + ((a + (b + c) * 3.0 + d) * hf) * 0.125
-            for y, a, b, c, d in zip(y0, k1, k2, k3, k4)], 4
+            for y, a, b, c, d in zip(y0, k1, k2, k3, k4)], (4 if f0 is None else 3)
 
 
 _FIXED_STEPS = {
@@ -632,6 +705,175 @@ def _stack(states):
 
 
 # ---------------------------------------------------------------------------
+# Adams-Bashforth(-Moulton) multistep (reference fixed_adams.py: fixed-grid
+# predictor/corrector whose order GROWS with the history, after an RK4
+# bootstrap, up to max_order=12; the corrector iterates functionally up to
+# max_iters=4 with an L-inf error-ratio convergence test).  Coefficient
+# tables come from exact Lagrange-basis integration over the uniform node
+# stencil (Fraction arithmetic).
+# ---------------------------------------------------------------------------
+
+_ADAMS_MIN_ORDER = 4
+_ADAMS_MAX_ORDER = 12
+_ADAMS_MAX_ITERS = 4
+
+
+def _lagrange_quadrature_row(nodes):
+    """Exact ``b_j = integral_0^1 l_j(s) ds`` for the Lagrange basis on
+    ``nodes``, via Fraction polynomial arithmetic (lowest degree first)."""
+    from fractions import Fraction
+
+    row = []
+    for j, xj in enumerate(nodes):
+        coeffs = [Fraction(1)]
+        denom = Fraction(1)
+        for m, xm in enumerate(nodes):
+            if m == j:
+                continue
+            # multiply the running polynomial by (s - x_m)
+            shifted = [Fraction(0)] + coeffs
+            coeffs = [
+                shifted[i] - Fraction(xm) * (coeffs[i] if i < len(coeffs) else 0)
+                for i in range(len(shifted))
+            ]
+            denom *= Fraction(xj) - Fraction(xm)
+        integral = sum(c / (i + 1) for i, c in enumerate(coeffs))
+        row.append(float(integral / denom))
+    return row
+
+
+@functools.lru_cache(maxsize=4)
+def _adams_coefficient_tables(max_order: int):
+    """(bashforth, moulton) coefficient rows.  ``bashforth[k]`` multiplies
+    the k most recent derivative values f_n, f_{n-1}, ... (nodes 0,-1,...);
+    ``moulton[k]`` has its first entry on the implicit f_{n+1} (nodes
+    1,0,-1,...); e.g. bashforth[4] = [55,-59,37,-9]/24, moulton[3] =
+    [5,8,-1]/12."""
+    bashforth = [np.zeros(0)]
+    moulton = [np.zeros(0)]
+    for k in range(1, max_order + 1):
+        bashforth.append(np.asarray(_lagrange_quadrature_row([-m for m in range(k)])))
+        moulton.append(np.asarray(_lagrange_quadrature_row([1 - m for m in range(k)])))
+    return bashforth, moulton
+
+
+def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, atol=1e-4,
+                     max_order: int = _ADAMS_MAX_ORDER, max_iters: int = _ADAMS_MAX_ITERS):
+    """``substeps`` uniform Adams steps per output interval of the uniform
+    host times ``t``.  The first two steps are RK4 (3/8) bootstraps that
+    reuse the step's f_n as k1; then the predictor (Adams-Bashforth of the
+    history's order) and, with ``correct``, ``max_iters`` Adams-Moulton
+    corrector evaluations whose update freezes once the batch-wide L-inf
+    ratio of the last change falls below 1.  That test is a 0-d bool on
+    the state's device (``torch.where``), never read by the host: a
+    corrected step makes 1 + max_iters field calls and no host read, and
+    its nfe counts them all, as the JAX package's fixed-length scan."""
+    max_order = int(max(max_order, _ADAMS_MIN_ORDER))
+    hist_len = max_order - 1
+    n_steps = (len(t) - 1) * substeps
+    diffs = np.diff(t).astype(np.float64)
+    if diffs.size > 1 and not np.allclose(diffs, diffs[0], rtol=1e-6, atol=0):
+        raise ValueError(
+            "explicit/implicit_adams requires uniformly spaced output times (got "
+            f"spacings {diffs.min():g}..{diffs.max():g}); interpolate outputs onto a "
+            "uniform grid or use an RK method.")
+    T = type(t[0])
+    h_t = (t[-1] - t[0]) / T(n_steps)
+    h = S(h_t)
+    bash_tab, moul_tab = _adams_coefficient_tables(max_order)
+    rtol_f, atol_f = float(S(rtol)), float(S(atol))
+
+    def dot(coeffs, fs):
+        """sum_j c_j f_j with the coefficients in the state's dtype; a bf16
+        history is summed in f32 and rounded once, as XLA's bf16 dot."""
+        if S is not _Bf16:
+            return _lincomb(coeffs, fs)
+        wide = _lincomb([float(S(c)) for c in coeffs], [[l.float() for l in f] for f in fs])
+        return [l.to(torch.bfloat16) for l in wide]
+
+    y, hist, nfe, states = list(y0), [], 0, [list(y0)]
+    for i in range(n_steps):
+        tt = t[0] + T(i) * h_t
+        f_n = func(tt, y)
+        hist = [f_n] + hist[:hist_len - 1]
+        nfe += 1
+        if i < _ADAMS_MIN_ORDER - 2:
+            y, extra = _rk4_38_step(func, tt, h_t, y, S, f0=f_n)
+            nfe += extra
+        else:
+            order = min(i + 1, hist_len)
+            dy = torch._foreach_mul(dot(bash_tab[order], hist[:order]), float(h))
+            if correct:
+                mrow = moul_tab[order + 1]
+                hm0 = float(h * S(mrow[0]))
+                delta = torch._foreach_mul(dot(mrow[1:], hist[:order]), float(h))
+                done = torch.zeros((), dtype=torch.bool, device=y[0].device)
+                for _ in range(max_iters):
+                    f_c = func(tt + h_t, torch._foreach_add(y, dy))
+                    dy_new = torch._foreach_add(torch._foreach_mul(f_c, hm0), delta)
+                    scale = torch._foreach_add(torch._foreach_mul(torch._foreach_maximum(
+                        torch._foreach_abs(dy), torch._foreach_abs(dy_new)), rtol_f), atol_f)
+                    err = torch._foreach_div(torch._foreach_abs(torch._foreach_sub(dy, dy_new)),
+                                             scale)
+                    ratio = torch.stack([e.max() for e in err]).max()
+                    dy = [torch.where(done, a, b) for a, b in zip(dy, dy_new)]
+                    done = done | (ratio < 1.0)
+                nfe += max_iters
+            y = torch._foreach_add(y, dy)
+        states.append(list(y))
+    _count(solves=1, nfe=nfe, accepted=n_steps)
+    return _stack(states[::substeps]), _stats(nfe, n_steps, 0)
+
+
+# ---------------------------------------------------------------------------
+# SciPy host solve (reference scipy_wrapper.py:9-56)
+# ---------------------------------------------------------------------------
+
+def _scipy_integrate(func, y0, t, rtol, atol, options):
+    """``scipy.integrate.solve_ivp`` over the ravelled state in float64 on
+    the host (``options["solver"]``, LSODA by default; ``max_step``, and
+    ``min_step`` with LSODA only).  The field runs on the state's device:
+    each right-hand side is one counted device read.  Not differentiable."""
+    from scipy.integrate import solve_ivp
+
+    shapes = [leaf.shape for leaf in y0]
+    sizes = [leaf.numel() for leaf in y0]
+    dtype, device = y0[0].dtype, y0[0].device
+    nfe = [0]
+
+    def rhs(tt, yy):
+        nfe[0] += 1
+        flat = torch.from_numpy(yy).to(device=device, dtype=dtype)
+        leaves = [part.reshape(shape) for part, shape in zip(flat.split(sizes), shapes)]
+        with torch.no_grad():
+            out = torch.cat([leaf.reshape(-1) for leaf in func(tt, leaves)])
+        return np.asarray(_read(out.double()), np.float64)
+
+    solver = options.get("solver", "LSODA")
+    kwargs = {}
+    if "max_step" in options:
+        kwargs["max_step"] = float(options["max_step"])
+    if "min_step" in options:
+        # Of scipy's methods only LSODA takes min_step; another would raise
+        # a TypeError deep inside scipy.
+        if solver != "LSODA":
+            raise ValueError(
+                f"scipy solver {solver!r} does not support min_step (only LSODA does); "
+                "drop the option or use solver='LSODA'")
+        kwargs["min_step"] = float(options["min_step"])
+    y_start = np.asarray(_read(torch.cat([leaf.reshape(-1) for leaf in y0]).double()),
+                         np.float64)
+    t_np = np.asarray(t, np.float64)
+    sol = solve_ivp(rhs, t_span=(t_np[0], t_np[-1]), y0=y_start, t_eval=t_np,
+                    method=solver, rtol=rtol, atol=atol, **kwargs)
+    ys = torch.from_numpy(np.ascontiguousarray(sol.y.T)).to(device=device, dtype=dtype)
+    out = [part.reshape((len(t_np),) + tuple(shape))
+           for part, shape in zip(ys.split(sizes, dim=1), shapes)]
+    _count(solves=1, nfe=nfe[0], accepted=len(sol.t))
+    return out, _stats(nfe[0], len(sol.t), 0)
+
+
+# ---------------------------------------------------------------------------
 # Adaptive solver (reference rk_common.py:216-305 semantics incl. the
 # min_step/max_step modification), the controller on the host
 # ---------------------------------------------------------------------------
@@ -655,15 +897,15 @@ class _RKState:
 def _special_grids(tableau: ButcherTableau, t, S, step_t, jump_t):
     """Sorted (special_t, jump_t) discontinuity grids (host arrays of the
     state's dtype)."""
-    step_t = (np.zeros((0,), S) if step_t is None
-              else np.sort(_host(step_t).astype(S)))
+    step_t = (_cast(np.zeros((0,)), S) if step_t is None
+              else np.sort(_cast(_host(step_t), S)))
     if tableau.mid is None and tableau.order > 4:
         # High-order tableau without a matching dense output (DOP853): land
         # exactly on the requested times instead of interpolating with the
         # (order-3) Hermite fallback.
-        step_t = np.sort(np.concatenate([step_t, t[1:].astype(S)]))
-    jump_t = (np.zeros((0,), S) if jump_t is None
-              else np.sort(_host(jump_t).astype(S)))
+        step_t = np.sort(np.concatenate([step_t, _cast(t[1:], S)]))
+    jump_t = (_cast(np.zeros((0,)), S) if jump_t is None
+              else np.sort(_cast(_host(jump_t), S)))
     return np.sort(np.concatenate([step_t, jump_t])), jump_t
 
 
@@ -677,7 +919,7 @@ class _Controller:
                  error_weights=None, error_blocks=False):
         S = _NUMPY[y0[0].dtype]
         self.S, self.func, self.y0, self.tableau = S, func, y0, tableau
-        self.t = t.astype(S)
+        self.t = _cast(t, S)
         self.rtol, self.atol = S(rtol), S(atol)
         self.min_step, self.max_step = S(min_step), S(max_step)
         self.min_step_given = min_step > 0
@@ -718,12 +960,12 @@ class _Controller:
             t1 = nxt
         dt = self.S(t1 - t0)
         lands = bool((self.special == t1).any())
-        return dt, t1, (np.nextafter(t1, t0) if lands else t1)
+        return dt, t1, (_nextafter(t1, t0) if lands else t1)
 
     def jump_reseed(self, t1):
         """The time just past a declared jump that t1 lands on, else None."""
         if self.jumps.shape[0] and bool((self.jumps == t1).any()):
-            return np.nextafter(t1, t1 + self.S(1))
+            return _nextafter(t1, t1 + self.S(1))
         return None
 
     def error_ratio(self, err, y0, y1, k, dt) -> torch.Tensor:
@@ -920,8 +1162,22 @@ def _host(x) -> np.ndarray:
         x = x.detach()
         if x.device.type != "cpu":
             _count(reads=1)
+        if x.dtype == torch.bfloat16:
+            return _cast(x.cpu().float().numpy(), _Bf16)
         return x.cpu().numpy()
     return np.asarray(x)
+
+
+def _host_tensor(x: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of times (one counted read for a device tensor)."""
+    if x.device.type != "cpu":
+        _count(reads=1)
+    return x.detach().cpu()
+
+
+def _time_dtype(t_host: np.ndarray) -> torch.dtype:
+    """The torch dtype of host times (an object array holds bf16 times)."""
+    return torch.bfloat16 if t_host.dtype == object else torch.from_numpy(t_host[:0]).dtype
 
 
 # ---------------------------------------------------------------------------
@@ -946,9 +1202,11 @@ def odeint(
     ``substeps`` / ``remat`` / ``grid_constructor`` (fixed grid) and
     ``min_step`` / ``max_step`` / ``first_step`` / ``safety`` / ``ifactor``
     / ``dfactor`` / ``max_num_steps`` / ``step_t`` / ``jump_t`` /
-    ``error_weights`` / ``differentiable`` / ``max_steps`` (adaptive); a
-    tuple state's error is normed per leaf and max-combined unless
-    ``options={"norm": "rms"}``.  ``func`` gets its time as a 0-d tensor on
+    ``error_weights`` / ``differentiable`` / ``max_steps`` (adaptive),
+    ``step_size`` / ``substeps`` / ``max_order`` / ``max_iters`` (the Adams
+    methods, on uniformly spaced times) and ``solver`` / ``min_step`` /
+    ``max_step`` (``scipy_solver``); a tuple state's error is normed per
+    leaf and max-combined unless ``options={"norm": "rms"}``.  ``func`` gets its time as a 0-d tensor on
     the state's device (the state's dtype on the adaptive path, the times'
     on the fixed grid).  ``return_stats`` adds ``{"nfe", "accepted",
     "rejected"}`` (and ``"grid_exhausted"`` for a differentiable solve).
@@ -959,9 +1217,7 @@ def odeint(
     for leaf in leaves[1:]:
         dtype = torch.promote_types(dtype, leaf.dtype)
     if dtype not in _NUMPY:
-        raise NotImplementedError(
-            f"odeint of a {dtype} state is not ported yet (ROADMAP item 12: bf16 "
-            "states); it takes float32 and float64")
+        raise ValueError(f"odeint takes float32, float64 and bfloat16 states, not {dtype}")
     S = _NUMPY[dtype]
     dtypes = [leaf.dtype for leaf in leaves]
     y = [leaf.to(dtype) for leaf in leaves]
@@ -983,8 +1239,7 @@ def odeint(
     if method in FIXED_METHODS:
         remat = bool(options.pop("remat", False))
         grid_constructor = options.pop("grid_constructor", None)
-        time_dtype = torch.from_numpy(t_host[:0]).dtype
-        flat_func = make_func(time_dtype)
+        flat_func = make_func(_time_dtype(t_host))
         if grid_constructor is not None:
             if "step_size" in options or options.get("substeps"):
                 raise ValueError(
@@ -997,10 +1252,15 @@ def odeint(
             substeps = _substeps_from_options(options, t_host)
             ys, stats = _fixed_grid_integrate(flat_func, y, t_host, S, method, substeps,
                                               remat)
-    elif method in _UNPORTED:
-        raise NotImplementedError(
-            f"odeint method={method!r} is not ported yet (ROADMAP item 12: the "
-            "Adams solvers and scipy_solver)")
+    elif method in ADAMS_METHODS:
+        flat_func = make_func(_time_dtype(t_host))
+        ys, stats = _adams_integrate(
+            flat_func, y, t_host, S, _substeps_from_options(options, t_host),
+            correct=method == "implicit_adams", rtol=float(rtol), atol=float(atol),
+            max_order=int(options.pop("max_order", _ADAMS_MAX_ORDER)),
+            max_iters=int(options.pop("max_iters", _ADAMS_MAX_ITERS)))
+    elif method == "scipy_solver":
+        ys, stats = _scipy_integrate(make_func(dtype), y, t_host, rtol, atol, options)
     elif method in ADAPTIVE_METHODS:
         flat_func = make_func(dtype)
         differentiable = bool(options.pop("differentiable", False))
@@ -1044,3 +1304,118 @@ def odeint(
     if return_stats:
         return ys, stats
     return ys
+
+
+# ---------------------------------------------------------------------------
+# Event handling (reference event_handling.py:5-35, odeint.py:93-164)
+# ---------------------------------------------------------------------------
+
+def combine_event_functions(event_fn, t0, y0):
+    """Fold a vector-valued event function into a scalar one whose first
+    zero-crossing is the first crossing of any component (signs normalised
+    at (t0, y0))."""
+    signs0 = torch.sign(event_fn(t0, y0))
+
+    def combined(t, y):
+        return torch.min(signs0 * event_fn(t, y))
+
+    return combined
+
+
+def odeint_event(func, y0: torch.Tensor, t0, event_fn, args=None, *, rtol: float = 1e-7,
+                 atol: float = 1e-9, method: str = "dopri5", options: Optional[dict] = None,
+                 bisection_iters: int = 40, differentiable: bool = False):
+    """Integrate dy/dt = func(t, y, args) from (t0, y0) until
+    ``event_fn(t, y)`` crosses zero; returns ``(event_t, y_event)``, 0-d
+    and y0-shaped tensors on y0's device.  The JAX package's
+    ``odeint_event``: an adaptive solve (the host controller of
+    ``odeint``, ``options`` ``min_step`` / ``max_step`` / ``safety`` /
+    ``ifactor`` / ``dfactor`` / ``max_num_steps``) that reads the event's
+    sign after each accepted step, then ``bisection_iters`` bisections of
+    the crossing step's dense output, on the device with no host read.  A
+    vector-valued ``event_fn`` is combined with
+    :func:`combine_event_functions`.
+
+    With ``differentiable=True`` the state is re-solved to the bisected
+    time by RK4 with ``bisection_iters`` steps, differentiably, and the
+    event time takes one Newton step of the event function there, so both
+    carry gradients to y0 and ``args``."""
+    options = dict(options or {})
+    if method not in ADAPTIVE_METHODS:
+        raise ValueError("odeint_event requires an adaptive method")
+    # The event loop norms the error as one RMS block, DOP853's too.
+    tableau = dataclasses.replace(ADAPTIVE_METHODS[method], c_error_alt=None)
+    dtype, device = y0.dtype, y0.device
+    S = _NUMPY[dtype]
+    t0 = S(float(t0))
+
+    def time(tt):
+        return torch.full((), float(tt), dtype=dtype, device=device)
+
+    def flat_func(tt, yy):
+        if not isinstance(tt, torch.Tensor):
+            tt = time(tt)
+        return [func(tt, yy[0], args)]
+
+    probe = event_fn(time(t0), y0)
+    if probe.dim() > 0 and probe.numel() > 1:
+        event_fn = combine_event_functions(event_fn, time(t0), y0)
+
+    def sign(tt, y):
+        return torch.sign(event_fn(time(tt), y))
+
+    ctl = _Controller(flat_func, [y0], np.array([t0, t0]), tableau, rtol=rtol, atol=atol,
+                      min_step=float(options.get("min_step", 0.0)),
+                      max_step=float(options.get("max_step", float("inf"))),
+                      first_step=None, safety=float(options.get("safety", 0.9)),
+                      ifactor=float(options.get("ifactor", 10.0)),
+                      dfactor=float(options.get("dfactor", 0.2)))
+    max_num_steps = int(options.get("max_num_steps", 2**20))
+    with torch.no_grad():
+        sign0 = sign(t0, y0)
+        s = ctl.start()
+        crossed = False
+        while not crossed and s.accepted + s.rejected < max_num_steps:
+            s, step = ctl.attempt(s)
+            if step is not None:
+                crossed = _read(sign(s.t1, s.y1[0]) != sign0)[0]
+        # Bisection on the crossing step's dense output, on the device.
+        if s.last is None:
+            fit = [[torch.zeros_like(y0)] * 4 + [y0]]
+        else:
+            fit = _fit_from_stages(*s.last[:3], s.last[3], tableau)
+        span = float(s.t1 - s.t0)
+
+        def dense(tt):
+            x = ((tt - float(s.t0)) / span).to(dtype)
+            return _interp_evaluate(fit, x)[0]
+
+        lo, hi = time(s.t0), time(s.t1)
+        for _ in range(bisection_iters):
+            mid = 0.5 * (lo + hi)
+            same = torch.sign(event_fn(mid, dense(mid))) == sign0
+            lo, hi = torch.where(same, mid, lo), torch.where(same, hi, mid)
+        event_t = 0.5 * (lo + hi)
+        y_event = dense(event_t)
+    _count(solves=1, nfe=s.nfe, accepted=s.accepted, rejected=s.rejected)
+    if not differentiable:
+        return event_t, y_event
+    # The re-solve's grid needs the event time on the host: one read.
+    t_star = S(_read(event_t)[0])
+    ys, _ = _fixed_grid_integrate(flat_func, [y0], _cast([float(t0), float(t_star)], S), S,
+                                  "rk4", substeps=int(bisection_iters))
+    _count(evals=4 * int(bisection_iters) + 1)   # the re-solve and the Newton step's f
+    y_event = ys[0][-1]
+    # One Newton step of g from the gradient-stopped t*, under autograd:
+    # d t_event / d theta = -(dg/dy . dy/dtheta) / (dg/dt + dg/dy . f).
+    graph = y_event.requires_grad
+    with torch.enable_grad():
+        t_ = event_t.detach().requires_grad_()
+        y_ = y_event if graph else y_event.detach().requires_grad_()
+        g = event_fn(t_, y_)
+        gt, gy = torch.autograd.grad(g, (t_, y_), create_graph=graph, allow_unused=True)
+        gt = torch.zeros_like(g) if gt is None else gt
+        gy = torch.zeros_like(y_) if gy is None else gy
+        denom = gt + torch.sum(gy * func(t_.detach(), y_, args))
+        event_t = t_.detach() - g / torch.where(denom == 0, torch.ones_like(denom), denom)
+    return (event_t if graph else event_t.detach()), y_event

@@ -6,7 +6,10 @@ bucketed-batch server for ragged, NaN-holding requests) and
 time).  Both run on the CUDA card unless ``device="cpu"`` is asked for,
 and raise when neither is available.  The model carries its parameters
 (an ``nn.Module``), so neither takes a separate ``params`` argument; the
-model must already live on the server's device.
+model must already live on the server's device.  ``Predictor`` serves the
+model's current weights; ``OnlineNCDEStepper`` serves a snapshot taken at
+construction, which assigning its ``params`` replaces, as the JAX
+stepper serves the ``params`` it holds.
 
 Work is enqueued on the current CUDA stream and read back only where a
 result leaves the server (``Predictor._collect``'s ``.cpu()``), so
@@ -30,6 +33,29 @@ from online_neural_cdes_tpu_torch.utils.device import resolve_device
 from online_neural_cdes_tpu_torch.utils.params import linear_apply
 
 __all__ = ["OnlineNCDEStepper", "Predictor", "predictor_from_bundle"]
+
+
+def _tree(state: dict, prefix: str):
+    """The entries of a state dict under ``prefix`` as the JAX-layout tree
+    the model's modules hold (dicts, and lists where every key is an
+    index), or None when there are none."""
+    root: dict = {}
+    for key, value in state.items():
+        if key.startswith(prefix):
+            node, parts = root, key[len(prefix):].split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = value
+
+    def listed(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listed(v) for k, v in node.items()}
+        if all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listed(root) if root else None
 
 
 def _round_up(n: int, m: int) -> int:
@@ -311,9 +337,38 @@ class OnlineNCDEStepper:
         self.dtype = model.dtype
         self.static = None if static is None else self._tensor(static)
         self._rk_step = _solvers.tree_fixed_step(model.solver)
-        # Packed once: the stepper serves the weights the model holds now.
-        with torch.inference_mode():
-            self._packed = model.packed_field() if model.uses_fused_field else None
+        self.params = model.state_dict()
+
+    @property
+    def params(self) -> dict:
+        """The weights the stepper serves, keyed as ``model.state_dict()``:
+        detached clones taken at construction, so a later in-place update
+        of the model (an optimizer step) does not reach a running stream.
+        Assign a state dict to serve other weights, as the JAX stepper's
+        ``params`` is reassigned; the field is packed again then."""
+        return self._params
+
+    @params.setter
+    def params(self, state: dict):
+        want = self.model.state_dict()
+        if set(state) != set(want):
+            raise ValueError(
+                f"params keys {sorted(set(state) ^ set(want))} do not match the "
+                "model's state_dict")
+        for key, ref in want.items():
+            if tuple(state[key].shape) != tuple(ref.shape):
+                raise ValueError(f"params[{key!r}] has shape {tuple(state[key].shape)}, "
+                                 f"the model's {tuple(ref.shape)}")
+        with torch.no_grad():
+            snapshot = {key: torch.as_tensor(state[key]).detach()
+                        .to(device=self.device, dtype=ref.dtype).clone()
+                        for key, ref in want.items()}
+            self._field = _tree(snapshot, "field.")
+            self._initial = _tree(snapshot, "initial.")
+            self._final = _tree(snapshot, "final.")
+            self._packed = (self.model.packed_field(self._field)
+                            if self.model.uses_fused_field else None)
+        self._params = snapshot
 
     def _tensor(self, x) -> torch.Tensor:
         return _to_device(x, self.device, self.dtype)
@@ -330,12 +385,12 @@ class OnlineNCDEStepper:
         dx_vals[..., ch] = 0.0
         packed, H = self._packed, self.model.hidden_dim
         if packed is None:
-            field = self.model.field
+            field, params = self.model.field, self._field
             dx_time = torch.zeros_like(filled)
             dx_time[..., ch] = filled[..., ch] - x_prev[..., ch]
 
             def time_field(zz, dx):
-                return torch.einsum("...hi,...i->...h", field(0.0, zz), dx)
+                return torch.einsum("...hi,...i->...h", field.apply(params, 0.0, zz), dx)
 
             value_field = time_field
         else:
@@ -363,14 +418,14 @@ class OnlineNCDEStepper:
             x0 = torch.where(torch.isnan(x0), torch.zeros_like(x0), x0)
             if self.static is None:
                 if model.use_initial:
-                    z = linear_apply(model.initial, x0)
+                    z = linear_apply(self._initial, x0)
                 else:
                     z = torch.zeros(x0.shape[:-1] + (model.hidden_dim,),
                                     dtype=x0.dtype, device=x0.device)
             elif model.use_initial:
-                z = linear_apply(model.initial, torch.cat([self.static, x0], dim=-1))
+                z = linear_apply(self._initial, torch.cat([self.static, x0], dim=-1))
             else:
-                z = linear_apply(model.initial, self.static)
+                z = linear_apply(self._initial, self.static)
         return {"z": z, "last_obs": x0}
 
     def step(self, state: dict, x_new):
@@ -399,7 +454,7 @@ class OnlineNCDEStepper:
         if not self.model.apply_final_linear:
             return z
         with torch.inference_mode():
-            return linear_apply(self.model.final, z)
+            return linear_apply(self._final, z)
 
     def precompile(self, n_streams: int, block_sizes=()) -> int:
         """Run init, one tick and each catch-up block on zero observations:

@@ -215,14 +215,35 @@ def test_odeint_fixed_grid_matches_jax(method):
 
 
 def test_odeint_refuses_unported_methods_and_bf16_states():
-    y0 = torch.ones(2, 3)
-    for method in ("explicit_adams", "implicit_adams", "scipy_solver"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            solvers.odeint(lambda t, y, a: -y, y0, torch.tensor([0.0, 1.0]), method=method)
+    """Nothing is refused any more: the Adams methods and scipy_solver match
+    JAX's in f64 (tests/test_torch_port_solver_extras.py holds them in
+    full), a bf16 state steps in bf16 and matches JAX's bf16 solve, and a
+    float16 state is refused, as before."""
+    A, y0, t = _linear_case(4)
+    for method, opts in (("explicit_adams", {"substeps": 2}),
+                         ("implicit_adams", {"substeps": 2}),
+                         ("scipy_solver", {})):
+        tu = np.linspace(0.0, 1.5, 4)
+        wy, wstats = jax_solvers.odeint(_jax_field, jnp.asarray(y0), jnp.asarray(tu),
+                                        jnp.asarray(A), method=method, options=dict(opts),
+                                        return_stats=True)
+        gy, gstats = solvers.odeint(_torch_field, torch.from_numpy(y0), torch.from_numpy(tu),
+                                    torch.from_numpy(A), method=method, options=dict(opts),
+                                    return_stats=True)
+        close(gy, wy)
+        same_stats(gstats, wstats)
     for method in ("dopri5", "rk4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            solvers.odeint(lambda t, y, a: -y, y0.bfloat16(), torch.tensor([0.0, 1.0]),
-                           method=method)
+        tb = jnp.asarray(t, jnp.bfloat16)
+        want = jax_solvers.odeint(_jax_field, jnp.asarray(y0, jnp.bfloat16), tb,
+                                  jnp.asarray(A, jnp.bfloat16), method=method, rtol=1e-3,
+                                  atol=1e-4)
+        got = solvers.odeint(_torch_field, torch.from_numpy(y0).bfloat16(),
+                             torch.from_numpy(t).bfloat16(), torch.from_numpy(A).bfloat16(),
+                             method=method, rtol=1e-3, atol=1e-4)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    with pytest.raises(ValueError, match="bfloat16"):
+        solvers.odeint(lambda t, y, a: -y, torch.ones(2, 3).half(), torch.tensor([0.0, 1.0]))
 
 
 # --------------------------------------------- differentiable solve

@@ -141,11 +141,14 @@ def test_neural_cde_packs_time_slice_contiguously():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(solver="implicit_adams"), "ROADMAP item 12"),
-    (dict(solver="explicit_adams"), "ROADMAP item 12"),
+    (dict(solver="scipy_solver", adjoint=True), "adjoint=False"),
+    (dict(solver="adams"), "unknown solver"),
 ])
 def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """Every solver of the JAX model is ported; what it refuses, the port
+    refuses too: a host scipy solve with the adjoint, and an unknown
+    solver."""
+    with pytest.raises(ValueError, match=match):
         NeuralCDE(input_dim=C, hidden_dim=4, output_dim=1, device="cpu", **kw)
 
 
@@ -156,14 +159,16 @@ def test_import_loads_no_jax():
     code = (
         "import sys, online_neural_cdes_tpu_torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'online_neural_cdes_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'online_neural_cdes_tpu', 'ml_dtypes', "
+        "'sklearn')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
 def test_port_sources_import_no_jax():
-    jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b", re.M)
+    jax_import = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ml_dtypes|sklearn)\b", re.M)
     jax_package = re.compile(
         r"online_neural_cdes_tpu\.|from\s+online_neural_cdes_tpu\s+import"
         r"|import\s+online_neural_cdes_tpu\b(?!_)")

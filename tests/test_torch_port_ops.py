@@ -512,15 +512,20 @@ def test_cdeint_paired_scan_is_used_for_rectilinear_controls(monkeypatch):
 
 
 def test_cdeint_refuses_unported_branches():
-    """The Adams methods are refused; output times [0, 2] inside the knot
-    grid take the generic path, as in JAX; the unfused matmul field takes
-    the piece scan."""
+    """No branch is refused any more: an Adams method takes the generic
+    path and matches JAX's; output times [0, 2] inside the knot grid take
+    the generic path, as in JAX; the unfused matmul field takes the piece
+    scan."""
     coeffs, z0, jf, jparams, tf, H, C = _cdeint_case(10, rectilinear=False)
     spline = interpolation.LinearInterpolation.create(torch.from_numpy(coeffs))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        torch_cdeint_mod.cdeint(spline, lambda t, z, p: tf(t, z),
-                                torch.from_numpy(z0), spline.interval,
-                                method="explicit_adams")
+    close(torch_cdeint_mod.cdeint(spline, lambda t, z, p: tf(t, z),
+                                  torch.from_numpy(z0), spline.interval,
+                                  vector_field_type="matmul", method="explicit_adams",
+                                  options={"substeps": 5}),
+          jax_cdeint_mod.cdeint(jax_interp.LinearInterpolation.create(jnp.asarray(coeffs)),
+                                lambda t, z, p: jf.apply(jparams, t, z), jnp.asarray(z0),
+                                jnp.asarray([0.0, 5.0]), vector_field_type="matmul",
+                                method="explicit_adams", options={"substeps": 5}))
     tp = kernels.pack_fused_params(tf.params, H, C)
     got, gstats = torch_cdeint_mod.cdeint(
         spline, lambda t, z, dx, p: kernels.fused_matmul_field(

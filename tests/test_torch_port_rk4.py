@@ -353,8 +353,12 @@ def test_new_modules_load_no_jax():
         "import online_neural_cdes_tpu_torch.experiments.interleave_experiment\n"
         "import online_neural_cdes_tpu_torch.utils.timing\n"
         "import online_neural_cdes_tpu_torch.ops.interpolation\n"
+        "import online_neural_cdes_tpu_torch.ops.logsig\n"
+        "import online_neural_cdes_tpu_torch.data.loader\n"
+        "import online_neural_cdes_tpu_torch.training.metrics\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'online_neural_cdes_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'online_neural_cdes_tpu', 'ml_dtypes', "
+        "'sklearn')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

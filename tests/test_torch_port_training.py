@@ -319,8 +319,16 @@ def test_loss_aligns_trailing_singleton_labels_and_accuracy_matches_jax():
 
 @pytest.mark.parametrize("name", ["auc", "auprc", "precision", "f1"])
 def test_sklearn_metrics_raise_naming_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        metrics.METRICS[name](np.zeros((3, 1)), np.zeros(3))
+    """The name dates from when these four refused on the port; they are
+    ported now, and the test holds each against the JAX package's
+    (scikit-learn's) value on tied scores with NaN labels
+    (tests/test_torch_port_metrics.py holds them in full)."""
+    rng = np.random.default_rng(9)
+    preds = np.round(rng.normal(size=(40, 1)), 1)
+    labels = rng.integers(0, 2, size=40).astype(np.float64)
+    labels[::7] = np.nan
+    close(metrics.METRICS[name](preds, labels), jax_metrics.METRICS[name](preds, labels),
+          rtol=1e-12)
 
 
 # ------------------------------------------------------ train steps
