@@ -12,7 +12,9 @@ controls, and prints one JSON line per phase:
 
 1. env       -- torch, CUDA, nvcc, triton, CUTLASS headers, the card.
 2. build     -- builds every kernel from ``online_neural_cdes_tpu_torch/csrc``,
-                one ``nvcc`` per source, all started together.
+                one ``nvcc`` per source, and the native preprocessing
+                library (``csrc/preprocess.cpp``, ``g++``), all started
+                together.
 3. kernel    -- the fused field's forward kernel against its plain PyTorch
                 version on the card over the sweep and a width above 256
                 (its CUDA-core path), identical bits on a repeat call, and
@@ -26,7 +28,10 @@ controls, and prints one JSON line per phase:
                 under precision "bfloat16" (each held to one bf16 ulp of
                 the plain version in the same mode, and in the rounded
                 modes that gate shown to refuse the kernel's "float32"
-                instantiation), are timed in bf16, and print a sha256
+                instantiation; a row past it is held against the plain
+                version with one relu decision of the backward, or one
+                bf16 rounding of the forward's activations, taken the
+                other way), are timed in bf16, and print a sha256
                 digest of their f32 outputs at a fixed seed.
 5. kernel_rk4 -- the whole-interval RK4 kernel against its plain version
                 over the sweep, its K-replica form (K = 1..4) bit for bit
@@ -88,9 +93,11 @@ controls, and prints one JSON line per phase:
                 GRU-D and the other GRU variants, the flagship with each
                 plain field; each serves one request batch and takes Adam
                 steps against a CPU copy (outputs, 16-row gradients), with
-                its kernel launches, host waits, step times and profile.
-                The kernel phases also hold and time both field kernels at
-                the zoo's (512 | 64, 128, 128, 128, 3).
+                its kernel launches, host waits, step times and profile
+                (the plain-field flagships on 50 observations of the
+                flagship batch's 100, cut for the run's time).  The kernel
+                phases also hold and time both field kernels at the zoo's
+                (512 | 64, 128, 128, 128, 3).
 
 17. logode   -- the JAX bench's config 6, the log-ODE NCDE at full size: a
                 B=256, L=4096, C=4 batch, ``apply_logsig_transform``
@@ -109,6 +116,23 @@ controls, and prints one JSON line per phase:
                 differentiable ``odeint_event`` whose field is the forward
                 kernel, and a bf16 dopri5 ``NeuralCDE`` forward and step
                 against the CPU's bf16.
+19. data     -- the MIMIC Sepsis task through the data pipeline: a
+                synthetic corpus of 4,096 patients in the reduced schema
+                (C=21 with time in channel 0, 40% NaN, 7 statics) prepared
+                with all five interpolations (the ragged ones through the
+                native C++ library, built into build/native by the build
+                phase), loaded rectilinear with statics, batched (512 rows)
+                and prefetched to the card; the flagship with static_dim=7
+                trains one epoch (its launches against the padded lengths),
+                bit for bit equal to the same epoch from plain copies; 3
+                steps, a checkpoint, 2 more, bit for bit equal to a fresh
+                model and Adam resumed from the checkpoint; the corpus's
+                stratified split without scikit-learn against its pinned
+                digest; card against CPU gradients on 16 rows; one step
+                traced, the trace naming the kernels; seconds of each
+                stage, step times with and without prefetch, busy share and
+                peak memory.  The kernel phases hold and time both field
+                kernels at the epoch's tail batch (130, 128, 128, 21 | 1, 2).
 
 Then a line with every kernel's numbers, a line with the run's seconds, a
 line with the card's name and power limit as ``nvidia-smi`` gives them,
@@ -252,8 +276,18 @@ BF16_MIN_EQUAL_ROUNDED, BF16_EQUAL_MIN_SIZE_ROUNDED = 0.80, 100
 # of its layer's largest in the row, the first that brings the row within
 # its gate.  At most BF16_MAX_FLIPS a shape; every group is then gated as
 # before against the plain version with those decisions taken, and each is
-# printed (``kernel_bwd`` line, ``bf16.relu_flips``).
+# printed (``kernel_bwd`` line, ``bf16.relu_flips``).  The forward is
+# continuous in a relu input, but not in a bf16 rounding: under
+# "bfloat16" an activation within f32 round-off of the midpoint of its two
+# bf16 neighbours is rounded to either, and the row's output moves by an
+# ulp of that operand's terms, which the f32-storage output's tight gate
+# may not admit.  A forward row past its gate is held, by the same rule,
+# against the plain version with one such rounding of that row taken to
+# the other neighbour: one of the BF16_FLIP_TRIES activations nearest
+# their midpoint, within BF16_ROUND_MARGIN of their layer's largest in the
+# row (``kernel`` line, ``bf16.rounding_flips``).
 BF16_FLIP_MARGIN, BF16_FLIP_TRIES, BF16_MAX_FLIPS = 2.0 ** -8, 8, 4
+BF16_ROUND_MARGIN = 2.0 ** -16
 BF16_TOLERANCE = {"rtol": BF16_RTOL, "atol_per_max": BF16_ATOL_REL,
                   "atol_per_max_rounded": BF16_ROUNDED_ATOL_REL,
                   "f32_storage_rounded_output": {"rtol": BF16_F32_OUT_RTOL,
@@ -341,11 +375,28 @@ LOGSIG_RTOL, LOGSIG_ATOL_REL = 1e-5, 1e-5
 # each gradient tensor within GRAD_BF16_RATIO of the CPU's own
 # bf16-vs-f32 distance.
 SCIPY_ROWS, EVENT_BISECTIONS = 8, 40
+# The data phase: the MIMIC task preparation's synthetic corpus (the
+# reduced schema: ragged hourly series with time in channel 0 and 40% NaN,
+# 7 statics) of DATA_PATIENTS patients, prepared for Sepsis and loaded
+# rectilinear with statics; the flagship (C=21, H=HH=128, 2 trunk layers)
+# with static_dim=7 trains one epoch of DATA_B-row batches (the train
+# split's 2,178 series: four of 512 and a tail of DATA_TAIL_B, whose
+# field shapes DATA_SHAPES the kernel phases hold), resumes from a
+# checkpoint after DATA_RESUME_AT steps, and splits the corpus on its
+# per-series max label to SEPSIS_SPLIT_SHA256 (scikit-learn's indices,
+# pinned by tests/test_torch_port_data.py).
+DATA_PATIENTS, DATA_FEATURES, DATA_SEED, DATA_STATIC = 4096, 20, 0, 7
+DATA_B, DATA_TAIL_B, DATA_PREFETCH, DATA_RESUME_AT = 512, 130, 2, 3
+DATA_SHAPES = [(DATA_TAIL_B, H, HH, C, 2), (DATA_TAIL_B, H, HH, 1, 2)]
+SEPSIS_SPLIT_SHA256 = "051457a6a3bc89a068cd5a0adcfd190844d9daec5d623052466185fbef8f58eb"
 ZOO_HH_ATTN = 15
 ZOO_SHAPES = [(b, H, hh, i, 3) for hh in (HH, ZOO_HH_ATTN) for i in (C, H)
               for b in (TRAIN_B, N_REQUESTS)]
 CFG4_B, CFG4_L, CFG4_CLASSES = 1024, 89, 10
 ZOO_STEPS, ZOO_FIELD_STEPS = 5, 3
+# The six plain-field flagships train on ZOO_FIELD_L observations (the
+# flagship batch's 100 cut for the run's time).
+ZOO_FIELD_L = 50
 ZOO_FIELDS = [("gru", "matmul", None, False), ("minimal", "matmul", None, False),
               ("sparse", "matmul", 0.5, False), ("low-rank", "matmul", 0.5, True),
               ("original", "evaluate", None, False), ("original", "derivative", None, False)]
@@ -647,10 +698,14 @@ def phase_env():
 def phase_build():
     from online_neural_cdes_tpu_torch.utils.cuda_build import CSRC, build_library
 
+    from online_neural_cdes_tpu_torch.data import native
+
     sources = sorted(p.name for p in CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        native_lib = pool.submit(native.build)
         libs = dict(zip(sources, pool.map(build_library, sources)))
+        native_lib = native_lib.result()
     seconds = time.perf_counter() - t0
     ptxas, spills = {}, {}
     for name, lib in libs.items():
@@ -662,7 +717,8 @@ def phase_build():
                 function = ln.split("Function properties for")[-1].strip()
             elif "spill stores" in ln and not ln.strip().startswith("0 bytes stack frame, 0 "):
                 spills.setdefault(name, []).append(f"{function}: {ln.strip()}")
-    emit("build", sources=sources, seconds=seconds, ptxas=ptxas, spills=spills)
+    emit("build", sources=sources, seconds=seconds, ptxas=ptxas, spills=spills,
+         native_library=str(native_lib.relative_to(native.LIBRARY.parents[2])))
 
 
 def forward_grid(B, Hd, HHd, I):
@@ -692,7 +748,7 @@ def phase_kernel(pk):
     gen = torch.Generator().manual_seed(1)
     errors, timings = [], {}
     with torch.inference_mode():
-        for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + FWD_WIDE + LOGODE_SHAPES:
+        for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + FWD_WIDE + LOGODE_SHAPES + DATA_SHAPES:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
             got = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
@@ -712,7 +768,7 @@ def phase_kernel(pk):
                            "gate_share": float((err / (KERNEL_RTOL * want.abs()
                                                        + KERNEL_ATOL)).max()),
                            "path": forward_grid(B, Hd, HHd, I)["path"]})
-        for shape in TIMED + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES:
+        for shape in TIMED + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
             call = lambda: kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
@@ -727,7 +783,7 @@ def phase_kernel(pk):
         # bf16: the sweep and the wide shape in every mode, against the plain
         # version in the same mode, and in the rounded modes the control;
         # times at the training shapes.
-        bf16_sweep, bf16_timed, controls = [], {}, []
+        bf16_sweep, bf16_timed, controls, rounding_flips = [], {}, [], []
         for dtype, precision in BF16_MODES:
             mode = mode_name(dtype, precision)
             f32_out = dtype == torch.float32
@@ -742,6 +798,13 @@ def phase_kernel(pk):
                 if not torch.equal(got, again):
                     raise AssertionError(f"kernel {mode} at {shape}: two calls on the same "
                                          "inputs differ")
+                if bf16_readings(got, want, precision, f32_out=f32_out)["failed"]:
+                    flips, located = bf16_rounding_flips(
+                        f"kernel {mode} at {shape}", field, Hd, I, precision, got, want,
+                        f32_out)
+                    want, _ = plain_fwd_rounded(field, Hd, I, precision, flips)
+                    rounding_flips += [{"mode": mode, "shape": list(shape), **f}
+                                       for f in located]
                 bf16_sweep.append({"mode": mode, "shape": list(shape),
                                    **ulp_gate(f"kernel {mode} at {shape}", got, want,
                                               precision, f32_out=f32_out)})
@@ -765,7 +828,10 @@ def phase_kernel(pk):
          sweep=errors, repeat="bit-identical", timed=list(timings.values()),
          library="none: no single PyTorch call computes the fused field",
          bf16={"tolerance": BF16_TOLERANCE, "sweep": bf16_sweep, "repeat": "bit-identical",
-               "control": controls, "timed": list(bf16_timed.values())},
+               "control": controls, "timed": list(bf16_timed.values()),
+               "rounding_flips": rounding_flips,
+               "flip_rule": {"margin_per_max": BF16_ROUND_MARGIN, "tries": BF16_FLIP_TRIES,
+                             "max_per_shape": BF16_MAX_FLIPS}},
          f32_digest=f32_digests("forward"))
     expect_refused("forward kernel", controls)
     return max(e["max_abs_err"] for e in errors), timings, bf16_timed
@@ -829,43 +895,138 @@ def bwd_row_shares(got, want, precision):
     return shares
 
 
-def bf16_relu_flips(what, field, g, Hd, I, precision, got, want):
-    """The relu decisions the kernel took the other way (BF16_FLIP_*): for
-    each backward row past its gate, the first of its decisions nearest 0
-    whose flip in the plain version brings the row within its gate.
-    Returns (flips, what each flip was) or raises naming the row that no
-    such decision explains."""
-    plain, pres = plain_bwd_flipped(field, g, Hd, I, precision, [])
-    for (name, p), (_, w) in zip(bwd_groups(plain), bwd_groups(want)):
+def locate_flips(what, flipped, groups, row_shares, nearest, got, want, kind):
+    """The decisions a kernel took the other way: for each row past its
+    gate (``row_shares(got, want)``), the first of its BF16_FLIP_TRIES
+    candidates (``nearest(values, row)`` -> [(margin, layer, unit)], each
+    within its margin) whose flip in the plain version (``flipped(flips)``
+    -> (result, the values the flips act on, by layer)) brings the row
+    within its gate.  At most BF16_MAX_FLIPS rows.  Returns (flips, what
+    each flip was) or raises naming the row that no candidate explains."""
+    plain, values = flipped([])
+    for (name, p), (_, w) in zip(groups(plain), groups(want)):
         if not torch.equal(p, w):
             raise AssertionError(f"{what}: the flippable plain version differs from the "
                                  f"plain version in {name}")
-    shares = bwd_row_shares(got, want, precision)
+    shares = row_shares(got, want)
     rows = [int(r) for r in torch.nonzero(shares > 1.0).flatten()]
     if len(rows) > BF16_MAX_FLIPS:
         raise AssertionError(f"{what}: {len(rows)} rows past their gate (at most "
-                             f"{BF16_MAX_FLIPS} relu decisions are located): {rows[:8]}")
+                             f"{BF16_MAX_FLIPS} {kind}s are located): {rows[:8]}")
     flips, located = [], []
     for r in rows:
-        candidates = []
-        for l, pre in enumerate(pres):
-            rel = pre[r].double().abs() / float(pre[r].double().abs().max())
-            candidates += [(float(rel[j]), l, int(j)) for j in torch.argsort(rel)[:BF16_FLIP_TRIES]
-                           if rel[j] <= BF16_FLIP_MARGIN]
-        for margin, l, j in sorted(candidates)[:BF16_FLIP_TRIES]:
-            trial, _ = plain_bwd_flipped(field, g, Hd, I, precision, flips + [(l, r, j)])
-            if float(bwd_row_shares(got, trial, precision)[r]) <= 1.0:
+        for margin, l, j in sorted(nearest(values, r))[:BF16_FLIP_TRIES]:
+            trial, _ = flipped(flips + [(l, r, j)])
+            if float(row_shares(got, trial)[r]) <= 1.0:
                 flips.append((l, r, j))
-                located.append({"row": r, "layer": l, "unit": j,
-                                "relu_input": float(pres[l][r, j]),
-                                "row_max": float(pres[l][r].abs().max()),
+                located.append({"row": r, "layer": l, "unit": j, "kind": kind,
+                                "value": float(values[l][r, j]),
+                                "row_max": float(values[l][r].abs().max()),
                                 "row_share_before": float(shares[r])})
                 break
         else:
             raise AssertionError(f"{what}: row {r} is past its gate (share "
-                                 f"{float(shares[r])}) and no relu decision within "
-                                 f"{BF16_FLIP_MARGIN} of its layer's largest explains it")
+                                 f"{float(shares[r])}) and no {kind} explains it")
     return flips, located
+
+
+def nearest_relu(pres, r):
+    """Row ``r``'s relu decisions nearest 0, each within BF16_FLIP_MARGIN
+    of its layer's largest input in the row."""
+    out = []
+    for l, pre in enumerate(pres):
+        rel = pre[r].double().abs() / float(pre[r].double().abs().max())
+        out += [(float(rel[j]), l, int(j)) for j in torch.argsort(rel)[:BF16_FLIP_TRIES]
+                if rel[j] <= BF16_FLIP_MARGIN]
+    return out
+
+
+def bf16_relu_flips(what, field, g, Hd, I, precision, got, want):
+    """:func:`locate_flips` for the backward over its relu decisions; its
+    rows are dz's and ddx's."""
+    return locate_flips(
+        what, lambda flips: plain_bwd_flipped(field, g, Hd, I, precision, flips),
+        bwd_groups, lambda a, b: bwd_row_shares(a, b, precision), nearest_relu, got, want,
+        "relu decision")
+
+
+def bf16_neighbours(x):
+    """The two bf16 values around each f32 value of ``x``: (below, above)
+    in magnitude order of the bits (equal where ``x`` is a bf16 value)."""
+    down = x.to(torch.bfloat16)
+    bits = down.view(torch.int16)
+    away = down.float().abs() > x.abs()          # rounded away from zero
+    other = torch.where(away, bits - 1, bits + 1).view(torch.bfloat16)
+    exact = down.float() == x
+    return down, torch.where(exact, down, other)
+
+
+def plain_fwd_rounded(field, Hd, I, precision, flips):
+    """``kernels._forward_reference`` with the bf16 roundings at ``flips``
+    ((layer, row, unit): the activation that trunk layer ``layer``'s
+    product reads, ``layer = len(trunk)`` the head's) taken to the other
+    bf16 neighbour: (its result, the f32 activations each product after
+    the first reads, by layer; empty unless precision is "bfloat16").
+    With no flips it is the plain version to the bit."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    trunk, head_w, head_b, z, dx = field
+    acts = [None]
+
+    def mm(u, w, l):
+        if precision != "bfloat16" or l == 0:
+            return kernels._mm(u, w, precision)
+        acts.append(u)
+        ub, other = bf16_neighbours(u)
+        for fl, r, j in flips:
+            if fl == l:
+                ub[r, j] = other[r, j]
+        return ub.float() @ w.to(torch.bfloat16).float()
+
+    u = z
+    for l, layer in enumerate(trunk):
+        u = torch.relu(mm(u, layer["w"], l) + layer["b"])
+    a = torch.tanh(mm(u, head_w, len(trunk)) + head_b)
+    a = a.reshape(a.shape[:-1] + (I, a.shape[-1] // I))
+    out = torch.sum(a * dx[..., :, None], dim=-2)[..., :Hd].to(z.dtype)
+    return out, acts if len(acts) > 1 else []
+
+
+def nearest_midpoint(acts, r):
+    """Row ``r``'s activations nearest the midpoint of their two bf16
+    neighbours, each within BF16_ROUND_MARGIN of its layer's largest in
+    the row."""
+    out = []
+    for l, u in enumerate(acts):
+        if u is None:
+            continue
+        x = u[r].double()
+        lo, hi = (t.double() for t in bf16_neighbours(u[r].float()))
+        rel = (x - (lo + hi) / 2).abs() / float(x.abs().max())
+        rel[lo == hi] = float("inf")
+        out += [(float(rel[j]), l, int(j)) for j in torch.argsort(rel)[:BF16_FLIP_TRIES]
+                if rel[j] <= BF16_ROUND_MARGIN]
+    return out
+
+
+def fwd_row_shares(got, want, precision, f32_out):
+    """Each batch row's share of the forward's bf16 gate
+    (:func:`bf16_readings`)."""
+    rtol, atol = ((BF16_F32_OUT_RTOL, BF16_F32_OUT_ATOL_REL) if f32_out else
+                  (BF16_RTOL, BF16_ROUNDED_ATOL_REL if precision == "bfloat16"
+                   else BF16_ATOL_REL))
+    g, w = got.double(), want.double()
+    gate = (atol * float(w.abs().max()) + rtol * w.abs()).clamp_min(1e-300)
+    return ((g - w).abs() / gate).amax(dim=1)
+
+
+def bf16_rounding_flips(what, field, Hd, I, precision, got, want, f32_out):
+    """:func:`locate_flips` for the forward over its activations' bf16
+    roundings; its rows are the output's."""
+    return locate_flips(
+        what, lambda flips: plain_fwd_rounded(field, Hd, I, precision, flips),
+        lambda out: [("out", out)], lambda a, b: fwd_row_shares(a, b, precision, f32_out),
+        nearest_midpoint, got, want, "bf16 rounding")
 
 
 def phase_kernel_bwd(pk):
@@ -878,7 +1039,7 @@ def phase_kernel_bwd(pk):
 
     gen = torch.Generator().manual_seed(2)
     errors, timings = [], {}
-    for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES:
+    for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES:
         B, Hd, HHd, I, n = shape
         trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
         g = random_cotangent(gen, B, Hd, "cuda")
@@ -917,7 +1078,7 @@ def phase_kernel_bwd(pk):
         raise AssertionError("backward kernel took H=257")
     if kernels.fused_field_bwd_kernel.launches != launches:
         raise AssertionError("backward kernel launched at H=257")
-    for shape in TRAIN_SHAPES + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES:
+    for shape in TRAIN_SHAPES + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES:
         B, Hd, HHd, I, n = shape
         trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
         args = (trunk, head_w, head_b, z, dx, random_cotangent(gen, B, Hd, "cuda"),
@@ -1371,16 +1532,16 @@ def rectilinear_coeffs(x):
     return linear_interpolation_coeffs(x, rectilinear=0)
 
 
-def train_batch(device, seed=7, coeff_fn=rectilinear_coeffs):
+def train_batch(device, seed=7, coeff_fn=rectilinear_coeffs, length=TRAIN_L):
     """The flagship training batch (as ``bench.py``'s flagship step makes
-    it): B=512 series of 100 observations, time in channel 0, static
-    features, random 0/1 labels per observation; ``coeff_fn`` makes the
-    model's coefficients (rectilinear by default)."""
+    it): B=512 series of ``length`` (100) observations, time in channel 0,
+    static features, random 0/1 labels per observation; ``coeff_fn`` makes
+    the model's coefficients (rectilinear by default)."""
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(TRAIN_B, TRAIN_L, C)).astype(np.float32)
-    x[:, :, 0] = np.arange(TRAIN_L)
+    x = rng.normal(size=(TRAIN_B, length, C)).astype(np.float32)
+    x[:, :, 0] = np.arange(length)
     static = rng.normal(size=(TRAIN_B, STATIC)).astype(np.float32)
-    labels = rng.integers(0, 2, size=(TRAIN_B, TRAIN_L)).astype(np.float32)
+    labels = rng.integers(0, 2, size=(TRAIN_B, length)).astype(np.float32)
     coeffs = coeff_fn(torch.from_numpy(x).to(device))
     return ((torch.from_numpy(static).to(device), coeffs),
             torch.from_numpy(labels).to(device))
@@ -2612,8 +2773,9 @@ def phase_zoo():
             serve=variant_serve(variant, m), gate_syncs=True,
             source="bench.py:429-431" if not holes else "bench.py:419 shapes, 30% NaN"))
 
-    # The flagship with each other field: the plain field on the card.
-    inputs, labels = train_batch("cuda")
+    # The flagship with each other field: the plain field on the card, on
+    # ZOO_FIELD_L observations.
+    inputs, labels = train_batch("cuda", length=ZOO_FIELD_L)
     for kind, vf_type, sparsity, chaotic in ZOO_FIELDS:
         def make(device, dtype=torch.float32, k=kind, t=vf_type, s=sparsity):
             return flagship_model(device, dtype=dtype, vector_field=k, vector_field_type=t,
@@ -2976,6 +3138,230 @@ def phase_solver_extras(device="cuda"):
     return {f"solver_extras_{k}": v for k, v in paths.items()}
 
 
+# -------------------------------------------------------------------- data
+
+
+def split_digest(parts):
+    """sha256 of a split: each part's length, then its indices as
+    little-endian int64."""
+    h = hashlib.sha256()
+    for part in parts:
+        h.update(np.int64(len(part)).tobytes())
+        h.update(np.asarray(part).astype("<i8").tobytes())
+    return h.hexdigest()
+
+
+def data_model(device, seed):
+    """The flagship on the MIMIC reduced schema's 7 statics."""
+    from online_neural_cdes_tpu_torch import NeuralCDE
+
+    return NeuralCDE(input_dim=C, hidden_dim=H, output_dim=1, static_dim=DATA_STATIC,
+                     hidden_hidden_dim=HH, num_layers=N_LAYERS, interpolation="rectilinear",
+                     solver="rk4", return_sequences=True,
+                     generator=torch.Generator().manual_seed(seed), device=device)
+
+
+@contextmanager
+def timed_calls(module, name, seconds):
+    """Within the block, each call of ``module.name`` adds its seconds to
+    ``seconds[<its second argument, or name>]``."""
+    original = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = original(*args, **kw)
+        key = args[1] if name == "interpolate" else name
+        seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def batch_to_card(batch):
+    (static, temporal), labels = batch
+    return ((torch.from_numpy(static).to("cuda"), torch.from_numpy(temporal).to("cuda")),
+            torch.from_numpy(labels).to("cuda"))
+
+
+def run_epoch(step, source, to_device=lambda batch: batch):
+    """One pass of ``step`` over ``source``: the losses, and each step's
+    milliseconds from asking for its batch to the card's completion of
+    the step (``DeviceTimer``)."""
+    from online_neural_cdes_tpu_torch.utils.profiling import DeviceTimer
+
+    losses, step_ms, it = [], [], iter(source)
+    while True:
+        with DeviceTimer() as timer:
+            batch = next(it, None)
+            if batch is None:
+                break
+            inputs, labels = to_device(batch)
+            loss = step(inputs, labels, 1.0)
+            timer.sync(loss)
+        losses.append(loss)
+        step_ms.append(timer.elapsed * 1e3)
+    return torch.stack(losses), step_ms
+
+
+def same_bits(what, got_losses, got_model, want_losses, want_model):
+    if not torch.equal(got_losses, want_losses):
+        raise AssertionError(f"{what}: losses {got_losses.tolist()} differ from "
+                             f"{want_losses.tolist()}")
+    want = want_model.state_dict() if isinstance(want_model, torch.nn.Module) else want_model
+    for name, p in got_model.state_dict().items():
+        if not torch.equal(p, want[name]):
+            raise AssertionError(f"{what}: parameter {name} differs, max "
+                                 f"{float((p - want[name]).abs().max())}")
+
+
+def phase_data():
+    """The MIMIC Sepsis task on the card through the data pipeline: a
+    synthetic reduced-schema corpus prepared (all five interpolations, the
+    ragged ones through the native library), loaded rectilinear with
+    statics, batched, prefetched and trained one epoch, against the same
+    epoch from plain copies (bit for bit); 3 steps, a checkpoint, 2 more,
+    against a fresh model and Adam resumed from it (bit for bit); the
+    corpus's stratified split against scikit-learn's digest; one step
+    traced."""
+    import glob
+    import shutil
+    import tempfile
+
+    from online_neural_cdes_tpu_torch.data import common, loader, mimic
+    from online_neural_cdes_tpu_torch.data.prefetch import prefetch_to_device
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+    from online_neural_cdes_tpu_torch.utils.checkpoint import (
+        load_checkpoint, optimizer_state_like, save_checkpoint)
+    from online_neural_cdes_tpu_torch.utils.profiling import (
+        device_memory_mb, device_sync, trace)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        seconds = {}
+        t0 = time.perf_counter()
+        raw = mimic.synthesize_reduced_format(
+            os.path.join(tmp, "reduced_format.npz"), num_patients=DATA_PATIENTS,
+            n_features=DATA_FEATURES, seed=DATA_SEED)
+        seconds["synthesize"] = time.perf_counter() - t0
+        by_method = {}
+        t0 = time.perf_counter()
+        with timed_calls(common, "interpolate", by_method), \
+                timed_calls(mimic, "save_processed", seconds):
+            path = mimic.prepare_task("Sepsis", raw, tmp)
+        seconds["prepare_task"] = time.perf_counter() - t0
+        seconds["interpolate"] = by_method
+        t0 = time.perf_counter()
+        train, val, test = loader.load_numpy_data(path, "rectilinear", use_static=True,
+                                                  problem="online")
+        seconds["load_numpy_data"] = time.perf_counter() - t0
+        if (train.input_dim, train.static_dim, train.model_interpolation,
+                train.return_sequences) != (C, DATA_STATIC, "rectilinear", True):
+            raise AssertionError(f"loaded {train.input_dim}, {train.static_dim}, "
+                                 f"{train.model_interpolation}, {train.return_sequences}")
+        corpus = sum(len(d.temporal) for d in (train, val, test))
+
+        # The split on the per-series max label: numpy, no scikit-learn.
+        with np.load(path, allow_pickle=True) as npz:
+            strat = np.array([np.asarray(lab).max() for lab in npz["labels"]])
+        digest = split_digest(common.train_val_test_indices(len(strat), strat))
+        if digest != SEPSIS_SPLIT_SHA256 or "sklearn" in sys.modules:
+            raise AssertionError(f"Sepsis split digest {digest} (scikit-learn's: "
+                                 f"{SEPSIS_SPLIT_SHA256}); sklearn imported: "
+                                 f"{'sklearn' in sys.modules}")
+
+        batches = loader.Batches(train, batch_size=DATA_B)
+        host = list(batches)
+        rows = [b[0][1].shape[1] for b in host]
+        sizes = [b[1].shape[0] for b in host]
+        if sizes[-1] != DATA_TAIL_B or any(n != DATA_B for n in sizes[:-1]):
+            raise AssertionError(f"batch sizes {sizes}")
+        intervals = sum(r - 1 for r in rows)
+        expected = {"forward": 2 * 4 * intervals, "backward": 4 * intervals}
+        card = [batch_to_card(b) for b in host]
+
+        # Step-0 gradients: the card against the CPU port on 16 rows.
+        model = data_model("cuda", 0)
+        model_cpu = data_model("cpu", 0)
+        model_cpu.load_state_dict(model.state_dict())
+        inputs, labels = card[0]
+        got = slice_grads(model, inputs, labels, GRAD_ROWS)
+        want = slice_grads(model_cpu, tuple(t.cpu() for t in inputs), labels.cpu(), GRAD_ROWS)
+        grads_vs_cpu = grad_gate("data: ", got, want)
+
+        # One epoch from plain copies, then the same from prefetched batches.
+        torch.cuda.reset_peak_memory_stats()
+        plain = data_model("cuda", 0)
+        (plain_losses, plain_ms), plain_launches = counted(
+            lambda: run_epoch(make_train_step(plain, loss="bce", lr=TRAIN_LR), batches,
+                              batch_to_card))
+        expect_launches("data: one epoch from plain copies", plain_launches, **expected)
+        pre = data_model("cuda", 0)
+        pre_step = make_train_step(pre, loss="bce", lr=TRAIN_LR)
+        (pre_losses, pre_ms), launches = counted(          # the main path
+            lambda: run_epoch(pre_step, prefetch_to_device(batches, size=DATA_PREFETCH)))
+        expect_launches("data: one prefetched epoch", launches, **expected)
+        same_bits("data: prefetched epoch vs plain copies", pre_losses, pre, plain_losses,
+                  plain)
+        if not torch.isfinite(pre_losses).all():
+            raise AssertionError(f"data: losses {pre_losses.tolist()}")
+        peak_mb = device_memory_mb()
+
+        # Resume: a checkpoint after DATA_RESUME_AT steps, then the rest.
+        first = data_model("cuda", 0)
+        first_step = make_train_step(first, loss="bce", lr=TRAIN_LR)
+        head, tail = card[:DATA_RESUME_AT], card[DATA_RESUME_AT:]
+        head_losses, _ = run_epoch(first_step, head)
+        ckpt = save_checkpoint(os.path.join(tmp, "trainer_state"), {
+            "model": first.state_dict(), "optimizer": first_step.optimizer.state_dict(),
+            "best": {"loss": float(head_losses.min()), "step": DATA_RESUME_AT}})
+        tail_losses, _ = run_epoch(first_step, tail)
+        fresh = data_model("cuda", 1)
+        fresh_step = make_train_step(fresh, loss="bce", lr=TRAIN_LR)
+        restored = load_checkpoint(ckpt, {
+            "model": fresh.state_dict(), "optimizer": optimizer_state_like(fresh_step.optimizer),
+            "best": {"loss": 0.0, "step": 0}})
+        fresh.load_state_dict(restored["model"])
+        fresh_step.optimizer.load_state_dict(restored["optimizer"])
+        if restored["best"] != {"loss": float(head_losses.min()), "step": DATA_RESUME_AT}:
+            raise AssertionError(f"data: restored best {restored['best']}")
+        resumed_losses, _ = run_epoch(fresh_step, tail)
+        same_bits("data: resumed vs uninterrupted", resumed_losses, fresh, tail_losses, first)
+        if not torch.equal(torch.cat([head_losses, tail_losses]), plain_losses):
+            raise AssertionError("data: the checkpointed run's losses differ from the epoch's")
+
+        # One step traced: the trace names the forward and backward kernels.
+        inputs, labels = card[0]
+        with trace(os.path.join(tmp, "trace")) as log_dir:
+            device_sync(pre_step(inputs, labels, 1.0))
+        files = glob.glob(os.path.join(log_dir, "*.json"))
+        text = "".join(open(f).read() for f in files)
+        named = {k: k in text for k in ("trunk_forward", "head_forward", "head_backward",
+                                        "weight_grad", "trunk_backward")}
+        if len(files) != 1 or not all(named.values()):
+            raise AssertionError(f"data: trace files {files}, kernel names found {named}")
+        profile = profile_call(lambda: pre_step(inputs, labels, 1.0))
+        emit("data", corpus_after_exclusions=corpus,
+             splits=[len(d.temporal) for d in (train, val, test)],
+             seconds=seconds, padded_rows=rows, padded_labels=[b[1].shape[1] for b in host],
+             batch_sizes=sizes, intervals=intervals, kernel_launches=launches,
+             plain_copy_launches=plain_launches, expected_launches=expected,
+             split_sha256=digest, grads_vs_cpu={"rows": GRAD_ROWS, **grads_vs_cpu},
+             losses=pre_losses.tolist(), prefetch_bit_identical=True,
+             resume_bit_identical=True, checkpoint_bytes=os.path.getsize(ckpt),
+             train_step_ms={"prefetch": percentiles(pre_ms), "plain": percentiles(plain_ms)},
+             epoch_ms={"prefetch": sum(pre_ms), "plain": sum(plain_ms)},
+             device_memory_mb=peak_mb, trace={"bytes": len(text), "kernels_named": named},
+             profile=profile, phase_seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"data_epoch_prefetch": launches, "data_epoch_plain_copies": plain_launches}
+
+
 def times(t):
     return {"ms": t["kernel_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
@@ -2997,7 +3383,7 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
           "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg",
-          "adaptive", "zoo", "logode", "solver_extras")
+          "adaptive", "zoo", "logode", "solver_extras", "data")
 
 
 def main(argv=None) -> int:
@@ -3052,6 +3438,8 @@ def main(argv=None) -> int:
         logode_launches = phase_logode()
     if "solver_extras" in phases:
         extras_launches = phase_solver_extras()
+    if "data" in phases:
+        data_launches = phase_data()
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
@@ -3065,7 +3453,7 @@ def main(argv=None) -> int:
                "hermite_predict": hermite_serve, "hermite_train_step": hermite_train,
                "interval_chain": chain_launches, "train_step_bf16": train_bf16_launches,
                "predict_bf16": predict_bf16_launches, **adaptive_launches, **zoo_launches,
-               **logode_launches, **extras_launches}
+               **logode_launches, **extras_launches, **data_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}

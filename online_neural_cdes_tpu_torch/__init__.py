@@ -27,7 +27,11 @@ and serves; and the rest of the solvers (the Adams methods,
 ``scipy_solver``, ``odeint_event`` / ``combine_event_functions``, bf16
 states), the log-ODE transform (``ops.logsig``,
 ``data.loader.apply_logsig_transform``) and the rank and threshold
-metrics without scikit-learn (``training.metrics``).
+metrics without scikit-learn (``training.metrics``); and checkpoints
+and profiling (``utils.checkpoint``, ``utils.profiling``), the data
+pipeline's preprocessing, loading, batching and prefetching
+(``data.common``, ``data.native``, ``data.loader``, ``data.prefetch``)
+and the MIMIC-IV task preparation (``data.mimic``).
 ``ROADMAP.md`` lists what comes next.
 """
 

@@ -159,11 +159,13 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
         return step
 
     adam = make_optimizer(model, lr, 1.0, final_key)
-    rest, final = adam.param_groups
 
     def apply_scaled(inputs, labels, lr_scale, final_mult):
         adam.zero_grad(set_to_none=True)
         value = loss_and_grads(inputs, labels)
+        # Read the groups at each call: ``adam.load_state_dict`` (a resume)
+        # replaces the group dicts.
+        rest, final = adam.param_groups
         rest["lr"] = lr * lr_scale
         final["lr"] = lr * final_mult * lr_scale
         adam.step()

@@ -158,9 +158,17 @@ def test_unported_options_raise(kw, match):
 def test_import_loads_no_jax():
     code = (
         "import sys, online_neural_cdes_tpu_torch\n"
+        "import online_neural_cdes_tpu_torch.utils.checkpoint\n"
+        "import online_neural_cdes_tpu_torch.utils.profiling\n"
+        "import online_neural_cdes_tpu_torch.data.native\n"
+        "import online_neural_cdes_tpu_torch.data.common\n"
+        "import online_neural_cdes_tpu_torch.data.loader\n"
+        "import online_neural_cdes_tpu_torch.data.prefetch\n"
+        "import online_neural_cdes_tpu_torch.data.mimic\n"
+        "online_neural_cdes_tpu_torch.data.common.train_val_test_indices(20, [0, 1] * 10)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'online_neural_cdes_tpu', 'ml_dtypes', "
-        "'sklearn')]\n"
+        "'sklearn', 'pandas')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -168,7 +176,7 @@ def test_import_loads_no_jax():
 
 def test_port_sources_import_no_jax():
     jax_import = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ml_dtypes|sklearn)\b", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ml_dtypes|sklearn|pandas)\b", re.M)
     jax_package = re.compile(
         r"online_neural_cdes_tpu\.|from\s+online_neural_cdes_tpu\s+import"
         r"|import\s+online_neural_cdes_tpu\b(?!_)")
