@@ -133,6 +133,24 @@ controls, and prints one JSON line per phase:
                 stage, step times with and without prefetch, busy share and
                 peak memory.  The kernel phases hold and time both field
                 kernels at the epoch's tail batch (130, 128, 128, 21 | 1, 2).
+20. harness  -- a configuration suite from the command line: the
+                medical-sota suite's ncde leg on the data phase's Sepsis
+                corpus (rectilinear, adjoint off, RK4, lr 5e-4, batches of
+                1,024, the flagship's widths, seeds 111 and 222, 2 epochs)
+                through ``run.main``, its kernel launches against the
+                batches' intervals (the suite, each epoch and each
+                evaluation), each seed's metrics, times and peak memory,
+                each step's time and the traced second epoch's device
+                share, all from the suite's own run; a re-run that
+                completes and launches nothing; seed 222 again in a spawned
+                child on the card, its test metrics equal to the in-process
+                run's to the bit; the best weights from the checkpoint
+                served to 64 test-split requests through
+                ``predictor_from_bundle``, 16 of them against the CPU, and
+                one training step's gradients at them on 16 rows against
+                the CPU port.  The kernel phases hold
+                and time both field kernels at its (1024, 128, 128, 21 | 1,
+                2) and the forward at (467, 128, 128, 21 | 1, 2).
 
 Then a line with every kernel's numbers, a line with the run's seconds, a
 line with the card's name and power limit as ``nvidia-smi`` gives them,
@@ -144,13 +162,16 @@ CUDA card, and it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
 import ctypes
 import hashlib
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -389,6 +410,21 @@ DATA_PATIENTS, DATA_FEATURES, DATA_SEED, DATA_STATIC = 4096, 20, 0, 7
 DATA_B, DATA_TAIL_B, DATA_PREFETCH, DATA_RESUME_AT = 512, 130, 2, 3
 DATA_SHAPES = [(DATA_TAIL_B, H, HH, C, 2), (DATA_TAIL_B, H, HH, 1, 2)]
 SEPSIS_SPLIT_SHA256 = "051457a6a3bc89a068cd5a0adcfd190844d9daec5d623052466185fbef8f58eb"
+# The harness phase: the medical-sota suite's ncde leg on Sepsis (the
+# data phase's corpus), rectilinear, adjoint off (autograd
+# through the RK4 solve), lr 5e-4, the default batch of HARNESS_B rows, at
+# the flagship's widths, seeds HARNESS_SEEDS, HARNESS_EPOCHS epochs (the
+# suite's 1,000 cut for the run's time).  Its batches give kernels 1-2 the
+# shapes HARNESS_SHAPES: training at B=1,024 (and the data phase's tail of
+# 130), the validation and test splits' 467 rows in the forward alone.
+# The kernel phases draw them from a generator of their own, so the other
+# shapes' draws do not move.
+HARNESS_B, HARNESS_EVAL_B, HARNESS_EPOCHS, HARNESS_SEEDS = 1024, 467, 2, (111, 222)
+HARNESS_LR, HARNESS_REQUESTS, HARNESS_CPU_REQUESTS = 5e-4, 64, 16
+HARNESS_SHAPES_BWD = [(HARNESS_B, H, HH, C, 2), (HARNESS_B, H, HH, 1, 2)]
+HARNESS_SHAPES = HARNESS_SHAPES_BWD + [(HARNESS_EVAL_B, H, HH, C, 2),
+                                       (HARNESS_EVAL_B, H, HH, 1, 2)]
+HARNESS_SUITE = "sepsis-ncde"
 ZOO_HH_ATTN = 15
 ZOO_SHAPES = [(b, H, hh, i, 3) for hh in (HH, ZOO_HH_ATTN) for i in (C, H)
               for b in (TRAIN_B, N_REQUESTS)]
@@ -525,7 +561,14 @@ def counted(fn):
         getattr(kernels, attr).launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {key: getattr(kernels, attr).launches for key, attr in COUNTED}
+    return out, launch_counts()
+
+
+def launch_counts():
+    """Every kernel's launch count (the wrappers' host counters)."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    return {key: getattr(kernels, attr).launches for key, attr in COUNTED}
 
 
 def expect_launches(what, got, **want):
@@ -746,11 +789,14 @@ def phase_kernel(pk):
     from online_neural_cdes_tpu_torch.ops import kernels
 
     gen = torch.Generator().manual_seed(1)
+    own = torch.Generator().manual_seed(17)   # the harness shapes' draws
     errors, timings = [], {}
     with torch.inference_mode():
-        for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + FWD_WIDE + LOGODE_SHAPES + DATA_SHAPES:
+        for shape in (SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + FWD_WIDE + LOGODE_SHAPES
+                      + DATA_SHAPES + HARNESS_SHAPES):
             B, Hd, HHd, I, n = shape
-            trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
+            trunk, head_w, head_b, z, dx = random_field(
+                own if shape in HARNESS_SHAPES else gen, *shape, "cuda")
             got = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
             again = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
             want = kernels._forward_reference(trunk, head_w, head_b, z, dx, Hd, I)
@@ -768,9 +814,11 @@ def phase_kernel(pk):
                            "gate_share": float((err / (KERNEL_RTOL * want.abs()
                                                        + KERNEL_ATOL)).max()),
                            "path": forward_grid(B, Hd, HHd, I)["path"]})
-        for shape in TIMED + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES:
+        for shape in (TIMED + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES
+                      + HARNESS_SHAPES):
             B, Hd, HHd, I, n = shape
-            trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
+            trunk, head_w, head_b, z, dx = random_field(
+                own if shape in HARNESS_SHAPES else gen, *shape, "cuda")
             call = lambda: kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
             kernel_us = device_us(call, reps=200)
             plain_us = device_us(lambda: kernels._forward_reference(
@@ -1038,11 +1086,14 @@ def phase_kernel_bwd(pk):
     from online_neural_cdes_tpu_torch.ops import kernels
 
     gen = torch.Generator().manual_seed(2)
+    own = torch.Generator().manual_seed(19)   # the harness shapes' draws
     errors, timings = [], {}
-    for shape in SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES:
+    for shape in (SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES
+                  + HARNESS_SHAPES_BWD):
         B, Hd, HHd, I, n = shape
-        trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
-        g = random_cotangent(gen, B, Hd, "cuda")
+        draw = own if shape in HARNESS_SHAPES_BWD else gen
+        trunk, head_w, head_b, z, dx = random_field(draw, *shape, "cuda")
+        g = random_cotangent(draw, B, Hd, "cuda")
         args = (trunk, head_w, head_b, z, dx, g, Hd, I)
         got = kernels._backward(*args)
         again = kernels._backward(*args)
@@ -1078,10 +1129,12 @@ def phase_kernel_bwd(pk):
         raise AssertionError("backward kernel took H=257")
     if kernels.fused_field_bwd_kernel.launches != launches:
         raise AssertionError("backward kernel launched at H=257")
-    for shape in TRAIN_SHAPES + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES:
+    for shape in (TRAIN_SHAPES + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES
+                  + HARNESS_SHAPES_BWD):
         B, Hd, HHd, I, n = shape
-        trunk, head_w, head_b, z, dx = random_field(gen, *shape, "cuda")
-        args = (trunk, head_w, head_b, z, dx, random_cotangent(gen, B, Hd, "cuda"),
+        draw = own if shape in HARNESS_SHAPES_BWD else gen
+        trunk, head_w, head_b, z, dx = random_field(draw, *shape, "cuda")
+        args = (trunk, head_w, head_b, z, dx, random_cotangent(draw, B, Hd, "cuda"),
                 Hd, I)
         kernel_us = device_us(lambda: kernels._backward_kernel(*args), reps=100)
         plain_us = device_us(lambda: kernels._backward_reference(*args), reps=20)
@@ -3218,6 +3271,36 @@ def same_bits(what, got_losses, got_model, want_losses, want_model):
                                  f"{float((p - want[name]).abs().max())}")
 
 
+SEPSIS_CORPUS = {}   # the prepared corpus: made once a run, removed at exit
+
+
+def sepsis_corpus(seconds=None):
+    """The synthetic MIMIC corpus (DATA_PATIENTS patients, DATA_SEED)
+    prepared for Sepsis under a temporary data root, made on the first call
+    of a run (its stages timed into ``seconds``) and shared by the data and
+    harness phases; returns (the data root, the processed file)."""
+    from online_neural_cdes_tpu_torch.data import common, mimic
+
+    if not SEPSIS_CORPUS:
+        seconds = {} if seconds is None else seconds
+        root = tempfile.mkdtemp(prefix="chip_smoke_sepsis_")
+        atexit.register(shutil.rmtree, root, True)
+        SEPSIS_CORPUS["root"] = root
+        t0 = time.perf_counter()
+        raw = mimic.synthesize_reduced_format(
+            os.path.join(root, "reduced_format.npz"), num_patients=DATA_PATIENTS,
+            n_features=DATA_FEATURES, seed=DATA_SEED)
+        seconds["synthesize"] = time.perf_counter() - t0
+        by_method = {}
+        t0 = time.perf_counter()
+        with timed_calls(common, "interpolate", by_method), \
+                timed_calls(mimic, "save_processed", seconds):
+            SEPSIS_CORPUS["path"] = mimic.prepare_task("Sepsis", raw, root)
+        seconds["prepare_task"] = time.perf_counter() - t0
+        seconds["interpolate"] = by_method
+    return SEPSIS_CORPUS["root"], SEPSIS_CORPUS["path"]
+
+
 def phase_data():
     """The MIMIC Sepsis task on the card through the data pipeline: a
     synthetic reduced-schema corpus prepared (all five interpolations, the
@@ -3228,10 +3311,8 @@ def phase_data():
     corpus's stratified split against scikit-learn's digest; one step
     traced."""
     import glob
-    import shutil
-    import tempfile
 
-    from online_neural_cdes_tpu_torch.data import common, loader, mimic
+    from online_neural_cdes_tpu_torch.data import common, loader
     from online_neural_cdes_tpu_torch.data.prefetch import prefetch_to_device
     from online_neural_cdes_tpu_torch.training.loop import make_train_step
     from online_neural_cdes_tpu_torch.utils.checkpoint import (
@@ -3243,18 +3324,7 @@ def phase_data():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
         seconds = {}
-        t0 = time.perf_counter()
-        raw = mimic.synthesize_reduced_format(
-            os.path.join(tmp, "reduced_format.npz"), num_patients=DATA_PATIENTS,
-            n_features=DATA_FEATURES, seed=DATA_SEED)
-        seconds["synthesize"] = time.perf_counter() - t0
-        by_method = {}
-        t0 = time.perf_counter()
-        with timed_calls(common, "interpolate", by_method), \
-                timed_calls(mimic, "save_processed", seconds):
-            path = mimic.prepare_task("Sepsis", raw, tmp)
-        seconds["prepare_task"] = time.perf_counter() - t0
-        seconds["interpolate"] = by_method
+        _, path = sepsis_corpus(seconds)
         t0 = time.perf_counter()
         train, val, test = loader.load_numpy_data(path, "rectilinear", use_static=True,
                                                   problem="online")
@@ -3362,6 +3432,261 @@ def phase_data():
     return {"data_epoch_prefetch": launches, "data_epoch_plain_copies": plain_launches}
 
 
+# ----------------------------------------------------------------- harness
+
+
+def harness_suite(ckpt_dir, profile_dir):
+    """The medical-sota suite's ncde leg on Sepsis (configurations.json5),
+    hyperparameters set at the flagship's widths, two of its seeds, its
+    epochs cut, the best weights kept under ``ckpt_dir`` and the second
+    epoch traced into ``profile_dir``."""
+    return {"hyperparameters": ["set"], "seed": list(HARNESS_SEEDS),
+            "dataset_name": ["Sepsis"], "dataset": {"interpolation": ["rectilinear"]},
+            "model": {"model_string": ["ncde"], "adjoint": [False],
+                      "interpolation_eps": [None], "solver": ["rk4"], "hidden_dim": [H],
+                      "hidden_hidden_dim": [HH], "num_layers": [N_LAYERS]},
+            "trainer": {"lr": [HARNESS_LR], "max_epochs": [HARNESS_EPOCHS],
+                        "checkpoint_dir": [ckpt_dir], "profile_dir": [profile_dir]}}
+
+
+def split_intervals(data):
+    """Knot intervals of each of a split's batches at HARNESS_B rows."""
+    from online_neural_cdes_tpu_torch.data.loader import Batches
+
+    return [b[0][1].shape[1] - 1 for b in Batches(data, HARNESS_B)]
+
+
+@contextmanager
+def probed_trainer(harness, steps, evals):
+    """Within the block, each training step that ``harness.train`` takes is
+    bracketed by CUDA events (no sync) and appended to ``steps`` as (start,
+    end, its kernel launches), and each of its evaluations' launches to
+    ``evals``; the launches are read from the wrappers' host counters."""
+    make, evaluate = harness.make_train_step, harness._evaluate
+
+    def since(before):
+        return {key: n - before[key] for key, n in launch_counts().items()}
+
+    def make_probed(*args, **kw):
+        step = make(*args, **kw)
+
+        def probed(*step_args):
+            before = launch_counts()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(*step_args)
+            end.record()
+            steps.append((start, end, since(before)))
+            return out
+
+        probed.optimizer = step.optimizer
+        return probed
+
+    def evaluate_probed(*args, **kw):
+        before = launch_counts()
+        out = evaluate(*args, **kw)
+        evals.append(since(before))
+        return out
+
+    harness.make_train_step, harness._evaluate = make_probed, evaluate_probed
+    try:
+        yield
+    finally:
+        harness.make_train_step, harness._evaluate = make, evaluate
+
+
+def trace_busy(path):
+    """The device's busy share of a ``torch.profiler`` Chrome trace: its
+    kernels', copies' and memsets' time over the traced span (the first
+    event's start to the last event's end)."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    start = min(e["ts"] for e in events)
+    span_us = max(e["ts"] + e.get("dur", 0) for e in events) - start
+    busy_us = sum(e["dur"] for e in device)
+    return {"span_ms": span_us / 1e3,
+            "device_busy_ms": busy_us / 1e3 if device else "not measured",
+            "device_busy_share": busy_us / span_us if device else "not measured",
+            "kernels": sum(e["cat"] == "kernel" for e in device)}
+
+
+def phase_harness():
+    """A configuration suite from the command line on the card: the
+    medical-sota suite's ncde leg on the data phase's Sepsis corpus through
+    ``run.main`` (two seeds, run one after another), its kernel launches
+    against the batches' intervals (the whole suite, each epoch's steps and
+    each evaluation), each step's time and the traced epoch's device share;
+    a re-run that completes nothing and launches nothing; seed 222 again in
+    an isolated child with the in-process run's test metrics to the bit;
+    the best weights from the checkpoint served through
+    ``predictor_from_bundle``, against the CPU; one training step's
+    gradients at those weights against the CPU port."""
+    import glob
+
+    from online_neural_cdes_tpu_torch import run
+    from online_neural_cdes_tpu_torch.data.loader import Batches
+    from online_neural_cdes_tpu_torch.serving import predictor_from_bundle
+    from online_neural_cdes_tpu_torch.training import config, harness, sweep
+    from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
+    from online_neural_cdes_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    root, path = sepsis_corpus()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    try:
+        ckpt, traces = os.path.join(tmp, "best"), os.path.join(tmp, "traces")
+        config_dir = os.path.join(tmp, "configurations")
+        os.makedirs(config_dir)
+        shutil.copy(os.path.join(config.DEFAULT_CONFIG_DIR, "dataset.json5"), config_dir)
+        with open(os.path.join(config_dir, "configurations.json5"), "w") as fh:
+            json.dump({HARNESS_SUITE: harness_suite(ckpt, traces)}, fh)
+        configs, _ = config.parse_configuration_json(HARNESS_SUITE, config_dir)
+        cfg = configs[-1]
+
+        # The launches the batches call for: RK4 evaluates the field 4 times
+        # an interval; a training step differentiates every evaluation
+        # (autograd through the solve), an evaluation runs the forward; the
+        # trainer probes its NFE on the first training batch once.
+        bundle, (train, val, test) = load_and_setup(cfg, root)
+        if bundle.device.type != "cuda":
+            raise AssertionError(f"harness: the bundle lives on {bundle.device}")
+        train_iv = split_intervals(train)
+        eval_iv = [sum(split_intervals(d)) for d in (train, val, test)]
+        per_epoch = {"forward": 4 * sum(train_iv), "backward": 4 * sum(train_iv)}
+        per_eval = {"forward": 4 * eval_iv[1]}
+        per_config = {
+            "forward": 4 * train_iv[0] + HARNESS_EPOCHS * (per_epoch["forward"]
+                                                         + per_eval["forward"])
+            + 4 * sum(eval_iv),
+            "backward": HARNESS_EPOCHS * per_epoch["backward"]}
+        expected = {k: len(HARNESS_SEEDS) * v for k, v in per_config.items()}
+
+        args = [HARNESS_SUITE, "--config-dir", config_dir, "--data-root", root,
+                "--ledger", os.path.join(tmp, "ledger.jsonl")]
+        steps, evals = [], []
+        t0 = time.perf_counter()
+        with probed_trainer(harness, steps, evals):
+            completed, launches = counted(lambda: run.main(args))   # the main path
+        suite_s = time.perf_counter() - t0
+        expect_launches("harness: the suite", launches, **expected)
+        n = len(train_iv)
+        if len(steps) != len(HARNESS_SEEDS) * HARNESS_EPOCHS * n:
+            raise AssertionError(f"harness: {len(steps)} training steps")
+        epochs = [{key: sum(s[2][key] for s in steps[i:i + n]) for key, _ in COUNTED}
+                  for i in range(0, len(steps), n)]
+        for i, got in enumerate(epochs):
+            expect_launches(f"harness: epoch {i}", got, **per_epoch)
+        want_evals = len(HARNESS_SEEDS) * ([per_eval] * HARNESS_EPOCHS
+                                           + [{"forward": 4 * k} for k in eval_iv])
+        if len(evals) != len(want_evals):
+            raise AssertionError(f"harness: {len(evals)} evaluations")
+        for i, (got, want) in enumerate(zip(evals, want_evals)):
+            expect_launches(f"harness: evaluation {i}", got, **want)
+        step_ms = [start.elapsed_time(end) for start, end, _ in steps]
+        if [c["seed"] for c, _ in completed] != list(HARNESS_SEEDS):
+            raise AssertionError(f"harness: completed {[c for c, _ in completed]}")
+        per_seed = {}
+        for c, r in completed:
+            if (r["epochs_run"] != HARNESS_EPOCHS or not np.isfinite(r["test.loss"])
+                    or not 0.0 <= r["test.auc"] <= 1.0):
+                raise AssertionError(f"harness: seed {c['seed']} gave {r}")
+            per_seed[c["seed"]] = {k: r[k] for k in (
+                "epochs_run", "best_epoch", "test.loss", "test.auc", "test.auprc",
+                "num_params", "nfe_per_epoch", "time_per_epoch", "memory_usage")}
+            per_seed[c["seed"]]["val_loss"] = [h["loss"] for h in r["history"]]
+        own_traces = sorted(glob.glob(os.path.join(traces, f"trace-{os.getpid()}-*.json")))
+        if len(own_traces) != len(HARNESS_SEEDS):
+            raise AssertionError(f"harness: traces {own_traces}")
+        for seed, f in zip(HARNESS_SEEDS, own_traces):
+            per_seed[seed]["traced_epoch"] = trace_busy(f)
+        inproc = completed[-1][1]
+        again, rerun = counted(lambda: run.main(args))
+        expect_launches("harness: the re-run", rerun)
+        if again:
+            raise AssertionError(f"harness: the re-run completed {len(again)} configs")
+
+        # Seed 222 again, in a spawned child on the card.
+        t0 = time.perf_counter()
+        iso = sweep.run(HARNESS_SUITE, ledger_path=os.path.join(tmp, "isolated.jsonl"),
+                        data_root=root, config_dir=config_dir, shard_index=1,
+                        num_shards=2, config_timeout_s=300)
+        child_s = time.perf_counter() - t0
+        if len(iso) != 1 or iso[0][0]["seed"] != HARNESS_SEEDS[1]:
+            raise AssertionError(f"harness: the isolated run completed {iso}")
+        child = iso[0][1]
+        for key in ("test.loss", "test.auc", "test.auprc", "best_epoch"):
+            if child[key] != inproc[key]:
+                raise AssertionError(f"harness: isolated {key} {child[key]!r} against "
+                                     f"{inproc[key]!r} in process")
+
+        # The best weights from the checkpoint, served.
+        params = load_checkpoint(os.path.join(ckpt, "best_params"), bundle.model.state_dict())
+        for k, v in params.items():
+            if not torch.equal(v, inproc["best_params"][k]):
+                raise AssertionError(f"harness: checkpointed {k} differs from best_params")
+        with np.load(path, allow_pickle=True) as npz:
+            idx = npz["test_idxs"][:HARNESS_REQUESTS]
+            requests = [np.asarray(r, np.float32) for r in npz["temporal_data_raw"][idx]]
+            static = npz["static_data"][idx].astype(np.float32)
+        serve_kw = dict(coeff_fn=rectilinear_coeffs, batch_buckets=(1, HARNESS_CPU_REQUESTS,
+                                                                     HARNESS_REQUESTS),
+                        length_multiple=LENGTH_MULTIPLE)
+        pred = predictor_from_bundle(bundle, params, **serve_kw)
+        outs, serve_launches = counted(lambda: pred.predict(requests, static=static))
+        padded = -(-max(len(r) for r in requests) // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
+        expect_launches("harness: predict", serve_launches, forward=4 * (2 * padded - 2))
+        bundle_cpu, _ = load_and_setup(cfg, root, device="cpu")
+        params_cpu = {k: v.cpu() for k, v in params.items()}
+        pred_cpu = predictor_from_bundle(bundle_cpu, params_cpu, **serve_kw)
+        outs_cpu = pred_cpu.predict(requests[:HARNESS_CPU_REQUESTS],
+                                    static=static[:HARNESS_CPU_REQUESTS])
+        err = share = 0.0
+        for r, g, c in zip(requests, outs, outs_cpu):
+            if g.shape != (len(r), 1) or not np.isfinite(g).all():
+                raise AssertionError(f"harness: served shape {g.shape} or non-finite")
+            np.testing.assert_allclose(g, c, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+            err = max(err, float(np.abs(g - c).max()))
+            share = max(share, gate_share(g, c, SERVE_RTOL, SERVE_ATOL))
+
+        # A training step's gradients at the best weights, autograd through
+        # the RK4 solve as the suite trains: the card against the CPU port on
+        # GRAD_ROWS rows of the first batch of HARNESS_B.
+        inputs, labels = next(iter(Batches(train, HARNESS_B)))
+        bundle.model.load_state_dict(params)
+        bundle_cpu.model.load_state_dict(params_cpu)
+        got, grad_launches = counted(lambda: slice_grads(
+            bundle.model, bundle.prepare_batch(inputs), bundle.prepare_labels(labels),
+            GRAD_ROWS))
+        expect_launches("harness: the gradient rows", grad_launches,
+                        forward=4 * train_iv[0], backward=4 * train_iv[0])
+        want = slice_grads(bundle_cpu.model, bundle_cpu.prepare_batch(inputs),
+                           bundle_cpu.prepare_labels(labels), GRAD_ROWS)
+        grads_vs_cpu = grad_gate("harness: ", got, want)
+        emit("harness", suite=harness_suite("<tmp>", "<tmp>"), corpus_splits=[
+                 len(d.temporal) for d in (train, val, test)],
+             train_batch_intervals=train_iv, eval_intervals_by_split=eval_iv,
+             launches=launches, expected_launches=expected,
+             launches_per_epoch=epochs[0], launches_per_eval=evals[0],
+             per_seed=per_seed, suite_seconds=suite_s, rerun_launches=rerun,
+             rerun_completed=len(again),
+             isolated={"seconds": child_s, "elapsed_time": child["elapsed_time"],
+                       "test.loss": child["test.loss"], "test.auc": child["test.auc"],
+                       "bit_identical": True},
+             serve={"requests": len(requests), "padded_length": padded,
+                    "launches": serve_launches, "vs_cpu": {
+                        "requests": len(outs_cpu), "max_abs_err": err, "gate_share": share,
+                        "rtol": SERVE_RTOL, "atol": SERVE_ATOL}},
+             grads_vs_cpu={"rows": GRAD_ROWS, "launches": grad_launches, **grads_vs_cpu},
+             train_step_ms={"all": percentiles(step_ms),
+                            "untraced": percentiles([t for i, t in enumerate(step_ms)
+                                                     if (i // n) % HARNESS_EPOCHS == 0])},
+             phase_seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"harness": launches}
+
+
 def times(t):
     return {"ms": t["kernel_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
@@ -3383,7 +3708,7 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
           "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg",
-          "adaptive", "zoo", "logode", "solver_extras", "data")
+          "adaptive", "zoo", "logode", "solver_extras", "data", "harness")
 
 
 def main(argv=None) -> int:
@@ -3440,6 +3765,8 @@ def main(argv=None) -> int:
         extras_launches = phase_solver_extras()
     if "data" in phases:
         data_launches = phase_data()
+    if "harness" in phases:
+        harness_launches = phase_harness()
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
@@ -3453,7 +3780,7 @@ def main(argv=None) -> int:
                "hermite_predict": hermite_serve, "hermite_train_step": hermite_train,
                "interval_chain": chain_launches, "train_step_bf16": train_bf16_launches,
                "predict_bf16": predict_bf16_launches, **adaptive_launches, **zoo_launches,
-               **logode_launches, **extras_launches, **data_launches}
+               **logode_launches, **extras_launches, **data_launches, **harness_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}

@@ -31,7 +31,12 @@ metrics without scikit-learn (``training.metrics``); and checkpoints
 and profiling (``utils.checkpoint``, ``utils.profiling``), the data
 pipeline's preprocessing, loading, batching and prefetching
 (``data.common``, ``data.native``, ``data.loader``, ``data.prefetch``)
-and the MIMIC-IV task preparation (``data.mimic``).
+and the MIMIC-IV task preparation (``data.mimic``); and the training
+harness's core: the configuration suites, the run ledger, ``setup_model``
+and ``train``, the experiment and sweep runners and their command line
+(``training.config``, ``.ledger``, ``.harness``, ``.experiment``,
+``.sweep``, ``run``), the toy dataset builder (``data.builders``) and
+``serving.predictor_from_bundle``.
 ``ROADMAP.md`` lists what comes next.
 """
 

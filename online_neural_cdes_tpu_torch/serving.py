@@ -9,13 +9,13 @@ and raise when neither is available.  The model carries its parameters
 model must already live on the server's device.  ``Predictor`` serves the
 model's current weights; ``OnlineNCDEStepper`` serves a snapshot taken at
 construction, which assigning its ``params`` replaces, as the JAX
-stepper serves the ``params`` it holds.
+stepper serves the ``params`` it holds.  ``predictor_from_bundle`` serves
+a harness bundle at the ``params`` it is given, in a model of its own.
 
 Work is enqueued on the current CUDA stream and read back only where a
 result leaves the server (``Predictor._collect``'s ``.cpu()``), so
-``predict_many`` keeps several batches in flight.  ``mesh=``,
-``predictor_from_bundle`` and the export/deploy surface come with later
-slices (ROADMAP items 18 and 19).
+``predict_many`` keeps several batches in flight.  ``mesh=`` and the
+export/deploy surface come with later slices (ROADMAP items 18 and 19).
 """
 
 from __future__ import annotations
@@ -282,11 +282,53 @@ class Predictor:
         return results
 
 
-def predictor_from_bundle(bundle, params, **kw):
-    raise NotImplementedError(
-        "predictor_from_bundle is not ported yet (ROADMAP item 19: the rest "
-        "of serving, with the harness's model bundles)"
+def predictor_from_bundle(bundle, params, **kw) -> Predictor:
+    """Serve any harness ``ModelBundle`` (``training/harness.py::setup_model``)
+    at the weights ``params`` (a ``state_dict``): the whole model zoo,
+    the recurrent baselines included, whose inputs are prepared tensors
+    (GRU-D's masks and deltas, the gru-intensity channels) rather than
+    interpolation coefficients.
+
+    The predictor serves a model of its own: a fresh one of the bundle's
+    configuration with ``params`` copied in, so neither a later update of
+    the bundle's model in place (a trainer's step) nor one of ``params``
+    reaches it, as the JAX predictor serves the tree it was given.  The
+    bundle's ``prepare_batch`` becomes ``coeff_fn`` (pass ``coeff_fn=`` for
+    NCDE bundles, whose preparation only moves precomputed coefficients),
+    and it serves on the bundle's device unless ``device=`` says otherwise.
+    Recurrent bundles pad with NaN rows (``pad_forward_fill=False``): their
+    preparation derives observation masks from NaN, so forward-fill padding
+    would fabricate observations, while NaN pad rows stay causally isolated
+    from every request's own (earlier) rows.
+
+    A recurrent ONE-SHOT bundle is refused: its output is read after the
+    pad rows, which a recurrent cell keeps updating even on padding
+    (unlike the NCDE, whose pad intervals have dX = 0).  Build the bundle
+    with ``return_sequences=True`` and read each request's final row
+    (``outs[i][-1]``), the one-shot output for the same weights.
+    """
+    recurrent = bundle.model_string not in (
+        "ncde", "ncde-stacked", "ncde-attention"
     )
+    return_sequences = bool(getattr(bundle.model, "return_sequences", False))
+    if recurrent and not return_sequences:
+        raise ValueError(
+            f"Cannot serve a one-shot {bundle.model_string!r} bundle: a "
+            "recurrent cell keeps mutating state across the length-pad "
+            "rows, so the final-state output would include padding. Build "
+            "the bundle with return_sequences=True and read each "
+            "request's final row (outs[i][-1]) instead."
+        )
+    model = bundle.make_model(torch.Generator().manual_seed(0))
+    model.load_state_dict(params)
+    kw.setdefault("coeff_fn", bundle.prepare_batch)
+    kw.setdefault("pad_forward_fill", not recurrent)
+    # A recurrent bundle's preparation is temporal-only (it drops the
+    # static half of (static, temporal) training batches), so a static
+    # request is refused loudly rather than handed to the model as a tuple.
+    kw.setdefault("accept_static", not recurrent)
+    kw.setdefault("device", bundle.device)
+    return Predictor(model, **kw)
 
 
 class OnlineNCDEStepper:
