@@ -151,6 +151,20 @@ controls, and prints one JSON line per phase:
                 the CPU port.  The kernel phases hold
                 and time both field kernels at its (1024, 128, 128, 21 | 1,
                 2) and the forward at (467, 128, 128, 21 | 1, 2).
+21. wave     -- the same leg's three seeds (111, 222, 333) as one wave of
+                K=3 through ``run.main``: its launches only on the field
+                kernels' multi entries, as many as one config's serial run
+                (each epoch and evaluation too), lanes 111 and 222 against
+                the harness phase's serial runs, a wave step's and a serial
+                step's host and event ms, busy share and peak memory on the
+                first batch; a 4-trial ``trainer__lr`` search as one wave
+                of K=4 with no failed trial and its best parameters in the
+                ledger; ``run.main --analyse --tables-out`` on both
+                ledgers, every table cell mean +- std.  The kernel phases
+                end with a ``kernel_multi`` line each: the multi entries at
+                K=1 equal to the single entry to the bit, at K=3 and 4 on
+                the harness shapes against the plain K versions in f32 and
+                bf16 storage, timed beside K single calls.
 
 Then a line with every kernel's numbers, a line with the run's seconds, a
 line with the card's name and power limit as ``nvidia-smi`` gives them,
@@ -425,6 +439,28 @@ HARNESS_SHAPES_BWD = [(HARNESS_B, H, HH, C, 2), (HARNESS_B, H, HH, 1, 2)]
 HARNESS_SHAPES = HARNESS_SHAPES_BWD + [(HARNESS_EVAL_B, H, HH, C, 2),
                                        (HARNESS_EVAL_B, H, HH, 1, 2)]
 HARNESS_SUITE = "sepsis-ncde"
+# The K-replica entries of kernels 1-2 (the wave's step and evaluations):
+# K = 3 and 4 at the harness's training shapes, and K = 3 at its
+# evaluation shapes for the forward, with one dX shared by the replicas at
+# stride 0 as the wave's vmap rule passes it; held against the plain K
+# versions in f32 and in MULTI_MODE.  K = 1 against the single entry, to
+# the bit, at the training shapes and a ragged one (the scalar loads).
+MULTI_BWD = [(k, shape) for k in (3, 4) for shape in HARNESS_SHAPES_BWD]
+MULTI_FWD = MULTI_BWD + [(3, shape) for shape in HARNESS_SHAPES[2:]]
+MULTI_K1 = HARNESS_SHAPES_BWD + [(17, 42, 37, 5, 1)]
+MULTI_MODE = (torch.bfloat16, "float32")
+MULTI_MAIN = (3, HARNESS_SHAPES_BWD[0])      # the kernels line's timed multi shape
+# The wave phase: the harness's suite with medical-sota's three seeds as
+# one wave of K=3 (without the checkpoint and profile keys, which a wave
+# does not take), HARNESS_EPOCHS epochs; its lanes against the harness
+# phase's serial runs within WAVE_RTOL (losses) and WAVE_AUC_ATOL (AUC, a
+# rank statistic), the train phase's gradient gate; WAVE_STEPS wave and
+# serial steps timed on the first training batch; then a search of
+# WAVE_TRIALS trials over trainer__lr as one wave of WAVE_TRIALS lanes,
+# one epoch each, and the analysis tables of both ledgers.
+WAVE_SEEDS, WAVE_SUITE, WAVE_SEARCH = (111, 222, 333), "sepsis-ncde-wave", "sepsis-ncde-lr"
+WAVE_TRIALS, WAVE_STEPS = 4, 5
+WAVE_RTOL, WAVE_AUC_ATOL = 1e-3, 1e-3
 ZOO_HH_ATTN = 15
 ZOO_SHAPES = [(b, H, hh, i, 3) for hh in (HH, ZOO_HH_ATTN) for i in (C, H)
               for b in (TRAIN_B, N_REQUESTS)]
@@ -548,6 +584,8 @@ def bounds(flops, nbytes, pk):
 
 # Each kernel's launch counter, under the key the phases report it by.
 COUNTED = (("forward", "fused_field_kernel"), ("backward", "fused_field_bwd_kernel"),
+           ("forward_multi", "fused_field_multi_kernel"),
+           ("backward_multi", "fused_field_bwd_multi_kernel"),
            ("rk4", "fused_rk4_kernel"), ("rk4_multi", "fused_rk4_multi_kernel"))
 
 
@@ -882,7 +920,10 @@ def phase_kernel(pk):
                              "max_per_shape": BF16_MAX_FLIPS}},
          f32_digest=f32_digests("forward"))
     expect_refused("forward kernel", controls)
-    return max(e["max_abs_err"] for e in errors), timings, bf16_timed
+    multi, multi_timed, multi_err = multi_check("forward", pk)
+    emit("kernel_multi", kind="forward", **multi)
+    return (max(e["max_abs_err"] for e in errors), timings, bf16_timed,
+            (multi_err, multi_timed))
 
 
 def random_cotangent(gen, B, Hd, device):
@@ -1209,7 +1250,9 @@ def phase_kernel_bwd(pk):
          f32_digest=f32_digests("backward"))
     expect_refused("backward kernel", controls)
     max_err = max(e for entry in errors for e in entry["max_abs_err"].values())
-    return max_err, timings, bf16_timed
+    multi, multi_timed, multi_err = multi_check("backward", pk)
+    emit("kernel_multi", kind="backward", **multi)
+    return max_err, timings, bf16_timed, (multi_err, multi_timed)
 
 
 def stacked_fields(gen, K, shape, device):
@@ -1222,6 +1265,167 @@ def stacked_fields(gen, K, shape, device):
     weights = stack_fields([{"trunk": f[0], "head_w": f[1], "head_b": f[2]}
                             for f in fields])
     return (*weights, *(torch.stack([f[i] for f in fields]) for i in (3, 4))), fields
+
+
+def shared_dx_field(gen, K, shape, dtype=torch.float32):
+    """K random fields of one shape in the stacked layouts with one dX that
+    every replica reads (an ``expand``: replica stride 0), and the K single
+    fields, in ``dtype``."""
+    stacked, fields = stacked_fields(gen, K, shape, "cuda")
+    stacked = cast_field(stacked, dtype)
+    dx = stacked[4][0].expand(K, *stacked[4].shape[1:])
+    fields = [(*cast_field(f, dtype)[:4], dx[0]) for f in fields]
+    return (*stacked[:4], dx), fields
+
+
+def f32_bwd_row_shares(got, want):
+    """Each batch row's share of the f32 backward gate on dz and ddx."""
+    shares = None
+    for (name, gt), (_, wt) in zip(bwd_groups(got), bwd_groups(want)):
+        if name in ("dz", "ddx"):
+            g, w = gt.double(), wt.double()
+            gate = BWD_ATOL_REL * float(w.abs().max()) + BWD_RTOL * w.abs()
+            s = ((g - w).abs() / gate.clamp_min(1e-300)).amax(dim=1)
+            shares = s if shares is None else torch.maximum(shares, s)
+    return shares
+
+
+def f32_bwd_against_plain(what, field, g, Hd, I, got):
+    """The plain backward of one replica in f32, with the relu decisions
+    that the kernel's 3xTF32 sums took the other way (a pre-activation
+    within round-off of 0 flips a unit's mask and moves its whole row of
+    dz, past any f32 gate) located as in the bf16 sweep: (the plain
+    version with those flips, what each flip was)."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    want = kernels._backward_reference(*field, g, Hd, I)
+    if float(f32_bwd_row_shares(got, want).max()) <= 1.0:
+        return want, []
+    flips, located = locate_flips(
+        what, lambda fl: plain_bwd_flipped(field, g, Hd, I, "float32", fl), bwd_groups,
+        f32_bwd_row_shares, nearest_relu, got, want, "relu decision")
+    return plain_bwd_flipped(field, g, Hd, I, "float32", flips)[0], located
+
+
+def multi_check(kind, pk):
+    """The K-replica entry of the forward (``kind`` "forward") or backward
+    kernel: at K = 1 equal to the single entry to the bit (f32 and
+    MULTI_MODE); at K = 3 and 4 against the plain K version in f32 (the
+    single entry's gates, replica by replica) and in MULTI_MODE (its bf16
+    gate, a row past it held against the plain version with one decision
+    taken the other way, as the sweep), a repeat giving the same bits, one
+    count of its own launcher a call and none of the single's; times
+    against the plain K version and K single calls, bounds K times one
+    call's, and each launch's device time at MULTI_MAIN.  In f32 too a row
+    of the backward past its gate is held against the plain version with
+    one relu decision taken the other way (``f32_bwd_against_plain``): the
+    wave's shapes make four times the decisions of the sweep's."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    fwd = kind == "forward"
+    gen = torch.Generator().manual_seed(23 if fwd else 29)
+    multi = kernels.fused_matmul_field_multi if fwd else kernels.fused_field_backward_multi
+    plain_multi = (kernels._forward_reference_multi if fwd
+                   else kernels._backward_reference_multi)
+    single = kernels._forward if fwd else kernels._backward
+    plain = kernels._forward_reference if fwd else kernels._backward_reference
+    groups = (lambda out: [("out", out)]) if fwd else bwd_groups
+    lane = ((lambda out, r: out[r]) if fwd else lambda out, r: (
+        [{"w": l["w"][r], "b": l["b"][r]} for l in out[0]], *(t[r] for t in out[1:])))
+    key = "forward_multi" if fwd else "backward_multi"
+
+    def operands(K, shape, dtype):
+        stacked, fields = shared_dx_field(gen, K, shape, dtype)
+        if fwd:
+            return stacked, [(*f, shape[1], shape[3]) for f in fields], (shape[1], shape[3])
+        g = torch.randn((K, shape[0], shape[1]), generator=gen).to("cuda", dtype)
+        return ((*stacked, g), [(*f, g[r], shape[1], shape[3]) for r, f in enumerate(fields)],
+                (shape[1], shape[3]))
+
+    k1 = []
+    for dtype, precision in ((torch.float32, "float32"), MULTI_MODE):
+        for shape in MULTI_K1:
+            stacked, singles, dims = operands(1, shape, dtype)
+            got = multi(*stacked, *dims, precision)
+            want = single(*singles[0], precision)
+            for (name, gt), (_, wt) in zip(groups(lane(got, 0)), groups(want)):
+                if not torch.equal(gt, wt):
+                    raise AssertionError(f"{kind} multi at K=1, {shape}, "
+                                         f"{mode_name(dtype, precision)}: {name} differs "
+                                         "from the single entry")
+            k1.append({"mode": mode_name(dtype, precision), "shape": list(shape)})
+    sweep, timed, flips = [], {}, []
+    with torch.no_grad():
+        for K, shape in (MULTI_FWD if fwd else MULTI_BWD):
+            for dtype, precision in ((torch.float32, "float32"), MULTI_MODE):
+                mode = mode_name(dtype, precision)
+                what = f"{kind} multi K={K} at {shape}, {mode}"
+                stacked, singles, dims = operands(K, shape, dtype)
+                got, launches = counted(lambda: multi(*stacked, *dims, precision))
+                expect_launches(what, launches, **{key: 1})
+                again = multi(*stacked, *dims, precision)
+                for (name, gt), (_, ag) in zip(groups(got), groups(again)):
+                    if not torch.equal(gt, ag):
+                        raise AssertionError(f"{what}: {name} differs between two calls")
+                if dtype == torch.float32:
+                    want = plain_multi(*stacked, *dims, precision) if fwd else None
+                    share = err = 0.0
+                    for r in range(K):
+                        got_r = lane(got, r)
+                        if fwd:
+                            want_r = lane(want, r)
+                        else:
+                            want_r, located = f32_bwd_against_plain(
+                                f"{what}, replica {r}", singles[r][:5], singles[r][5], *dims,
+                                got_r)
+                            flips += [{"K": K, "shape": list(shape), "mode": mode,
+                                       "replica": r, **f} for f in located]
+                        for (name, gt), (_, wt) in zip(groups(got_r), groups(want_r)):
+                            rtol, atol = ((KERNEL_RTOL, KERNEL_ATOL) if fwd else
+                                          (BWD_RTOL, BWD_ATOL_REL * float(wt.abs().max())))
+                            torch.testing.assert_close(gt, wt, rtol=rtol, atol=atol,
+                                                       msg=lambda m: f"{what}, {name}: {m}")
+                            share = max(share, gate_share(gt.cpu(), wt.cpu(), rtol, atol))
+                            err = max(err, float((gt - wt).abs().max()))
+                    sweep.append({"K": K, "shape": list(shape), "mode": mode,
+                                  "max_abs_err": err, "gate_share": share})
+                    continue
+                worst = 0.0
+                for r in range(K):
+                    got_r, want_r = lane(got, r), plain(*singles[r], precision)
+                    field = singles[r][:5]
+                    if any(bf16_readings(gt, wt, precision)["failed"]
+                           for (_, gt), (_, wt) in zip(groups(got_r), groups(want_r))):
+                        if fwd:
+                            fl, located = bf16_rounding_flips(what, field, *dims, precision,
+                                                              got_r, want_r, False)
+                            want_r, _ = plain_fwd_rounded(field, *dims, precision, fl)
+                        else:
+                            fl, located = bf16_relu_flips(what, field, singles[r][5], *dims,
+                                                          precision, got_r, want_r)
+                            want_r, _ = plain_bwd_flipped(field, singles[r][5], *dims,
+                                                          precision, fl)
+                        flips += [{"K": K, "shape": list(shape), "replica": r, **f}
+                                  for f in located]
+                    for (name, gt), (_, wt) in zip(groups(got_r), groups(want_r)):
+                        worst = max(worst, ulp_gate(f"{what}, replica {r}, {name}", gt, wt,
+                                                    precision)["gate_share"])
+                sweep.append({"K": K, "shape": list(shape), "mode": mode, "gate_share": worst})
+        for K, shape in (MULTI_FWD if fwd else MULTI_BWD):
+            stacked, singles, dims = operands(K, shape, torch.float32)
+            call = lambda: multi(*stacked, *dims)
+            flops, nbytes = (field_cost if fwd else field_bwd_cost)(*shape)
+            timed[K, shape] = {
+                "K": K, "shape": list(shape),
+                "kernel_us": device_us(call, reps=100 if fwd else 50),
+                "k_single_us": device_us(lambda: [single(*f) for f in singles], reps=25),
+                "plain_us": device_us(lambda: plain_multi(*stacked, *dims), reps=8),
+                **bounds(K * flops, K * nbytes, pk)}
+            if (K, shape) == MULTI_MAIN:
+                timed[K, shape]["per_launch"] = per_launch(call)
+    max_err = max(e["max_abs_err"] for e in sweep if "max_abs_err" in e)
+    return {"k1_bit_identical": k1, "sweep": sweep, "mode_flips": flips,
+            "timed": list(timed.values())}, timed, max_err
 
 
 def phase_kernel_rk4(pk):
@@ -3684,7 +3888,305 @@ def phase_harness():
              phase_seconds=time.perf_counter() - t_phase)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"harness": launches}
+    return {"harness": launches}, per_seed
+
+
+def wave_suites():
+    """The wave phase's two suites: the harness's suite with medical-sota's
+    three seeds (its checkpoint and profile keys dropped: a wave takes
+    neither), and a search over trainer__lr of WAVE_TRIALS trials in one
+    wave, one epoch each."""
+    suite = harness_suite(None, None)
+    suite["seed"] = list(WAVE_SEEDS)
+    suite["trainer"] = {k: v for k, v in suite["trainer"].items()
+                        if k not in ("checkpoint_dir", "profile_dir")}
+    search = {**suite, "hyperparameters": ["hyperopt"], "seed": [9999],
+              "total_trials": [WAVE_TRIALS], "wave_size": [WAVE_TRIALS],
+              "parameterization": [[{"name": "trainer__lr", "type": "range",
+                                     "bounds": [1e-4, 1e-2], "log_scale": True}]],
+              "trainer": {"max_epochs": [1]}}
+    return {WAVE_SUITE: suite, WAVE_SEARCH: search}
+
+
+@contextmanager
+def probed_wave(wave, calls, steps, evals):
+    """Within the block, each wave that ``wave.run_trials_vmapped`` trains
+    appends its lane count to ``calls``, each of its steps (start, end, its
+    launches) to ``steps`` and each evaluation's launches to ``evals``, as
+    :func:`probed_trainer` does for the serial trainer."""
+    run, make, evaluate = wave.run_trials_vmapped, wave.make_wave_step, wave._wave_evaluate
+
+    def since(before):
+        return {key: n - before[key] for key, n in launch_counts().items()}
+
+    def run_counted(cfgs, **kw):
+        calls.append(len(cfgs))
+        return run(cfgs, **kw)
+
+    def make_probed(*args, **kw):
+        optimizer, step = make(*args, **kw)
+
+        def probed(*step_args):
+            before = launch_counts()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(*step_args)
+            end.record()
+            steps.append((start, end, since(before)))
+            return out
+
+        return optimizer, probed
+
+    def evaluate_probed(*args, **kw):
+        before = launch_counts()
+        out = evaluate(*args, **kw)
+        evals.append(since(before))
+        return out
+
+    wave.run_trials_vmapped, wave.make_wave_step, wave._wave_evaluate = (
+        run_counted, make_probed, evaluate_probed)
+    try:
+        yield
+    finally:
+        wave.run_trials_vmapped, wave.make_wave_step, wave._wave_evaluate = run, make, evaluate
+
+
+def timed_steps(step, n):
+    """``n`` calls of ``step`` after two warm-up calls: each call's host ms
+    (the time to queue it, no sync) and CUDA-event ms, one call's launches,
+    one call under the profiler (device busy ms and share, device kernels by
+    name) and the peak device memory of one call."""
+    for _ in range(2):
+        step()
+    host, device = [], []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end))
+    _, launches = counted(step)
+    prof = profile_call(step)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return {"host_ms": percentiles(host), "event_ms": percentiles(device),
+            "launches": launches, "device_busy_ms": prof["device_busy_ms"],
+            "device_busy_share": prof["device_busy_share"], "wall_ms": prof["wall_ms"],
+            "device_kernels": prof["top"], "host_top": prof["host_top"][:5],
+            "peak_mb": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def mean_std_cells(table):
+    """The cells of a table's non-float columns: each "-" or "mean $\\pm$
+    std"; returns how many are mean +- std."""
+    import re
+
+    cell = re.compile(r"^-?\d+\.\d+ \$\\pm\$ \d+\.\d+$")
+    n = 0
+    for row in table.cells:
+        for value, numeric in zip(row, table.numeric):
+            if numeric:
+                continue
+            if value != "-" and not cell.match(value):
+                raise AssertionError(f"wave: analysis cell {value!r} is not mean +- std")
+            n += value != "-"
+    return n
+
+
+def phase_wave(serial=None):
+    """A suite's seeds as one wave on the card: the harness phase's suite
+    with medical-sota's three seeds through ``run.main`` (co-scheduled: one
+    wave of K=3), its kernel launches on the multi entries against the
+    batches' intervals (the harness's reckoning, not K times it) and none
+    on the single entries, its lanes 111 and 222 against the harness
+    phase's serial runs (``serial``, or runs made here), a wave step's and a
+    serial step's host and device times, busy share and peak memory on the
+    first batch; then a search over trainer__lr whose four trials train as
+    one wave of K=4, no trial failed, its best parameters in the ledger;
+    then ``run.main --analyse --tables-out`` on both ledgers."""
+    import glob
+
+    from online_neural_cdes_tpu_torch import run
+    from online_neural_cdes_tpu_torch.data.loader import Batches
+    from online_neural_cdes_tpu_torch.training import analyse, config, hyperopt, sweep, wave
+    from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
+    from online_neural_cdes_tpu_torch.training.ledger import Ledger
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+
+    t_phase = time.perf_counter()
+    root, _ = sepsis_corpus()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wave_")
+    try:
+        config_dir = os.path.join(tmp, "configurations")
+        os.makedirs(config_dir)
+        shutil.copy(os.path.join(config.DEFAULT_CONFIG_DIR, "dataset.json5"), config_dir)
+        with open(os.path.join(config_dir, "configurations.json5"), "w") as fh:
+            json.dump(wave_suites(), fh)
+        configs, _ = config.parse_configuration_json(WAVE_SUITE, config_dir)
+        bundle, (train, val, test) = load_and_setup(configs[0], root)
+        train_iv = split_intervals(train)
+        eval_iv = [sum(split_intervals(d)) for d in (train, val, test)]
+
+        def reckoned(epochs):
+            """A wave's launches, the harness's reckoning of one config: the
+            NFE probe on the first batch, every epoch's steps and validation,
+            the three splits at the best weights; all on the multi entries."""
+            return {"forward_multi": 4 * train_iv[0] + 4 * sum(eval_iv)
+                    + epochs * 4 * (sum(train_iv) + eval_iv[1]),
+                    "backward_multi": epochs * 4 * sum(train_iv)}
+
+        ledger_path = os.path.join(tmp, "wave.jsonl")
+        args = [WAVE_SUITE, "--config-dir", config_dir, "--data-root", root,
+                "--ledger", ledger_path]
+        calls, steps, evals = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with probed_wave(wave, calls, steps, evals):
+            completed, launches = counted(lambda: run.main(args))   # the main path
+        suite_s = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        if calls != [len(WAVE_SEEDS)]:
+            raise AssertionError(f"wave: run_trials_vmapped called with {calls} lanes")
+        expect_launches("wave: the suite", launches, **reckoned(HARNESS_EPOCHS))
+        n = len(train_iv)
+        if len(steps) != HARNESS_EPOCHS * n:
+            raise AssertionError(f"wave: {len(steps)} steps")
+        for i in range(HARNESS_EPOCHS):
+            got = {key: sum(s[2][key] for s in steps[i * n:(i + 1) * n]) for key, _ in COUNTED}
+            expect_launches(f"wave: epoch {i}", got, forward_multi=4 * sum(train_iv),
+                            backward_multi=4 * sum(train_iv))
+        want_evals = ([{"forward_multi": 4 * eval_iv[1]}] * HARNESS_EPOCHS
+                      + [{"forward_multi": 4 * k} for k in eval_iv])
+        if len(evals) != len(want_evals):
+            raise AssertionError(f"wave: {len(evals)} evaluations")
+        for i, (got, want) in enumerate(zip(evals, want_evals)):
+            expect_launches(f"wave: evaluation {i}", got, **want)
+        lanes = {c["seed"]: r for c, r in completed}
+        if sorted(lanes) != sorted(WAVE_SEEDS):
+            raise AssertionError(f"wave: completed seeds {sorted(lanes)}")
+        for seed, r in lanes.items():
+            if (r["epochs_run"] != HARNESS_EPOCHS or not np.isfinite(r["test.loss"])
+                    or not 0.0 <= r["test.auc"] <= 1.0 or r["memory_usage"] is not None):
+                raise AssertionError(f"wave: seed {seed} gave {r}")
+
+        # Lanes against serial runs of the same configs.
+        if serial is None:
+            serial_runs = sweep.run(WAVE_SUITE, ledger_path=os.path.join(tmp, "serial.jsonl"),
+                                    data_root=root, config_dir=config_dir, co_schedule=False,
+                                    num_shards=len(WAVE_SEEDS), shard_index=0)
+            serial_runs += sweep.run(WAVE_SUITE, ledger_path=os.path.join(tmp, "s1.jsonl"),
+                                     data_root=root, config_dir=config_dir, co_schedule=False,
+                                     num_shards=len(WAVE_SEEDS), shard_index=1)
+            serial = {c["seed"]: {"val_loss": [h["loss"] for h in r["history"]],
+                                  **{k: r[k] for k in ("best_epoch", "test.loss", "test.auc")}}
+                      for c, r in serial_runs}
+        vs_serial = {}
+        for seed in WAVE_SEEDS[:2]:
+            lane, ref = lanes[seed], serial[seed]
+            if lane["best_epoch"] != ref["best_epoch"]:
+                raise AssertionError(f"wave: seed {seed} best epoch {lane['best_epoch']} "
+                                     f"against {ref['best_epoch']} serially")
+            val = [h["loss"] for h in lane["history"]]
+            np.testing.assert_allclose(val, ref["val_loss"], rtol=WAVE_RTOL)
+            np.testing.assert_allclose(lane["test.loss"], ref["test.loss"], rtol=WAVE_RTOL)
+            np.testing.assert_allclose(lane["test.auc"], ref["test.auc"], atol=WAVE_AUC_ATOL)
+            vs_serial[seed] = {
+                "val_loss_gate_share": gate_share(val, ref["val_loss"], WAVE_RTOL, 0.0),
+                "test_loss": [lane["test.loss"], ref["test.loss"]],
+                "test_auc": [lane["test.auc"], ref["test.auc"]]}
+
+        # One wave step (K=3) and one serial step on the first training batch.
+        inputs, labels = next(iter(Batches(train, HARNESS_B)))
+        prepared, labels = bundle.prepare_batch(inputs), bundle.prepare_labels(labels)
+        make_optimizer, wave_step = wave.make_wave_step(bundle, "bce")
+        state = wave._stack_states([bundle.init(s) for s in WAVE_SEEDS])
+        adam = make_optimizer(state)
+        rates = [HARNESS_LR] * len(WAVE_SEEDS)
+        wave_timed = timed_steps(lambda: wave_step(state, adam, prepared, labels, rates,
+                                                   [10 * r for r in rates]), WAVE_STEPS)
+        expect_launches("wave: one step", wave_timed["launches"],
+                        forward_multi=4 * train_iv[0], backward_multi=4 * train_iv[0])
+        bundle.model.load_state_dict(bundle.init(WAVE_SEEDS[0]))
+        serial_step = make_train_step(bundle.model, loss="bce", lr=HARNESS_LR)
+        serial_timed = timed_steps(lambda: serial_step(prepared, labels, 1.0), WAVE_STEPS)
+        expect_launches("wave: one serial step", serial_timed["launches"],
+                        forward=4 * train_iv[0], backward=4 * train_iv[0])
+
+        # The search: its four trials as one wave of K=4.
+        search_ledger = os.path.join(tmp, "search.jsonl")
+        search_args = [WAVE_SEARCH, "--config-dir", config_dir, "--data-root", root,
+                       "--ledger", search_ledger]
+        calls = []
+        t0 = time.perf_counter()
+        with probed_wave(wave, calls, [], []):
+            searched, search_launches = counted(lambda: run.main(search_args))
+        search_s = time.perf_counter() - t0
+        if calls != [WAVE_TRIALS]:
+            raise AssertionError(f"wave: the search ran waves of {calls} lanes")
+        expect_launches("wave: the search", search_launches, **reckoned(1))
+        trials = Ledger(search_ledger).query(
+            lambda e: e.get("run_name") == f"{WAVE_SEARCH}::trials")
+        if len(trials) != WAVE_TRIALS:
+            raise AssertionError(f"wave: {len(trials)} trial records")
+        for e in trials:
+            res = e["results"]
+            if "error" in res["trial_results"] or res["score"] == hyperopt.FAILURE_SENTINEL:
+                raise AssertionError(f"wave: trial {e['config']['trial']} failed: {res}")
+        best = Ledger(search_ledger).query(lambda e: e.get("run_name") == WAVE_SEARCH
+                                           and e.get("status") == "completed")
+        if len(best) != 1 or "lr" not in best[0]["info"].get("best_parameters", {}).get(
+                "trainer", {}):
+            raise AssertionError(f"wave: the search's ledger entry {best}")
+
+        # The analysis tables of both ledgers.
+        tables = {}
+        for name, path in ((WAVE_SUITE, ledger_path), (WAVE_SEARCH, search_ledger)):
+            out_dir = os.path.join(tmp, "tables", name)
+            run.main([name, "--ledger", path, "--analyse", "--tables-out", out_dir])
+            written = sorted(os.path.relpath(p, out_dir) for p in glob.glob(
+                os.path.join(out_dir, "**", "*.tex"), recursive=True))
+            frame = analyse.runs_frame(Ledger(path), name)
+            built = {**{f"sparsity/{k}.tex": t for k, t in
+                        analyse.sparsity_tables(frame, name).items()},
+                     "medical-sota.tex": analyse.medical_sota_table(frame, name)}
+            cells = 0
+            for rel, table in built.items():
+                if table.empty:
+                    continue
+                with open(os.path.join(out_dir, rel)) as fh:
+                    if fh.read() != table.to_latex():
+                        raise AssertionError(f"wave: {rel} is not its table")
+                cells += mean_std_cells(table)
+            if "medical-sota.tex" not in written or not cells:
+                raise AssertionError(f"wave: tables {written} of {name}, {cells} cells")
+            tables[name] = {"written": written, "mean_std_cells": cells}
+        step_ms = [start.elapsed_time(end) for start, end, _ in steps]
+        emit("wave", suite={k: v for k, v in wave_suites()[WAVE_SUITE].items()},
+             lanes=len(WAVE_SEEDS), launches=launches, expected_launches=reckoned(
+                 HARNESS_EPOCHS), launches_per_epoch={"forward_multi": 4 * sum(train_iv),
+                                                      "backward_multi": 4 * sum(train_iv)},
+             per_seed={seed: {k: r[k] for k in ("best_epoch", "test.loss", "test.auc",
+                                                "time_per_epoch")}
+                       for seed, r in lanes.items()},
+             vs_serial={"rtol": WAVE_RTOL, "auc_atol": WAVE_AUC_ATOL, **vs_serial},
+             suite_seconds=suite_s, peak_mb=peak_mb,
+             train_step_ms=percentiles(step_ms),
+             step_on_first_batch={"batch": HARNESS_B, "wave_k3": wave_timed,
+                                  "serial": serial_timed},
+             search={"trials": WAVE_TRIALS, "waves": calls, "launches": search_launches,
+                     "seconds": search_s, "best_parameters": best[0]["info"][
+                         "best_parameters"], "scores": [e["results"]["score"]
+                                                       for e in trials]},
+             tables=tables, phase_seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"wave": launches, "wave_step": wave_timed["launches"], "search": search_launches}
+
 
 
 def times(t):
@@ -3708,7 +4210,7 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
           "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg",
-          "adaptive", "zoo", "logode", "solver_extras", "data", "harness")
+          "adaptive", "zoo", "logode", "solver_extras", "data", "harness", "wave")
 
 
 def main(argv=None) -> int:
@@ -3730,9 +4232,9 @@ def main(argv=None) -> int:
     phase_env()
     phase_build()
     if "kernel" in phases:
-        max_err, timings, timings_bf16 = phase_kernel(pk)
+        max_err, timings, timings_bf16, timings_multi_fwd = phase_kernel(pk)
     if "kernel_bwd" in phases:
-        max_err_bwd, timings_bwd, timings_bwd_bf16 = phase_kernel_bwd(pk)
+        max_err_bwd, timings_bwd, timings_bwd_bf16, timings_multi_bwd = phase_kernel_bwd(pk)
     if "kernel_rk4" in phases:
         (max_err_rk4, max_err_multi, timings_rk4, timings_multi,
          timings_rk4_bf16) = phase_kernel_rk4(pk)
@@ -3765,8 +4267,11 @@ def main(argv=None) -> int:
         extras_launches = phase_solver_extras()
     if "data" in phases:
         data_launches = phase_data()
+    serial = None
     if "harness" in phases:
-        harness_launches = phase_harness()
+        harness_launches, serial = phase_harness()
+    if "wave" in phases:
+        wave_launches = phase_wave(serial)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
@@ -3780,7 +4285,8 @@ def main(argv=None) -> int:
                "hermite_predict": hermite_serve, "hermite_train_step": hermite_train,
                "interval_chain": chain_launches, "train_step_bf16": train_bf16_launches,
                "predict_bf16": predict_bf16_launches, **adaptive_launches, **zoo_launches,
-               **logode_launches, **extras_launches, **data_launches, **harness_launches}
+               **logode_launches, **extras_launches, **data_launches, **harness_launches,
+               **wave_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}
@@ -3804,6 +4310,22 @@ def main(argv=None) -> int:
             entry["by_dtype"] = [{"mode": t["mode"], "shape": t["shape"], **times(t)}
                                  for t in tm_bf16.values()]
         entries.append(entry)
+    for kernel, source, replaces, key, (err, tm) in (
+            ("fused_matmul_field_multi", "fused_field.cu", 184, "forward_multi",
+             timings_multi_fwd),
+            ("fused_matmul_field_bwd_multi", "fused_field_bwd.cu", 367, "backward_multi",
+             timings_multi_bwd)):
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": f"online_neural_cdes_tpu_torch/csrc/{source}",
+            "replaces": f"online_neural_cdes_tpu/ops/kernels.py:{replaces} (under jax.vmap)",
+            "launches": by_path["wave"][key], "max_abs_err": err,
+            **times(tm[MULTI_MAIN]), "library_ms": None, "K": MULTI_MAIN[0],
+            "timed_shape": list(MULTI_MAIN[1]),
+            "k_single_ms": tm[MULTI_MAIN]["k_single_us"] / 1e3,
+            "by_shape": [{"K": t["K"], "shape": t["shape"], **times(t),
+                          "k_single_ms": t["k_single_us"] / 1e3} for t in tm.values()],
+            "launches_by_path": paths(key)})
     k_main = RK4_MULTI_TIMED[0]
     entries.append({
         "name": "fused_rk4_interval_multi", "route": "cuda",

@@ -72,6 +72,17 @@
 //   It needs no scratch.  This path is the shape's, not a fallback: a launch
 //   that fails on either path returns its error.
 //
+// K replicas (oncde_fused_field_forward_multi).  Under jax.vmap the TPU
+// runs kernel 1 once for K replicas, each with its own weights: Pallas's
+// batching rule adds the replica axis to the grid.  The multi entry does
+// the same with the tensor-core path's two launches: the replica is
+// blockIdx.z, and each block offsets every operand by its replica stride
+// (trunk_mma.cuh's Strides; 0 for an operand the replicas share, as dX).
+// The launch count does not grow with K.  The head's grid counts the K
+// replicas' tiles toward the wave (head_forward_grid), so K replicas take
+// larger row tiles or fewer channel groups than one; at K = 1 the grid,
+// the code and so the bits are the single entry's.  H and HH up to 256.
+//
 // Operand modes (the JAX op's bf16 storage and precision "bfloat16"; see
 // mma_tf32.cuh's Mode).  Every path is instantiated for each of the four
 // (storage, precision) pairs; the float32 / "float32" one is the code
@@ -178,7 +189,10 @@ size_t head_forward_smem(int mt, int hh) {
   return (2 * rt * (kp + 4) + 2 * kp * kLdW + 2 * rt + 2 * kStrip + rt * kLdS) * sizeof(float);
 }
 
-HeadForwardGrid head_forward_grid(int batch, int hidden, int hh, int n_in) {
+// The head's grid for `replicas` replicas of a shape: each replica's tiles
+// count toward the wave, so K replicas take larger row tiles and fewer
+// channel groups than one (at K = 1, the single call's grid).
+HeadForwardGrid head_forward_grid(int batch, int hidden, int hh, int n_in, int replicas = 1) {
   HeadForwardGrid G;
   G.hstrips = cdiv(hidden, kStrip);
   const int most = n_in < kMaxGroups ? n_in : kMaxGroups;
@@ -186,7 +200,7 @@ HeadForwardGrid head_forward_grid(int batch, int hidden, int hh, int n_in) {
   // kMaxGroups groups, still give half the SMs a block.
   G.mt = 1;
   for (int mt = 2; mt <= 4; mt *= 2)
-    if ((long long)cdiv(batch, 16 * mt) * G.hstrips * most >= kTargetBlocks / 2 &&
+    if ((long long)cdiv(batch, 16 * mt) * G.hstrips * most * replicas >= kTargetBlocks / 2 &&
         head_forward_smem(mt, hh) <= kMaxSmem)
       G.mt = mt;
   G.row_tiles = cdiv(batch, 16 * G.mt);
@@ -194,7 +208,7 @@ HeadForwardGrid head_forward_grid(int batch, int hidden, int hh, int n_in) {
   // blocks must share one GPC, so the card holds fewer clusters of g blocks
   // than 132 / g (15 of 7 on an H100 SXM, where 16 spill into a second
   // wave), and the head's time is its slowest block's channels.
-  const long long tiles = (long long)G.row_tiles * G.hstrips;
+  const long long tiles = (long long)G.row_tiles * G.hstrips * replicas;
   const long long fit = kWaveBlocks / tiles;
   const int groups = fit < 1 ? 1 : fit < most ? (int)fit : most;
   G.cpg = cdiv(n_in, groups);
@@ -213,7 +227,12 @@ head_forward(const typename M::Storage* __restrict__ dx, const float* __restrict
              const typename M::Storage* __restrict__ head_w,
              const typename M::Storage* __restrict__ head_b,
              typename M::Storage* __restrict__ out, int batch, int hidden, int hh, int n_in,
-             int hstrips, int cpg) {
+             int hstrips, int cpg, const Strides S) {
+  dx = at_replica(dx, S.dx);
+  u_last = at_replica(u_last, S.scratch);
+  head_w = at_replica(head_w, S.head_w);
+  head_b = at_replica(head_b, S.head_b);
+  out = at_replica(out, S.out);
   constexpr int RT = 16 * MT;
   extern __shared__ __align__(16) float smem[];
   const int kp = pad16(hh), ldu = kp + 4;
@@ -333,13 +352,15 @@ head_forward(const typename M::Storage* __restrict__ dx, const float* __restrict
 template <int MT, int V, class M, class T = typename M::Storage>
 cudaError_t launch_head_forward(const HeadForwardGrid& G, const T* dx, const float* u_last,
                                 const T* head_w, const T* head_b, T* out, int batch,
-                                int hidden, int hh, int n_in, cudaStream_t s) {
+                                int hidden, int hh, int n_in, cudaStream_t s, int replicas,
+                                const Strides& S) {
   const size_t smem = head_forward_smem(MT, hh);
   const cudaError_t err = reserve_smem<head_forward<MT, V, M>>(smem);
   if (err != cudaSuccess) return err;
-  return launch_cluster_y(head_forward<MT, V, M>, dim3(G.row_tiles * G.hstrips, G.groups),
-                          dim3(kThreads), smem, s, G.groups, dx, u_last, head_w, head_b, out,
-                          batch, hidden, hh, n_in, G.hstrips, G.cpg);
+  return launch_cluster_y(head_forward<MT, V, M>,
+                          dim3(G.row_tiles * G.hstrips, G.groups, replicas), dim3(kThreads),
+                          smem, s, G.groups, dx, u_last, head_w, head_b, out, batch, hidden, hh,
+                          n_in, G.hstrips, G.cpg, S);
 }
 
 // How many of the head's clusters (G.groups blocks along y) the card holds
@@ -371,17 +392,20 @@ int head_clusters_at_once(const HeadForwardGrid& G, int hh) {
   return n;
 }
 
+// The two launches for `replicas` replicas (S's strides; u_last holds
+// S.scratch floats a replica).
 template <int V, class M, class T = typename M::Storage>
 cudaError_t launch(const T* z, const T* dx, const TrunkOf<T>& trunk, const T* head_w,
                    const T* head_b, T* out, float* u_last, int batch, int hidden, int hh,
-                   int n_in, cudaStream_t s) {
-  cudaError_t err = launch_trunk_forward<V, false, M>(z, trunk, u_last, batch, hidden, hh, s);
+                   int n_in, cudaStream_t s, int replicas, const Strides& S) {
+  cudaError_t err = launch_trunk_forward<V, false, M>(z, trunk, u_last, batch, hidden, hh, s,
+                                                      replicas, S, S.scratch);
   if (err != cudaSuccess) return err;
-  const HeadForwardGrid G = head_forward_grid(batch, hidden, hh, n_in);
+  const HeadForwardGrid G = head_forward_grid(batch, hidden, hh, n_in, replicas);
   const auto head = G.mt == 4   ? launch_head_forward<4, V, M>
                     : G.mt == 2 ? launch_head_forward<2, V, M>
                                 : launch_head_forward<1, V, M>;
-  err = head(G, dx, u_last, head_w, head_b, out, batch, hidden, hh, n_in, s);
+  err = head(G, dx, u_last, head_w, head_b, out, batch, hidden, hh, n_in, s, replicas, S);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -411,18 +435,21 @@ bool fill_trunk(Tr& trunk, const void* const* trunk_w, const void* const* trunk_
   return aligned;
 }
 
-// One call in operand mode M (the entry point's body).
+// One call in operand mode M (the entry points' body): `replicas`
+// replicas with S's input strides (one replica and no strides for the
+// single entry).  K replicas take the tensor-core path only.
 template <class M, class T = typename M::Storage>
 int forward(const void* zp, const void* dxp, const void* const* trunk_w,
             const void* const* trunk_b, int n_trunk, const void* head_wp, const void* head_bp,
             void* outp, float* scratch, long long scratch_floats, int batch, int hidden, int hh,
-            int n_in, cudaStream_t s) {
+            int n_in, cudaStream_t s, int replicas, tc::Strides S) {
   const T* z = static_cast<const T*>(zp);
   const T* dx = static_cast<const T*>(dxp);
   const T* head_w = static_cast<const T*>(head_wp);
   const T* head_b = static_cast<const T*>(head_bp);
   T* out = static_cast<T*>(outp);
   if (!tensor_cores(hidden, hh)) {
+    if (replicas != 1) return (int)cudaErrorInvalidValue;
     TrunkOf<T> trunk;
     const bool vec = fill_trunk<TrunkOf<T>, T>(trunk, trunk_w, trunk_b, n_trunk) &&
                      hidden % 4 == 0 && hh % 4 == 0 && aligned_vec4<T>(head_w);
@@ -436,15 +463,31 @@ int forward(const void* zp, const void* dxp, const void* const* trunk_w,
                : launch_cuda_cores<kHeadGroups, 1, M>(z, dx, trunk, head_w, head_b, out, batch,
                                                       hidden, hh, n_in, s);
   }
-  if (scratch_floats < (long long)batch * hh) return (int)cudaErrorInvalidValue;
+  S.out = (long long)batch * hidden;
+  S.scratch = (long long)batch * hh;  // u_n, (B, HH) a replica
+  if (scratch_floats < replicas * S.scratch) return (int)cudaErrorInvalidValue;
   tc::TrunkOf<T> trunk;
   const bool vec = fill_trunk<tc::TrunkOf<T>, T>(trunk, trunk_w, trunk_b, n_trunk) &&
                    hidden % 4 == 0 && hh % 4 == 0 && aligned_vec4<T>(z) &&
-                   aligned_vec4<T>(head_w) && aligned_vec4<T>(head_b) && aligned16(scratch);
+                   aligned_vec4<T>(head_w) && aligned_vec4<T>(head_b) && aligned16(scratch) &&
+                   tc::strides_vec4(S, n_trunk);
   return (int)(vec ? tc::launch<4, M>(z, dx, trunk, head_w, head_b, out, scratch, batch, hidden,
-                                      hh, n_in, s)
+                                      hh, n_in, s, replicas, S)
                    : tc::launch<1, M>(z, dx, trunk, head_w, head_b, out, scratch, batch, hidden,
-                                      hh, n_in, s));
+                                      hh, n_in, s, replicas, S));
+}
+
+using ForwardCall = int (*)(const void*, const void*, const void* const*, const void* const*,
+                            int, const void*, const void*, void*, float*, long long, int, int,
+                            int, int, cudaStream_t, int, tc::Strides);
+
+// The body of an operand mode, or nullptr for codes that name none.
+ForwardCall forward_of(int dtype, int precision) {
+  return dtype == 0 && precision == 0   ? &forward<F32>
+         : dtype == 0 && precision == 1 ? &forward<Mode<float, true>>
+         : dtype == 1 && precision == 0 ? &forward<Mode<__nv_bfloat16, false>>
+         : dtype == 1 && precision == 1 ? &forward<Mode<__nv_bfloat16, true>>
+                                        : nullptr;
 }
 
 }  // namespace
@@ -493,15 +536,42 @@ int oncde_fused_field_forward(const void* z, const void* dx, const void* const* 
                               long long scratch_floats, int batch, int hidden, int hh,
                               int n_in, int dtype, int precision, void* stream) {
   if (!valid(batch, hidden, hh, n_in, n_trunk)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto call = dtype == 0 && precision == 0   ? &forward<F32>
-                    : dtype == 0 && precision == 1 ? &forward<Mode<float, true>>
-                    : dtype == 1 && precision == 0 ? &forward<Mode<__nv_bfloat16, false>>
-                    : dtype == 1 && precision == 1 ? &forward<Mode<__nv_bfloat16, true>>
-                                                   : nullptr;
+  const ForwardCall call = forward_of(dtype, precision);
   if (call == nullptr) return (int)cudaErrorInvalidValue;
   return call(z, dx, trunk_w, trunk_b, n_trunk, head_w, head_b, out, scratch, scratch_floats,
-              batch, hidden, hh, n_in, s);
+              batch, hidden, hh, n_in, static_cast<cudaStream_t>(stream), 1, tc::Strides{});
+}
+
+// Floats of scratch a K-replica call needs (K times a single call's; 0 for
+// a shape the multi entry does not take: H or HH above 256).
+long long oncde_fused_field_forward_multi_scratch(int replicas, int batch, int hidden, int hh,
+                                                  int n_in, int n_trunk) {
+  if (replicas < 1 || !valid(batch, hidden, hh, n_in, n_trunk) || !tensor_cores(hidden, hh))
+    return 0;
+  return (long long)replicas * batch * hh;
+}
+
+// K replicas of the forward in the single entry's two launches, with the
+// replica along gridDim.z.  Operands as the single entry's, each holding K
+// replicas: replica r of an input at r times its stride (a host array of
+// kStrideSlots element strides {z, dx, g (unused), head_w, head_b, w_0..3,
+// b_0..3}; 0 for an operand every replica shares), out dense (K, B, H).
+// Replica r's result is the single entry's on replica r's operands; at
+// K = 1 it is the same launches, so the same bits.  H and HH up to 256.
+int oncde_fused_field_forward_multi(const void* z, const void* dx, const void* const* trunk_w,
+                                    const void* const* trunk_b, int n_trunk, const void* head_w,
+                                    const void* head_b, void* out, float* scratch,
+                                    long long scratch_floats, int replicas,
+                                    const long long* strides, int batch, int hidden, int hh,
+                                    int n_in, int dtype, int precision, void* stream) {
+  if (replicas < 1 || replicas > 65535 || !valid(batch, hidden, hh, n_in, n_trunk) ||
+      !tensor_cores(hidden, hh))
+    return (int)cudaErrorInvalidValue;
+  const ForwardCall call = forward_of(dtype, precision);
+  if (call == nullptr) return (int)cudaErrorInvalidValue;
+  return call(z, dx, trunk_w, trunk_b, n_trunk, head_w, head_b, out, scratch, scratch_floats,
+              batch, hidden, hh, n_in, static_cast<cudaStream_t>(stream), replicas,
+              tc::input_strides(strides));
 }
 
 const char* oncde_cuda_error_string(int err) {

@@ -88,6 +88,15 @@
 //                      walking its rows 64 at a time through a three-deep
 //                      ring.
 //
+// K replicas (oncde_fused_field_backward_multi): the same four launches
+// with the replica along gridDim.z, every input offset by its replica
+// stride (trunk_mma.cuh's Strides; 0 for a shared operand) and every
+// output, weight grads included, per replica, summed over that replica's
+// batch only.  The scratch holds K layouts; each grid counts the K
+// replicas' blocks toward the wave (fewer strip groups, so fewer du_n
+// partials, and fewer weight-grad batch ranges), and at K = 1 the grids,
+// the code and so the bits are the single entry's.
+//
 // Ragged edges: every staged tile is zero-filled past the batch, past H
 // and HH and past a strip's columns, and the K loops run over those zeros
 // to the next multiple of 16; outputs past the edges are not stored.
@@ -130,6 +139,7 @@ struct GradProblem {
   const float* d;  // (B, N), leading dimension n
   void* w;
   void* b;
+  long long xs, ds, ws, bs;  // replica strides of x, d, w and b (elements)
   int m, n;
   int tiles_n, tile0;  // output tiles in n; the first tile's block index
   bool x_storage;
@@ -162,23 +172,27 @@ size_t head_smem_bytes(int mt, int hh) {
   return floats * sizeof(float);
 }
 
-HeadGrid head_grid(int batch, int hh, int strips) {
+// Every grid below counts the blocks of all `replicas` replicas toward the
+// wave (at K = 1, the single call's grid).
+HeadGrid head_grid(int batch, int hh, int strips, int replicas) {
   HeadGrid G;
   // The largest row tile that still gives one block an SM; 64 rows only
   // for HH <= 128 (product 2's accumulators).
   G.mt = 1;
   for (int mt = 2; mt <= 4; mt *= 2)
-    if ((long long)cdiv(batch, 16 * mt) * strips >= kTargetBlocks &&
+    if ((long long)cdiv(batch, 16 * mt) * strips * replicas >= kTargetBlocks &&
         head_smem_bytes(mt, hh) <= kMaxSmem && (mt < 4 || head_nq(hh) == 2))
       G.mt = mt;
   G.row_tiles = cdiv(batch, 16 * G.mt);
-  G.spg = (int)(((long long)G.row_tiles * strips + kTargetBlocks - 1) / kTargetBlocks);
+  G.spg = (int)(((long long)G.row_tiles * strips * replicas + kTargetBlocks - 1) /
+                kTargetBlocks);
   G.groups = cdiv(strips, G.spg);
   return G;
 }
 
 // The weight-grad problems; pointers are filled at launch.
-GradProblems grad_problems(int batch, int hidden, int hh, int n_in, int n_trunk) {
+GradProblems grad_problems(int batch, int hidden, int hh, int n_in, int n_trunk,
+                           int replicas) {
   GradProblems P = {};
   P.count = 1 + n_trunk;
   int tiles = 0;
@@ -193,7 +207,8 @@ GradProblems grad_problems(int batch, int hidden, int hh, int n_in, int n_trunk)
   P.tiles = tiles;
   // Split the batch only when the tiles leave most SMs idle: into up to
   // kMaxSplit ranges of whole stages, about two blocks an SM.
-  int split = tiles >= kTargetBlocks / 2 ? 1 : cdiv(2 * kTargetBlocks, tiles);
+  const int all = tiles * replicas;
+  int split = all >= kTargetBlocks / 2 ? 1 : cdiv(2 * kTargetBlocks, all);
   split = split < kMaxSplit ? split : kMaxSplit;
   split = split < cdiv(batch, kWgRows) ? split : cdiv(batch, kWgRows);
   P.rows_per_split = cdiv(cdiv(batch, split), kWgRows) * kWgRows;
@@ -201,11 +216,12 @@ GradProblems grad_problems(int batch, int hidden, int hh, int n_in, int n_trunk)
   return P;
 }
 
-Layout layout(int batch, int hidden, int hh, int n_in, int n_trunk) {
+// One replica's scratch (`total` floats; K replicas take K times it).
+Layout layout(int batch, int hidden, int hh, int n_in, int n_trunk, int replicas = 1) {
   Layout L;
   L.hstrips = cdiv(hidden, kStrip);
   L.strips = n_in * L.hstrips;
-  L.head = head_grid(batch, hh, L.strips);
+  L.head = head_grid(batch, hh, L.strips, replicas);
   size_t off = 0;
   L.acts = off;    off += round4((size_t)n_trunk * batch * hh);
   L.dv = off;      off += round4((size_t)n_trunk * batch * hh);
@@ -243,7 +259,15 @@ head_backward(const typename M::Storage* __restrict__ dx,
               const typename M::Storage* __restrict__ head_w,
               const typename M::Storage* __restrict__ head_b, float* __restrict__ dpre,
               float* __restrict__ dupart, float* __restrict__ ddxpart, int batch,
-              int hidden, int hh, int n_in, int hstrips, int strips, int spg) {
+              int hidden, int hh, int n_in, int hstrips, int strips, int spg, const Strides S) {
+  dx = at_replica(dx, S.dx);
+  g = at_replica(g, S.g);
+  u_last = at_replica(u_last, S.scratch);
+  head_w = at_replica(head_w, S.head_w);
+  head_b = at_replica(head_b, S.head_b);
+  dpre = at_replica(dpre, S.scratch);
+  dupart = at_replica(dupart, S.scratch);
+  ddxpart = at_replica(ddxpart, S.scratch);
   constexpr int RT = 16 * MT;
   extern __shared__ __align__(16) float smem[];
   const int kp = pad16(hh), ldu = kp + 4;
@@ -418,7 +442,15 @@ trunk_backward(const float* __restrict__ dupart, int groups,
                const float* __restrict__ ddxpart, int hstrips,
                const float* __restrict__ acts, TrunkOf<typename M::Storage> trunk,
                float* __restrict__ dv, typename M::Storage* __restrict__ dz,
-               typename M::Storage* __restrict__ ddx, int batch, int hidden, int hh, int n_in) {
+               typename M::Storage* __restrict__ ddx, int batch, int hidden, int hh, int n_in,
+               const Strides S) {
+  dupart = at_replica(dupart, S.scratch);
+  ddxpart = at_replica(ddxpart, S.scratch);
+  acts = at_replica(acts, S.scratch);
+  trunk = trunk_at_replica(trunk, S);
+  dv = at_replica(dv, S.scratch);
+  dz = at_replica(dz, S.out);
+  ddx = at_replica(ddx, S.ddx);
   namespace cg = cooperative_groups;
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
@@ -615,6 +647,11 @@ weight_grad(GradProblems P, int batch) {
 #pragma unroll
   for (int q = 1; q < kProblems; ++q)
     if (q < P.count && (int)blockIdx.x >= P.p[q].tile0) pr = P.p[q];
+  pr.x = pr.x_storage ? static_cast<const void*>(at_replica(static_cast<const T*>(pr.x), pr.xs))
+                      : static_cast<const void*>(at_replica(static_cast<const float*>(pr.x), pr.xs));
+  pr.d = at_replica(pr.d, pr.ds);
+  pr.w = at_replica(static_cast<T*>(pr.w), pr.ws);
+  pr.b = at_replica(static_cast<T*>(pr.b), pr.bs);
   const int local = blockIdx.x - pr.tile0;
   const int tm = local / pr.tiles_n, tn = local - tm * pr.tiles_n;
   const int m0 = tm * kWgM, n0 = tn * kWgN;
@@ -745,40 +782,44 @@ bool valid(int batch, int hidden, int hh, int n_in, int n_trunk) {
 template <int MT, int NQ, int V, class M, class T = typename M::Storage>
 cudaError_t launch_head(dim3 blocks, size_t smem, cudaStream_t s, const T* dx, const T* g,
                         const float* u_last, const T* head_w, const T* head_b, float* scratch,
-                        const Layout& L, int batch, int hidden, int hh, int n_in) {
+                        const Layout& L, int batch, int hidden, int hh, int n_in,
+                        const Strides& S) {
   const cudaError_t err = reserve_smem<head_backward<MT, NQ, V, M>>(smem);
   if (err != cudaSuccess) return err;
   head_backward<MT, NQ, V, M><<<blocks, kThreads, smem, s>>>(
       dx, g, u_last, head_w, head_b, scratch + L.dpre, scratch + L.dupart, scratch + L.ddxpart,
-      batch, hidden, hh, n_in, L.hstrips, L.strips, L.head.spg);
+      batch, hidden, hh, n_in, L.hstrips, L.strips, L.head.spg, S);
   return cudaGetLastError();
 }
 
+// The four launches for `replicas` replicas: the inputs at S's strides,
+// the outputs dense (K, ...), replica r's scratch at r * S.scratch.
 template <int V, class M, class T = typename M::Storage>
 cudaError_t launch(const T* z, const T* dx, const T* g, const TrunkOf<T>& trunk,
                    const T* head_w, const T* head_b, T* dz, T* ddx, void* const* dtrunk_w,
                    void* const* dtrunk_b, T* dhead_w, T* dhead_b, float* scratch,
-                   const Layout& L, int batch, int hidden, int hh, int n_in, cudaStream_t s) {
+                   const Layout& L, int batch, int hidden, int hh, int n_in, cudaStream_t s,
+                   int replicas, const Strides& S) {
   const int n_trunk = trunk.n;
   float* acts = scratch + L.acts;
   float* dv = scratch + L.dv;
   const float* u_last = acts + (size_t)(n_trunk - 1) * batch * hh;
-  const int trunk_blocks = cdiv(batch, kRowTile) * kCluster;
+  const dim3 trunk_blocks(cdiv(batch, kRowTile) * kCluster, 1, replicas);
   cudaError_t err;
 
-  if ((err = launch_trunk_forward<V, true, M>(z, trunk, acts, batch, hidden, hh, s)) !=
-      cudaSuccess)
+  if ((err = launch_trunk_forward<V, true, M>(z, trunk, acts, batch, hidden, hh, s, replicas, S,
+                                              S.scratch)) != cudaSuccess)
     return err;
 
   const HeadGrid& H = L.head;
   size_t smem = head_smem_bytes(H.mt, hh);
-  const dim3 head_blocks(H.row_tiles, H.groups);
+  const dim3 head_blocks(H.row_tiles, H.groups, replicas);
   const bool nq2 = head_nq(hh) == 2;
   const auto head = H.mt == 4 ? launch_head<4, 2, V, M>
                     : H.mt == 2 ? (nq2 ? launch_head<2, 2, V, M> : launch_head<2, 4, V, M>)
                                 : (nq2 ? launch_head<1, 2, V, M> : launch_head<1, 4, V, M>);
   err = head(head_blocks, smem, s, dx, g, u_last, head_w, head_b, scratch, L, batch, hidden, hh,
-             n_in);
+             n_in, S);
   if (err != cudaSuccess) return err;
 
   smem = trunk_backward_smem(hidden, hh);
@@ -786,20 +827,23 @@ cudaError_t launch(const T* z, const T* dx, const T* g, const TrunkOf<T>& trunk,
     if ((err = reserve_smem<trunk_backward<V, 2, M>>(smem)) != cudaSuccess) return err;
     trunk_backward<V, 2, M><<<trunk_blocks, kTThreads, smem, s>>>(
         scratch + L.dupart, H.groups, scratch + L.ddxpart, L.hstrips, acts, trunk, dv, dz,
-        ddx, batch, hidden, hh, n_in);
+        ddx, batch, hidden, hh, n_in, S);
   } else {
     if ((err = reserve_smem<trunk_backward<V, 1, M>>(smem)) != cudaSuccess) return err;
     trunk_backward<V, 1, M><<<trunk_blocks, kTThreads, smem, s>>>(
         scratch + L.dupart, H.groups, scratch + L.ddxpart, L.hstrips, acts, trunk, dv, dz,
-        ddx, batch, hidden, hh, n_in);
+        ddx, batch, hidden, hh, n_in, S);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  GradProblems P = grad_problems(batch, hidden, hh, n_in, n_trunk);
+  GradProblems P = grad_problems(batch, hidden, hh, n_in, n_trunk, replicas);
   P.p[0].x = u_last;
   P.p[0].d = scratch + L.dpre;
   P.p[0].w = dhead_w;
   P.p[0].b = dhead_b;
+  P.p[0].xs = P.p[0].ds = S.scratch;
+  P.p[0].ws = (long long)hh * n_in * hidden;
+  P.p[0].bs = (long long)n_in * hidden;
   for (int l = 0; l < n_trunk; ++l) {
     GradProblem& p = P.p[1 + l];
     p.x = l == 0 ? static_cast<const void*>(z) : acts + (size_t)(l - 1) * batch * hh;
@@ -807,24 +851,34 @@ cudaError_t launch(const T* z, const T* dx, const T* g, const TrunkOf<T>& trunk,
     p.d = dv + (size_t)l * batch * hh;
     p.w = dtrunk_w[l];
     p.b = dtrunk_b[l];
+    p.xs = l == 0 ? S.z : S.scratch;
+    p.ds = S.scratch;
+    p.ws = (long long)(l == 0 ? hidden : hh) * hh;
+    p.bs = hh;
   }
   if ((err = reserve_smem<weight_grad<V, M>>(kWgSmemBytes)) != cudaSuccess) return err;
-  err = launch_cluster_y(weight_grad<V, M>, dim3(P.tiles, P.split), dim3(kWgThreads),
+  err = launch_cluster_y(weight_grad<V, M>, dim3(P.tiles, P.split, replicas), dim3(kWgThreads),
                          kWgSmemBytes, s, P.split, P, batch);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// One call in operand mode M (the entry point's body).
+// One call in operand mode M (the entry points' body): `replicas`
+// replicas with S's input strides (one replica and no strides for the
+// single entry).
 template <class M, class T = typename M::Storage>
 int backward(const void* z, const void* dx, const void* g, const void* const* trunk_w,
              const void* const* trunk_b, int n_trunk, const void* head_w, const void* head_b,
              void* dz, void* ddx, void* const* dtrunk_w, void* const* dtrunk_b, void* dhead_w,
              void* dhead_b, float* scratch, const Layout& L, int batch, int hidden, int hh,
-             int n_in, cudaStream_t s) {
+             int n_in, cudaStream_t s, int replicas, Strides S) {
+  S.out = (long long)batch * hidden;
+  S.ddx = (long long)batch * n_in;
+  S.scratch = (long long)L.total;
   TrunkOf<T> trunk;
   bool vec = hidden % 4 == 0 && hh % 4 == 0 && aligned_vec4<T>(z) && aligned_vec4<T>(g) &&
-             aligned_vec4<T>(head_w) && aligned_vec4<T>(head_b) && aligned16(scratch);
+             aligned_vec4<T>(head_w) && aligned_vec4<T>(head_b) && aligned16(scratch) &&
+             strides_vec4(S, n_trunk);
   for (int l = 0; l < kMaxTrunk; ++l) {
     trunk.w[l] = l < n_trunk ? static_cast<const T*>(trunk_w[l]) : nullptr;
     trunk.b[l] = l < n_trunk ? static_cast<const T*>(trunk_b[l]) : nullptr;
@@ -836,7 +890,21 @@ int backward(const void* z, const void* dx, const void* g, const void* const* tr
                  trunk, static_cast<const T*>(head_w), static_cast<const T*>(head_b),
                  static_cast<T*>(dz), static_cast<T*>(ddx), dtrunk_w, dtrunk_b,
                  static_cast<T*>(dhead_w), static_cast<T*>(dhead_b), scratch, L, batch, hidden,
-                 hh, n_in, s);
+                 hh, n_in, s, replicas, S);
+}
+
+using BackwardCall = int (*)(const void*, const void*, const void*, const void* const*,
+                             const void* const*, int, const void*, const void*, void*, void*,
+                             void* const*, void* const*, void*, void*, float*, const Layout&,
+                             int, int, int, int, cudaStream_t, int, Strides);
+
+// The body of an operand mode, or nullptr for codes that name none.
+BackwardCall backward_of(int dtype, int precision) {
+  return dtype == 0 && precision == 0   ? &backward<F32>
+         : dtype == 0 && precision == 1 ? &backward<Mode<float, true>>
+         : dtype == 1 && precision == 0 ? &backward<Mode<__nv_bfloat16, false>>
+         : dtype == 1 && precision == 1 ? &backward<Mode<__nv_bfloat16, true>>
+                                        : nullptr;
 }
 
 }  // namespace
@@ -868,15 +936,46 @@ int oncde_fused_field_backward(const void* z, const void* dx, const void* g,
   if (!valid(batch, hidden, hh, n_in, n_trunk)) return (int)cudaErrorInvalidValue;
   const Layout L = layout(batch, hidden, hh, n_in, n_trunk);
   if (scratch_floats < (long long)L.total) return (int)cudaErrorInvalidValue;
-  const auto call = dtype == 0 && precision == 0   ? &backward<F32>
-                    : dtype == 0 && precision == 1 ? &backward<Mode<float, true>>
-                    : dtype == 1 && precision == 0 ? &backward<Mode<__nv_bfloat16, false>>
-                    : dtype == 1 && precision == 1 ? &backward<Mode<__nv_bfloat16, true>>
-                                                   : nullptr;
+  const BackwardCall call = backward_of(dtype, precision);
   if (call == nullptr) return (int)cudaErrorInvalidValue;
   return call(z, dx, g, trunk_w, trunk_b, n_trunk, head_w, head_b, dz, ddx, dtrunk_w, dtrunk_b,
               dhead_w, dhead_b, scratch, L, batch, hidden, hh, n_in,
-              static_cast<cudaStream_t>(stream));
+              static_cast<cudaStream_t>(stream), 1, Strides{});
+}
+
+// Floats of scratch a K-replica call needs: K replicas' layouts, each
+// sized for the K-replica grid (0 if the shape is not taken).
+long long oncde_fused_field_backward_multi_scratch(int replicas, int batch, int hidden, int hh,
+                                                   int n_in, int n_trunk) {
+  if (replicas < 1 || !valid(batch, hidden, hh, n_in, n_trunk)) return 0;
+  return (long long)replicas * layout(batch, hidden, hh, n_in, n_trunk, replicas).total;
+}
+
+// K replicas of the backward in the single entry's four launches, with the
+// replica along gridDim.z.  Inputs as the forward multi entry's (a host
+// array of kStrideSlots element strides {z, dx, g, head_w, head_b,
+// w_0..3, b_0..3}; 0 for an operand every replica shares); every output
+// dense (K, ...): dz (K, B, H), ddx (K, B, I), dW_l, db_l, dW_o, db_o each
+// replica's own, summed over that replica's batch only.  Replica r's
+// result is the single entry's on replica r's operands; at K = 1 it is the
+// same launches, so the same bits.
+int oncde_fused_field_backward_multi(const void* z, const void* dx, const void* g,
+                                     const void* const* trunk_w, const void* const* trunk_b,
+                                     int n_trunk, const void* head_w, const void* head_b,
+                                     void* dz, void* ddx, void* const* dtrunk_w,
+                                     void* const* dtrunk_b, void* dhead_w, void* dhead_b,
+                                     float* scratch, long long scratch_floats, int replicas,
+                                     const long long* strides, int batch, int hidden, int hh,
+                                     int n_in, int dtype, int precision, void* stream) {
+  if (replicas < 1 || replicas > 65535 || !valid(batch, hidden, hh, n_in, n_trunk))
+    return (int)cudaErrorInvalidValue;
+  const Layout L = layout(batch, hidden, hh, n_in, n_trunk, replicas);
+  if (scratch_floats < (long long)replicas * (long long)L.total) return (int)cudaErrorInvalidValue;
+  const BackwardCall call = backward_of(dtype, precision);
+  if (call == nullptr) return (int)cudaErrorInvalidValue;
+  return call(z, dx, g, trunk_w, trunk_b, n_trunk, head_w, head_b, dz, ddx, dtrunk_w, dtrunk_b,
+              dhead_w, dhead_b, scratch, L, batch, hidden, hh, n_in,
+              static_cast<cudaStream_t>(stream), replicas, input_strides(strides));
 }
 
 const char* oncde_cuda_error_string(int err) {

@@ -64,6 +64,54 @@ struct TrunkOf {
 };
 using Trunk = TrunkOf<float>;
 
+// Replica strides of a launch, in elements.  The K-replica entry points
+// (oncde_fused_field_*_multi) launch the single entries' kernels with
+// gridDim.z = K: block (x, y, r) runs replica r's operands, each r times its
+// stride past replica 0's, with the code a single launch runs.  Inputs may
+// have stride 0 (an operand every replica shares); outputs and scratch are
+// dense.  A single launch has gridDim.z = 1, so no stride is ever applied.
+struct Strides {
+  long long z, dx, g, head_w, head_b;  // inputs
+  long long w[kMaxTrunk], b[kMaxTrunk];
+  long long out, ddx;                  // (B, H) outputs (out, dz), ddx (B, I)
+  long long scratch;                   // one replica's scratch, floats
+};
+
+// p advanced to this block's replica.
+template <class T>
+__device__ __forceinline__ T* at_replica(T* p, long long stride) {
+  return p + (size_t)blockIdx.z * (size_t)stride;
+}
+
+// The input strides a multi entry point receives: a host array of
+// kStrideSlots elements, {z, dx, g, head_w, head_b, w_0..w_3, b_0..b_3}
+// (the forward ignores g; layers past n_trunk are ignored).
+constexpr int kStrideSlots = 5 + 2 * kMaxTrunk;
+inline Strides input_strides(const long long* in) {
+  Strides S = {};
+  S.z = in[0], S.dx = in[1], S.g = in[2], S.head_w = in[3], S.head_b = in[4];
+  for (int l = 0; l < kMaxTrunk; ++l) S.w[l] = in[5 + l], S.b[l] = in[5 + kMaxTrunk + l];
+  return S;
+}
+
+// Whether every replica of the operands loaded 4 elements at a time (z,
+// g, the weights, the head bias) stays aligned to 4 elements.
+inline bool strides_vec4(const Strides& S, int n_trunk) {
+  bool ok = S.z % 4 == 0 && S.g % 4 == 0 && S.head_w % 4 == 0 && S.head_b % 4 == 0;
+  for (int l = 0; l < n_trunk; ++l) ok = ok && S.w[l] % 4 == 0;
+  return ok;
+}
+
+template <class T>
+__device__ __forceinline__ TrunkOf<T> trunk_at_replica(TrunkOf<T> t, const Strides& s) {
+#pragma unroll
+  for (int q = 0; q < kMaxTrunk; ++q) {
+    t.w[q] = at_replica(t.w[q], s.w[q]);
+    t.b[q] = at_replica(t.b[q], s.b[q]);
+  }
+  return t;
+}
+
 __host__ __device__ constexpr int pad8(int n) { return (n + 7) & ~7; }
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -225,7 +273,11 @@ size_t trunk_forward_smem(int hidden, int hh) {
 template <int V, int NQ, bool ALL, class M = F32>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kTThreads, 1)
 trunk_forward(const typename M::Storage* __restrict__ z, TrunkOf<typename M::Storage> trunk,
-              float* __restrict__ acts, int batch, int hidden, int hh) {
+              float* __restrict__ acts, int batch, int hidden, int hh, const Strides S,
+              long long acts_stride) {
+  z = at_replica(z, S.z);
+  trunk = trunk_at_replica(trunk, S);
+  acts = at_replica(acts, acts_stride);
   namespace cg = cooperative_groups;
   const cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
@@ -365,23 +417,26 @@ cudaError_t reserve_smem(size_t smem) {
   return err;
 }
 
-// Launches trunk_forward over the batch: a cluster of four blocks per 16
-// rows, NQ = owned_segs(hh) column segments a rank.
+// Launches trunk_forward over the batch of each of `replicas` replicas: a
+// cluster of four blocks per 16 rows, NQ = owned_segs(hh) column segments
+// a rank; replica r's acts at r * acts_stride.
 template <int V, bool ALL, class M = F32>
 cudaError_t launch_trunk_forward(const typename M::Storage* z,
                                  const TrunkOf<typename M::Storage>& trunk, float* acts,
-                                 int batch, int hidden, int hh, cudaStream_t s) {
-  const int blocks = cdiv(batch, kRowTile) * kCluster;
+                                 int batch, int hidden, int hh, cudaStream_t s,
+                                 int replicas = 1, const Strides& S = Strides{},
+                                 long long acts_stride = 0) {
+  const dim3 blocks(cdiv(batch, kRowTile) * kCluster, 1, replicas);
   const size_t smem = trunk_forward_smem(hidden, hh);
   cudaError_t err;
   if (owned_segs(hh) == 2) {
     if ((err = reserve_smem<trunk_forward<V, 2, ALL, M>>(smem)) != cudaSuccess) return err;
     trunk_forward<V, 2, ALL, M><<<blocks, kTThreads, smem, s>>>(z, trunk, acts, batch, hidden,
-                                                                hh);
+                                                                hh, S, acts_stride);
   } else {
     if ((err = reserve_smem<trunk_forward<V, 1, ALL, M>>(smem)) != cudaSuccess) return err;
     trunk_forward<V, 1, ALL, M><<<blocks, kTThreads, smem, s>>>(z, trunk, acts, batch, hidden,
-                                                                hh);
+                                                                hh, S, acts_stride);
   }
   return cudaGetLastError();
 }

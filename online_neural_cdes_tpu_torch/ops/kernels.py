@@ -28,8 +28,19 @@ kind of pair: on a CUDA tensor the Hopper kernel ``csrc/fused_field_bwd.cu``
 (the port of ``_backward_pallas``), on a CPU tensor
 :func:`_backward_reference`, autograd through the plain forward (what the
 JAX package's default VJP computes).  The op records an autograd node only
-when grad mode is on and an input requires grad; otherwise it is called
-directly.
+when grad mode is on and an input requires grad, or under a
+``torch.func`` transform; otherwise it is called directly.
+
+Under ``torch.func.vmap`` (the training wave's K replicas,
+``training/wave.py``) both Functions' ``vmap`` rules stack the replicas
+and call :func:`fused_matmul_field_multi` / :func:`fused_field_backward_multi`,
+the K-replica forms: on a CUDA tensor one call of the kernels' multi entry
+points (``oncde_fused_field_forward_multi`` and
+``oncde_fused_field_backward_multi``, the same launches as one replica's
+with the replica along the grid, as Pallas's batching rule gives the TPU
+kernel under ``jax.vmap``), on a CPU tensor the plain versions over the
+stacked operands.  An operand every replica shares (dX, the weights when
+they are not batched) keeps one copy, at replica stride 0.
 
 The head is packed contraction-major, (HH, I*H), unpadded: the TPU's
 128-lane padding is a layout rule of that chip and is not carried over.
@@ -56,9 +67,10 @@ import torch
 from online_neural_cdes_tpu_torch.ops import solvers
 from online_neural_cdes_tpu_torch.utils.cuda_build import CudaKernel
 
-__all__ = ["fused_matmul_field", "pack_fused_params", "fused_rk4_interval",
-           "fused_rk4_interval_multi", "fused_field_kernel", "fused_field_bwd_kernel",
-           "fused_rk4_kernel", "fused_rk4_multi_kernel"]
+__all__ = ["fused_matmul_field", "fused_matmul_field_multi", "fused_field_backward_multi",
+           "pack_fused_params", "fused_rk4_interval", "fused_rk4_interval_multi",
+           "fused_field_kernel", "fused_field_bwd_kernel", "fused_field_multi_kernel",
+           "fused_field_bwd_multi_kernel", "fused_rk4_kernel", "fused_rk4_multi_kernel"]
 
 MAX_TRUNK = 4
 
@@ -90,6 +102,41 @@ fused_field_bwd_kernel = CudaKernel(
      _PTRS, _PTRS,                                       # dtrunk w, b
      ctypes.c_void_p, ctypes.c_void_p,                   # dhead_w, dhead_b
      ctypes.c_void_p, ctypes.c_longlong,                 # scratch, its floats
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, HH, I
+     ctypes.c_int, ctypes.c_int,                         # storage dtype, precision
+     ctypes.c_void_p],                                   # stream
+)
+
+# The K-replica entry points of both field kernels (one count per call,
+# which runs the single entry's launches once for all K replicas).  Each
+# takes the replicas' input strides as a host array of _STRIDE_SLOTS
+# elements: z, dx, g (backward only), head_w, head_b, then trunk w_0..w_3
+# and b_0..b_3.
+_STRIDE_SLOTS = 5 + 2 * MAX_TRUNK
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+fused_field_multi_kernel = CudaKernel(
+    "fused_field.cu",
+    "oncde_fused_field_forward_multi",
+    [ctypes.c_void_p, ctypes.c_void_p,                   # z, dx
+     _PTRS, _PTRS, ctypes.c_int,                         # trunk w, b, n
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # head_w, head_b, out
+     ctypes.c_void_p, ctypes.c_longlong,                 # scratch, its floats
+     ctypes.c_int, _STRIDES,                             # K, input strides
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, HH, I
+     ctypes.c_int, ctypes.c_int,                         # storage dtype, precision
+     ctypes.c_void_p],                                   # stream
+)
+fused_field_bwd_multi_kernel = CudaKernel(
+    "fused_field_bwd.cu",
+    "oncde_fused_field_backward_multi",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # z, dx, g
+     _PTRS, _PTRS, ctypes.c_int,                         # trunk w, b, n
+     ctypes.c_void_p, ctypes.c_void_p,                   # head_w, head_b
+     ctypes.c_void_p, ctypes.c_void_p,                   # dz, ddx
+     _PTRS, _PTRS,                                       # dtrunk w, b
+     ctypes.c_void_p, ctypes.c_void_p,                   # dhead_w, dhead_b
+     ctypes.c_void_p, ctypes.c_longlong,                 # scratch, its floats
+     ctypes.c_int, _STRIDES,                             # K, input strides
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, HH, I
      ctypes.c_int, ctypes.c_int,                         # storage dtype, precision
      ctypes.c_void_p],                                   # stream
@@ -176,14 +223,21 @@ def _check_precision(precision):
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
 
 
-def _check_operands(what, operands, device, n_trunk, dtypes=(torch.float32,)):
+def _check_operands(what, operands, device, n_trunk, dtypes=(torch.float32,),
+                    replicas=False):
     """Raise on anything a kernel does not take: another device, a dtype
     not in ``dtypes`` or operands of more than one dtype, a non-contiguous
-    operand, a wrong shape, 0 or more than MAX_TRUNK trunk layers."""
+    operand, a wrong shape, 0 or more than MAX_TRUNK trunk layers, a
+    ``torch.func`` wrapper (which has no storage).  With ``replicas`` the
+    operands are stacked (K, ...): each replica contiguous, the replica
+    stride free (0 for an operand the replicas share)."""
     if not 1 <= n_trunk <= MAX_TRUNK:
         raise ValueError(f"{what} takes 1..{MAX_TRUNK} trunk layers, got {n_trunk}")
     dtype = operands[0][1].dtype
     for name, t, shape in operands:
+        if torch._C._functorch.is_functorch_wrapped_tensor(t):
+            raise TypeError(f"{what}: {name} is a torch.func wrapper; transforms reach "
+                            "the kernels through the fused field's Functions")
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, z on {device}")
         if t.dtype not in dtypes:
@@ -192,10 +246,10 @@ def _check_operands(what, operands, device, n_trunk, dtypes=(torch.float32,)):
         if t.dtype != dtype:
             raise TypeError(f"{what} takes operands of one dtype; z is {dtype}, "
                             f"{name} is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} is not contiguous")
         if t.shape != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, want {shape}")
+        if not (t[0] if replicas else t).is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
     if device.type == "cuda" and device.index != torch.cuda.current_device():
         raise ValueError(f"{what}: z is on {device}, the current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -258,7 +312,7 @@ def _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim, precision="flo
 
 
 def _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
-                        precision="float32"):
+                        precision="float32", forward=None):
     """Plain PyTorch version of the fused field's VJP: autograd through
     :func:`_forward_reference`, as the JAX package's default route
     (``jax.vjp`` of its ``_forward_reference``), so it rounds where that
@@ -266,12 +320,12 @@ def _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
     ``precision="bfloat16"``, each product's cotangent for an operand cast
     to bf16.  Returns ``(dtrunk, dhw, dhb, dz, ddx)`` with ``dtrunk =
     [{"w", "b"}, ...]``, the order of ``_backward_pallas``."""
+    forward = forward or _forward_reference
     leaves = [t.detach().requires_grad_()
               for t in (z, dx, head_w, head_b, *_flat_trunk(trunk))]
     z_, dx_, hw_, hb_, *flat = leaves
     with torch.enable_grad():
-        out = _forward_reference(_unflat_trunk(flat), hw_, hb_, z_, dx_, hidden_dim,
-                                 input_dim, precision)
+        out = forward(_unflat_trunk(flat), hw_, hb_, z_, dx_, hidden_dim, input_dim, precision)
         dz, ddx, dhw, dhb, *dflat = torch.autograd.grad(out, leaves, g)
     return _unflat_trunk(dflat), dhw, dhb, dz, ddx
 
@@ -335,22 +389,256 @@ def _backward(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
                                precision)
 
 
-class _FusedField(torch.autograd.Function):
+# ---------------------------------------------------------------------------
+# K replicas: the stacked forms the Functions' vmap rules call.
+# ---------------------------------------------------------------------------
+
+
+def _forward_reference_multi(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
+                             precision="float32"):
+    """Plain version of :func:`fused_matmul_field_multi`: the single plain
+    version's ops over the stacked (K, ...) operands (the biases broadcast
+    over each replica's rows)."""
+    trunk = [{"w": l["w"], "b": l["b"][:, None]} for l in trunk]
+    return _forward_reference(trunk, head_w, head_b[:, None], z, dx, hidden_dim, input_dim,
+                              precision)
+
+
+def _backward_reference_multi(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
+                              precision="float32"):
+    """Plain version of :func:`fused_field_backward_multi`: autograd through
+    :func:`_forward_reference_multi`, each replica's weight grads summed over
+    its own rows; a shared (expanded) operand gets each replica's
+    cotangent."""
+    return _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
+                               precision, forward=_forward_reference_multi)
+
+
+def _input_strides(z, dx, g, head_w, head_b, trunk):
+    """The multi entries' host array of replica strides (elements)."""
+    slots = [z.stride(0), dx.stride(0), 0 if g is None else g.stride(0), head_w.stride(0),
+             head_b.stride(0)] + [0] * (2 * MAX_TRUNK)
+    for l, layer in enumerate(trunk):
+        slots[5 + l] = layer["w"].stride(0)
+        slots[5 + MAX_TRUNK + l] = layer["b"].stride(0)
+    return (ctypes.c_longlong * _STRIDE_SLOTS)(*slots)
+
+
+def _check_multi(what, trunk, head_w, head_b, z, dx, hidden_dim, input_dim, extra=()):
+    if z.dim() != 3:
+        raise ValueError(f"{what} takes stacked (K, B, H) states; z has shape "
+                         f"{tuple(z.shape)}")
+    _check_operands(what, _kernel_operands(trunk, head_w, head_b, z, dx, hidden_dim,
+                                           input_dim, lead=z.shape[:1]) + list(extra),
+                    z.device, len(trunk), STORAGE, replicas=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _multi_scratch_floats(direction, replicas, batch, hidden_dim, hh, input_dim,
+                          n_trunk) -> int:
+    """Floats of scratch a multi entry needs at this shape (0 for a shape it
+    does not take), as its library computes it."""
+    kernel = {"forward": fused_field_multi_kernel,
+              "backward": fused_field_bwd_multi_kernel}[direction]
+    fn = kernel.helper(f"oncde_fused_field_{direction}_multi_scratch",
+                       [ctypes.c_int] * 6, ctypes.c_longlong)
+    return int(fn(replicas, batch, hidden_dim, hh, input_dim, n_trunk))
+
+
+def _multi_scratch(what, direction, z, hidden_dim, hh, input_dim, n_trunk):
+    """A multi entry's scratch on z's device; raises for a shape it does
+    not take."""
+    k, batch = z.shape[0], z.shape[1]
+    n = _multi_scratch_floats(direction, k, batch, hidden_dim, hh, input_dim, n_trunk)
+    if n <= 0:
+        raise ValueError(f"{what} does not take K={k}, B={batch}, H={hidden_dim}, HH={hh}, "
+                         f"I={input_dim} (it takes H and HH up to 256)")
+    return torch.empty(n, dtype=torch.float32, device=z.device), n
+
+
+def _forward_multi_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
+                          precision="float32"):
+    """Launch the multi entry of ``csrc/fused_field.cu`` on the current
+    stream: one call's two launches, for every replica."""
+    what = "fused field multi kernel"
+    _check_precision(precision)
+    _check_multi(what, trunk, head_w, head_b, z, dx, hidden_dim, input_dim)
+    k, batch, hh = z.shape[0], z.shape[1], head_w.shape[-2]
+    out = torch.empty((k, batch, hidden_dim), dtype=z.dtype, device=z.device)
+    if batch == 0:
+        return out
+    scratch, n_scratch = _multi_scratch(what, "forward", z, hidden_dim, hh, input_dim,
+                                        len(trunk))
+    fused_field_multi_kernel(
+        z.data_ptr(), dx.data_ptr(), _pointers(l["w"] for l in trunk),
+        _pointers(l["b"] for l in trunk), len(trunk),
+        head_w.data_ptr(), head_b.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), n_scratch, k, _input_strides(z, dx, None, head_w, head_b, trunk),
+        batch, hidden_dim, hh, input_dim, STORAGE.index(z.dtype),
+        PRECISIONS.index(precision), torch.cuda.current_stream().cuda_stream,
+    )
+    return out
+
+
+def _backward_multi_kernel(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
+                           precision="float32"):
+    """Launch the multi entry of ``csrc/fused_field_bwd.cu``: one call's
+    four launches, for every replica; every output (K, ...)."""
+    what = "fused field backward multi kernel"
+    _check_precision(precision)
+    k, batch, hh = z.shape[0], z.shape[1], head_w.shape[-2]
+    _check_multi(what, trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
+                 extra=[("g", g, (k, batch, hidden_dim))])
+    dense = lambda t: torch.empty((k,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    dz, ddx = dense(z), dense(dx)
+    dtrunk = [{"w": dense(l["w"]), "b": dense(l["b"])} for l in trunk]
+    dhw, dhb = dense(head_w), dense(head_b)
+    if batch == 0:
+        for t in (*_flat_trunk(dtrunk), dhw, dhb):
+            t.zero_()
+        return dtrunk, dhw, dhb, dz, ddx
+    scratch, n_scratch = _multi_scratch(what, "backward", z, hidden_dim, hh, input_dim,
+                                        len(trunk))
+    fused_field_bwd_multi_kernel(
+        z.data_ptr(), dx.data_ptr(), g.data_ptr(),
+        _pointers(l["w"] for l in trunk), _pointers(l["b"] for l in trunk), len(trunk),
+        head_w.data_ptr(), head_b.data_ptr(), dz.data_ptr(), ddx.data_ptr(),
+        _pointers(l["w"] for l in dtrunk), _pointers(l["b"] for l in dtrunk),
+        dhw.data_ptr(), dhb.data_ptr(), scratch.data_ptr(), n_scratch, k,
+        _input_strides(z, dx, g, head_w, head_b, trunk),
+        batch, hidden_dim, hh, input_dim, STORAGE.index(z.dtype),
+        PRECISIONS.index(precision), torch.cuda.current_stream().cuda_stream,
+    )
+    return dtrunk, dhw, dhb, dz, ddx
+
+
+def fused_matmul_field_multi(trunk, head_w, head_b, z, dx, hidden_dim: int,
+                             input_dim: int, precision: str = "float32") -> torch.Tensor:
+    """K replicas of :func:`fused_matmul_field`'s op in one call.  Stacked
+    operands: ``trunk`` a list of ``{'w': (K, d_in, HH), 'b': (K, HH)}``,
+    ``head_w`` (K, HH, I*H), ``head_b`` (K, I*H), ``z`` (K, B, H), ``dx``
+    (K, B, I); each replica contiguous, the replica stride free (0 for an
+    operand the replicas share, an ``expand``).  Returns (K, B, H).  A CUDA
+    tensor launches the forward kernel's multi entry (H and HH up to 256);
+    a CPU tensor runs :func:`_forward_reference_multi`.  No gradient of its
+    own: autograd and ``torch.func`` reach it through
+    :func:`fused_matmul_field`."""
+    _check_precision(precision)
+    if z.is_cuda:
+        return _forward_multi_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
+                                     precision)
+    return _forward_reference_multi(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
+                                    precision)
+
+
+def fused_field_backward_multi(trunk, head_w, head_b, z, dx, g, hidden_dim: int,
+                               input_dim: int, precision: str = "float32"):
+    """The VJP of :func:`fused_matmul_field_multi` for the cotangent ``g``
+    (K, B, H): ``(dtrunk, dhead_w, dhead_b, dz, ddx)``, every one (K, ...)
+    and each replica's own (a shared operand gets each replica's
+    cotangent).  A CUDA tensor launches the backward kernel's multi entry;
+    a CPU tensor runs :func:`_backward_reference_multi`."""
+    _check_precision(precision)
+    if z.is_cuda:
+        return _backward_multi_kernel(trunk, head_w, head_b, z, dx, g, hidden_dim,
+                                      input_dim, precision)
+    return _backward_reference_multi(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
+                                     precision)
+
+
+def _stacked(k, in_dims, tensors):
+    """A vmap rule's operands as (K, ...) tensors: a batched one with its
+    replica dim moved to the front, each replica contiguous; an unbatched
+    one expanded over the replicas at stride 0."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        if d is None:
+            t = t.contiguous().expand((k,) + tuple(t.shape))
+        else:
+            t = t.movedim(d, 0).contiguous()
+        out.append(t)
+    return out
+
+
+class _FusedFieldMulti(torch.autograd.Function):
+    """:func:`fused_matmul_field_multi` with its VJP,
+    :func:`fused_field_backward_multi`: what :class:`_FusedField`'s vmap
+    rule records when plain autograd differentiates through
+    ``torch.func.vmap`` (the wave's step), so the backward runs the multi
+    kernel with no transform around it.  A shared (expanded) operand's
+    per-replica cotangents sum through the ``expand``."""
+
     @staticmethod
-    def forward(ctx, hidden_dim, input_dim, precision, z, dx, head_w, head_b,
-                *trunk_flat):
+    def forward(ctx, hidden_dim, input_dim, precision, z, dx, head_w, head_b, *trunk_flat):
         ctx.dims = (hidden_dim, input_dim, precision)
         ctx.save_for_backward(z, dx, head_w, head_b, *trunk_flat)
-        return _forward(_unflat_trunk(trunk_flat), head_w, head_b, z, dx,
-                        hidden_dim, input_dim, precision)
+        return fused_matmul_field_multi(_unflat_trunk(trunk_flat), head_w, head_b, z, dx,
+                                        hidden_dim, input_dim, precision)
 
     @staticmethod
     def backward(ctx, g):
         z, dx, head_w, head_b, *trunk_flat = ctx.saved_tensors
-        dtrunk, dhw, dhb, dz, ddx = _backward(
-            _unflat_trunk(trunk_flat), head_w, head_b, z, dx, g.contiguous(),
-            *ctx.dims)
+        dtrunk, dhw, dhb, dz, ddx = fused_field_backward_multi(
+            _unflat_trunk(trunk_flat), head_w, head_b, z, dx, g.contiguous(), *ctx.dims)
         return (None, None, None, dz, ddx, dhw, dhb, *_flat_trunk(dtrunk))
+
+
+class _FusedField(torch.autograd.Function):
+    """The fused field with its VJP (:class:`_FusedFieldBackward`) and a
+    ``vmap`` rule onto the K-replica forms."""
+
+    @staticmethod
+    def forward(hidden_dim, input_dim, precision, z, dx, head_w, head_b, *trunk_flat):
+        return _forward(_unflat_trunk(trunk_flat), head_w, head_b, z, dx,
+                        hidden_dim, input_dim, precision)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        hidden_dim, input_dim, precision, *tensors = inputs
+        ctx.dims = (hidden_dim, input_dim, precision)
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, dx, head_w, head_b, *trunk_flat = ctx.saved_tensors
+        grads = _FusedFieldBackward.apply(*ctx.dims, z, dx, g.contiguous(), head_w, head_b,
+                                          *trunk_flat)
+        return (None, None, None, *grads)
+
+    @staticmethod
+    def vmap(info, in_dims, hidden_dim, input_dim, precision, *tensors):
+        stacked = _stacked(info.batch_size, in_dims[3:], tensors)
+        return _FusedFieldMulti.apply(hidden_dim, input_dim, precision, *stacked), 0
+
+
+class _FusedFieldBackward(torch.autograd.Function):
+    """The fused field's VJP, ``(dz, ddx, dhead_w, dhead_b, dW_1, db_1,
+    ...)``, with a ``vmap`` rule onto :func:`fused_field_backward_multi`
+    (``torch.func.vmap`` of a gradient runs the backward under the
+    transform too).  It has no gradient of its own, as the kernel pair."""
+
+    @staticmethod
+    def forward(hidden_dim, input_dim, precision, z, dx, g, head_w, head_b, *trunk_flat):
+        dtrunk, dhw, dhb, dz, ddx = _backward(_unflat_trunk(trunk_flat), head_w, head_b, z,
+                                              dx, g, hidden_dim, input_dim, precision)
+        return (dz, ddx, dhw, dhb, *_flat_trunk(dtrunk))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the fused field's VJP has no gradient of its own "
+                           "(as its kernel)")
+
+    @staticmethod
+    def vmap(info, in_dims, hidden_dim, input_dim, precision, *tensors):
+        z, dx, g, head_w, head_b, *flat = _stacked(info.batch_size, in_dims[3:], tensors)
+        dtrunk, dhw, dhb, dz, ddx = fused_field_backward_multi(
+            _unflat_trunk(flat), head_w, head_b, z, dx, g, hidden_dim, input_dim, precision)
+        outs = (dz, ddx, dhw, dhb, *_flat_trunk(dtrunk))
+        return outs, (0,) * len(outs)
 
 
 def fused_matmul_field(trunk, head_w, head_b, z, dx, hidden_dim: int,
@@ -364,15 +652,18 @@ def fused_matmul_field(trunk, head_w, head_b, z, dx, hidden_dim: int,
     (float32 accumulation, as the JAX op).  Returns (..., H) in z's dtype.
     CUDA tensors go through the Hopper kernels (float32 or bfloat16, one
     dtype, contiguous, or they raise); CPU tensors through the plain
-    versions (any float dtype).
+    versions (any float dtype).  Under a ``torch.func`` transform the op
+    goes through its Function, whose ``vmap`` rule takes K replicas to
+    :func:`fused_matmul_field_multi`.
     """
     _check_precision(precision)
     lead = z.shape[:-1]
     z = z.reshape(-1, hidden_dim)
     dx = dx.reshape(-1, input_dim)
     flat = _flat_trunk(trunk)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (z, dx, head_w, head_b, *flat)):
+    operands = (z, dx, head_w, head_b, *flat)
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in operands) or (
+            torch.is_grad_enabled() and any(t.requires_grad for t in operands)):
         out = _FusedField.apply(hidden_dim, input_dim, precision, z, dx, head_w, head_b,
                                 *flat)
     else:

@@ -8,9 +8,14 @@ across hosts.
     python -m online_neural_cdes_tpu_torch.data.builders toy --root data/processed
     python -m online_neural_cdes_tpu_torch.run toy --device cpu --data-root data/processed
     python -m online_neural_cdes_tpu_torch.run medical-sota --data-root data/processed
+    python -m online_neural_cdes_tpu_torch.run medical-sota --analyse --tables-out results/tables
 
-``--analyse`` and ``--tables-out`` are ROADMAP item 17b and
-``--data-parallel`` item 18: they raise.
+A suite's same-shape configs (a final config's seeds) train as waves
+(``training/wave.py``); a ``"hyperopt"`` suite runs its searches
+(``training/hyperopt.py``).  ``--analyse`` prints the seed-averaged metric
+and NFE tables of the ledger instead of running, and ``--tables-out DIR``
+writes the paper's ``.tex`` tables (``training/analyse.py``).
+``--data-parallel`` is ROADMAP item 18 and raises.
 """
 
 from __future__ import annotations
@@ -32,21 +37,30 @@ def main(argv=None):
                     help="train each config over N cards (ROADMAP item 18; "
                          "only 0, one card, runs)")
     ap.add_argument("--analyse", action="store_true",
-                    help="print seed-averaged tables instead of running "
-                         "(ROADMAP item 17b)")
+                    help="print seed-averaged tables instead of running")
     ap.add_argument("--tables-out", default=None, metavar="DIR",
-                    help="with --analyse: write the reference's .tex tables "
-                         "under DIR (ROADMAP item 17b)")
+                    help="with --analyse: also write the full reference table set "
+                         "(sparsity/gating/medical-sota/interpolation .tex) under DIR")
     ap.add_argument("--device", default=None,
                     help="where to train: the CUDA card by default, or 'cpu'")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.analyse or args.tables_out is not None:
-        raise NotImplementedError(
-            "--analyse / --tables-out are not ported yet (ROADMAP item 17b: "
-            "training/analyse.py in numpy); the JAX package's "
-            "run --analyse reads the same ledger")
+    if args.analyse:
+        from online_neural_cdes_tpu_torch.training.analyse import (
+            metric_table, nfe_table, write_analysis_tables,
+        )
+        from online_neural_cdes_tpu_torch.training.ledger import Ledger
+
+        # A test-mode sweep records under the prefixed run name.
+        name = f"test_{args.run_name}" if args.test_mode else args.run_name
+        ledger = Ledger(args.ledger)
+        print(metric_table(ledger, name))
+        print(nfe_table(ledger, name))
+        if args.tables_out:
+            for path in write_analysis_tables(ledger, args.tables_out, name):
+                print(f"wrote {path}")
+        return None
     if args.data_parallel > 0:
         raise NotImplementedError(
             f"--data-parallel {args.data_parallel} is not ported yet (ROADMAP item "

@@ -7,18 +7,22 @@ PyTorch port's counterpart of the JAX package's ``training/sweep.py``:
   half-finished ones purged and retried;
 - ``shard_index`` / ``num_shards`` split the config list across hosts
   sharing one ledger file;
-- ``isolate`` / ``config_timeout_s`` run each config in a spawned child
-  process with a wall-clock budget: a crash or a hang records a ``failed``
-  sentinel in the ledger and the suite goes on.  The child gets the
-  device in its payload, initialises CUDA afresh and loads the kernels
-  the parent already built (``build/torch_kernels/``).
-
-Configs that differ only in their seed (a final config's seeds) are one
-wave group of the JAX sweep, trained as one vmapped program.  Here every
-config runs on its own, one after another, with the results the JAX wave
-contract holds each lane to (its sequential run); stacked K-replica waves
-are ROADMAP item 17b, and ``co_schedule`` / ``max_wave_size`` keep their
-names for them.  Hyperopt suites are item 17b too and raise.
+- ``co_schedule`` (default): configs that differ only in their seed (a
+  final config's seeds) or in the waveable trainer scalars train as one
+  wave (``training/wave.py``), at most ``max_wave_size`` configs a wave;
+  every member is marked running before its wave and saved on its own
+  after it, so dedup and resume behave as on the serial path.  A group
+  whose model cannot wave (``WaveUnsupported``: the interval adjoint,
+  ``odeint_adjoint``, adaptive solvers; ROADMAP item 17c) runs its members
+  one after another;
+- a ``"hyperopt"`` suite runs each config as one search
+  (``training/hyperopt.py``), which waves its same-shape candidates;
+- ``isolate`` / ``config_timeout_s`` run each unit (a config, a wave or a
+  search) in a spawned child process with a wall-clock budget: a crash or
+  a hang records a ``failed`` sentinel in the ledger for each of its
+  configs and the suite goes on.  The child gets the device in its
+  payload, initialises CUDA afresh and loads the kernels the parent
+  already built (``build/torch_kernels/``).
 """
 
 from __future__ import annotations
@@ -41,19 +45,48 @@ __all__ = ["run"]
 logger = logging.getLogger(__name__)
 
 
+def _run_unit(kind: str, cfgs: List[dict], data_root: str, verbose: bool, device,
+              ledger=None, run_name: Optional[str] = None) -> List[dict]:
+    """One unit of a suite: a config (``"single"``), a wave of configs
+    (``"wave"``) or a search (``"hyperopt"``); one results dict per
+    config.  A wave whose model cannot wave (``WaveUnsupported``) runs its
+    configs one after another; any other error propagates."""
+    if kind == "wave":
+        from online_neural_cdes_tpu_torch.training.wave import (
+            WaveUnsupported, run_trials_vmapped,
+        )
+
+        try:
+            return run_trials_vmapped(cfgs, data_root=data_root, verbose=verbose,
+                                      device=device)
+        except WaveUnsupported as exc:
+            logger.warning("wave group rejected (%s); running its members one after "
+                           "another", exc)
+            return [run_experiment(cfg, data_root=data_root, verbose=verbose, device=device)
+                    for cfg in cfgs]
+    if kind == "hyperopt":
+        from online_neural_cdes_tpu_torch.training.hyperopt import run_hyperopt
+
+        return [run_hyperopt(cfgs[0], data_root=data_root, verbose=verbose, ledger=ledger,
+                             run_name=run_name, device=device)]
+    return [run_experiment(cfgs[0], data_root=data_root, verbose=verbose, device=device)]
+
+
 def _subprocess_worker(payload_path: str, result_path: str):
-    """Child entry for isolation mode: run one config on the payload's
-    device and write its results as JSON.  It runs in a SPAWNED
-    interpreter, so a segfault, an out-of-memory kill or a hang dies here,
-    not in the sweep; an exception gives a nonzero exit code and the
-    parent records the failure."""
+    """Child entry for isolation mode: run one unit on the payload's device
+    and write its results as JSON.  It runs in a SPAWNED interpreter, so a
+    segfault, an out-of-memory kill or a hang dies here, not in the sweep;
+    an exception gives a nonzero exit code and the parent records the
+    failure."""
     with open(payload_path) as fh:
         payload = json.load(fh)
-    results = run_experiment(payload["cfg"], data_root=payload["data_root"],
-                             verbose=payload["verbose"], device=payload["device"])
+    ledger = Ledger(payload["ledger_path"]) if payload["kind"] == "hyperopt" else None
+    results = _run_unit(payload["kind"], payload["cfgs"], payload["data_root"],
+                        payload["verbose"], payload["device"], ledger=ledger,
+                        run_name=payload["run_db_name"])
     tmp = result_path + ".tmp"
     with open(tmp, "w") as fh:
-        json.dump([_jsonable_results(results)], fh)
+        json.dump([_jsonable_results(r) for r in results], fh)
     os.replace(tmp, result_path)
 
 
@@ -77,20 +110,22 @@ def _jsonable_results(results: dict) -> dict:
     return conv({k: v for k, v in results.items() if k != "best_params"})
 
 
-def _run_isolated(cfg: dict, data_root: str, verbose: bool, timeout_s: Optional[float],
-                  device: str) -> List[dict]:
-    """Run one config in a spawned child with a wall-clock budget.  Raises
+def _run_isolated(kind: str, cfgs: List[dict], data_root: str, verbose: bool,
+                  timeout_s: Optional[float], device: str, ledger_path: str,
+                  run_db_name: str) -> List[dict]:
+    """Run one unit in a spawned child with a wall-clock budget.  Raises
     TimeoutError when the budget runs out (the child is killed) and
     RuntimeError when the child dies; the caller records either as a
-    ledger failure and goes on."""
+    ledger failure of each of the unit's configs and goes on."""
     import multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="oncde_sweep_") as tmpdir:
         payload_path = os.path.join(tmpdir, "payload.json")
         result_path = os.path.join(tmpdir, "results.json")
         with open(payload_path, "w") as fh:
-            json.dump({"cfg": cfg, "data_root": data_root, "verbose": verbose,
-                       "device": device}, fh, default=str)
+            json.dump({"kind": kind, "cfgs": cfgs, "data_root": data_root,
+                       "verbose": verbose, "device": device, "ledger_path": ledger_path,
+                       "run_db_name": run_db_name}, fh, default=str)
         # spawn, not fork: a forked child of a process holding a CUDA
         # context cannot use the card.
         proc = mp.get_context("spawn").Process(
@@ -103,9 +138,9 @@ def _run_isolated(cfg: dict, data_root: str, verbose: bool, timeout_s: Optional[
             if proc.is_alive():
                 proc.kill()
                 proc.join()
-            raise TimeoutError(f"config exceeded config_timeout_s={timeout_s}")
+            raise TimeoutError(f"config unit exceeded config_timeout_s={timeout_s}")
         if proc.exitcode != 0 or not os.path.exists(result_path):
-            raise RuntimeError(f"config subprocess died (exit code {proc.exitcode})")
+            raise RuntimeError(f"config unit subprocess died (exit code {proc.exitcode})")
         with open(result_path) as fh:
             return json.load(fh)
 
@@ -130,13 +165,12 @@ def run(
     ``"cpu"`` is asked for); returns [(config, results), ...] of the
     configs this call completed.
 
-    ``isolate`` / ``config_timeout_s`` (which implies ``isolate``): each
-    config in a spawned child with a wall-clock budget; its results come
-    back as plain JSON numbers without ``best_params``.  ``co_schedule``
-    and ``max_wave_size`` are kept for the JAX package's signature and
-    change nothing: configs run one after another in this port, and the
-    stacked K-replica waves they select are ROADMAP item 17b.  ``mesh=`` is
-    item 18 and raises."""
+    ``co_schedule``: same-shape configs (identical except ``seed`` and the
+    waveable trainer scalars, ``wave.config_wave_groups``) train as waves
+    of at most ``max_wave_size`` lanes.  ``isolate`` / ``config_timeout_s``
+    (which implies ``isolate``): each unit in a spawned child with a
+    wall-clock budget; its results come back as plain JSON numbers without
+    ``best_params``.  ``mesh=`` is ROADMAP item 18 and raises."""
     if mesh is not None:
         raise NotImplementedError(
             "sweep.run(mesh=...) is not ported yet (ROADMAP item 18: parallel/ "
@@ -152,12 +186,8 @@ def run(
         test_mode=test_mode,
         ledger=ledger,
     )
-    if configs and configs[0].get("hyperparameters") == "hyperopt":
-        raise NotImplementedError(
-            f"suite {run_name!r} is a hyperparameter search: hyperopt is not ported "
-            "yet (ROADMAP item 17b); run it with the JAX package's "
-            "run CLI, whose ledger this port reads")
     ledger.purge_incomplete_runs(run_name=db_name)
+    hyperopt_suite = bool(configs and configs[0].get("hyperparameters") == "hyperopt")
 
     # This host's still-to-run slice, in suite order.
     todo: List[int] = []
@@ -168,28 +198,50 @@ def run(
             logger.info("skipping completed config %d/%d", i + 1, len(configs))
             continue
         todo.append(i)
-    if co_schedule and len(todo) > 1:
-        logger.info(
-            "co_schedule (max_wave_size=%d): %d configs run one after another; "
-            "stacked K-replica waves of same-shape configs are ROADMAP item 17b",
-            max_wave_size, len(todo))
+
+    # Units: waves of co-trainable configs, or single configs.  A hyperopt
+    # config is a whole search (which waves its own candidates), so it is
+    # always a unit of its own.
+    if co_schedule and not hyperopt_suite and len(todo) > 1:
+        from online_neural_cdes_tpu_torch.training.wave import config_wave_groups
+
+        cap = max(1, int(max_wave_size))
+        groups = [[todo[j] for j in g[k:k + cap]]
+                  for g in config_wave_groups([configs[i] for i in todo])
+                  for k in range(0, len(g), cap)]
+    else:
+        groups = [[i] for i in todo]
 
     completed = []
-    for i in todo:
-        cfg = configs[i]
-        ledger.mark_running(cfg, run_name=db_name)
-        logger.info("running config %d/%d", i + 1, len(configs))
+    for idxs in groups:
+        group_cfgs = [configs[i] for i in idxs]
+        for i in idxs:
+            ledger.mark_running(configs[i], run_name=db_name)
+        if len(idxs) > 1:
+            kind = "wave"
+            logger.info("training %d same-shape configs as one wave: %s", len(idxs),
+                        [i + 1 for i in idxs])
+        else:
+            kind = "hyperopt" if hyperopt_suite else "single"
+            logger.info("running config %d/%d", idxs[0] + 1, len(configs))
         if isolate:
             try:
-                (results,) = _run_isolated(cfg, data_root, verbose, config_timeout_s,
-                                           str(device))
+                results_list = _run_isolated(kind, group_cfgs, data_root, verbose,
+                                             config_timeout_s, str(device), ledger_path,
+                                             db_name)
             except (TimeoutError, RuntimeError) as exc:
-                logger.error("config %d/%d failed: %s", i + 1, len(configs), exc)
-                ledger.mark_failed(cfg, run_name=db_name, error=str(exc))
+                for i in idxs:
+                    logger.error("config %d/%d failed: %s", i + 1, len(configs), exc)
+                    ledger.mark_failed(configs[i], run_name=db_name, error=str(exc))
                 continue
         else:
-            results = run_experiment(cfg, data_root=data_root, verbose=verbose,
-                                     device=device)
-        ledger.save_result(cfg, results, run_name=db_name)
-        completed.append((cfg, results))
+            results_list = _run_unit(kind, group_cfgs, data_root, verbose, device,
+                                     ledger=ledger, run_name=db_name)
+        for cfg, results in zip(group_cfgs, results_list):
+            info = {}
+            if "best_parameters" in results:
+                info["best_parameters"] = results.pop("best_parameters")
+            ledger.save_result(cfg, results, run_name=db_name, info=info)
+            completed.append((cfg, results))
     return completed
+
