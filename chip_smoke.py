@@ -165,6 +165,31 @@ controls, and prints one JSON line per phase:
                 K=1 equal to the single entry to the bit, at K=3 and 4 on
                 the harness shapes against the plain K versions in f32 and
                 bf16 storage, timed beside K single calls.
+22. raw_data -- the raw-archive builders on synthetic archives at the
+                published shapes of the paper's benchmark datasets
+                (CharacterTrajectories' .ts files and a timestamped one,
+                BeijingPM2pt5's TSER file, SpeechCommands' wavs with short
+                clips to drop, a MIMIC-IV BigQuery export), their counts cut
+                for the run's time; the MFCCs on the card against the CPU's;
+                the export through mimic_raw into the MIMIC task
+                preparation; one configuration of the interpolation suite's
+                rk4-schemes-benchmarks leg (SpeechCommands, linear) trained
+                one epoch from the built root through ``run.main``, its
+                launches against its batches' reckoning, and its best
+                weights served against the CPU.  The kernel phases hold
+                both field kernels at its shapes.
+23. parallel -- data parallelism and seed ensembles: a world of one rank
+                over NCCL whose flagship step with ``mesh=`` equals the step
+                without it to the bit; then one spawn of two ranks on the
+                card over gloo, each launching the kernels in its own
+                process: the flagship step at B=512 (256 rows a rank),
+                gradient accumulation, an epoch step, a padded
+                cross-entropy tail, prefetched shards, ``Predictor(mesh=)``
+                and ``OnlineNCDEStepper(mesh=)``, a (2 ensemble x 1 data)
+                seed ensemble and one epoch of ``run --data-parallel 2`` on
+                the toy suite, each against rank 0's single-process run,
+                each rank's launches against the reckoning.  A rank's
+                failure fails the phase.
 
 Then a line with every kernel's numbers, a line with the run's seconds, a
 line with the card's name and power limit as ``nvidia-smi`` gives them,
@@ -461,6 +486,59 @@ MULTI_MAIN = (3, HARNESS_SHAPES_BWD[0])      # the kernels line's timed multi sh
 WAVE_SEEDS, WAVE_SUITE, WAVE_SEARCH = (111, 222, 333), "sepsis-ncde-wave", "sepsis-ncde-lr"
 WAVE_TRIALS, WAVE_STEPS = 4, 5
 WAVE_RTOL, WAVE_AUC_ATOL = 1e-3, 1e-3
+# The raw_data phase: synthetic raw archives at the published shapes of the
+# paper's benchmark datasets (dataset.json5), each builder run on them, and
+# one configuration of the interpolation suite's rk4-schemes-benchmarks leg
+# trained from the built root.  Cut for the run's time: RAW_CT_CASES of
+# CharacterTrajectories' 1,422 / 1,436 cases; RAW_TSR_CASES of
+# BeijingPM2pt5's training cases; RAW_SC_PER_CLASS clips a class of
+# SpeechCommands' ten (~3,800 a class in v0.02), with RAW_SC_SHORT shorter
+# clips a class for the builder to drop; RAW_MIMIC_PATIENTS patients of a
+# MIMIC-IV export (tens of thousands).  The MFCCs on the card are held
+# against the port's CPU result on RAW_MFCC_CLIPS clips: both run in
+# float64 and return float32, so |err| <= MFCC_RTOL |want| + MFCC_ATOL.
+# The leg's config: SpeechCommands, linear, batches of 512, the flagship's
+# widths, one epoch; its kernel shapes RAW_SHAPES (the 700-clip train
+# split's batches of 512 and 188, the 150-clip evaluation splits) are held
+# in the kernel phases.
+RAW_CT_CASES, RAW_TSR_CASES, RAW_TSR_NAME = (200, 200), 1000, "BeijingPM2pt5"
+RAW_SC_PER_CLASS, RAW_SC_SHORT, RAW_MFCC_CLIPS, RAW_MIMIC_PATIENTS = 100, 2, 64, 512
+RAW_SC_FRAMES, RAW_SC_CHANNELS = 89, 11        # 10 MFCCs and time
+MFCC_RTOL, MFCC_ATOL = 1e-6, 1e-6
+RAW_SUITE, RAW_SEED, RAW_B = "rk4-schemes-benchmarks-speech", 111, 512
+RAW_SHAPES = [(RAW_B, H, HH, RAW_SC_CHANNELS, 2), (188, H, HH, RAW_SC_CHANNELS, 2),
+              (150, H, HH, RAW_SC_CHANNELS, 2)]
+RAW_REQUESTS, RAW_CPU_REQUESTS = 64, 16
+# The parallel phase: two ranks on the card over gloo at the
+# flagship's widths.  The training checks use the flagship batch (B=512,
+# 100 observations: 256 rows a rank); the cross-entropy check its first
+# 511 rows with PAR_CLASSES classes, padded to 512; the served requests
+# are the predictor phase's count at PAR_LENGTH observations at most, the
+# streams PAR_STREAMS for PAR_TICKS ticks (cut for the run's time); the
+# toy suite one epoch of the package's toy dataset.  Gates: the ranks'
+# losses, gradients and weights equal each other to the bit (the replicas
+# stay in step); a sharded step against the single-process step: the loss
+# at PAR_LOSS_RTOL, the gradients at the train phase's card-vs-CPU gate,
+# the weights after one update twice (``adam_gate``): against Adam's
+# update from the step's own gradients at PAR_PARAM_RTOL / PAR_PARAM_ATOL,
+# and against one process's weights at those plus what Adam's first
+# update moves across the gradient gate; an epoch's first step is gated
+# so, its later losses at GRAD_RTOL, and its final weights and gradients
+# are read, not gated; rows forwarded, served or streamed per shard against one
+# process at the serving gate, since they are not equal to the bit: the
+# forward kernel splits the I channels of its head into cluster groups
+# sized from the rows (``head_forward_grid``), so a row's sums run in
+# another order at 256 rows than at 512, and the solve carries that
+# round-off through its intervals (the phase prints how many forwarded
+# rows differ and by how much of their row's largest output); the toy
+# suite against its serial run at PAR_RUN_RTOL.
+PAR_CLASSES, PAR_STREAMS, PAR_TICKS, PAR_LENGTH = 10, 64, 12, TRAIN_L
+PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-6, 1e-5, 1e-7
+# The weights after a sharded step: see ``adam_gate`` (Adam's eps is
+# ADAM_EPS, ``training.loop.make_optimizer``'s).
+ADAM_EPS = 1e-8
+PAR_RUN_RTOL, PAR_TIMEOUT_S = 1e-4, 300
+PAR_TOY_SUITE = "toy-data-parallel"
 ZOO_HH_ATTN = 15
 ZOO_SHAPES = [(b, H, hh, i, 3) for hh in (HH, ZOO_HH_ATTN) for i in (C, H)
               for b in (TRAIN_B, N_REQUESTS)]
@@ -831,10 +909,10 @@ def phase_kernel(pk):
     errors, timings = [], {}
     with torch.inference_mode():
         for shape in (SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + FWD_WIDE + LOGODE_SHAPES
-                      + DATA_SHAPES + HARNESS_SHAPES):
+                      + DATA_SHAPES + HARNESS_SHAPES + RAW_SHAPES):
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(
-                own if shape in HARNESS_SHAPES else gen, *shape, "cuda")
+                own if shape in HARNESS_SHAPES + RAW_SHAPES else gen, *shape, "cuda")
             got = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
             again = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
             want = kernels._forward_reference(trunk, head_w, head_b, z, dx, Hd, I)
@@ -1130,9 +1208,9 @@ def phase_kernel_bwd(pk):
     own = torch.Generator().manual_seed(19)   # the harness shapes' draws
     errors, timings = [], {}
     for shape in (SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES
-                  + HARNESS_SHAPES_BWD):
+                  + HARNESS_SHAPES_BWD + RAW_SHAPES[:2]):
         B, Hd, HHd, I, n = shape
-        draw = own if shape in HARNESS_SHAPES_BWD else gen
+        draw = own if shape in HARNESS_SHAPES_BWD + RAW_SHAPES else gen
         trunk, head_w, head_b, z, dx = random_field(draw, *shape, "cuda")
         g = random_cotangent(draw, B, Hd, "cuda")
         args = (trunk, head_w, head_b, z, dx, g, Hd, I)
@@ -2595,7 +2673,6 @@ def phase_adaptive():
     # The flagship's adjoint training step (~73 s) is cut for the run's time
     # (PERF.md); config 3 trains through the same reverse solve above.
     return {f"adaptive_{k}": v for k, v in paths.items()}
-
 
 
 # ---------------------------------------------------------------- zoo
@@ -4188,6 +4265,1059 @@ def phase_wave(serial=None):
     return {"wave": launches, "wave_step": wave_timed["launches"], "search": search_launches}
 
 
+# ---------------------------------------------------------------------------
+# Synthetic raw archives (the raw_data phase; tests/test_torch_port_raw_builders.py)
+# ---------------------------------------------------------------------------
+
+SPEECH_RATE = 16000
+
+
+def _ts_value(v):
+    return "?" if np.isnan(v) else repr(float(v))
+
+
+def write_ts(path, series, labels, problem, classes=None):
+    """A plain-layout ``.ts`` file: ``series[i]`` is (L_i, D), NaN written
+    as '?'; ``labels`` are class labels (``classes`` lists them) or real
+    targets."""
+    dims = series[0].shape[1]
+    head = ["# synthetic archive at the published shape", f"@problemName {problem}",
+            "@timeStamps false", "@missing true", "@univariate false",
+            f"@dimensions {dims}", "@equalLength false",
+            f"@seriesLength {max(len(s) for s in series)}",
+            f"@classLabel true {' '.join(classes)}" if classes else "@targetLabel true",
+            "@data"]
+    with open(path, "w") as fh:
+        fh.write("\n".join(head) + "\n")
+        for s, y in zip(series, labels):
+            fields = [",".join(_ts_value(v) for v in s[:, d]) for d in range(dims)]
+            fh.write(":".join(fields) + f":{y}\n")
+
+
+def write_character_trajectories(raw_dir, cases, seed=0):
+    """CharacterTrajectories' TRAIN and TEST ``.ts`` files at the UEA
+    archive's shape: 3 dimensions (x, y velocity and pen force), 20
+    classes labelled '1'..'20', ragged lengths 60-182; ``cases`` =
+    (train, test) counts.  Each class is a smooth pen stroke of its own
+    frequency with noise."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(raw_dir, exist_ok=True)
+    classes = [str(c) for c in range(1, 21)]
+    for split, n in zip(("TRAIN", "TEST"), cases):
+        series, labels = [], []
+        for _ in range(n):
+            k = int(rng.integers(0, 20))
+            length = int(rng.integers(60, 183))
+            t = np.linspace(0.0, 1.0, length)
+            s = np.stack([np.sin(2 * np.pi * (k + 1) * t / 4), np.cos(2 * np.pi * (k + 1) * t / 5),
+                          np.abs(np.sin(np.pi * t))], 1)
+            series.append((s + 0.05 * rng.normal(size=s.shape)).astype(np.float32))
+            labels.append(classes[k])
+        write_ts(os.path.join(raw_dir, f"CharacterTrajectories_{split}.ts"), series, labels,
+                 "CharacterTrajectories", classes)
+
+
+def write_tser(raw_dir, name, cases, seed=0):
+    """A TSER regression archive's ``<name>_TRAIN.ts`` at the Beijing
+    air-quality sets' shape: 9 dimensions of 24 hourly readings, some
+    missing ('?'), one real target a case."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(raw_dir, exist_ok=True)
+    series = rng.normal(size=(cases, 24, 9)).astype(np.float32)
+    series[rng.uniform(size=series.shape) < 0.02] = np.nan
+    targets = [repr(float(v)) for v in 80.0 + 40.0 * rng.normal(size=cases)]
+    write_ts(os.path.join(raw_dir, f"{name}_TRAIN.ts"), list(series), targets, name)
+
+
+def write_timestamped_ts(path, cases=4, seed=0):
+    """A ``@timestamps true`` file: epoch-scale numeric stamps (~1.7e9 s,
+    where float32's spacing is 128 s), three dimensions of which the middle
+    one is empty ('::'), class labels."""
+    rng = np.random.default_rng(seed)
+    lines = ["@problemName Stamped", "@timeStamps true", "@missing true",
+             "@univariate false", "@dimensions 3", "@equalLength false",
+             "@classLabel true a b", "@data"]
+    for i in range(cases):
+        stamps = 1_700_000_000 + np.cumsum(rng.integers(1, 90, size=8))
+        first = ",".join(f"({t},{rng.normal():.6f})" for t in stamps[::2])
+        last = ",".join(f"({t},{'?' if j == 1 else f'{rng.normal():.6f}'})"
+                        for j, t in enumerate(stamps[1::2]))
+        lines.append(f"{first}::{last}:{'ab'[i % 2]}")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def write_speech_commands(raw_dir, per_class, short_per_class, seed=0):
+    """SpeechCommands v0.02's ten classes as folders of 16 kHz mono int16
+    ``.wav`` files: ``per_class`` one-second clips (a tone of the class's
+    pitch in noise) and ``short_per_class`` shorter ones, which the
+    builder drops."""
+    from scipy.io import wavfile
+
+    from online_neural_cdes_tpu_torch.data.builders import SPEECH_CLASSES
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(SPEECH_RATE) / SPEECH_RATE
+    for y, cls in enumerate(SPEECH_CLASSES):
+        folder = os.path.join(raw_dir, cls)
+        os.makedirs(folder, exist_ok=True)
+        for i in range(per_class + short_per_class):
+            length = SPEECH_RATE if i < per_class else int(rng.integers(4000, SPEECH_RATE))
+            clip = (0.3 * np.sin(2 * np.pi * (200.0 + 150.0 * y) * t[:length])
+                    + 0.1 * rng.normal(size=length))
+            wavfile.write(os.path.join(folder, f"{i:05d}.wav"), SPEECH_RATE,
+                          (clip * 2 ** 15 * 0.9).astype(np.int16))
+
+
+MIMIC_VITALS = ("dbp", "dbp_ni", "heart_rate", "mbp", "mbp_ni", "o2_flow", "resp_rate",
+                "sbp", "spo2", "temperature")
+MIMIC_LABS = ("alp", "ast", "baseexcess", "bicarbonate_bg", "bilirubin_direct",
+              "bilirubin_total", "bun", "calcium", "chloride", "creatinine", "fibrinogen",
+              "fio2", "glucose", "glucose_bg", "hematocrit", "hemoglobin", "lactate", "pco2",
+              "ph", "platelet", "po2", "potassium_bg", "ptt", "so2", "sodium", "troponin_i",
+              "wbc")
+# (mean, sd, share observed) of the features the synthetic export fills.
+MIMIC_FILLED = {"heart_rate": (80, 10, 1.0), "sbp": (120, 15, 0.7), "dbp": (70, 10, 0.7),
+                "resp_rate": (16, 2, 0.9), "spo2": (97, 1, 0.9), "temperature": (37, 0.5, 0.3),
+                "glucose": (120, 30, 0.15), "lactate": (2, 1, 0.1), "wbc": (9, 3, 0.1)}
+VENT_STATUS = ("", "Oxygen", "InvasiveVent", "Trach", "HighFlow", "NonInvasiveVent")
+
+
+def write_bigquery_export(path, n_patients, seed=0):
+    """A MIMIC-IV BigQuery export in the schema of ``mimic_query.sql``'s
+    result (the fixture of ``tests/test_raw_builders.py``), written with
+    the standard library: one row per measurement, timestamps as
+    'YYYY-MM-DD HH:MM:SS.ffffff', missing values empty.  Every eighth
+    patient has a burst of measurements a minute apart (continuously
+    monitored, dropped by the build), every eighth another a reading a
+    minute after another (merged), and some readings fall before the ICU
+    admission (filtered)."""
+    import csv
+
+    rng = np.random.default_rng(seed)
+    hour = np.timedelta64(3_600_000_000, "us")
+    base = np.datetime64("2150-01-01T00:00:00", "us")
+
+    def stamp(t):
+        return "" if t is None else str(t).replace("T", " ")
+
+    def after(t0, hours):
+        return t0 + np.timedelta64(int(round(hours * 3_600_000_000)), "us")
+
+    columns = (["stay_id", "charttime", "icu_intime", "icu_outtime", "t_sofa", "gender",
+                "ethnicity", "admission_age", "height", "weight", "hospital_expire_flag",
+                "ventilation_status"] + list(MIMIC_VITALS) + list(MIMIC_LABS))
+    with open(path, "w", newline="") as fh:
+        out = csv.writer(fh)
+        out.writerow(columns)
+        for pid in range(n_patients):
+            intime = base + int(rng.integers(0, 24 * 365)) * hour
+            stay = float(rng.uniform(6, 60))
+            outtime = after(intime, stay)
+            times = np.sort(rng.uniform(-1.0, stay, int(rng.integers(6, 25))))
+            if pid % 8 == 3:
+                times = np.sort(np.r_[times, times[2] + np.arange(1, 8) / 60.0])
+            elif pid % 8 == 5:
+                times = np.sort(np.r_[times, times[1:4] + 1.0 / 60.0])
+            t_sofa = after(intime, float(rng.uniform(2, stay))) if rng.uniform() < 0.4 else None
+            static = {"stay_id": str(30_000_000 + pid), "gender": "MF"[int(rng.integers(0, 2))],
+                      "ethnicity": ("WHITE", "BLACK", "ASIAN", "OTHER")[int(rng.integers(0, 4))],
+                      "admission_age": repr(float(rng.uniform(20, 90))),
+                      "height": repr(float(rng.uniform(150, 200)))
+                      if rng.uniform() < 0.8 else "",
+                      "weight": repr(float(rng.uniform(50, 120))),
+                      "hospital_expire_flag": str(int(rng.uniform() < 0.2)),
+                      "icu_intime": stamp(intime), "icu_outtime": stamp(outtime),
+                      "t_sofa": stamp(t_sofa)}
+            for tt in times:
+                row = dict(static, charttime=stamp(after(intime, float(tt))),
+                           ventilation_status=VENT_STATUS[int(rng.choice(
+                               6, p=[0.7, 0.12, 0.08, 0.03, 0.04, 0.03]))])
+                for name, (mean, sd, share) in MIMIC_FILLED.items():
+                    row[name] = (repr(float(rng.normal(mean, sd)))
+                                 if rng.uniform() < share else "")
+                out.writerow([row.get(c, "") for c in columns])
+
+
+def raw_suite():
+    """The interpolation suite's rk4-schemes-benchmarks leg
+    (configurations.json5) for SpeechCommands under linear interpolation:
+    batches of 512, the NCDE without the adjoint, RK4; hyperparameters set
+    at the flagship's widths (the leg loads a search's, and no search has
+    run); its epochs cut to one."""
+    return {"hyperparameters": ["set"], "seed": [RAW_SEED],
+            "dataset_name": ["SpeechCommands"],
+            "dataset": {"interpolation": ["linear"], "batch_size": [RAW_B]},
+            "model": {"model_string": ["ncde"], "adjoint": [False],
+                      "interpolation_eps": [0.5], "solver": ["rk4"], "hidden_dim": [H],
+                      "hidden_hidden_dim": [HH], "num_layers": [N_LAYERS]},
+            "trainer": {"max_epochs": [1]}}
+
+
+def phase_raw_data():
+    """The raw-archive builders on synthetic archives (CharacterTrajectories
+    and a timestamped ``.ts`` file, BeijingPM2pt5, SpeechCommands with its
+    MFCCs on the card, a MIMIC-IV BigQuery export through
+    ``mimic_raw.build_reduced_format`` into ``mimic.prepare_all``), the
+    card's MFCCs against the CPU's, then one configuration of
+    rk4-schemes-benchmarks trained from the built root through
+    ``run.main`` (launches against its batches' reckoning) and its best
+    weights served against the CPU."""
+    from online_neural_cdes_tpu_torch import linear_interpolation_coeffs
+    from online_neural_cdes_tpu_torch import run
+    from online_neural_cdes_tpu_torch.data import audio, builders, mimic, mimic_raw
+    from online_neural_cdes_tpu_torch.data.loader import Batches
+    from online_neural_cdes_tpu_torch.data.ts_format import load_ts_file
+    from online_neural_cdes_tpu_torch.serving import predictor_from_bundle
+    from online_neural_cdes_tpu_torch.training import config
+    from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_raw_")
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        raw, root = os.path.join(tmp, "raw"), os.path.join(tmp, "processed")
+        uea, tsr = os.path.join(raw, "UEA"), os.path.join(raw, "TSR")
+        speech, export = os.path.join(raw, "SpeechCommands"), os.path.join(raw, "mimic-iv")
+        os.makedirs(export)
+        timed("write_archives", lambda: (
+            write_character_trajectories(uea, RAW_CT_CASES),
+            write_timestamped_ts(os.path.join(uea, "Stamped_TRAIN.ts")),
+            write_tser(tsr, RAW_TSR_NAME, RAW_TSR_CASES),
+            write_speech_commands(speech, RAW_SC_PER_CLASS, RAW_SC_SHORT),
+            write_bigquery_export(os.path.join(export, "export_0.csv"), RAW_MIMIC_PATIENTS)))
+
+        built = {}
+        ct = timed("character_trajectories", lambda: builders.build_character_trajectories(
+            root=root, raw_dir=uea))
+        stamped, _ = load_ts_file(os.path.join(uea, "Stamped_TRAIN.ts"))
+        if not all(s.shape[1] == 4 and np.isnan(s[:, 2]).all() and s[0, 0] == 0.0
+                   and (np.diff(s[:, 0]) > 0).all() for s in stamped):
+            raise AssertionError("raw_data: the timestamped file's columns")
+        tsr_path = timed("tsr", lambda: builders.build_tsr(RAW_TSR_NAME, root=root,
+                                                            raw_dir=tsr))
+        sc = timed("speech_commands", lambda: builders.build_speech_commands(
+            root=root, raw_dir=speech))
+        for name, path, n, channels, labels in (
+                ("CharacterTrajectories", ct, sum(RAW_CT_CASES), 4, set(range(20))),
+                (RAW_TSR_NAME, tsr_path, RAW_TSR_CASES, 10, None),
+                ("SpeechCommands", sc, 10 * RAW_SC_PER_CLASS, RAW_SC_CHANNELS,
+                 set(range(10)))):
+            with np.load(path, allow_pickle=True) as npz:
+                series = npz["temporal_data_raw"]
+                lengths = sorted({len(s) for s in series})
+                got_labels = npz["labels"]
+                splits = [len(npz[k]) for k in ("train_idxs", "val_idxs", "test_idxs")]
+            if len(series) != n or series[0].shape[-1] != channels or sum(splits) != n:
+                raise AssertionError(f"raw_data: {name} built {len(series)} series of "
+                                     f"{series[0].shape} channels, splits {splits}")
+            if labels is not None and set(np.unique(got_labels)) != labels:
+                raise AssertionError(f"raw_data: {name} labels {np.unique(got_labels)}")
+            built[name] = {"series": len(series), "channels": channels,
+                           "lengths": [lengths[0], lengths[-1]], "splits": splits}
+        if built["SpeechCommands"]["lengths"] != [RAW_SC_FRAMES, RAW_SC_FRAMES]:
+            raise AssertionError(f"raw_data: SpeechCommands frames {built['SpeechCommands']}")
+
+        # The MFCCs on the card against the CPU's on the same clips.
+        from scipy.io import wavfile
+
+        clips = np.stack([wavfile.read(os.path.join(speech, "yes", f"{i:05d}.wav"))[1]
+                          for i in range(RAW_MFCC_CLIPS)]).astype(np.float32) / 2 ** 15
+        card = audio.mfcc(clips)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = audio.mfcc(clips)
+        torch.cuda.synchronize()
+        mfcc_ms = (time.perf_counter() - t0) * 1e3
+        cpu = audio.mfcc(clips, device="cpu")
+        if card.device.type != "cuda":
+            raise AssertionError(f"raw_data: mfcc ran on {card.device}")
+        torch.testing.assert_close(card.cpu(), cpu, rtol=MFCC_RTOL, atol=MFCC_ATOL)
+        mfcc_vs_cpu = {"clips": RAW_MFCC_CLIPS, "shape": list(card.shape),
+                       "max_abs_err": float((card.cpu() - cpu).abs().max()),
+                       "gate_share": gate_share(card.cpu(), cpu, MFCC_RTOL, MFCC_ATOL),
+                       "bit_identical": bool(torch.equal(card.cpu(), cpu)),
+                       "rtol": MFCC_RTOL, "atol": MFCC_ATOL, "card_ms": mfcc_ms}
+
+        reduced = timed("mimic_reduced_format",
+                        lambda: mimic_raw.build_reduced_format(export))
+        tasks = timed("mimic_prepare_all", lambda: mimic.prepare_all(reduced, out_root=root))
+        with np.load(reduced, allow_pickle=True) as npz:
+            mimic_summary = {"patients": len(npz["static_data"]),
+                             "temporal_columns": len(npz["temporal_columns"])}
+        for task, path in tasks.items():
+            with np.load(path, allow_pickle=True) as npz:
+                mimic_summary[task] = len(npz["temporal_data_raw"])
+        if not 0 < mimic_summary["patients"] < RAW_MIMIC_PATIENTS:
+            raise AssertionError(f"raw_data: MIMIC kept {mimic_summary}")
+
+        # One configuration of rk4-schemes-benchmarks from the built root.
+        config_dir = os.path.join(tmp, "configurations")
+        os.makedirs(config_dir)
+        shutil.copy(os.path.join(config.DEFAULT_CONFIG_DIR, "dataset.json5"), config_dir)
+        with open(os.path.join(config_dir, "configurations.json5"), "w") as fh:
+            json.dump({RAW_SUITE: raw_suite()}, fh)
+        (cfg,), _ = config.parse_configuration_json(RAW_SUITE, config_dir)
+        bundle, (train, val, test) = load_and_setup(cfg, root)
+
+        def intervals(data):
+            return [b[0].shape[1] - 1 for b in Batches(data, RAW_B)]
+
+        train_iv = intervals(train)
+        eval_iv = [sum(intervals(d)) for d in (train, val, test)]
+        shapes = sorted({(len(b[1]), H, HH, b[0].shape[-1], 2)
+                         for d in (train, val, test) for b in Batches(d, RAW_B)})
+        if shapes != sorted(RAW_SHAPES):
+            raise AssertionError(f"raw_data: the leg's kernel shapes {shapes}")
+        # Autograd through RK4: 4 forward and 4 backward launches an
+        # interval a step; the trainer probes the first batch's NFE once.
+        expected = {"forward": 4 * train_iv[0] + 4 * sum(train_iv) + 4 * eval_iv[1]
+                    + 4 * sum(eval_iv), "backward": 4 * sum(train_iv)}
+        args = [RAW_SUITE, "--config-dir", config_dir, "--data-root", root,
+                "--ledger", os.path.join(tmp, "ledger.jsonl")]
+        t0 = time.perf_counter()
+        completed, launches = counted(lambda: run.main(args))   # the main path
+        suite_s = time.perf_counter() - t0
+        expect_launches("raw_data: the suite", launches, **expected)
+        ((_, res),) = completed
+        if res["epochs_run"] != 1 or not np.isfinite(res["test.loss"]) \
+                or not 0.0 <= res["test.acc"] <= 1.0:
+            raise AssertionError(f"raw_data: the suite gave {res}")
+
+        # Its best weights served: test-split series through linear
+        # coefficients, the card against the CPU.
+        with np.load(sc, allow_pickle=True) as npz:
+            idx = npz["test_idxs"][:RAW_REQUESTS]
+            requests = [np.asarray(r, np.float32) for r in npz["temporal_data_raw"][idx]]
+        serve_kw = dict(coeff_fn=linear_interpolation_coeffs,
+                        batch_buckets=(1, RAW_CPU_REQUESTS, RAW_REQUESTS),
+                        length_multiple=LENGTH_MULTIPLE)
+        pred = predictor_from_bundle(bundle, res["best_params"], **serve_kw)
+        outs, serve_launches = counted(lambda: pred.predict(requests))
+        padded = -(-RAW_SC_FRAMES // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
+        expect_launches("raw_data: predict", serve_launches, forward=4 * (padded - 1))
+        bundle_cpu, _ = load_and_setup(cfg, root, device="cpu")
+        pred_cpu = predictor_from_bundle(
+            bundle_cpu, {k: v.cpu() for k, v in res["best_params"].items()}, **serve_kw)
+        outs_cpu = pred_cpu.predict(requests[:RAW_CPU_REQUESTS])
+        serve = par_gate("raw_data: served", outs[:RAW_CPU_REQUESTS], outs_cpu, SERVE_RTOL,
+                         SERVE_ATOL)
+        if outs[0].shape != (10,):
+            raise AssertionError(f"raw_data: served shape {outs[0].shape}")
+        emit("raw_data", archives={
+                 "CharacterTrajectories": {"cases": list(RAW_CT_CASES), "dimensions": 3,
+                                           "classes": 20, "lengths": [60, 182]},
+                 RAW_TSR_NAME: {"cases": RAW_TSR_CASES, "dimensions": 9, "length": 24},
+                 "SpeechCommands": {"clips_per_class": RAW_SC_PER_CLASS,
+                                    "short_per_class_dropped": RAW_SC_SHORT},
+                 "MIMIC-IV export": {"patients": RAW_MIMIC_PATIENTS}},
+             built=built, timestamped_cases=len(stamped), mfcc_vs_cpu=mfcc_vs_cpu,
+             mimic=mimic_summary, seconds=seconds,
+             suite={"config": raw_suite(), "train_batch_intervals": train_iv,
+                    "eval_intervals_by_split": eval_iv, "kernel_shapes": shapes,
+                    "launches": launches, "expected_launches": expected,
+                    "seconds": suite_s, **{k: res[k] for k in (
+                        "test.loss", "test.acc", "time_per_epoch", "memory_usage",
+                        "nfe_per_epoch")}},
+             serve={"requests": len(requests), "launches": serve_launches,
+                    "vs_cpu": {"requests": RAW_CPU_REQUESTS, "max_abs_err": serve[0],
+                               "gate_share": serve[1], "rtol": SERVE_RTOL,
+                               "atol": SERVE_ATOL}},
+             phase_seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"raw_data_suite": launches, "raw_data_predict": serve_launches}
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: one process a rank (the parallel phase;
+# tests/test_torch_port_parallel.py runs the same worker on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def par_batch(spec, seed, rows=None):
+    """A training batch of the parallel checks: series (B, L, C) with time
+    in channel 0, statics (B, S) and binary labels (B, L) whose second
+    half of rows ends half way (NaN), so the shards' NaN masks differ."""
+    rng = np.random.default_rng(seed)
+    b, length, c = rows or spec["B"], spec["L"], spec["C"]
+    x = rng.normal(size=(b, length, c))
+    x[..., 0] = np.arange(length)
+    static = rng.normal(size=(b, spec["S"]))
+    labels = rng.integers(0, 2, size=(b, length)).astype(np.float64)
+    labels[b // 2:, length // 2:] = np.nan
+    return x, static, labels
+
+
+def par_class_labels(spec, seed, rows):
+    """Class ids (as floats, the padded tail's NaN-able layout) of the
+    padded cross-entropy check."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, spec["classes"], size=(rows, spec["L"])).astype(np.float64)
+
+
+def par_requests(spec, seed=5):
+    """Ragged NaN-holding requests (time in channel 0) and their statics."""
+    rng = np.random.default_rng(seed)
+    requests = []
+    for length in rng.integers(spec["L"] // 2, spec["L"] + 1, size=spec["requests"]):
+        s = rng.normal(size=(length, spec["C"]))
+        s[:, 0] = np.arange(length)
+        holes = rng.random(size=s.shape) < 0.3
+        holes[0] = False
+        holes[:, 0] = False
+        s[holes] = np.nan
+        requests.append(s.astype(np.float32))
+    return requests, rng.normal(size=(spec["requests"], spec["S"])).astype(np.float32)
+
+
+def par_streams(spec, seed=6):
+    """Observations (ticks, streams, C) of the streaming check and the
+    streams' statics."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(spec["ticks"], spec["streams"], spec["C"]))
+    x[..., 0] = np.arange(spec["ticks"])[:, None]
+    x[1:][rng.random(size=x[1:].shape) < 0.3] = np.nan
+    x[..., 0] = np.arange(spec["ticks"])[:, None]
+    return x.astype(np.float32), rng.normal(size=(spec["streams"], spec["S"])).astype(
+        np.float32)
+
+
+def _par_model(spec, device, dtype, output_dim=1, params=None):
+    from online_neural_cdes_tpu_torch import NeuralCDE
+    from online_neural_cdes_tpu_torch.utils.convert import params_from_jax
+
+    model = NeuralCDE(
+        input_dim=spec["C"], hidden_dim=spec["H"], output_dim=output_dim,
+        static_dim=spec["S"], hidden_hidden_dim=spec["HH"], num_layers=spec["layers"],
+        interpolation="rectilinear", solver="rk4", return_sequences=True,
+        generator=torch.Generator().manual_seed(0), device=device, dtype=dtype)
+    if params is not None:
+        with np.load(params) as npz:
+            params_from_jax(dict(npz), model)
+    return model
+
+
+def _grads(model):
+    """The gradients a step left in ``.grad`` (the last step's, which Adam
+    took)."""
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _record_grads(adam):
+    """The gradients a ``StackedAdam`` is stepped with, recorded into the
+    returned dict as it steps (the wave step keeps none in ``.grad``)."""
+    recorded = {}
+    step = adam.step
+
+    def recording(grads, lr_rest, lr_final):
+        recorded.update({k: g.detach().clone() for k, g in grads.items()})
+        return step(grads, lr_rest, lr_final)
+
+    adam.step = recording
+    return recorded
+
+
+def _first_step(optimizer, model):
+    """The weights and gradients of ``model`` just after ``optimizer``'s
+    first step, recorded into the returned dict."""
+    first = {}
+
+    def record(opt, args, kwargs):
+        if not first:
+            first["params"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            first["grads"] = _grads(model)
+
+    optimizer.register_step_post_hook(record)
+    return first
+
+
+def _state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _host_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_tree(v) for v in tree]
+    return tree
+
+
+def _par_counted(fn, device):
+    """``fn``'s result and, on the card, its kernel launches in this
+    process (the counts set to 0 just before)."""
+    if device.type != "cuda":
+        return fn(), None
+    return counted(fn)
+
+
+def par_worker(rank, spec):
+    """One rank of the parallel checks: joins the gloo group of
+    ``spec["world"]`` ranks at ``spec["address"]`` on ``spec["device"]``,
+    runs every check (:func:`par_checks`) and saves its results (host
+    tensors) to ``<spec["out"]>/rank<rank>.pt``.  An exception ends the
+    process nonzero."""
+    import torch.distributed as dist
+
+    device = torch.device(spec["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=spec["address"], world_size=spec["world"],
+                            rank=rank)
+    try:
+        out = par_checks(rank, spec, device)
+        torch.save(_host_tree(out), os.path.join(spec["out"], f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def par_checks(rank, spec, device):
+    """Every data-parallel path once over a mesh of the group's ranks, and
+    on rank 0 the single-process run of each on the whole batch (``ref``):
+    a train step, a forward, gradient accumulation, an epoch step, a
+    cross-entropy step on a padded tail, prefetched shards, ``Predictor``
+    and ``OnlineNCDEStepper`` with their divisibility refusals, a seed
+    ensemble over (ensemble, data) = (world, 1), and the toy suite through
+    ``run.main --data-parallel``."""
+    import glob
+
+    from online_neural_cdes_tpu_torch import OnlineNCDEStepper, Predictor
+    from online_neural_cdes_tpu_torch import linear_interpolation_coeffs
+    from online_neural_cdes_tpu_torch import run as port_run
+    from online_neural_cdes_tpu_torch.data.prefetch import prefetch_to_device
+    from online_neural_cdes_tpu_torch.parallel import ensemble
+    from online_neural_cdes_tpu_torch.parallel import mesh as pm
+    from online_neural_cdes_tpu_torch.training import harness, loop
+    from online_neural_cdes_tpu_torch.utils.convert import params_from_jax
+
+    dtype = getattr(torch, spec["dtype"])
+    world, lr = spec["world"], spec["lr"]
+    mesh = pm.make_mesh(world, devices=spec["device"])
+    ref = spec["reference"] and rank == 0
+    out = {"rank": rank, "lr": lr, "launches": {}, "ref": {}}
+
+    def run(name, fn):
+        result, launches = _par_counted(fn, device)
+        if launches is not None:
+            out["launches"][name] = launches
+        return result
+
+    def tensors(x, static, labels):
+        coeffs = linear_interpolation_coeffs(torch.as_tensor(x, dtype=dtype, device=device),
+                                             rectilinear=0)
+        return ((torch.as_tensor(static, dtype=dtype, device=device), coeffs),
+                torch.as_tensor(labels, dtype=dtype, device=device))
+
+    def model(output_dim=1, params=spec.get("params")):
+        return _par_model(spec, device, dtype, output_dim, params)
+
+    inputs, labels = tensors(*par_batch(spec, 11))
+    shard_in, shard_lab = pm.shard_batch((inputs, labels), mesh)
+
+    # The train step, the forward, accumulation and the epoch step.
+    for name, kw in (("train_step", {}), ("accum_step", {"accum_steps": spec["accum"]})):
+        m = pm.replicate(model(), mesh)
+        step = loop.make_train_step(m, loss="bce", lr=lr, mesh=mesh, **kw)
+        loss = run(name, lambda: step(shard_in, shard_lab, 1.0))
+        out[name] = {"loss": loss, "params": m.state_dict(), "grads": _grads(m)}
+        if ref:
+            m = model()
+            init = _state(m)
+            loss = loop.make_train_step(m, loss="bce", lr=lr, **kw)(inputs, labels, 1.0)
+            out["ref"][name] = {"loss": loss, "params": m.state_dict(), "grads": _grads(m),
+                                "init": init}
+    forward = loop.make_eval_step(model(), mesh=mesh)
+    out["forward"] = run("forward", lambda: forward(shard_in))
+    if ref:
+        out["ref"]["forward"] = loop.make_eval_step(model())(inputs)
+
+    inputs2, labels2 = tensors(*par_batch(spec, 12))
+    stacked = (tuple(torch.stack([a, b]) for a, b in zip(inputs, inputs2)),
+               torch.stack([labels, labels2]))
+    m = model()
+    epoch = loop.make_epoch_step(m, loss="bce", lr=lr, mesh=mesh)
+    first = _first_step(epoch.optimizer, m)
+    shards = [pm.shard_batch((i, lab), mesh) for i, lab in ((inputs, labels),
+                                                             (inputs2, labels2))]
+    shard_stack = (tuple(torch.stack([a, b]) for a, b in zip(shards[0][0], shards[1][0])),
+                   torch.stack([shards[0][1], shards[1][1]]))
+    losses = run("epoch_step", lambda: epoch(*shard_stack, 1.0))
+    out["epoch_step"] = {"loss": losses, "params": m.state_dict(), "grads": _grads(m),
+                         "first": first}
+    if ref:
+        m = model()
+        init = _state(m)
+        epoch = loop.make_epoch_step(m, loss="bce", lr=lr)
+        first = _first_step(epoch.optimizer, m)
+        losses = epoch(*stacked, 1.0)
+        out["ref"]["epoch_step"] = {"loss": losses, "params": m.state_dict(),
+                                    "grads": _grads(m), "first": first, "init": init}
+
+    # Cross-entropy on a batch that does not divide the data axis: padded
+    # (inputs repeat the last row, labels NaN) and sharded.
+    rows = spec["B"] - 1
+    x, static, _ = par_batch(spec, 13, rows)
+    ce_labels = par_class_labels(spec, 13, rows)
+    ce_in, ce_lab = tensors(x, static, ce_labels)
+    padded = harness._pad_to_mesh_multiple(ce_in, ce_lab, world)
+    m = pm.replicate(model(spec["classes"], spec.get("ce_params")), mesh)
+    step = loop.make_train_step(m, loss="ce", lr=lr, mesh=mesh)
+    loss = run("ce_step", lambda: step(*pm.shard_batch(padded, mesh), 1.0))
+    out["ce_step"] = {"loss": loss, "params": m.state_dict(), "grads": _grads(m),
+                      "padded_rows": int(padded[1].shape[0])}
+    if ref:
+        m = model(spec["classes"], spec.get("ce_params"))
+        init = _state(m)
+        loss = loop.make_train_step(m, loss="ce", lr=lr)(ce_in, ce_lab, 1.0)
+        out["ref"]["ce_step"] = {"loss": loss, "params": m.state_dict(), "grads": _grads(m),
+                                 "init": init}
+
+    # Prefetched shards: this rank's rows of each raw batch, as shard_batch
+    # gives them.
+    raw = [(par_batch(spec, s)[0], par_batch(spec, s)[2]) for s in (21, 22)]
+    got = list(prefetch_to_device(iter(raw), size=2,
+                                  sharding=pm.data_parallel_sharding(mesh)[0]))
+    out["prefetch_equal"] = all(
+        g.shape == w.shape and bool(((g == w) | (g.isnan() & w.isnan())).all())
+        for (gx, gl), (x_, l_) in zip(got, raw)
+        for g, w in ((gx, pm.shard_batch(torch.from_numpy(x_), mesh)),
+                     (gl, pm.shard_batch(torch.from_numpy(l_), mesh))))
+
+    # Serving.
+    requests, req_static = par_requests(spec)
+    serve_kw = dict(coeff_fn=lambda s: linear_interpolation_coeffs(s, rectilinear=0),
+                    batch_buckets=spec["buckets"], length_multiple=spec["length_multiple"])
+    m = model()
+    pred = Predictor(m, mesh=mesh, **serve_kw)
+    out["predict"] = run("predict", lambda: pred.predict(requests, static=req_static))
+    refusals = []
+    try:
+        Predictor(m, mesh=mesh, batch_buckets=(world + 1,))
+    except ValueError as exc:
+        refusals.append(str(exc))
+    obs, stream_static = par_streams(spec)
+    stepper = OnlineNCDEStepper(m, static=stream_static, mesh=mesh)
+    half = spec["ticks"] // 2
+
+    def stream():
+        state = stepper.init(obs[0])
+        ys = []
+        for t in range(1, half):
+            state, y = stepper.step(state, obs[t])
+            ys.append(y)
+        state, many = stepper.step_many(state, obs[half:])
+        return torch.cat([torch.stack(ys), many])
+
+    out["stream"] = run("stream", stream)
+    try:
+        stepper.init(obs[0][:world + 1])
+    except ValueError as exc:
+        refusals.append(str(exc))
+    out["refusals"] = refusals
+    if ref:
+        m = model()
+        out["ref"]["predict"] = Predictor(m, device=device, **serve_kw).predict(
+            requests, static=req_static)
+        single = OnlineNCDEStepper(m, static=stream_static, device=device)
+        state = single.init(obs[0])
+        ys = []
+        for t in range(1, half):
+            state, y = single.step(state, obs[t])
+            ys.append(y)
+        out["ref"]["stream"] = torch.cat([torch.stack(ys), single.step_many(state, obs[half:])[1]])
+
+    # A seed ensemble: one seed a rank over (ensemble, data) = (world, 1).
+    ens_mesh = ensemble.make_ensemble_mesh(world, 1, devices=spec["device"])
+    bundle = harness.setup_model(
+        "ncde", input_dim=spec["C"], output_dim=1, static_dim=spec["S"],
+        hidden_dim=spec["H"], hidden_hidden_dim=spec["HH"], num_layers=spec["layers"],
+        interpolation="rectilinear", adjoint=False, solver="rk4", return_sequences=True,
+        device=device, dtype=dtype)
+    stacked_params = None
+    if spec.get("ensemble_params"):
+        with np.load(spec["ensemble_params"]) as npz:
+            stacked_params = params_from_jax(dict(npz), bundle.model, stacked=True)
+    state, adam = ensemble.init_ensemble(bundle, world, mesh=ens_mesh, params=stacked_params)
+    ens_grads = _record_grads(adam)
+    ens_step = ensemble.make_ensemble_step(bundle, loss="bce", lr=lr, mesh=ens_mesh)
+    ens_in = pm.shard_batch((inputs, labels), ens_mesh)
+    _, _, ens_losses = run("ensemble_step", lambda: ens_step(state, adam, *ens_in, 1.0))
+    out["ensemble_step"] = {"loss": ens_losses, "params": state, "grads": ens_grads}
+    if ref:
+        state, adam = ensemble.init_ensemble(bundle, world, params=stacked_params)
+        init = {k: v.detach().clone() for k, v in state.items()}
+        ens_grads = _record_grads(adam)
+        _, _, losses = ensemble.make_ensemble_step(bundle, loss="bce", lr=lr)(
+            state, adam, inputs, labels, 1.0)
+        out["ref"]["ensemble_step"] = {"loss": losses, "params": state, "grads": ens_grads,
+                                       "init": init}
+
+    # The toy suite from the command line over the group, then (rank 0) the
+    # same suite in one process.
+    toy = spec.get("toy")
+    if toy:
+        args = [toy["suite"], "--config-dir", toy["config_dir"], "--data-root", toy["root"]]
+        device_args = ["--device", "cpu"] if device.type == "cpu" else []
+        out["run"] = run("run_data_parallel", lambda: port_run.main(
+            args + ["--ledger", toy["ledger"], "--data-parallel", str(world)]
+            + device_args))
+        out["run"] = [r for _, r in out["run"]]
+        out["run_files"] = sorted(glob.glob(os.path.join(toy["ledger"] + "*")))
+        if ref:
+            out["ref"]["run"] = [r for _, r in port_run.main(
+                args + ["--ledger", toy["serial_ledger"]] + device_args)]
+    return out
+
+
+def par_spawn(spec, timeout_s):
+    """Start ``spec["world"]`` ranks of :func:`par_worker` (spawned), join
+    them within ``timeout_s`` and return their results in rank order.  A
+    rank that fails, or that has not finished in time, fails the call (the
+    others are stopped)."""
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        spec = dict(spec, address=f"tcp://localhost:{s.getsockname()[1]}")
+    ctx = tmp.spawn(par_worker, args=(spec,), nprocs=spec["world"], join=False)
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"parallel ranks still running after {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(5.0)
+    return [torch.load(os.path.join(spec["out"], f"rank{r}.pt"), weights_only=False)
+            for r in range(spec["world"])]
+
+
+def par_gate(what, got, want, rtol, atol):
+    """Raise unless ``got`` is within the gate of ``want`` (tensors, lists
+    of arrays or dicts of tensors); returns (max |err|, gate share, equal
+    to the bit)."""
+    if isinstance(want, dict):
+        parts = [par_gate(f"{what} {k}", got[k], w, rtol, atol) for k, w in want.items()]
+        return (max(p[0] for p in parts), max(p[1] for p in parts),
+                all(p[2] for p in parts))
+    if isinstance(want, (list, tuple)):
+        parts = [par_gate(f"{what}[{i}]", g, w, rtol, atol)
+                 for i, (g, w) in enumerate(zip(got, want))]
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} parts, want {len(want)}")
+        return (max(p[0] for p in parts), max(p[1] for p in parts),
+                all(p[2] for p in parts))
+    g = np.asarray(got.float() if isinstance(got, torch.Tensor) else got, np.float64)
+    w = np.asarray(want.float() if isinstance(want, torch.Tensor) else want, np.float64)
+    if g.shape != w.shape or not np.isfinite(g).all():
+        raise AssertionError(f"{what}: shape {g.shape} (want {w.shape}) or not finite")
+    share = gate_share(g, w, rtol, atol) if g.size else 0.0
+    if share > 1.0:
+        raise AssertionError(f"{what}: gate share {share} (rtol {rtol}, atol {atol})")
+    return float(np.abs(g - w).max()) if g.size else 0.0, share, bool(np.array_equal(g, w))
+
+
+def toy_intervals(root, suite_cfg):
+    """Each split's batches' knot intervals of the toy suite's config."""
+    from online_neural_cdes_tpu_torch.data.loader import Batches
+    from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
+
+    _, splits = load_and_setup(suite_cfg, root, device="cpu")
+    b = int(suite_cfg["dataset"]["batch_size"])
+    return [[batch[0][1].shape[1] - 1 if isinstance(batch[0], tuple)
+             else batch[0].shape[1] - 1 for batch in Batches(d, b)] for d in splits]
+
+
+def phase_parallel():
+    """Data parallelism on the card.  A world of one rank over NCCL in this
+    process: the flagship step with ``mesh=`` equals the step without it
+    to the bit.  Then one spawn of two ranks on cuda:0 over gloo, each
+    launching the kernels in its own process (``par_worker``): the
+    flagship step at B=512, gradient accumulation, an epoch step, a padded
+    cross-entropy tail, prefetched shards, ``Predictor(mesh=)`` and
+    ``OnlineNCDEStepper(mesh=)``, a (2 ensemble x 1 data) seed ensemble,
+    and one epoch of ``run --data-parallel 2`` on the toy suite, each
+    against rank 0's single-process run, with each rank's launches against
+    the reckoning."""
+    import socket
+
+    import torch.distributed as dist
+
+    from online_neural_cdes_tpu_torch.data.builders import build_toy_bm
+    from online_neural_cdes_tpu_torch.parallel.mesh import make_mesh
+    from online_neural_cdes_tpu_torch.training import config
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+
+    t_phase = time.perf_counter()
+    intervals = 2 * TRAIN_L - 2
+    step_launches = {"forward": 2 * 4 * intervals, "backward": 4 * intervals}
+
+    # A world of one over NCCL.
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        address = f"tcp://localhost:{s.getsockname()[1]}"
+    dist.init_process_group("nccl", init_method=address, world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        inputs, labels = train_batch("cuda")
+        got, want = flagship_model("cuda"), flagship_model("cuda")
+        step = make_train_step(got, loss="bce", lr=TRAIN_LR, mesh=mesh)
+        loss, one_launches = counted(lambda: step(inputs, labels, 1.0))
+        expect_launches("parallel: the world of one's step", one_launches, **step_launches)
+        want_loss = make_train_step(want, loss="bce", lr=TRAIN_LR)(inputs, labels, 1.0)
+        if not torch.equal(loss, want_loss) or not all(
+                torch.equal(v, want.state_dict()[k]) for k, v in got.state_dict().items()):
+            raise AssertionError("parallel: the world of one's step differs from the "
+                                 "step without a mesh")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    world_of_one = {"backend": backend, "launches": one_launches, "bit_identical": True,
+                    "loss": float(loss)}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        root = os.path.join(tmp, "toy")
+        build_toy_bm(root=root)
+        config_dir = os.path.join(tmp, "configurations")
+        os.makedirs(config_dir)
+        shutil.copy(os.path.join(config.DEFAULT_CONFIG_DIR, "dataset.json5"), config_dir)
+        toy = config.load_json(os.path.join(config.DEFAULT_CONFIG_DIR,
+                                            "configurations.json5"))["toy"]
+        toy["trainer"] = dict(toy["trainer"], max_epochs=[1])
+        with open(os.path.join(config_dir, "configurations.json5"), "w") as fh:
+            json.dump({PAR_TOY_SUITE: toy}, fh)
+        (suite_cfg,), _ = config.parse_configuration_json(PAR_TOY_SUITE, config_dir)
+        spec = dict(world=2, device="cuda:0", dtype="float32", B=TRAIN_B, L=PAR_LENGTH, C=C,
+                    H=H, HH=HH, layers=N_LAYERS, S=STATIC, lr=TRAIN_LR, accum=2,
+                    classes=PAR_CLASSES, requests=N_REQUESTS, buckets=(2, N_REQUESTS),
+                    length_multiple=LENGTH_MULTIPLE, streams=PAR_STREAMS, ticks=PAR_TICKS,
+                    reference=True, out=tmp,
+                    toy={"suite": PAR_TOY_SUITE, "config_dir": config_dir, "root": root,
+                         "ledger": os.path.join(tmp, "dp.jsonl"),
+                         "serial_ledger": os.path.join(tmp, "serial.jsonl")})
+        t0 = time.perf_counter()
+        ranks = par_spawn(spec, PAR_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+
+        # The reckoning: RK4 evaluates the field 4 times an interval; the
+        # flagship steps run the interval adjoint (2 forward passes, 1
+        # backward), the ensemble autograd through RK4 on the multi entries.
+        requests, _ = par_requests(spec)
+        padded = -(-max(len(r) for r in requests) // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
+        train_iv, val_iv, test_iv = toy_intervals(root, suite_cfg)
+        toy_epoch = sum(train_iv)
+        want_launches = {
+            "train_step": step_launches,
+            "accum_step": {k: 2 * v for k, v in step_launches.items()},
+            "epoch_step": {k: 2 * v for k, v in step_launches.items()},
+            "ce_step": step_launches,
+            "forward": {"forward": 4 * intervals},
+            "predict": {"forward": 4 * (2 * padded - 2)},
+            "stream": {"forward": 2 * 4 * (PAR_TICKS - 1)},
+            "ensemble_step": {"forward_multi": 4 * intervals, "backward_multi": 4 * intervals},
+            "run_data_parallel": {
+                "forward": 4 * train_iv[0] + 2 * 4 * toy_epoch + 4 * sum(val_iv)
+                + 4 * (toy_epoch + sum(val_iv) + sum(test_iv)),
+                "backward": 4 * toy_epoch}}
+        for r in ranks:
+            for name, want in want_launches.items():
+                expect_launches(f"parallel: rank {r['rank']} {name}", r["launches"][name],
+                                **want)
+        gates, serial, failed = par_verify(ranks)
+        emit("parallel", failed=failed, world_of_one=world_of_one, ranks=len(ranks), backend="gloo",
+             device="cuda:0", spawn_seconds=spawn_s,
+             launches={f"rank{r['rank']}": r["launches"] for r in ranks},
+             expected_launches=want_launches, gates=gates,
+             tolerance={"loss_rtol": PAR_LOSS_RTOL, "param_rtol": PAR_PARAM_RTOL,
+                        "param_atol": PAR_PARAM_ATOL, "grad_rtol": GRAD_RTOL,
+                        "grad_atol_per_max": GRAD_ATOL_REL, "row_rtol": SERVE_RTOL,
+                        "row_atol": SERVE_ATOL, "run_rtol": PAR_RUN_RTOL},
+             toy={"intervals": [train_iv, val_iv, test_iv],
+                  "data_parallel": {k: ranks[0]["run"][0][k] for k in (
+                      "train.loss", "val.loss", "test.loss", "time_per_epoch")},
+                  "serial": {k: serial[k] for k in (
+                      "train.loss", "val.loss", "test.loss", "time_per_epoch")}},
+             ce_padded_rows=ranks[0]["ce_step"]["padded_rows"],
+             phase_seconds=time.perf_counter() - t_phase)
+        if failed:
+            raise AssertionError(f"parallel: {len(failed)} gates failed: {failed}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]["launches"]
+    return {"dp_world_of_one_step": one_launches, "dp_train_step": r0["train_step"],
+            "dp_predict": r0["predict"], "dp_stream": r0["stream"],
+            "dp_ensemble_step": r0["ensemble_step"], "dp_toy_suite": r0["run_data_parallel"]}
+
+
+def _same_bits(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+def par_grad_gate(what, got, want):
+    """Sharded against one process's gradients, each tensor within the
+    train phase's card-vs-CPU gate, GRAD_RTOL |want| + GRAD_ATOL_REL
+    max|want|."""
+    parts = []
+    for k, w in want.items():
+        atol = GRAD_ATOL_REL * float(w.abs().max())
+        parts.append(par_gate(f"{what} gradient of {k}", got[k], w, GRAD_RTOL, atol))
+    return (max(p[0] for p in parts), max(p[1] for p in parts), all(p[2] for p in parts))
+
+
+def adam_gate(what, got, want, grads, got_grads, init, lr):
+    """Weights after one Adam step (the learning rate ``lr``, x10 on the
+    readout), sharded against one process.  Adam's first step moves a
+    weight by lr g / (|g| + eps) (the bias corrections cancel), about lr
+    whatever the gradient's size.  So each weight is held twice: to the
+    update from ``init`` by the step's own gradients ``got_grads`` within
+    PAR_PARAM_RTOL |w| + PAR_PARAM_ATOL (the step applied the gradients
+    the gradient gate held), and to one process's weights within that plus
+    what the update moves across the gradient gate (one process's gradient
+    ``grads`` +- GRAD_RTOL |g| + GRAD_ATOL_REL max|g|): a gradient within
+    its gate of 0 may move its weight by up to 2 lr the other way."""
+
+    def update(x):
+        return x / (x.abs() + ADAM_EPS)
+
+    share, worst, own_worst, moved = 0.0, 0.0, 0.0, 0
+    for k, w in want.items():
+        g_got, w = got[k].double(), w.double()
+        k_lr = lr * (10.0 if k.split(".")[0] == "final" else 1.0)
+        own = init[k].double() - k_lr * update(got_grads[k].double())
+        own_err = (g_got - own).abs()
+        if bool((own_err > PAR_PARAM_ATOL + PAR_PARAM_RTOL * own.abs()).any()):
+            raise AssertionError(f"{what} {k}: not Adam's update from its own gradients, "
+                                 f"max |err| {float(own_err.max())}")
+        own_worst = max(own_worst, float(own_err.max()))
+        err = (g_got - w).abs()
+        tight = PAR_PARAM_ATOL + PAR_PARAM_RTOL * w.abs()
+        g = grads[k].double()
+        delta = GRAD_RTOL * g.abs() + GRAD_ATOL_REL * g.abs().max()
+        allowed = tight + k_lr * torch.maximum(update(g + delta) - update(g),
+                                               update(g) - update(g - delta))
+        if bool((err > allowed).any()):
+            raise AssertionError(f"{what} {k}: {int((err > allowed).sum())} weights past "
+                                 f"their gate, max |err| {float(err.max())}")
+        moved += int((err > tight).sum())
+        share = max(share, float((err / allowed).max()))
+        worst = max(worst, float(err.max()))
+    return {"max_abs_err": worst, "gate_share": share, "past_the_tight_gate": moved,
+            "own_update_max_abs_err": own_worst}
+
+
+def par_verify(ranks):
+    """Every rank's sharded results against rank 0's single-process ones,
+    at the parallel phase's gates; returns (the gates' readings, the
+    serial toy run's results, the gates that failed).  Every gate is read
+    before any failure is reported, so one run shows them all."""
+    gates, failed = {}, []
+    ref = ranks[0]["ref"]
+    readings = ("max_abs_err", "gate_share", "bit_identical")
+
+    def check(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as exc:
+            failed.append(str(exc))
+            return {"failed": str(exc)}
+
+    def gate(*args):
+        out = check(par_gate, *args)
+        return out if isinstance(out, dict) else dict(zip(readings, out))
+
+    for name in ("train_step", "accum_step", "epoch_step", "ce_step", "ensemble_step"):
+        want = ref[name]
+        if name != "ensemble_step":
+            keys = ("loss", "grads", "params") + (("first",) if name == "epoch_step" else ())
+            for r in ranks[1:]:   # the replicas stay in step, to the bit
+                for key in keys:
+                    if not _same_bits(r[name][key], ranks[0][name][key]):
+                        failed.append(f"parallel: {name} {key} differs between ranks")
+        # An epoch is gated on its first step (the same batch and weights
+        # as the train step's); its second step starts from weights that
+        # differ by the first step's sign-uncertain entries (adam_gate), so
+        # its losses are held to GRAD_RTOL and its final weights and
+        # gradients are read, not gated.
+        epoch = name == "epoch_step"
+        per_rank = []
+        for r in ranks:
+            got, i = r[name], r["rank"]
+            one, want_one = (got["first"], want["first"]) if epoch else (got, want)
+
+            def lane(tree):
+                return ({k: v[i:i + 1] for k, v in tree.items()}
+                        if name == "ensemble_step" else tree)
+
+            loss = gate(f"parallel: rank {i} {name} loss", got["loss"].reshape(-1)[:1],
+                        want["loss"].reshape(-1)[:1], PAR_LOSS_RTOL, 0.0)
+            if epoch:
+                loss = {"first": loss, "later": gate(
+                    f"parallel: rank {i} {name} later losses", got["loss"][1:],
+                    want["loss"][1:], GRAD_RTOL, 0.0)}
+            if name == "ensemble_step":
+                loss = gate(f"parallel: rank {i} {name} losses", got["loss"], want["loss"],
+                            PAR_LOSS_RTOL, 0.0)
+            grads = check(par_grad_gate, f"parallel: rank {i} {name}", one["grads"],
+                          lane(want_one["grads"]))
+            entry = {
+                "loss": loss,
+                "grads": grads if isinstance(grads, dict) else dict(zip(readings, grads)),
+                "params": check(adam_gate, f"parallel: rank {i} {name}", one["params"],
+                                lane(want_one["params"]), lane(want_one["grads"]),
+                                one["grads"], lane(want["init"]), r["lr"])}
+            if epoch:   # read, not gated
+                entry["after_the_epoch"] = {key: max(
+                    float((got[key][k].double() - v.double()).abs().max())
+                    for k, v in want[key].items()) for key in ("params", "grads")}
+            per_rank.append(entry)
+        gates[name] = per_rank
+    for name in ("forward", "predict", "stream"):
+        gates[name] = [gate(f"parallel: rank {r['rank']} {name}", r[name], ref[name],
+                            SERVE_RTOL, SERVE_ATOL) for r in ranks]
+    for g, r in zip(gates["forward"], ranks):   # which rows differ, and by how much
+        err = (r["forward"] - ref["forward"]).abs().reshape(len(ref["forward"]), -1)
+        scale = ref["forward"].abs().reshape(len(ref["forward"]), -1).amax(1)
+        g["rows_differing"] = int((err.amax(1) > 0).sum())
+        g["rows"] = len(ref["forward"])
+        g["max_err_per_row_max"] = float((err.amax(1) / scale).max())
+    if not all(r["prefetch_equal"] for r in ranks):
+        failed.append("parallel: prefetched shards differ from shard_batch's")
+    for r in ranks:
+        if len(r["refusals"]) != 2 or "does not divide" not in r["refusals"][1] \
+                or "do not divide" not in r["refusals"][0]:
+            failed.append(f"parallel: rank {r['rank']} refusals {r['refusals']}")
+    (serial,) = ref["run"]
+    gates["run"] = []
+    for r in ranks:
+        (got,) = r["run"]
+        if got["epochs_run"] != 1:
+            failed.append(f"parallel: the data-parallel suite ran {got['epochs_run']} epochs")
+        gates["run"].append(gate(f"parallel: rank {r['rank']} run", [got[k] for k in (
+            "train.loss", "val.loss", "test.loss")], [serial[k] for k in (
+                "train.loss", "val.loss", "test.loss")], PAR_RUN_RTOL, 0.0))
+    if [os.path.basename(f) for f in ranks[0]["run_files"]] != ["dp.jsonl"]:
+        failed.append(f"parallel: ledger files {ranks[0]['run_files']}")
+    return gates, serial, failed
+
 
 def times(t):
     return {"ms": t["kernel_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
@@ -4210,7 +5340,8 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
           "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg",
-          "adaptive", "zoo", "logode", "solver_extras", "data", "harness", "wave")
+          "adaptive", "zoo", "logode", "solver_extras", "data", "harness", "wave",
+          "raw_data", "parallel")
 
 
 def main(argv=None) -> int:
@@ -4272,6 +5403,10 @@ def main(argv=None) -> int:
         harness_launches, serial = phase_harness()
     if "wave" in phases:
         wave_launches = phase_wave(serial)
+    if "raw_data" in phases:
+        raw_launches = phase_raw_data()
+    if "parallel" in phases:
+        parallel_launches = phase_parallel()
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
@@ -4286,7 +5421,7 @@ def main(argv=None) -> int:
                "interval_chain": chain_launches, "train_step_bf16": train_bf16_launches,
                "predict_bf16": predict_bf16_launches, **adaptive_launches, **zoo_launches,
                **logode_launches, **extras_launches, **data_launches, **harness_launches,
-               **wave_launches}
+               **wave_launches, **raw_launches, **parallel_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}

@@ -36,7 +36,12 @@ harness's core: the configuration suites, the run ledger, ``setup_model``
 and ``train``, the experiment and sweep runners and their command line
 (``training.config``, ``.ledger``, ``.harness``, ``.experiment``,
 ``.sweep``, ``run``), the toy dataset builder (``data.builders``) and
-``serving.predictor_from_bundle``.
+``serving.predictor_from_bundle``; waves, hyperopt and analysis
+(``training.wave``, ``.hyperopt``, ``.analyse``); and the raw-archive
+builders (``data.ts_format``, ``.download``, ``.audio``, ``.mimic_raw``,
+``.builders``) and data parallelism with seed ensembles over
+``torch.distributed`` (``parallel.mesh``, ``parallel.ensemble``, ``mesh=``
+on the steps, ``train``, the sweep, ``Predictor`` and the stepper).
 ``ROADMAP.md`` lists what comes next.
 """
 

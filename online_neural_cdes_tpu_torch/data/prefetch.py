@@ -26,21 +26,11 @@ import numpy as np
 import torch
 
 from online_neural_cdes_tpu_torch.utils.device import resolve_device
-from online_neural_cdes_tpu_torch.utils.tree import flatten
+from online_neural_cdes_tpu_torch.utils.tree import flatten, map_arrays
 
 __all__ = ["prefetch_to_device"]
 
 _SENTINEL = object()
-
-
-def _map(tree, fn):
-    if isinstance(tree, (np.ndarray, torch.Tensor)):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return tree
 
 
 def _as_tensor(leaf) -> torch.Tensor:
@@ -57,14 +47,27 @@ def prefetch_to_device(
     """Iterate ``iterable``, moving each element's arrays to ``device``
     (the card unless ``device="cpu"``, where arrays only become tensors)
     up to ``size`` elements ahead of the consumer.  Other leaves (numbers,
-    None) pass through.  ``sharding`` (batches split over several cards)
-    is ROADMAP item 18 and raises."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "prefetch_to_device(sharding=...) is not ported yet (ROADMAP item 18: "
-            "parallel/ as torch.distributed data parallel)")
+    None) pass through.
+
+    ``sharding``: a ``parallel.mesh.Sharding`` (e.g. the batch half of
+    ``data_parallel_sharding(mesh)``) applied to every array leaf before
+    its copy, so only this rank's rows travel, to the mesh's device; a
+    leaf of lower rank than its spec is copied whole, as in JAX."""
     if size < 1:
         raise ValueError(f"prefetch size must be >= 1, got {size}")
+    if sharding is not None:
+        from online_neural_cdes_tpu_torch.parallel.mesh import Sharding
+
+        if not isinstance(sharding, Sharding):
+            raise TypeError("sharding must be a parallel.mesh.Sharding, got "
+                            f"{type(sharding).__name__}")
+        if device is not None and resolve_device(device) != sharding.mesh.device:
+            raise ValueError(f"prefetch_to_device(device={device!r}): the sharding's mesh "
+                             f"places this rank's rows on {sharding.mesh.device}")
+        device = sharding.mesh.device
+        place = sharding.place
+    else:
+        place = _as_tensor
     device = resolve_device(device)
     buf: queue.Queue = queue.Queue(maxsize=size)
     # Set when the consumer abandons the generator (an exception in the
@@ -77,14 +80,14 @@ def prefetch_to_device(
 
         def put(tree):
             with torch.cuda.stream(copy_stream):
-                out = _map(tree, lambda leaf: _as_tensor(leaf).pin_memory().to(
+                out = map_arrays(tree, lambda leaf: place(leaf).pin_memory().to(
                     device, non_blocking=True))
                 ready = torch.cuda.Event()
                 ready.record(copy_stream)
             return out, ready
     else:
         def put(tree):
-            return _map(tree, lambda leaf: _as_tensor(leaf).to(device)), None
+            return map_arrays(tree, lambda leaf: place(leaf).to(device)), None
 
     def enqueue(item) -> bool:
         while not stop.is_set():

@@ -14,8 +14,16 @@ a harness bundle at the ``params`` it is given, in a model of its own.
 
 Work is enqueued on the current CUDA stream and read back only where a
 result leaves the server (``Predictor._collect``'s ``.cpu()``), so
-``predict_many`` keeps several batches in flight.  ``mesh=`` and the
-export/deploy surface come with later slices (ROADMAP items 18 and 19).
+``predict_many`` keeps several batches in flight.  The export/deploy
+surface comes with a later slice (ROADMAP item 19).
+
+``mesh=`` (``parallel/mesh.py``) serves over a process group: every rank
+builds the server on its mesh device and calls it with the same requests;
+the weights are broadcast from the mesh's first rank, each bucket batch
+(or stream population) is split over the data axis, each rank runs its
+rows and the rows are all-gathered, so ``predict``, ``step`` and
+``step_many`` return every row on every rank.  Buckets and stream counts
+must divide the data axis.  A stepper's state holds this rank's streams.
 """
 
 from __future__ import annotations
@@ -29,6 +37,10 @@ import torch
 from online_neural_cdes_tpu_torch.data.loader import pad_ragged
 from online_neural_cdes_tpu_torch.ops import solvers as _solvers
 from online_neural_cdes_tpu_torch.ops.kernels import fused_matmul_field
+from online_neural_cdes_tpu_torch.parallel.mesh import (
+    all_gather_rows, check_mesh, data_axis_size, data_parallel_sharding, replicate,
+    shard_batch,
+)
 from online_neural_cdes_tpu_torch.utils.device import resolve_device
 from online_neural_cdes_tpu_torch.utils.params import linear_apply
 
@@ -62,11 +74,33 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def _no_mesh(mesh, who: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{who}(mesh=...) is not ported yet (ROADMAP item 18: parallel/)"
+def _mesh_device(mesh, device) -> torch.device:
+    """The server's device: this rank's mesh device with a mesh (``device``,
+    when given, must be it), else ``device``."""
+    if mesh is None:
+        return resolve_device(device)
+    check_mesh(mesh)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device={device!r}: this rank's mesh device is {mesh.device}")
+    return mesh.device
+
+
+def _stream_rows(x: torch.Tensor, mesh, axis: int = 0) -> torch.Tensor:
+    """This rank's streams of a per-stream tensor (its stream axis
+    ``axis`` split over the data axis), failing with the fix if it does
+    not divide."""
+    n_data = data_axis_size(mesh)
+    if x.shape[axis] % n_data:
+        raise ValueError(
+            f"stream batch {x.shape[axis]} does not divide the mesh's "
+            f"{n_data}-device data axis; pad the stream population to a "
+            "multiple of it"
         )
+    return shard_batch(x.movedim(axis, 0), mesh).movedim(0, axis)
+
+
+def _gather_streams(x: torch.Tensor, mesh, axis: int = 0) -> torch.Tensor:
+    return all_gather_rows(x.movedim(axis, 0), mesh).movedim(0, axis)
 
 
 def _check_model_device(model: torch.nn.Module, device: torch.device):
@@ -114,11 +148,15 @@ class Predictor:
         rectilinear_rows: set True when the model emits *unfiltered*
             rectilinear sequence rows (2L-1 per length-L request); outputs
             are mapped back to one row per observation time.
+        mesh: a ``parallel.mesh.Mesh`` with a ``"data"`` axis: each bucket
+            batch shards over it and the rows are gathered (the module
+            docstring); every batch bucket must divide the data-axis size.
         pad_forward_fill: the length pad repeats each request's final row
             (True: for interpolated controls dX = 0 there, freezing the CDE
             state) or is NaN (False).
         accept_static: whether requests may carry static features.
-        device: where to serve (the CUDA card unless "cpu" is asked for).
+        device: where to serve (the CUDA card unless "cpu" is asked for;
+            this rank's mesh device with a mesh).
     """
 
     def __init__(
@@ -134,12 +172,22 @@ class Predictor:
         *,
         device=None,
     ):
-        _no_mesh(mesh, "Predictor")
-        self.device = resolve_device(device)
+        self.device = _mesh_device(mesh, device)
         _check_model_device(model, self.device)
         self.model = model
+        self.mesh = mesh
         self.coeff_fn = coeff_fn or (lambda x: x)
         self.batch_buckets = sorted(batch_buckets)
+        if mesh is not None:
+            n_data = data_axis_size(mesh)
+            bad = [b for b in self.batch_buckets if b % n_data]
+            if bad:
+                raise ValueError(
+                    f"batch_buckets {bad} do not divide the mesh's "
+                    f"{n_data}-device data axis; every bucket must shard "
+                    "evenly over it"
+                )
+            replicate(model, mesh)
         self.length_multiple = length_multiple
         self.rectilinear_rows = rectilinear_rows
         self.pad_forward_fill = pad_forward_fill
@@ -198,11 +246,18 @@ class Predictor:
         # The requests go in at the model's dtype (a bf16 model serves in
         # bf16, as the stepper does).
         dtype = getattr(self.model, "dtype", torch.float32)
+        if self.mesh is not None:   # this rank's rows of the bucket batch
+            rows = data_parallel_sharding(self.mesh)[0]
+            padded = rows.place(padded)
+            static = None if static is None else rows.place(np.asarray(static, np.float32))
         with torch.inference_mode():
             inputs = self.coeff_fn(_to_device(padded, self.device, dtype))
             if static is not None:
                 inputs = (_to_device(static, self.device, dtype), inputs)
-            return self.model(inputs), lengths
+            out = self.model(inputs)
+            if self.mesh is not None:
+                out = _gather_streams(out, self.mesh)
+            return out, lengths
 
     def _collect(self, device_out, lengths) -> List[np.ndarray]:
         """Copy a dispatched batch to the host (the sync point) and strip
@@ -372,12 +427,12 @@ class OnlineNCDEStepper:
             )
         if model.static_dim is not None and static is None:
             raise ValueError("model has static_dim: pass static features.")
-        _no_mesh(mesh, "OnlineNCDEStepper")
-        self.device = resolve_device(device)
+        self.device = _mesh_device(mesh, device)
         _check_model_device(model, self.device)
         self.model = model
+        self.mesh = mesh
         self.dtype = model.dtype
-        self.static = None if static is None else self._tensor(static)
+        self.static = None if static is None else self._streams(self._tensor(static))
         self._rk_step = _solvers.tree_fixed_step(model.solver)
         self.params = model.state_dict()
 
@@ -405,6 +460,8 @@ class OnlineNCDEStepper:
             snapshot = {key: torch.as_tensor(state[key]).detach()
                         .to(device=self.device, dtype=ref.dtype).clone()
                         for key, ref in want.items()}
+            if self.mesh is not None:   # the mesh's first rank's weights on every rank
+                snapshot = replicate(snapshot, self.mesh)
             self._field = _tree(snapshot, "field.")
             self._initial = _tree(snapshot, "initial.")
             self._final = _tree(snapshot, "final.")
@@ -414,6 +471,14 @@ class OnlineNCDEStepper:
 
     def _tensor(self, x) -> torch.Tensor:
         return _to_device(x, self.device, self.dtype)
+
+    def _streams(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This rank's streams of ``x`` over a mesh, else ``x``."""
+        return x if self.mesh is None else _stream_rows(x, self.mesh, axis)
+
+    def _gathered(self, y: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Every rank's streams of ``y`` over a mesh, else ``y``."""
+        return y if self.mesh is None else _gather_streams(y, self.mesh, axis)
 
     def _piece(self, field, z, dx):
         """One solver step over one unit-length control piece of the field
@@ -456,7 +521,7 @@ class OnlineNCDEStepper:
         use_initial=False."""
         model = self.model
         with torch.inference_mode():
-            x0 = self._tensor(x0)
+            x0 = self._streams(self._tensor(x0))
             x0 = torch.where(torch.isnan(x0), torch.zeros_like(x0), x0)
             if self.static is None:
                 if model.use_initial:
@@ -475,7 +540,8 @@ class OnlineNCDEStepper:
         outputs match the offline model's per-observation rows."""
         with torch.inference_mode():
             z, filled, y = self._advance(state["z"], state["last_obs"],
-                                         self._tensor(x_new))
+                                         self._streams(self._tensor(x_new)))
+            y = self._gathered(y)
         return {"z": z, "last_obs": filled}, y
 
     def step_many(self, state: dict, xs):
@@ -484,13 +550,14 @@ class OnlineNCDEStepper:
         to :meth:`step`'s output at observation k (the same arithmetic)."""
         with torch.inference_mode():
             xs = self._tensor(xs)
-            _check_backlog_layout(xs, state["z"].shape[0])
+            n_data = 1 if self.mesh is None else self.mesh.axis_size("data")
+            _check_backlog_layout(xs, state["z"].shape[0] * n_data)
             z, prev = state["z"], state["last_obs"]
             ys = []
-            for x_new in xs:
+            for x_new in self._streams(xs, axis=1):
                 z, prev, y = self._advance(z, prev, x_new)
                 ys.append(y)
-            return {"z": z, "last_obs": prev}, torch.stack(ys)
+            return {"z": z, "last_obs": prev}, self._gathered(torch.stack(ys), axis=1)
 
     def readout(self, z: torch.Tensor) -> torch.Tensor:
         if not self.model.apply_final_linear:
@@ -502,8 +569,9 @@ class OnlineNCDEStepper:
         """Run init, one tick and each catch-up block on zero observations:
         builds the kernels and fills the allocator's caches before the
         first real stream.  Returns the number of programs warmed."""
+        n_data = 1 if self.mesh is None else self.mesh.axis_size("data")
         if self.model.static_dim is not None and (
-            self.static is None or self.static.shape[0] != n_streams
+            self.static is None or self.static.shape[0] * n_data != n_streams
         ):
             raise ValueError(
                 f"precompile(n_streams={n_streams}): static features bind "

@@ -3,7 +3,8 @@
 PyTorch port's counterpart of the JAX package's ``training/experiment.py``:
 one function over a nested config dict, shared by the sweep runner and the
 tests.  ``device`` is where the model trains (the CUDA card unless
-``"cpu"`` is asked for).
+``"cpu"`` is asked for); with ``mesh=`` (data parallelism) it is this
+rank's mesh device.
 """
 
 from __future__ import annotations
@@ -82,6 +83,8 @@ def run_experiment(config: dict, data_root: str = DEFAULT_DATA_ROOT,
     """
     ds = dict(config.get("dataset", {}))
     trainer_cfg = dict(config.get("trainer", {}))
+    if mesh is not None and device is None:
+        device = mesh.device
 
     bundle, (train_data, val_data, test_data) = load_and_setup(config, data_root, device)
 

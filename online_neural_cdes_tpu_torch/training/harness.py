@@ -17,8 +17,15 @@ the best weights are kept as detached clones of its ``state_dict`` (the
 JAX trainer keeps an immutable tree).  ``train`` draws the initial weights
 from ``torch.Generator().manual_seed(seed)``, as the JAX trainer draws
 them from ``PRNGKey(seed)``.  Everything runs on the bundle's device, the
-CUDA card unless ``setup_model(device="cpu")`` was asked for.  ``mesh=``
-(data parallelism over several cards) is ROADMAP item 18 and raises.
+CUDA card unless ``setup_model(device="cpu")`` was asked for.
+
+``mesh=`` trains over a process group (``parallel/mesh.py``): every rank
+runs ``train`` on the same data with a bundle on its mesh device; each
+batch is padded to a multiple of the data axis (``_pad_to_mesh_multiple``:
+the inputs repeat their last row, the labels are NaN, which the loss
+masks) and each rank steps on its shard, so the updates are the
+single-process trainer's on the whole batch; evaluations gather every
+rank's rows.  Only the mesh's first rank writes checkpoints and traces.
 """
 
 from __future__ import annotations
@@ -42,7 +49,12 @@ from online_neural_cdes_tpu_torch.models.odernn import ODERNN
 from online_neural_cdes_tpu_torch.models.rnn import RNN
 from online_neural_cdes_tpu_torch.models.stacked import StackedNeuralCDE
 from online_neural_cdes_tpu_torch.ops.solvers import ADAPTIVE_METHODS
-from online_neural_cdes_tpu_torch.training.loop import make_epoch_step, make_train_step
+from online_neural_cdes_tpu_torch.parallel.mesh import (
+    check_mesh, data_axis_size, data_parallel_sharding, replicate, shard_batch,
+)
+from online_neural_cdes_tpu_torch.training.loop import (
+    make_epoch_step, make_eval_step, make_train_step,
+)
 from online_neural_cdes_tpu_torch.training.metrics import (
     METRICS, make_loss, masked_temporal_loss,
 )
@@ -51,6 +63,7 @@ from online_neural_cdes_tpu_torch.utils.checkpoint import (
 )
 from online_neural_cdes_tpu_torch.utils.device import resolve_device
 from online_neural_cdes_tpu_torch.utils.profiling import device_memory_mb, device_sync, trace
+from online_neural_cdes_tpu_torch.utils.tree import map_arrays
 
 __all__ = ["setup_model", "train", "ModelBundle", "MODEL_STRINGS"]
 
@@ -68,14 +81,6 @@ MODEL_STRINGS = (
 # Batches enqueued before their predictions are copied to the host: the
 # card runs ahead of the host without holding every batch's predictions.
 EVAL_WINDOW = 8
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP item 18: parallel/ as "
-            "torch.distributed data parallel)"
-        )
 
 
 def _to_device(tree, device: torch.device, dtype: torch.dtype):
@@ -309,20 +314,63 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _pad_to_mesh_multiple(inputs, labels, n_data: int):
+    """Pad a batch up to a multiple of the mesh's data axis: the inputs
+    (nested tuples of numpy arrays or tensors) repeat their last row, the
+    labels pad with NaN (integer labels become float32 to hold it), which
+    the NaN-masked losses and metrics leave out, so the gradient (the sum
+    over real rows over their count) is unchanged."""
+    b = int(labels.shape[0])
+    pad = (-b) % n_data
+    if pad == 0:
+        return inputs, labels
+
+    def repeat_last(a):
+        if isinstance(a, torch.Tensor):
+            return torch.cat([a, a[-1:].expand((pad,) + tuple(a.shape[1:]))])
+        return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+
+    if isinstance(labels, torch.Tensor):
+        labels = labels if labels.is_floating_point() else labels.float()
+        labels = torch.cat([labels, labels.new_full((pad,) + tuple(labels.shape[1:]),
+                                                    float("nan"))])
+    else:
+        labels = np.asarray(labels)
+        if labels.dtype.kind != "f":
+            labels = labels.astype(np.float32)
+        labels = np.concatenate([labels, np.full((pad,) + labels.shape[1:], np.nan,
+                                                 labels.dtype)])
+    return map_arrays(inputs, repeat_last), labels
+
+
+def _mesh_batches(batches, mesh):
+    """``batches`` as this rank's shards: each batch padded to the data
+    axis's multiple, then its rows for this rank (inputs and labels)."""
+    for inputs, labels in batches:
+        inputs, labels = _pad_to_mesh_multiple(inputs, labels, data_axis_size(mesh))
+        yield shard_batch((inputs, labels), mesh)
+
+
 def _evaluate(bundle, params, batches, loss_name, metric_names, mesh=None):
     """The loss (averaged over batches by their sizes) and ``metric_names``
     of the model at the weights ``params`` over ``batches``.  A window of
     ``EVAL_WINDOW`` batches is enqueued before their predictions are copied
-    to the host, so there is no synchronisation per batch."""
-    _refuse_mesh(mesh)
+    to the host, so there is no synchronisation per batch.  With ``mesh``
+    each rank runs its shard of each batch (padded to the data axis's
+    multiple) and gathers every rank's rows, so every rank computes the
+    same results; the pad rows' NaN labels leave them out."""
     pointwise = make_loss(loss_name)
     preds_all, labels_all, losses_dev, counts, pending = [], [], [], [], []
+    forward = make_eval_step(lambda prepared: bundle.apply_fn(params, prepared), mesh=mesh)
     with torch.inference_mode():
         for inputs, labels in batches:
-            preds = bundle.apply_fn(params, bundle.prepare_batch(inputs))
+            counts.append(len(labels))
+            if mesh is not None:
+                inputs, labels = _pad_to_mesh_multiple(inputs, labels, data_axis_size(mesh))
+                inputs = shard_batch(inputs, mesh)
+            preds = forward(bundle.prepare_batch(inputs))
             losses_dev.append(masked_temporal_loss(
                 pointwise, preds, bundle.prepare_labels(labels), sqrt=loss_name == "rmse"))
-            counts.append(len(labels))
             pending.append(preds)
             labels_all.append(np.asarray(labels))
             if len(pending) >= EVAL_WINDOW:
@@ -356,13 +404,13 @@ def _stack(trees):
 
 
 def _build_fused_epoch(bundle, train_batches):
-    """The epoch of ``epoch_fused``: every batch is prepared on the device
-    once, and the longest same-shape prefix is stacked for one
-    ``make_epoch_step`` call an epoch; the remaining batches (bucketed
-    lengths, the ragged tail) follow one at a time, in order, so the
-    updates are those of the default trainer.  Returns (stacked inputs,
-    stacked labels, tail), the stack None when no prefix of two or more
-    batches exists."""
+    """The epoch of ``epoch_fused``: every batch (this rank's shard of it,
+    over a mesh) is prepared on the device once, and the longest same-shape
+    prefix is stacked for one ``make_epoch_step`` call an epoch; the
+    remaining batches (bucketed lengths, the ragged tail) follow one at a
+    time, in order, so the updates are those of the default trainer.
+    Returns (stacked inputs, stacked labels, tail), the stack None when no
+    prefix of two or more batches exists."""
     prepared = [(bundle.prepare_batch(inputs), bundle.prepare_labels(labels))
                 for inputs, labels in train_batches]
     k = 1
@@ -427,8 +475,13 @@ def train(
     time, in order: the same updates as the default trainer.  The two are
     mutually exclusive.  ``profile_dir``: a ``torch.profiler`` trace of the
     second epoch (of the only one when one runs).  ``compute_dtype`` and
-    ``accum_steps`` are ``make_train_step``'s."""
-    _refuse_mesh(mesh)
+    ``accum_steps`` are ``make_train_step``'s.
+
+    ``mesh``: every rank of the mesh calls ``train`` with the same
+    arguments and a bundle on its mesh device; the steps are data-parallel
+    (the module docstring), the results the same on every rank, and only
+    the mesh's first rank writes checkpoints and traces."""
+    check_mesh(mesh)
     if final_lr_multiplier is None:
         raise ValueError(
             "train(final_lr_multiplier=None): None is reserved for the "
@@ -445,17 +498,23 @@ def train(
     if device is not None and resolve_device(device) != bundle.device:
         raise ValueError(f"train(device={device!r}): the bundle's model lives on "
                          f"{bundle.device}; build it with setup_model(device=...)")
+    if mesh is not None and mesh.device != bundle.device:
+        raise ValueError(f"train(mesh=...): this rank's mesh device is {mesh.device}, the "
+                         f"bundle's model lives on {bundle.device}")
     if minimize is None:
         minimize = val_metric_to_monitor in ("loss",)
     sign = 1.0 if minimize else -1.0
+    writer = mesh is None or mesh.coords == {axis: 0 for axis in mesh.axis_names}
 
     model.load_state_dict(bundle.init(seed) if init_params is None else init_params)
     num_params = sum(t.numel() for t in model.state_dict().values())
     if bundle.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(bundle.device)
 
+    if mesh is not None:
+        replicate(model, mesh)
     step_kw = dict(loss=loss_str, lr=lr, final_lr_multiplier=final_lr_multiplier,
-                   compute_dtype=compute_dtype, accum_steps=accum_steps)
+                   compute_dtype=compute_dtype, accum_steps=accum_steps, mesh=mesh)
     step = make_epoch_step(model, **step_kw) if epoch_fused else make_train_step(model, **step_kw)
     optimizer = step.optimizer
     train_batches = Batches(train_data, batch_size)
@@ -514,15 +573,29 @@ def train(
     if prefetch > 0:
         from online_neural_cdes_tpu_torch.data.prefetch import prefetch_to_device
 
-        def epoch_batches():
-            return prefetch_to_device(train_batches, size=prefetch, device=bundle.device)
-    else:
+        if mesh is None:
+            def epoch_batches():
+                return prefetch_to_device(train_batches, size=prefetch, device=bundle.device)
+        else:
+            # The prefetcher shards the raw batches, so the ragged tails
+            # are padded before it.
+            def epoch_batches():
+                padded = (_pad_to_mesh_multiple(inputs, labels, data_axis_size(mesh))
+                          for inputs, labels in train_batches)
+                return prefetch_to_device(padded, size=prefetch,
+                                          sharding=data_parallel_sharding(mesh)[0])
+    elif mesh is None:
 
         def epoch_batches():
             return train_batches
+    else:
+
+        def epoch_batches():
+            return _mesh_batches(train_batches, mesh)
 
     if epoch_fused:
-        stacked_inputs, stacked_labels, fused_tail = _build_fused_epoch(bundle, train_batches)
+        stacked_inputs, stacked_labels, fused_tail = _build_fused_epoch(bundle,
+                                                                        epoch_batches())
 
     # Profile the second epoch (the first builds the kernels and fills the
     # allocator's caches), or the only one when just one will run.
@@ -533,7 +606,7 @@ def train(
     t_start = time.perf_counter()
     epochs_run = start_epoch
     for epoch in range(start_epoch, max_epochs):
-        profiling = profile_dir is not None and epoch == profile_epoch
+        profiling = profile_dir is not None and epoch == profile_epoch and writer
         with trace(profile_dir) if profiling else contextlib.nullcontext():
             if epoch_fused:
                 if stacked_inputs is not None:
@@ -551,7 +624,8 @@ def train(
             if epoch_nfe is not None:
                 nfe_total += epoch_nfe
 
-        val_results = _evaluate(bundle, model.state_dict(), val_batches, loss_str, metrics)
+        val_results = _evaluate(bundle, model.state_dict(), val_batches, loss_str, metrics,
+                                mesh=mesh)
         score = sign * val_results[val_metric_to_monitor]
         history.append({"epoch": epoch, "lr_scale": lr_scale, **val_results})
         if verbose:
@@ -581,7 +655,7 @@ def train(
             break
 
         if (
-            ckpt_path is not None and checkpoint_every > 0
+            ckpt_path is not None and checkpoint_every > 0 and writer
             and (epoch + 1) % checkpoint_every == 0
         ):
             save_checkpoint(
@@ -607,7 +681,7 @@ def train(
 
     elapsed = time.perf_counter() - t_start
 
-    if checkpoint_dir is not None:
+    if checkpoint_dir is not None and writer:
         save_checkpoint(os.path.join(checkpoint_dir, "best_params"), best_params)
 
     if nfe_adaptive and nfe_total > 0:
@@ -629,7 +703,7 @@ def train(
     for split, batches in (
         ("train", train_batches), ("val", val_batches), ("test", test_batches)
     ):
-        split_results = _evaluate(bundle, best_params, batches, loss_str, metrics)
+        split_results = _evaluate(bundle, best_params, batches, loss_str, metrics, mesh=mesh)
         results.update({f"{split}.{k}": v for k, v in split_results.items()})
     results["best_params"] = best_params
     return results

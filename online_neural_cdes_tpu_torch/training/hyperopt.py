@@ -34,6 +34,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from online_neural_cdes_tpu_torch.parallel.mesh import check_mesh
 from online_neural_cdes_tpu_torch.training.experiment import run_experiment
 
 __all__ = ["run_hyperopt", "sample_parameterization", "sobol_parameterizations",
@@ -162,7 +163,14 @@ def run_hyperopt(
     """Budgeted search on ``device`` (the CUDA card unless ``"cpu"`` is
     asked for); returns the best trial's results plus ``best_parameters``
     (stored by the sweep into the ledger for later ``update_hyperparams``
-    injection).  ``mesh=`` is ROADMAP item 18 and raises.
+    injection).  With ``mesh=`` every rank runs the search and each trial
+    trains data-parallel over the mesh, one after another (a wave is one
+    device's program, as in JAX); the mesh's other ranks take a ledger that
+    reads and does not write (``sweep.run`` gives them one), so every rank
+    resumes the same trials.  Over a mesh a trial that raises ends the
+    search: the failure may be this rank's alone while the others wait in
+    the trial's collectives, which the next trial's would otherwise meet
+    (a NaN score, the same on every rank, still scores the sentinel).
 
     With ``ledger`` given, every trial is recorded as it completes (under
     ``"<run_name>::trials"``) and a crashed search RESUMES from the
@@ -171,10 +179,7 @@ def run_hyperopt(
     across configs.  The TPE stage draws from a per-trial RNG seeded by
     (seed, trial), so a resumed search is bit-identical to an
     uninterrupted one."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_hyperopt(mesh=...) is not ported yet (ROADMAP item 18: parallel/ as "
-            "torch.distributed data parallel)")
+    check_mesh(mesh)
     space = config["parameterization"]
     total_trials = int(config.get("total_trials", 20))
     metric = config.get("evaluation_metric", "loss")
@@ -237,7 +242,7 @@ def run_hyperopt(
     def run_one(point: dict):
         try:
             results = run_experiment(trial_config(point), data_root=data_root,
-                                     verbose=verbose, device=device)
+                                     mesh=mesh, verbose=verbose, device=device)
             score = sign * results[f"val.{metric}"]
             if not np.isfinite(score):
                 # Same sentinel contract as the wave: a NaN score must not
@@ -246,6 +251,8 @@ def run_hyperopt(
         except Exception as exc:  # the search's contract: a failed trial
             # scores the sentinel and the search goes on; the traceback is
             # logged and the trial's results carry the error.
+            if mesh is not None:
+                raise
             logger.warning("hyperopt trial failed: %s", exc, exc_info=True)
             results = {"error": str(exc)}
             score = FAILURE_SENTINEL
@@ -269,7 +276,9 @@ def run_hyperopt(
 
         out: list = [None] * len(points)
         for group in vmappable_groups(points):
-            if wave_vmap and len(group) > 1:
+            # A wave trains on one device; over a data mesh the trials run
+            # one after another, each sharded over it.
+            if wave_vmap and len(group) > 1 and mesh is None:
                 try:
                     group_results = run_trials_vmapped(
                         [trial_config(points[i]) for i in group],

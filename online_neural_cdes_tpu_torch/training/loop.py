@@ -10,9 +10,14 @@ two parameter groups' learning rates before each update -- the update of
 ``optax.scale_by_adam`` followed by ``-lr * mult * lr_scale``.  Labels may
 hold NaN (finished series); they are masked out of the loss.
 
-``mesh=`` (data parallelism over several cards) is ROADMAP item 18 and
-raises.  ``make_epoch_step`` runs the steps as a plain loop; capturing the
-step in a CUDA graph is ROADMAP item D5.
+``mesh=`` (``parallel/mesh.py``) makes a step data-parallel: each rank
+passes its shard of the batch (``shard_batch``), the loss is the global
+NaN-masked mean (the per-rank loss sums and label counts are all-reduced,
+and each rank differentiates its sum over the global count), the
+gradients are all-reduced, and every rank takes the same update, so the
+weights and Adam's state stay replicated.  A forward built with ``mesh=``
+all-gathers the rows.  ``make_epoch_step`` runs the steps as a plain loop;
+capturing the step in a CUDA graph is ROADMAP item D5.
 """
 
 from __future__ import annotations
@@ -22,20 +27,15 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from online_neural_cdes_tpu_torch.parallel.mesh import (
+    all_gather_rows, all_reduce_sum, check_mesh,
+)
 from online_neural_cdes_tpu_torch.training.metrics import (
     make_loss, masked_temporal_loss, masked_temporal_loss_parts,
 )
 
 __all__ = ["make_optimizer", "make_train_step", "make_epoch_step",
            "make_eval_step"]
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP item 18: parallel/ as "
-            "torch.distributed data parallel)"
-        )
 
 
 def _param_groups(model: nn.Module, final_key: str):
@@ -93,7 +93,7 @@ def _index(tree, s: int):
 
 
 def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
-                    compute_dtype=None, accum_steps=None):
+                    compute_dtype=None, accum_steps=None, mesh=None):
     """The per-batch update shared by :func:`make_train_step` and
     :func:`make_epoch_step`."""
     pointwise = make_loss(loss)
@@ -116,16 +116,40 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
 
     n_micro = 1 if accum_steps is None else int(accum_steps)
 
+    def reduce_grads():
+        all_reduce_sum([p.grad for p in model.parameters() if p.grad is not None], mesh)
+
     def loss_and_grads(inputs, labels):
         """The loss (detached) with the parameters' .grad holding its
         gradient."""
-        if n_micro <= 1:
+        if n_micro <= 1 and mesh is None:
             value = masked_temporal_loss(pointwise, preds_fn(inputs), labels, sqrt=sqrt)
             value.backward()
             return value.detach()
+        if n_micro <= 1:
+            # This rank's sum over the global count: the label counts (and
+            # for rmse the sums) are all-reduced before the backward, so
+            # each rank's gradient is its share of the global mean's, and
+            # one rank's step is the single-process step's arithmetic.
+            total, count = masked_temporal_loss_parts(pointwise, preds_fn(inputs), labels)
+            sums = torch.stack([total.detach(), count])
+            all_reduce_sum([sums], mesh)
+            denom = torch.clamp_min(sums[1], 1)
+            local = total / denom
+            mean = sums[0] / denom
+            if sqrt:
+                value = torch.sqrt(mean)
+                local.backward(torch.ones_like(value) / (2 * value))
+            else:
+                value = mean
+                local.backward()
+            reduce_grads()
+            return value
         # Gradient accumulation: microbatches with sum-form masked losses
         # (micro sums add exactly), one update.  For rmse the sqrt is
-        # chained on after: d sqrt(m)/dm = 1/(2 sqrt(m)).
+        # chained on after: d sqrt(m)/dm = 1/(2 sqrt(m)).  Over a mesh the
+        # sums and the gradients of the sums are all-reduced before the
+        # scale.
         tsum = csum = None
         for mb_in, mb_lab in zip(_split_batch(inputs, n_micro),
                                  _split_batch(labels, n_micro)):
@@ -134,6 +158,11 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
             t = t.detach()
             tsum = t if tsum is None else tsum + t
             csum = c if csum is None else csum + c
+        if mesh is not None:
+            sums = torch.stack([tsum, csum])
+            all_reduce_sum([sums], mesh)
+            tsum, csum = sums[0], sums[1]
+            reduce_grads()
         csafe = torch.clamp_min(csum, 1)
         mean = tsum / csafe
         if sqrt:
@@ -215,10 +244,15 @@ def make_train_step(
     theirs.  ``accum_steps=N``: the batch splits into N microbatches with
     sum-form masked losses and one update (N must divide the batch size).
     NaN labels are masked.
+
+    ``mesh``: the step is data-parallel over the mesh's data axis; each
+    rank passes its shard of the batch and gets the global loss, and
+    every rank's weights take the same update (see the module docstring;
+    replicate the model's weights first, ``parallel.mesh.replicate``).
     """
-    _refuse_mesh(mesh)
+    check_mesh(mesh)
     return _make_step_body(model, optimizer, loss, lr, final_lr_multiplier,
-                           final_key, compute_dtype, accum_steps)
+                           final_key, compute_dtype, accum_steps, mesh)
 
 
 def make_epoch_step(
@@ -251,11 +285,14 @@ def make_epoch_step(
 
 
 def make_eval_step(model: nn.Module, mesh=None) -> Callable:
-    """Forward without gradients: ``step(inputs) -> predictions``."""
-    _refuse_mesh(mesh)
+    """Forward without gradients: ``step(inputs) -> predictions``.  With
+    ``mesh``, each rank runs its shard and gets every rank's rows back, in
+    rank order (the whole batch's predictions)."""
+    check_mesh(mesh)
 
     def step(inputs):
         with torch.inference_mode():
-            return model(inputs)
+            out = model(inputs)
+            return out if mesh is None else all_gather_rows(out, mesh)
 
     return step

@@ -22,7 +22,12 @@ PyTorch port's counterpart of the JAX package's ``training/sweep.py``:
   a hang records a ``failed`` sentinel in the ledger for each of its
   configs and the suite goes on.  The child gets the device in its
   payload, initialises CUDA afresh and loads the kernels the parent
-  already built (``build/torch_kernels/``).
+  already built (``build/torch_kernels/``);
+- ``mesh`` (``parallel/mesh.py``): every rank of the mesh calls ``run``;
+  the first rank reads the ledger and plans the suite, the plan is
+  broadcast, each config trains data-parallel over the mesh, one after
+  another (a wave is one device's program), and only the first rank
+  writes the ledger.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import os
 import tempfile
 from typing import List, Optional
 
+from online_neural_cdes_tpu_torch.parallel.mesh import check_mesh
 from online_neural_cdes_tpu_torch.training.config import (
     DEFAULT_CONFIG_DIR, parse_configuration_json,
 )
@@ -45,8 +51,19 @@ __all__ = ["run"]
 logger = logging.getLogger(__name__)
 
 
+class _LedgerReader(Ledger):
+    """The ledger as a mesh's other ranks see it: it reads, and leaves the
+    writes to the mesh's first rank."""
+
+    def _append(self, entry: dict):
+        pass
+
+    def purge_incomplete_runs(self, run_name: Optional[str] = None) -> int:
+        return 0
+
+
 def _run_unit(kind: str, cfgs: List[dict], data_root: str, verbose: bool, device,
-              ledger=None, run_name: Optional[str] = None) -> List[dict]:
+              ledger=None, run_name: Optional[str] = None, mesh=None) -> List[dict]:
     """One unit of a suite: a config (``"single"``), a wave of configs
     (``"wave"``) or a search (``"hyperopt"``); one results dict per
     config.  A wave whose model cannot wave (``WaveUnsupported``) runs its
@@ -67,9 +84,10 @@ def _run_unit(kind: str, cfgs: List[dict], data_root: str, verbose: bool, device
     if kind == "hyperopt":
         from online_neural_cdes_tpu_torch.training.hyperopt import run_hyperopt
 
-        return [run_hyperopt(cfgs[0], data_root=data_root, verbose=verbose, ledger=ledger,
-                             run_name=run_name, device=device)]
-    return [run_experiment(cfgs[0], data_root=data_root, verbose=verbose, device=device)]
+        return [run_hyperopt(cfgs[0], data_root=data_root, mesh=mesh, verbose=verbose,
+                             ledger=ledger, run_name=run_name, device=device)]
+    return [run_experiment(cfgs[0], data_root=data_root, mesh=mesh, verbose=verbose,
+                           device=device)]
 
 
 def _subprocess_worker(payload_path: str, result_path: str):
@@ -170,38 +188,64 @@ def run(
     of at most ``max_wave_size`` lanes.  ``isolate`` / ``config_timeout_s``
     (which implies ``isolate``): each unit in a spawned child with a
     wall-clock budget; its results come back as plain JSON numbers without
-    ``best_params``.  ``mesh=`` is ROADMAP item 18 and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sweep.run(mesh=...) is not ported yet (ROADMAP item 18: parallel/ "
-            "as torch.distributed data parallel)")
+    ``best_params``.  ``mesh``: every rank of the mesh calls ``run`` with
+    the same arguments (the module docstring); isolation cannot cross the
+    process group and is refused with it."""
     if config_timeout_s is not None:
         isolate = True
+    if mesh is not None:
+        check_mesh(mesh)
+        if isolate:
+            raise ValueError(
+                "isolate/config_timeout_s runs configs in subprocesses, which cannot "
+                "share an in-process mesh; use num_shards for multi-host parallelism or "
+                "drop isolation")
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"sweep.run(device={device!r}): this rank's mesh device is "
+                             f"{mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
+    writer = mesh is None or mesh.coords == {axis: 0 for axis in mesh.axis_names}
 
-    ledger = Ledger(ledger_path)
-    configs, db_name = parse_configuration_json(
-        run_name,
-        config_dir=config_dir or DEFAULT_CONFIG_DIR,
-        test_mode=test_mode,
-        ledger=ledger,
-    )
-    ledger.purge_incomplete_runs(run_name=db_name)
+    ledger = Ledger(ledger_path) if writer else _LedgerReader(ledger_path)
+    plan = None
+    if writer:
+        configs, db_name = parse_configuration_json(
+            run_name,
+            config_dir=config_dir or DEFAULT_CONFIG_DIR,
+            test_mode=test_mode,
+            ledger=ledger,
+        )
+        ledger.purge_incomplete_runs(run_name=db_name)
+        # This host's still-to-run slice, in suite order.
+        todo: List[int] = []
+        for i, cfg in enumerate(configs):
+            if i % num_shards != shard_index:
+                continue
+            if ledger.check_if_run(cfg, run_name=db_name):
+                logger.info("skipping completed config %d/%d", i + 1, len(configs))
+                continue
+            todo.append(i)
+        plan = (configs, db_name, todo)
+    if mesh is not None:
+        # The first rank's plan on every rank: the ledger changes while the
+        # first rank writes it, and every rank must train the same configs.
+        import torch.distributed as dist
+
+        box = [plan]
+        dist.broadcast_object_list(box, src=mesh.ranks[0], group=mesh.group)
+        plan = box[0]
+    configs, db_name, todo = plan
     hyperopt_suite = bool(configs and configs[0].get("hyperparameters") == "hyperopt")
-
-    # This host's still-to-run slice, in suite order.
-    todo: List[int] = []
-    for i, cfg in enumerate(configs):
-        if i % num_shards != shard_index:
-            continue
-        if ledger.check_if_run(cfg, run_name=db_name):
-            logger.info("skipping completed config %d/%d", i + 1, len(configs))
-            continue
-        todo.append(i)
 
     # Units: waves of co-trainable configs, or single configs.  A hyperopt
     # config is a whole search (which waves its own candidates), so it is
-    # always a unit of its own.
+    # always a unit of its own.  Over a mesh each config trains sharded,
+    # one after another: a wave is one device's program.
+    if mesh is not None and co_schedule:
+        logger.info("mesh given: running configs one after another over the mesh "
+                    "(a wave trains on one device)")
+        co_schedule = False
     if co_schedule and not hyperopt_suite and len(todo) > 1:
         from online_neural_cdes_tpu_torch.training.wave import config_wave_groups
 
@@ -236,7 +280,7 @@ def run(
                 continue
         else:
             results_list = _run_unit(kind, group_cfgs, data_root, verbose, device,
-                                     ledger=ledger, run_name=db_name)
+                                     ledger=ledger, run_name=db_name, mesh=mesh)
         for cfg, results in zip(group_cfgs, results_list):
             info = {}
             if "best_parameters" in results:

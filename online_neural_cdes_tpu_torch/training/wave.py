@@ -177,7 +177,8 @@ def _stack_states(states: List[dict]) -> dict:
     return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
 
-def make_wave_step(bundle, loss: str = "bce", compute_dtype=None, final_key: str = "final"):
+def make_wave_step(bundle, loss: str = "bce", compute_dtype=None, final_key: str = "final",
+                   mesh=None):
     """The wave's step factory: returns ``(optimizer, step)`` for the
     bundle's model.  ``optimizer(state)`` is the :class:`StackedAdam` of a
     stacked ``state`` (a ``state_dict`` of (K, ...) tensors, updated in
@@ -189,9 +190,19 @@ def make_wave_step(bundle, loss: str = "bce", compute_dtype=None, final_key: str
     the device.  Plain autograd keeps ``torch.func`` out of the backward:
     the fused field's vmap rule records its K-replica Function, whose
     backward launches the multi kernel directly.  ``compute_dtype`` is the
-    serial step's mixed precision."""
+    serial step's mixed precision.
+
+    ``mesh``: the batch is sharded over the mesh's data axis (``prepared``
+    and ``labels`` are this rank's shard); each lane's loss is the global
+    NaN-masked mean (its per-rank sums and the label counts all-reduced
+    before the backward, as ``training/loop.py``'s data-parallel step) and
+    the gradients are all-reduced, so the ranks of a data group take the
+    same update."""
+    from online_neural_cdes_tpu_torch.parallel.mesh import all_reduce_sum
     from online_neural_cdes_tpu_torch.training.loop import _cast_floats, _compute_dtype
-    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+    from online_neural_cdes_tpu_torch.training.metrics import (
+        make_loss, masked_temporal_loss, masked_temporal_loss_parts,
+    )
 
     model = bundle.model
     pointwise = make_loss(loss)
@@ -199,24 +210,50 @@ def make_wave_step(bundle, loss: str = "bce", compute_dtype=None, final_key: str
     names = [n for n, _ in model.named_parameters()]
     cdt = None if compute_dtype is None else _compute_dtype(compute_dtype)
 
-    def lane_loss(params, buffers, prepared, labels):
+    def lane_preds(params, buffers, prepared):
         if cdt is None:
-            preds = torch.func.functional_call(model, (params, buffers), (prepared,))
-        else:
-            cast = {k: v.to(cdt) for k, v in params.items()}
-            preds = torch.func.functional_call(
-                model, (cast, buffers), (_cast_floats(prepared, cdt),)).to(torch.float32)
-        return masked_temporal_loss(pointwise, preds, labels, sqrt=sqrt)
+            return torch.func.functional_call(model, (params, buffers), (prepared,))
+        cast = {k: v.to(cdt) for k, v in params.items()}
+        return torch.func.functional_call(
+            model, (cast, buffers), (_cast_floats(prepared, cdt),)).to(torch.float32)
+
+    def lane_loss(params, buffers, prepared, labels):
+        return masked_temporal_loss(pointwise, lane_preds(params, buffers, prepared), labels,
+                                    sqrt=sqrt)
+
+    def lane_parts(params, buffers, prepared, labels):
+        return masked_temporal_loss_parts(pointwise, lane_preds(params, buffers, prepared),
+                                          labels)
 
     losses_fn = torch.func.vmap(lane_loss, in_dims=(0, 0, None, None))
+    parts_fn = torch.func.vmap(lane_parts, in_dims=(0, 0, None, None))
+
+    def sharded_grads(params, buffers, prepared, labels):
+        """Each lane's global loss and this rank's share of its gradient
+        (``training/loop.py``'s data-parallel arithmetic, lane by lane)."""
+        totals, counts = parts_fn(params, buffers, prepared, labels)
+        k = totals.shape[0]
+        sums = torch.cat([totals.detach(), counts])
+        all_reduce_sum([sums], mesh)
+        denom = torch.clamp_min(sums[k:], 1)
+        means = sums[:k] / denom
+        values = torch.sqrt(means) if sqrt else means
+        seed = torch.ones_like(values) / (2 * values) if sqrt else torch.ones_like(values)
+        grads = torch.autograd.grad(totals / denom, list(params.values()), grad_outputs=seed,
+                                    allow_unused=True)
+        all_reduce_sum([g for g in grads if g is not None], mesh)
+        return values, grads
 
     def step(state, adam, prepared, labels, lr_rest, lr_final):
         params = {k: state[k].detach().requires_grad_() for k in names}
         buffers = {k: v for k, v in state.items() if k not in params}
         with torch.enable_grad():
-            values = losses_fn(params, buffers, prepared, labels)
-            grads = torch.autograd.grad(values.sum(), list(params.values()),
-                                        allow_unused=True)
+            if mesh is None:
+                values = losses_fn(params, buffers, prepared, labels)
+                grads = torch.autograd.grad(values.sum(), list(params.values()),
+                                            allow_unused=True)
+            else:
+                values, grads = sharded_grads(params, buffers, prepared, labels)
         # A weight the loss does not reach gets a zero gradient: its Adam
         # update is 0, as the serial step's skip leaves it.
         adam.step({k: torch.zeros_like(p) if g is None else g

@@ -30,11 +30,16 @@ def flatten_tree(tree, prefix: str = "") -> dict:
     return out
 
 
-def params_from_jax(np_tree, model: torch.nn.Module) -> torch.nn.Module:
+def params_from_jax(np_tree, model: torch.nn.Module, stacked: bool = False):
     """Load a JAX parameter pytree (leaves as numpy arrays, or anything
     ``np.asarray`` takes) into ``model`` in place and return it.  Every
     parameter of the model must be present with its exact shape; values are
-    cast to the model's dtype and device."""
+    cast to the model's dtype and device.
+
+    ``stacked=True``: the leaves carry a leading replica axis of one length
+    K (the JAX ensemble's ``jax.vmap(model.init)`` leaves, a wave's lanes);
+    the model is left as it is and the stacked ``state_dict`` of (K, ...)
+    tensors is returned instead."""
     flat = flatten_tree(np_tree)
     own = model.state_dict()
     missing = sorted(set(own) - set(flat))
@@ -43,13 +48,19 @@ def params_from_jax(np_tree, model: torch.nn.Module) -> torch.nn.Module:
         raise KeyError(
             f"parameter trees differ: missing {missing}, unexpected {extra}"
         )
+    lead = {np.shape(flat[key])[:1] for key in own} if stacked else {()}
+    if len(lead) != 1:
+        raise ValueError(f"stacked leaves carry leading axes of lengths {sorted(lead)}")
+    lead = lead.pop()
     state = {}
     for key, ref in own.items():
         value = np.asarray(flat[key])
-        if tuple(value.shape) != tuple(ref.shape):
+        if tuple(value.shape) != lead + tuple(ref.shape):
             raise ValueError(
-                f"{key}: JAX shape {value.shape} != port shape {tuple(ref.shape)}"
+                f"{key}: JAX shape {value.shape} != port shape {lead + tuple(ref.shape)}"
             )
         state[key] = torch.tensor(value, dtype=ref.dtype, device=ref.device)
+    if stacked:
+        return state
     model.load_state_dict(state)
     return model

@@ -4,16 +4,30 @@ The port's counterpart of the JAX pytree flattening that its solvers rely
 on: dicts (keys in their order), lists and tuples recurse; an object whose
 class names ``tree_fields`` (the splines: the JAX dataclass's pytree
 fields, in their order) recurses into those attributes; a tensor is a
-leaf; anything else (None, a number) is kept as it is.
+leaf; anything else (None, a number) is kept as it is.  ``map_arrays``
+maps the numpy arrays and tensors of nested dicts, lists and tuples.
 """
 
 from __future__ import annotations
 
 import copy
 
+import numpy as np
 import torch
 
-__all__ = ["flatten"]
+__all__ = ["flatten", "map_arrays"]
+
+
+def map_arrays(tree, fn):
+    """``tree`` with ``fn`` applied to each numpy array and tensor of its
+    nested dicts, lists and tuples; other leaves are kept as they are."""
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_arrays(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_arrays(v, fn) for v in tree)
+    return tree
 
 
 def flatten(tree):

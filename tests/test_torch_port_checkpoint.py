@@ -227,7 +227,10 @@ def test_prefetch_keeps_nesting_and_non_array_leaves():
 
 
 def test_prefetch_sharding_raises_naming_item_18():
-    with pytest.raises(NotImplementedError, match="item 18"):
+    """Item 18's sharding is ported (tests/test_torch_port_parallel.py runs
+    it over a process group); anything but a parallel.mesh.Sharding is
+    refused before a copy."""
+    with pytest.raises(TypeError, match="parallel.mesh.Sharding"):
         next(prefetch_to_device(iter([np.zeros(2)]), sharding=object(), device="cpu"))
 
 

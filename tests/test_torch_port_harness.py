@@ -74,10 +74,16 @@ def test_toy_builder_writes_the_jax_files(tmp_path, toy_dataset):
 
 @pytest.mark.parametrize("name", ["character_trajectories", "speech_commands"])
 def test_raw_builders_name_their_roadmap_item(name, tmp_path):
-    with pytest.raises(NotImplementedError, match="16b"):
-        builders.BUILDERS[name](root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="16b"):
-        builders.build_tsr("BeijingPM10", root=str(tmp_path))
+    """Item 16b is ported (tests/test_torch_port_raw_builders.py): without
+    raw files each builder raises the JAX builder's FileNotFoundError."""
+    raw = str(tmp_path / "absent")
+    with pytest.raises(FileNotFoundError) as got:
+        builders.BUILDERS[name](root=str(tmp_path), raw_dir=raw)
+    with pytest.raises(FileNotFoundError) as want:
+        jax_builders.BUILDERS[name](root=str(tmp_path), raw_dir=raw)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(FileNotFoundError, match="TSR raw file"):
+        builders.build_tsr("BeijingPM10", root=str(tmp_path), raw_dir=raw)
     assert set(builders.BUILDERS) == set(jax_builders.BUILDERS)
 
 
@@ -346,7 +352,7 @@ def test_profile_dir_writes_a_trace_and_bf16_compute_trains(toy_dataset, tmp_pat
 
 def test_train_refusals(toy_dataset):
     cfg = _toy_config(max_epochs=1)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         run_experiment(cfg, toy_dataset, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="final_lr_multiplier=None"):
         run_experiment({**cfg, "trainer": {**cfg["trainer"], "final_lr_multiplier": None}},

@@ -166,13 +166,21 @@ def test_import_loads_no_jax():
         "import online_neural_cdes_tpu_torch.data.prefetch\n"
         "import online_neural_cdes_tpu_torch.data.mimic\n"
         "import online_neural_cdes_tpu_torch.data.builders\n"
+        "import online_neural_cdes_tpu_torch.data.ts_format\n"
+        "import online_neural_cdes_tpu_torch.data.download\n"
+        "import online_neural_cdes_tpu_torch.data.audio\n"
+        "import online_neural_cdes_tpu_torch.data.mimic_raw\n"
+        "import online_neural_cdes_tpu_torch.parallel\n"
+        "import online_neural_cdes_tpu_torch.parallel.mesh\n"
+        "import online_neural_cdes_tpu_torch.parallel.ensemble\n"
         "import online_neural_cdes_tpu_torch.training\n"
         "import online_neural_cdes_tpu_torch.run\n"
         "online_neural_cdes_tpu_torch.data.common.train_val_test_indices(20, [0, 1] * 10)\n"
         "online_neural_cdes_tpu_torch.training.config.parse_configuration_json('medical-sota')\n"
+        "online_neural_cdes_tpu_torch.data.audio.mfcc([0.0] * 400, device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'online_neural_cdes_tpu', 'ml_dtypes', "
-        "'sklearn', 'pandas', 'json5')]\n"
+        "'sklearn', 'pandas', 'json5', 'torchaudio')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -180,7 +188,8 @@ def test_import_loads_no_jax():
 
 def test_port_sources_import_no_jax():
     jax_import = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ml_dtypes|sklearn|pandas|json5)\b",
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|ml_dtypes|sklearn|pandas|json5"
+        r"|torchaudio)\b",
         re.M)
     jax_package = re.compile(
         r"online_neural_cdes_tpu\.|from\s+online_neural_cdes_tpu\s+import"

@@ -144,7 +144,7 @@ def test_precompile_counts_bucket_grid():
 
 def test_predictor_rejects_model_on_other_device_and_mesh():
     jm, jparams, tm = _pair(seed=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         Predictor(tm, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="lives on"):
         Predictor(tm, device="meta")

@@ -153,11 +153,17 @@ def test_watchdog_kills_a_hung_child(toy_dataset, tmp_path):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
+    """Item 18a is ported (tests/test_torch_port_parallel.py runs
+    --data-parallel); what stays refused: a mesh that is not one, and the
+    sequence-pipelined solve, item 18b."""
+    from online_neural_cdes_tpu_torch import parallel
+
     ledger_path = str(tmp_path / "ledger.jsonl")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        port_run.main(["toy", "--data-parallel", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         sweep.run("toy", ledger_path=ledger_path, mesh=object(), device="cpu")
+    for name in ("make_sequence_mesh", "ncde_apply_pipelined", "pipelined_cde_solve"):
+        with pytest.raises(NotImplementedError, match="item 18b"):
+            getattr(parallel, name)()
 
 
 # ------------------------------------------------ predictor_from_bundle

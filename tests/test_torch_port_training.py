@@ -427,9 +427,9 @@ def test_cpu_training_step_launches_no_kernel():
 
 def test_unported_training_options_raise():
     _, _, tm, _, _, tin, _ = _train_case(11)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         loop.make_train_step(tm, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         loop.make_eval_step(tm, mesh=object())
     with pytest.raises(ValueError, match="floating"):
         loop.make_train_step(tm, compute_dtype=torch.int32)
