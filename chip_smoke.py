@@ -19,7 +19,9 @@ controls, and prints one JSON line per phase:
                 version on the card over the sweep and a width above 256
                 (its CUDA-core path), identical bits on a repeat call, and
                 its time (CUDA events) beside its bounds and the plain
-                version's time, with each of its launches' device time.
+                version's time, with each of its launches' device time at
+                the serving and training shapes (at those alone, for the
+                run's time).
 4. kernel_bwd -- the same for the backward kernel: all six cotangent
                 groups over the sweep, identical bits on a repeat call, a
                 width its tiles cannot hold refused without a launch, and
@@ -95,7 +97,9 @@ controls, and prints one JSON line per phase:
                 steps against a CPU copy (outputs, 16-row gradients), with
                 its kernel launches, host waits, step times and profile
                 (the plain-field flagships on 50 observations of the
-                flagship batch's 100, cut for the run's time).  The kernel
+                flagship batch's 100; the CPU copy serves 16 of the 64
+                requests and 2 timed steps follow the counted one, 1 for a
+                plain field: cut for the run's time).  The kernel
                 phases also hold and time both field kernels at the zoo's
                 (512 | 64, 128, 128, 128, 3).
 
@@ -178,7 +182,20 @@ controls, and prints one JSON line per phase:
                 launches against its batches' reckoning, and its best
                 weights served against the CPU.  The kernel phases hold
                 both field kernels at its shapes.
-23. parallel -- data parallelism and seed ensembles: a world of one rank
+23. export   -- the exported serving artifact: the flagship predictor's
+                grid (14 keys: one program a length, 7, each serving both
+                buckets) exported and loaded with no model object,
+                the 64 requests served to the bit of the live ``Predictor``
+                with its 888 launches, both timed; the stepper (64 streams,
+                a catch-up block of 8) over 12 ticks and a 16-row backlog to
+                the bit of the live stepper; ``deploy --verify`` from the
+                harness phase's checkpoint, ``--update-params-only`` to its
+                other seed's weights (served to the bit of a live
+                ``predictor_from_bundle`` at them) and a bfloat16 export
+                through the task-metric gate, each with one length bucket;
+                and the field op's host dispatch time a call beside its
+                ctypes wrapper's.
+24. parallel -- data parallelism and seed ensembles: a world of one rank
                 over NCCL whose flagship step with ``mesh=`` equals the step
                 without it to the bit; then one spawn of two ranks on the
                 card over gloo, each launching the kernels in its own
@@ -188,8 +205,11 @@ controls, and prints one JSON line per phase:
                 and ``OnlineNCDEStepper(mesh=)``, a (2 ensemble x 1 data)
                 seed ensemble and one epoch of ``run --data-parallel 2`` on
                 the toy suite, each against rank 0's single-process run,
-                each rank's launches against the reckoning.  A rank's
-                failure fails the phase.
+                each rank's launches against the reckoning; and the flagship's
+                exported predictor and stepper loaded over the mesh
+                (``load_predictor(path, mesh=)``, ``load_stepper(path,
+                mesh=)``) against the same artifacts in one process.  A
+                rank's failure fails the phase.
 
 Then a line with every kernel's numbers, a line with the run's seconds, a
 line with the card's name and power limit as ``nvidia-smi`` gives them,
@@ -539,11 +559,19 @@ PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-6, 1e-5, 1e-7
 ADAM_EPS = 1e-8
 PAR_RUN_RTOL, PAR_TIMEOUT_S = 1e-4, 300
 PAR_TOY_SUITE = "toy-data-parallel"
+# The export phase's stepper: ticks, then a backlog through blocks of K.
+EXPORT_TICKS, EXPORT_BACKLOG, EXPORT_BLOCK = 12, 16, 8
+EXPORT_REPS, OP_CALLS = 10, 200
 ZOO_HH_ATTN = 15
 ZOO_SHAPES = [(b, H, hh, i, 3) for hh in (HH, ZOO_HH_ATTN) for i in (C, H)
               for b in (TRAIN_B, N_REQUESTS)]
 CFG4_B, CFG4_L, CFG4_CLASSES = 1024, 89, 10
-ZOO_STEPS, ZOO_FIELD_STEPS = 5, 3
+# Timed Adam steps after the counted one (cut from 5 and 3 for the run's
+# time).
+ZOO_STEPS, ZOO_FIELD_STEPS = 2, 1
+# The requests each zoo model's CPU copy serves, against the card's first
+# ones (cut from all 64 for the run's time).
+ZOO_CPU_REQUESTS = 16
 # The six plain-field flagships train on ZOO_FIELD_L observations (the
 # flagship batch's 100 cut for the run's time).
 ZOO_FIELD_L = 50
@@ -941,8 +969,9 @@ def phase_kernel(pk):
                 trunk, head_w, head_b, z, dx, Hd, I), reps=50)
             timings[shape] = {
                 "shape": list(shape), "kernel_us": kernel_us, "plain_us": plain_us,
-                **bounds(*field_cost(*shape), pk), **forward_grid(B, Hd, HHd, I),
-                "per_launch": per_launch(call)}
+                **bounds(*field_cost(*shape), pk), **forward_grid(B, Hd, HHd, I)}
+            if shape in TIMED:   # each launch's time at the serving and training shapes
+                timings[shape]["per_launch"] = per_launch(call)
 
         # bf16: the sweep and the wide shape in every mode, against the plain
         # version in the same mode, and in the rounded modes the control;
@@ -1258,8 +1287,9 @@ def phase_kernel_bwd(pk):
         kernel_us = device_us(lambda: kernels._backward_kernel(*args), reps=100)
         plain_us = device_us(lambda: kernels._backward_reference(*args), reps=20)
         timings[shape] = {"shape": list(shape), "kernel_us": kernel_us,
-                          "plain_us": plain_us, **bounds(*field_bwd_cost(*shape), pk),
-                          "per_launch": per_launch(lambda: kernels._backward_kernel(*args))}
+                          "plain_us": plain_us, **bounds(*field_bwd_cost(*shape), pk)}
+        if shape in TRAIN_SHAPES:   # each launch's time at the training shapes
+            timings[shape]["per_launch"] = per_launch(lambda: kernels._backward_kernel(*args))
 
     # bf16: every group over the sweep in every mode, against autograd
     # through the plain forward in the same mode, and in the rounded modes
@@ -2871,10 +2901,17 @@ def zoo_case(name, model_string, make, inputs, labels, loss, expected_step,
         pred = Predictor(model, coeff_fn=serve["coeff_fn"]("cuda"), **kw, device="cuda")
         got, launches = counted(lambda: pred.predict(requests, static=static))
         expect_launches(f"{name}: one predict", launches, forward=expected_serve)
+        # The CPU serves the first ZOO_CPU_REQUESTS of them (the longest
+        # first), in a bucket of their own.
+        n_cpu = ZOO_CPU_REQUESTS
+        kw_cpu = dict(kw, batch_buckets=(1, n_cpu))
         want, want64 = (None if m is None else
-                        Predictor(m, coeff_fn=serve["coeff_fn"]("cpu"), **kw,
-                                  device="cpu").predict(requests, static=static)
+                        Predictor(m, coeff_fn=serve["coeff_fn"]("cpu"), **kw_cpu,
+                                  device="cpu").predict(
+                            requests[:n_cpu], static=None if static is None else static[:n_cpu])
                         for m in (model_cpu, model64))
+        if len(got) != N_REQUESTS or not all(np.isfinite(g).all() for g in got):
+            raise AssertionError(f"{name}: {len(got)} outputs, or non-finite ones")
         share, compared, total = 0.0, 0, 0
         for i, (g, w) in enumerate(zip(got, want)):
             if g.shape != w.shape or not np.isfinite(g).all():
@@ -2895,7 +2932,8 @@ def zoo_case(name, model_string, make, inputs, labels, loss, expected_step,
             pred.predict(requests, static=static)
             lat.append((time.perf_counter() - t1) * 1e3)
         paths["predict"] = launches
-        vs_cpu = {"gate_share": share, "rows_compared": compared, "rows": total,
+        vs_cpu = {"requests": n_cpu, "gate_share": share, "rows_compared": compared,
+                  "rows": total,
                   "max_abs_err": max(float(np.abs(g - w).max()) for g, w in zip(got, want)),
                   "rtol": SERVE_RTOL, "atol": SERVE_ATOL}
         if want64 is not None:
@@ -3810,7 +3848,7 @@ def phase_harness():
     from online_neural_cdes_tpu_torch.serving import predictor_from_bundle
     from online_neural_cdes_tpu_torch.training import config, harness, sweep
     from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
-    from online_neural_cdes_tpu_torch.utils.checkpoint import load_checkpoint
+    from online_neural_cdes_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
     t_phase = time.perf_counter()
     root, path = sepsis_corpus()
@@ -3944,6 +3982,19 @@ def phase_harness():
         want = slice_grads(bundle_cpu.model, bundle_cpu.prepare_batch(inputs),
                            bundle_cpu.prepare_labels(labels), GRAD_ROWS)
         grads_vs_cpu = grad_gate("harness: ", got, want)
+
+        # What the export phase deploys from: the suite's config, the
+        # checkpointed best weights (seed 222's, the suite's last) and seed
+        # 111's best weights as a second checkpoint of the architecture.
+        keep = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+        atexit.register(shutil.rmtree, keep, True)
+        with open(os.path.join(keep, "config.json"), "w") as fh:
+            json.dump(cfg, fh)
+        shutil.copy(os.path.join(ckpt, "best_params.npz"), keep)
+        save_checkpoint(os.path.join(keep, "other_params"), completed[0][1]["best_params"])
+        deploy = {"config": os.path.join(keep, "config.json"), "root": root, "corpus": path,
+                  "checkpoint": os.path.join(keep, "best_params"),
+                  "other": os.path.join(keep, "other_params")}
         emit("harness", suite=harness_suite("<tmp>", "<tmp>"), corpus_splits=[
                  len(d.temporal) for d in (train, val, test)],
              train_batch_intervals=train_iv, eval_intervals_by_split=eval_iv,
@@ -3965,7 +4016,253 @@ def phase_harness():
              phase_seconds=time.perf_counter() - t_phase)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"harness": launches}, per_seed
+    return {"harness": launches}, per_seed, deploy
+
+
+def artifact_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def deploy_main(args):
+    """``deploy.main(args)`` with its summary line captured; returns it."""
+    import contextlib
+    import io
+
+    from online_neural_cdes_tpu_torch import deploy
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        deploy.main(args)
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    summary["seconds"] = time.perf_counter() - t0
+    return summary
+
+
+_LIBRARY = []
+
+
+def library_op():
+    """The same kernel call registered through ``torch.library.Library``
+    (no ``custom_op`` wrapper), only for the dispatch comparison."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    if not _LIBRARY:
+        lib = torch.library.Library("oncde_smoke", "DEF")
+        lib.define("field(Tensor z, Tensor dx, Tensor head_w, Tensor head_b, Tensor[] trunk, "
+                   "int hidden_dim, int input_dim, str precision) -> Tensor")
+        lib.impl("field", lambda z, dx, hw, hb, trunk, h, i, p: kernels._forward_kernel(
+            kernels._unflat_trunk(trunk), hw, hb, z, dx, h, i, p), "CUDA")
+        _LIBRARY.append(lib)
+    return torch.ops.oncde_smoke.field.default
+
+
+def op_dispatch_us():
+    """Host microseconds a call, under inference mode, of the forward kernel
+    at the serving shape (64, 128, 128, 21, 2) through the op
+    ``oncde::fused_field_forward`` (a ``custom_op``), through the same call
+    registered with ``torch.library.Library`` and through its ctypes
+    wrapper called directly (the call before the op), alternating OP_CALLS
+    calls of each five times; the medians."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    trunk, head_w, head_b, z, dx = random_field(torch.Generator().manual_seed(3), N_REQUESTS,
+                                                H, HH, C, N_LAYERS, "cuda")
+    flat = kernels._flat_trunk(trunk)
+    lib_op = library_op()
+    calls = {"op": lambda: kernels.fused_field_forward_op(z, dx, head_w, head_b, flat, H, C,
+                                                          "float32"),
+             "library_op": lambda: lib_op(z, dx, head_w, head_b, flat, H, C, "float32"),
+             "wrapper": lambda: kernels._forward_kernel(trunk, head_w, head_b, z, dx, H, C)}
+    samples = {name: [] for name in calls}
+    with torch.inference_mode():
+        for _ in range(5):
+            for name, fn in calls.items():
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(OP_CALLS):
+                    fn()
+                samples[name].append((time.perf_counter() - t0) * 1e6 / OP_CALLS)
+                torch.cuda.synchronize()
+    return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+def phase_export(model, requests, static, outs, deploy):
+    """The exported serving artifact on the card.  The flagship predictor's
+    grid (buckets 1 and 64, lengths 16..112: 14 keys, 7 programs) exported, loaded
+    with no model object and serving the 64 requests to the bit of the
+    live ``Predictor`` (and of the predictor phase's outputs ``outs``),
+    each ``predict`` with the live one's kernel launches; both timed over
+    the same repeats.  The stepper at 64 streams with one catch-up block
+    (K=8): 12 ticks and a 16-row ``step_many`` backlog to the bit of the
+    live stepper, with its launches, and the ticks' times.  Then ``deploy``
+    from the harness phase's checkpoint (``deploy``): ``--verify``
+    (bit-exact), ``--update-params-only --verify`` to its other seed's
+    checkpoint, that artifact's rows to the bit of a live
+    ``predictor_from_bundle`` at those weights, and a bfloat16 export
+    through its task-metric gate, each with one length bucket (the
+    corpus's longest series rounded up); and :func:`op_dispatch_us`."""
+    from online_neural_cdes_tpu_torch import OnlineNCDEStepper, Predictor
+    from online_neural_cdes_tpu_torch.data.loader import pad_ragged
+    from online_neural_cdes_tpu_torch.deploy import serving_coeff_fn
+    from online_neural_cdes_tpu_torch.serving import predictor_from_bundle
+    from online_neural_cdes_tpu_torch.serving_export import (
+        export_predictor, export_stepper, load_predictor, load_stepper,
+    )
+    from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
+    from online_neural_cdes_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        # The flagship predictor.
+        pred = Predictor(model, coeff_fn=rectilinear_coeffs, batch_buckets=(1, N_REQUESTS),
+                         length_multiple=LENGTH_MULTIPLE, device="cuda")
+        path = os.path.join(tmp, "predictor")
+        t0 = time.perf_counter()
+        n_modules = export_predictor(pred, path, channels=C, max_length=MAX_LEN,
+                                     static_dim=STATIC)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_predictor(path)
+        load_s = time.perf_counter() - t0
+        padded_len = -(-MAX_LEN // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
+        expected = 4 * (2 * padded_len - 2)
+        first_s = time.perf_counter()
+        loaded.predict(requests, static=static)      # the module's first call
+        first_s = time.perf_counter() - first_s
+        live_outs, live_launches = counted(lambda: pred.predict(requests, static=static))
+        art_outs, art_launches = counted(lambda: loaded.predict(requests, static=static))
+        expect_launches("export: the live predict", live_launches, forward=expected)
+        expect_launches("export: the loaded predict", art_launches, forward=expected)
+        for i, (a, b, o) in enumerate(zip(art_outs, live_outs, outs)):
+            if not (np.array_equal(a, b) and np.array_equal(a, o)):
+                raise AssertionError(f"export: request {i} served {np.abs(a - b).max()} "
+                                     "from the live predictor")
+        lat = {"live": [], "loaded": []}
+        for _ in range(EXPORT_REPS):
+            for name, p in (("live", pred), ("loaded", loaded)):
+                t0 = time.perf_counter()
+                p.predict(requests, static=static)
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+        profiles = {name: profile_call(lambda p=p: p.predict(requests, static=static),
+                                       host=False)
+                    for name, p in (("live", pred), ("loaded", loaded))}
+
+        op_dispatch = op_dispatch_us()
+
+        # The stepper: 12 ticks and a 16-row backlog through blocks of 8.
+        x = pad_ragged(requests, target_len=MAX_LEN)
+        stepper = OnlineNCDEStepper(model, static=static, device="cuda")
+        spath = os.path.join(tmp, "stepper")
+        t0 = time.perf_counter()
+        n_step_modules = export_stepper(stepper, spath, batch_sizes=(N_REQUESTS,),
+                                        channels=C, block_sizes=(EXPORT_BLOCK,))
+        step_export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lstep = load_stepper(spath, static=static)
+        step_load_s = time.perf_counter() - t0
+        backlog = np.ascontiguousarray(np.swapaxes(
+            x[:, EXPORT_TICKS + 1:EXPORT_TICKS + 1 + EXPORT_BACKLOG], 0, 1))
+        lstep.precompile()
+
+        def stream(s, ticks_ms):
+            state = s.init(x[:, 0])
+            ys = [s.readout(state["z"])]
+            for k in range(1, EXPORT_TICKS + 1):
+                t0 = time.perf_counter()
+                state, y = s.step(state, x[:, k])
+                torch.cuda.synchronize()
+                ticks_ms.append((time.perf_counter() - t0) * 1e3)
+                ys.append(y)
+            state, many = s.step_many(state, backlog)
+            return torch.cat([torch.stack(ys), many]), state
+
+        live_ticks, art_ticks = [], []
+        (live_ys, live_state), live_stream = counted(lambda: stream(stepper, live_ticks))
+        (art_ys, art_state), art_stream = counted(lambda: stream(lstep, art_ticks))
+        want_stream = 8 * (EXPORT_TICKS + EXPORT_BACKLOG)
+        expect_launches("export: the live stream", live_stream, forward=want_stream)
+        expect_launches("export: the loaded stream", art_stream, forward=want_stream)
+        if not (torch.equal(art_ys, live_ys) and torch.equal(art_state["z"], live_state["z"])
+                and torch.equal(art_state["last_obs"], live_state["last_obs"])):
+            raise AssertionError("export: the loaded stepper's rows differ from the live "
+                                 f"stepper's by {float((art_ys - live_ys).abs().max())}")
+
+        # deploy from the harness phase's checkpoint.
+        # One length bucket, the corpus's longest series rounded up (the
+        # flagship's grid above has seven; cut for the run's time).
+        cfg = deploy["config"]
+        with np.load(deploy["corpus"], allow_pickle=True) as npz:
+            longest = max(len(r) for r in npz["temporal_data_raw"])
+        deploy_len = -(-longest // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
+        base = ["--config", cfg, "--data-root", deploy["root"], "--batch-buckets",
+                f"1,{N_REQUESTS}", "--length-multiple", str(deploy_len)]
+        out = os.path.join(tmp, "deploy")
+        verify = deploy_main(base + ["--checkpoint", deploy["checkpoint"], "--out", out,
+                                     "--verify"])
+        roll = deploy_main(base + ["--checkpoint", deploy["other"], "--out", out,
+                                   "--update-params-only", "--verify"])
+        out16 = os.path.join(tmp, "deploy_bf16")
+        bf16 = deploy_main(base + ["--checkpoint", deploy["checkpoint"], "--out", out16,
+                                   "--params-dtype", "bfloat16", "--verify"])
+        if verify["verified"] != "bit-exact" or roll["verified"] != "bit-exact":
+            raise AssertionError(f"export: deploy --verify gave {verify}, the roll {roll}")
+        if not bf16.get("metric_gate", {}).get("metrics"):
+            raise AssertionError(f"export: the bf16 deploy reported no metric gate: {bf16}")
+        # The rolled artifact against a live predictor at the other weights.
+        with open(cfg) as fh:
+            config = json.load(fh)
+        bundle, _ = load_and_setup(config, deploy["root"])
+        other = load_checkpoint(deploy["other"], bundle.model.state_dict())
+        live = predictor_from_bundle(bundle, other, coeff_fn=serving_coeff_fn(
+            config["dataset"]["interpolation"]), batch_buckets=(1, N_REQUESTS),
+            length_multiple=deploy_len)
+        with np.load(deploy["corpus"], allow_pickle=True) as npz:
+            idx = npz["test_idxs"][:HARNESS_REQUESTS]
+            rows = [np.asarray(r, np.float32) for r in npz["temporal_data_raw"][idx]]
+            rows_static = npz["static_data"][idx].astype(np.float32)
+        rolled = load_predictor(out)
+        padded = -(-max(len(r) for r in rows) // deploy_len) * deploy_len
+        live_rows, live_roll = counted(lambda: live.predict(rows, static=rows_static))
+        art_rows, art_roll = counted(lambda: rolled.predict(rows, static=rows_static))
+        for what, got in (("live", live_roll), ("rolled", art_roll)):
+            expect_launches(f"export: the {what} predict at the other weights", got,
+                            forward=4 * (2 * padded - 2))
+        if not all(np.array_equal(a, b) for a, b in zip(art_rows, live_rows)):
+            raise AssertionError("export: the rolled artifact's rows differ from the live "
+                                 "predictor's at the same weights")
+        card = card_line()
+        emit("export", card=card, modules=n_modules, export_seconds=export_s,
+             load_seconds=load_s, first_call_seconds=first_s,
+             artifact_bytes=artifact_bytes(path),
+             params_bytes=os.path.getsize(os.path.join(path, "params.npz")),
+             launches={"live": live_launches["forward"], "loaded": art_launches["forward"]},
+             expected_launches=expected, bit_identical=True,
+             predict_ms={name: percentiles(v) for name, v in lat.items()},
+             profile=profiles, op_dispatch_us=op_dispatch,
+             stepper={"modules": n_step_modules, "export_seconds": step_export_s,
+                      "load_seconds": step_load_s, "artifact_bytes": artifact_bytes(spath),
+                      "streams": N_REQUESTS, "ticks": EXPORT_TICKS,
+                      "backlog": EXPORT_BACKLOG, "block": EXPORT_BLOCK,
+                      "launches": {"live": live_stream["forward"],
+                                   "loaded": art_stream["forward"]},
+                      "bit_identical": True,
+                      "tick_ms": {"live": percentiles(live_ticks),
+                                  "loaded": percentiles(art_ticks)}},
+             deploy={"verify": verify, "update_params_only": roll, "bfloat16": bf16,
+                     "rolled_vs_live": {"requests": len(rows), "padded_length": padded,
+                                        "launches": art_roll["forward"],
+                                        "bit_identical": True},
+                     "artifact_bytes": {"float32": artifact_bytes(out),
+                                        "bfloat16": artifact_bytes(out16)}},
+             phase_seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"export_predict": art_launches, "export_stream": art_stream,
+            "export_rolled_predict": art_roll}
 
 
 def wave_suites():
@@ -4765,7 +5062,8 @@ def _par_counted(fn, device):
 def par_worker(rank, spec):
     """One rank of the parallel checks: joins the gloo group of
     ``spec["world"]`` ranks at ``spec["address"]`` on ``spec["device"]``,
-    runs every check (:func:`par_checks`) and saves its results (host
+    runs every check (:func:`par_checks`, or with ``spec["checks"] ==
+    "export"`` only :func:`export_mesh_checks`) and saves its results (host
     tensors) to ``<spec["out"]>/rank<rank>.pt``.  An exception ends the
     process nonzero."""
     import torch.distributed as dist
@@ -4777,7 +5075,8 @@ def par_worker(rank, spec):
     dist.init_process_group("gloo", init_method=spec["address"], world_size=spec["world"],
                             rank=rank)
     try:
-        out = par_checks(rank, spec, device)
+        checks = export_mesh_checks if spec.get("checks") == "export" else par_checks
+        out = checks(rank, spec, device)
         torch.save(_host_tree(out), os.path.join(spec["out"], f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -4978,6 +5277,76 @@ def par_checks(rank, spec, device):
         if ref:
             out["ref"]["run"] = [r for _, r in port_run.main(
                 args + ["--ledger", toy["serial_ledger"]] + device_args)]
+    if spec.get("artifacts"):
+        out["export"] = export_mesh_checks(rank, spec, device)
+    return out
+
+
+def export_mesh_checks(rank, spec, device):
+    """Exported artifacts served over meshes of the group's ranks
+    (``spec["artifacts"]``: a predictor's directory, stepper directories
+    by name with whether each takes statics, and two stream counts, ``B``
+    that divides the data axis and ``odd`` that does not):
+    ``load_predictor(path, mesh=)`` on the ragged requests and, for each
+    stepper, ``load_stepper(path, mesh=)`` over the streams (ticks, then a
+    ``step_many`` backlog), each against the same artifact loaded in this
+    process alone (``ref``); for a stepper without statics, the refusal of
+    the stream count that does not divide the data axis, and on an
+    (ensemble, data) = (world, 1) mesh that count served, since it divides
+    the data axis.  Each call's kernel launches on the card."""
+    from online_neural_cdes_tpu_torch.parallel import ensemble
+    from online_neural_cdes_tpu_torch.parallel import mesh as pm
+    from online_neural_cdes_tpu_torch.serving_export import load_predictor, load_stepper
+
+    art = spec["artifacts"]
+    mesh = pm.make_mesh(spec["world"], devices=spec["device"])
+    ens_mesh = ensemble.make_ensemble_mesh(spec["world"], 1, devices=spec["device"])
+    out = {"rank": rank, "launches": {}, "ref": {}}
+
+    def run(name, fn):
+        result, launches = _par_counted(fn, device)
+        if launches is not None:
+            out["launches"][name] = launches
+        return result
+
+    requests, req_static = par_requests(spec)
+    pred = load_predictor(art["predictor"], mesh=mesh)
+    req_static = req_static if pred.accept_static else None
+    out["predict"] = run("artifact_predict", lambda: pred.predict(requests, static=req_static))
+    out["ref"]["predict"] = load_predictor(art["predictor"], device=device).predict(
+        requests, static=req_static)
+
+    obs, stream_static = par_streams(spec)
+
+    def stream(stepper, n):
+        x = obs[:, :n]
+        state = stepper.init(x[0])
+        ys, half = [], len(x) // 2
+        for t in range(1, half):
+            state, y = stepper.step(state, x[t])
+            ys.append(y)
+        state, many = stepper.step_many(state, x[half:])
+        return {"ys": torch.cat([torch.stack(ys), many]), "rows": int(state["z"].shape[0])}
+
+    b, odd = art["B"], art["odd"]
+    for name, (path, takes_static) in art["steppers"].items():
+        key = "stream" if name == "plain" else f"stream_{name}"
+        static = stream_static[:b] if takes_static else None
+        out[key] = run(f"artifact_{key}", lambda: stream(
+            load_stepper(path, static=static, mesh=mesh), b))
+        out["ref"][key] = stream(load_stepper(path, static=static, device=device), b)
+        if takes_static:
+            continue
+        # A stepper without statics serves any exported count: the count
+        # that does not divide the data axis is refused over it, and
+        # served over (ensemble, data) = (world, 1) and in one process.
+        try:
+            stream(load_stepper(path, mesh=mesh), odd)
+            out[f"refusal_{name}"] = None
+        except ValueError as exc:
+            out[f"refusal_{name}"] = str(exc)
+        out[f"ensemble_{key}"] = stream(load_stepper(path, mesh=ens_mesh), odd)
+        out["ref"][f"ensemble_{key}"] = stream(load_stepper(path, device=device), odd)
     return out
 
 
@@ -5104,11 +5473,16 @@ def phase_parallel():
         with open(os.path.join(config_dir, "configurations.json5"), "w") as fh:
             json.dump({PAR_TOY_SUITE: toy}, fh)
         (suite_cfg,), _ = config.parse_configuration_json(PAR_TOY_SUITE, config_dir)
+        # The artifacts the ranks serve over the mesh: the flagship's
+        # predictor (bucket 64) and its stepper (63 and 64 streams).
+        t0 = time.perf_counter()
+        artifacts = par_artifacts(tmp)
+        artifacts_s = time.perf_counter() - t0
         spec = dict(world=2, device="cuda:0", dtype="float32", B=TRAIN_B, L=PAR_LENGTH, C=C,
                     H=H, HH=HH, layers=N_LAYERS, S=STATIC, lr=TRAIN_LR, accum=2,
                     classes=PAR_CLASSES, requests=N_REQUESTS, buckets=(2, N_REQUESTS),
                     length_multiple=LENGTH_MULTIPLE, streams=PAR_STREAMS, ticks=PAR_TICKS,
-                    reference=True, out=tmp,
+                    reference=True, out=tmp, artifacts=artifacts,
                     toy={"suite": PAR_TOY_SUITE, "config_dir": config_dir, "root": root,
                          "ledger": os.path.join(tmp, "dp.jsonl"),
                          "serial_ledger": os.path.join(tmp, "serial.jsonl")})
@@ -5136,15 +5510,22 @@ def phase_parallel():
                 "forward": 4 * train_iv[0] + 2 * 4 * toy_epoch + 4 * sum(val_iv)
                 + 4 * (toy_epoch + sum(val_iv) + sum(test_iv)),
                 "backward": 4 * toy_epoch}}
+        want_export = {"artifact_predict": want_launches["predict"],
+                       "artifact_stream": want_launches["stream"]}
         for r in ranks:
             for name, want in want_launches.items():
                 expect_launches(f"parallel: rank {r['rank']} {name}", r["launches"][name],
                                 **want)
+            for name, want in want_export.items():
+                expect_launches(f"parallel: rank {r['rank']} {name}",
+                                r["export"]["launches"][name], **want)
         gates, serial, failed = par_verify(ranks)
         emit("parallel", failed=failed, world_of_one=world_of_one, ranks=len(ranks), backend="gloo",
              device="cuda:0", spawn_seconds=spawn_s,
-             launches={f"rank{r['rank']}": r["launches"] for r in ranks},
-             expected_launches=want_launches, gates=gates,
+             launches={f"rank{r['rank']}": {**r["launches"], **r["export"]["launches"]}
+                       for r in ranks},
+             expected_launches={**want_launches, **want_export}, gates=gates,
+             artifacts_seconds=artifacts_s,
              tolerance={"loss_rtol": PAR_LOSS_RTOL, "param_rtol": PAR_PARAM_RTOL,
                         "param_atol": PAR_PARAM_ATOL, "grad_rtol": GRAD_RTOL,
                         "grad_atol_per_max": GRAD_ATOL_REL, "row_rtol": SERVE_RTOL,
@@ -5163,7 +5544,34 @@ def phase_parallel():
     r0 = ranks[0]["launches"]
     return {"dp_world_of_one_step": one_launches, "dp_train_step": r0["train_step"],
             "dp_predict": r0["predict"], "dp_stream": r0["stream"],
-            "dp_ensemble_step": r0["ensemble_step"], "dp_toy_suite": r0["run_data_parallel"]}
+            "dp_ensemble_step": r0["ensemble_step"], "dp_toy_suite": r0["run_data_parallel"],
+            "dp_artifact_predict": ranks[0]["export"]["launches"]["artifact_predict"],
+            "dp_artifact_stream": ranks[0]["export"]["launches"]["artifact_stream"]}
+
+
+def par_artifacts(tmp):
+    """The parallel phase's artifacts: the flagship predictor at bucket 64
+    with one length bucket, PAR_LENGTH rounded up to LENGTH_MULTIPLE (the
+    length every request batch of the phase pads to), and its stepper at
+    PAR_STREAMS - 1 and PAR_STREAMS streams, with statics."""
+    from online_neural_cdes_tpu_torch import OnlineNCDEStepper, Predictor
+    from online_neural_cdes_tpu_torch.serving_export import export_predictor, export_stepper
+
+    model = flagship_model("cuda")
+    paths = {"predictor": os.path.join(tmp, "artifact_predictor"),
+             "stepper": os.path.join(tmp, "artifact_stepper")}
+    padded = -(-PAR_LENGTH // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
+    export_predictor(Predictor(model, coeff_fn=rectilinear_coeffs,
+                               batch_buckets=(N_REQUESTS,), length_multiple=padded,
+                               device="cuda"),
+                     paths["predictor"], channels=C, max_length=padded,
+                     static_dim=STATIC)
+    stepper = OnlineNCDEStepper(model, static=np.zeros((1, STATIC), np.float32),
+                                device="cuda")
+    export_stepper(stepper, paths["stepper"], batch_sizes=(PAR_STREAMS - 1, PAR_STREAMS),
+                   channels=C)
+    return {"predictor": paths["predictor"], "steppers": {"plain": (paths["stepper"], True)},
+            "B": PAR_STREAMS, "odd": PAR_STREAMS - 1}
 
 
 def _same_bits(a, b):
@@ -5299,6 +5707,19 @@ def par_verify(ranks):
         g["rows_differing"] = int((err.amax(1) > 0).sum())
         g["rows"] = len(ref["forward"])
         g["max_err_per_row_max"] = float((err.amax(1) / scale).max())
+    for r in ranks:   # the served artifacts over the mesh (export_mesh_checks)
+        ex = r.get("export")
+        if ex is None:
+            continue
+        for key in ("predict", "stream"):
+            got = ex[key] if key == "predict" else ex[key]["ys"]
+            want = ex["ref"][key] if key == "predict" else ex["ref"][key]["ys"]
+            gates.setdefault(f"artifact_{key}", []).append(gate(
+                f"parallel: rank {r['rank']} artifact {key}", got, want, SERVE_RTOL,
+                SERVE_ATOL))
+        if ex["stream"]["rows"] != ex["ref"]["stream"]["rows"] // len(ranks):
+            failed.append(f"parallel: rank {r['rank']} artifact stream holds "
+                          f"{ex['stream']['rows']} streams")
     if not all(r["prefetch_equal"] for r in ranks):
         failed.append("parallel: prefetched shards differ from shard_batch's")
     for r in ranks:
@@ -5341,7 +5762,7 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
           "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg",
           "adaptive", "zoo", "logode", "solver_extras", "data", "harness", "wave",
-          "raw_data", "parallel")
+          "raw_data", "export", "parallel")
 
 
 def main(argv=None) -> int:
@@ -5369,7 +5790,7 @@ def main(argv=None) -> int:
     if "kernel_rk4" in phases:
         (max_err_rk4, max_err_multi, timings_rk4, timings_multi,
          timings_rk4_bf16) = phase_kernel_rk4(pk)
-    if phases & {"predictor", "stepper"}:
+    if phases & {"predictor", "stepper", "export"}:
         model, requests, static, outs, serve_launches = phase_predictor()
     if "stepper" in phases:
         phase_stepper(model, requests, static, outs)
@@ -5398,13 +5819,17 @@ def main(argv=None) -> int:
         extras_launches = phase_solver_extras()
     if "data" in phases:
         data_launches = phase_data()
-    serial = None
+    serial = deploy = None
     if "harness" in phases:
-        harness_launches, serial = phase_harness()
+        harness_launches, serial, deploy = phase_harness()
     if "wave" in phases:
         wave_launches = phase_wave(serial)
     if "raw_data" in phases:
         raw_launches = phase_raw_data()
+    if "export" in phases:
+        if deploy is None:   # the checkpoint to deploy from: the harness's
+            _, _, deploy = phase_harness()
+        export_launches = phase_export(model, requests, static, outs, deploy)
     if "parallel" in phases:
         parallel_launches = phase_parallel()
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
@@ -5421,7 +5846,7 @@ def main(argv=None) -> int:
                "interval_chain": chain_launches, "train_step_bf16": train_bf16_launches,
                "predict_bf16": predict_bf16_launches, **adaptive_launches, **zoo_launches,
                **logode_launches, **extras_launches, **data_launches, **harness_launches,
-               **wave_launches, **raw_launches, **parallel_launches}
+               **wave_launches, **export_launches, **raw_launches, **parallel_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}

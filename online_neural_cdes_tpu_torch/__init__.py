@@ -41,43 +41,48 @@ and ``train``, the experiment and sweep runners and their command line
 builders (``data.ts_format``, ``.download``, ``.audio``, ``.mimic_raw``,
 ``.builders``) and data parallelism with seed ensembles over
 ``torch.distributed`` (``parallel.mesh``, ``parallel.ensemble``, ``mesh=``
-on the steps, ``train``, the sweep, ``Predictor`` and the stepper).
+on the steps, ``train``, the sweep, ``Predictor`` and the stepper); and
+the exported serving artifact (``serving_export``: a predictor's bucket
+grid or a stepper written with ``torch.export``, served with no model
+code) and the checkpoint-to-artifact command line (``deploy``).
 ``ROADMAP.md`` lists what comes next.
+
+The names below are imported at first use, so a process that serves an
+exported artifact imports the op library and the servers, never a model
+class.
 """
 
 __version__ = "0.1.0"
 
-from online_neural_cdes_tpu_torch.ops.cdeint import cdeint  # noqa: F401
-from online_neural_cdes_tpu_torch.ops.interpolation import (  # noqa: F401
-    CubicSpline,
-    LinearInterpolation,
-    NaturalCubicSpline,
-    SmoothLinearInterpolation,
-    TupleControl,
-    hermite_cubic_coefficients_with_backward_differences,
-    linear_interpolation_coeffs,
-    natural_cubic_coeffs,
-    natural_cubic_spline_coeffs,
-    prepare_rectilinear_interpolation,
-)
-from online_neural_cdes_tpu_torch.models import (  # noqa: F401
-    GRUD,
-    ODERNN,
-    RNN,
-    AttentionNeuralCDE,
-    NeuralCDE,
-    StackedNeuralCDE,
-    VectorField,
-    prepare_gru_variant_data,
-    sparsemax,
-)
-from online_neural_cdes_tpu_torch.ops.solvers import (  # noqa: F401
-    combine_event_functions,
-    odeint,
-    odeint_event,
-)
-from online_neural_cdes_tpu_torch.serving import (  # noqa: F401
-    OnlineNCDEStepper,
-    Predictor,
-)
-from online_neural_cdes_tpu_torch.utils.convert import params_from_jax  # noqa: F401
+import importlib
+
+_EXPORTS = {
+    "online_neural_cdes_tpu_torch.ops.cdeint": ("cdeint",),
+    "online_neural_cdes_tpu_torch.ops.interpolation": (
+        "CubicSpline", "LinearInterpolation", "NaturalCubicSpline",
+        "SmoothLinearInterpolation", "TupleControl",
+        "hermite_cubic_coefficients_with_backward_differences",
+        "linear_interpolation_coeffs", "natural_cubic_coeffs",
+        "natural_cubic_spline_coeffs", "prepare_rectilinear_interpolation"),
+    "online_neural_cdes_tpu_torch.models": (
+        "GRUD", "ODERNN", "RNN", "AttentionNeuralCDE", "NeuralCDE", "StackedNeuralCDE",
+        "VectorField", "prepare_gru_variant_data", "sparsemax"),
+    "online_neural_cdes_tpu_torch.ops.solvers": (
+        "combine_event_functions", "odeint", "odeint_event"),
+    "online_neural_cdes_tpu_torch.serving": ("OnlineNCDEStepper", "Predictor"),
+    "online_neural_cdes_tpu_torch.utils.convert": ("params_from_jax",),
+}
+_HOME = {name: module for module, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_HOME)
+
+
+def __getattr__(name):
+    if name not in _HOME:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_HOME[name]), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_HOME))

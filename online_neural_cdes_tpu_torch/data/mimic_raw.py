@@ -22,8 +22,9 @@ relies on is spelled out where it is rebuilt:
   with pandas' Kahan compensation, in row order.
 
 The BigQuery step itself needs credentialed network access and runs
-elsewhere; the extraction SQL is the JAX package's ``mimic_query.sql``,
-and this module reads its CSV exports from ``data/raw/mimic-iv/*.csv``.
+elsewhere; the extraction SQL ships beside this module as
+``data/mimic_query.sql``, and this module reads its CSV exports from
+``data/raw/mimic-iv/*.csv``.
 """
 
 from __future__ import annotations

@@ -47,7 +47,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from online_neural_cdes_tpu_torch.ops import solvers
-from online_neural_cdes_tpu_torch.utils.tree import flatten
+from online_neural_cdes_tpu_torch.utils.tree import flatten, map_arrays
 
 __all__ = ["cdeint", "odeint_adjoint"]
 
@@ -138,8 +138,9 @@ def _piece(pieces: dict, i: int) -> dict:
     return {k: v[i] for k, v in pieces.items()}
 
 
-def _one_interval(step, pf, piece, t0, t1, z, args, substeps):
-    dt = (t1 - t0) / substeps
+def _one_interval(step, pf, piece, t0, dt, z, args, substeps):
+    """One knot interval from ``t0`` in ``substeps`` steps of the host
+    float ``dt``."""
 
     def f(tt, zz):
         return pf(piece, tt, tt - t0, zz, args)
@@ -157,15 +158,55 @@ def _remat(fn, remat: bool):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
+def _export_scan(body, z0, pieces, grid_t, stride, args):
+    """The knot loop as ``torch.export`` records it: one
+    ``torch._higher_order_ops.scan.scan`` over groups of ``stride``
+    intervals (JAX ``lax.scan``), with the pieces and the intervals' start
+    times (float64, the host values) as the scanned inputs and the substep
+    a host float, so an exported program does the loop's own arithmetic.
+    ``body(pieces, t0s, dt, z, args)`` returns the group's ``stride``
+    states; ``args`` reach it as copies (a scan's inputs may not alias one
+    another, and packed weights are views of one another).  Needs knot
+    intervals of one width (a grid built from a shape is the unit grid).
+    States at every knot, (L, ..., H)."""
+    from torch._higher_order_ops.scan import scan
+
+    widths = {b - a for a, b in zip(grid_t[:-1], grid_t[1:])}
+    if len(widths) != 1:
+        raise ValueError("an exported solve needs knot intervals of one width; the "
+                         f"grid has widths {sorted(widths)}")
+    dt = widths.pop()
+    xs = ({k: v.unflatten(0, (-1, stride)) for k, v in pieces.items()},
+          torch.tensor(grid_t[:-1], dtype=torch.float64, device=z0.device)
+          .unflatten(0, (-1, stride)))
+
+    args = map_arrays(args, torch.clone)
+
+    def combine(z, x):
+        group, t0s = x
+        states = body([{k: v[j] for k, v in group.items()} for j in range(stride)],
+                      [t0s[j] for j in range(stride)], dt, z, args)
+        return states[-1].clone(), torch.stack(states)
+
+    _, states = scan(combine, z0, xs)               # (groups, stride, ..., H)
+    return torch.cat([z0[None], states.flatten(0, 1)], dim=0)
+
+
 def _fixed_scan_forward(pf, z0, grid_t, pieces, args, method, substeps,
                         remat=False):
-    """States at every knot, (L, ..., H)."""
+    """States at every knot, (L, ..., H).  A Python loop over the
+    intervals; while ``torch.export`` traces, the same interval function
+    under :func:`_export_scan`."""
     step = solvers.tree_fixed_step(method)
     interval = _remat(partial(_one_interval, step, pf), remat)
+    if torch.compiler.is_exporting():
+        return _export_scan(
+            lambda ps, ts, dt, z, a: [interval(ps[0], ts[0], dt / substeps, z, a, substeps)],
+            z0, pieces, grid_t, 1, args)
     zs = [z0]
     for i in range(len(grid_t) - 1):
-        zs.append(interval(_piece(pieces, i), grid_t[i], grid_t[i + 1], zs[-1],
-                           args, substeps))
+        zs.append(interval(_piece(pieces, i), grid_t[i],
+                           (grid_t[i + 1] - grid_t[i]) / substeps, zs[-1], args, substeps))
     return torch.stack(zs, dim=0)
 
 
@@ -173,18 +214,25 @@ def _fixed_scan_forward_paired(pf_even, pf_odd, z0, grid_t, pieces, args,
                                method, substeps, remat=False):
     """The rectilinear paired scan: even intervals (time advance, only the
     time channel of dX is nonzero) run the cheap ``pf_even``, odd intervals
-    (value update) the full field.  States at every knot, (L, ..., H)."""
+    (value update) the full field.  States at every knot, (L, ..., H); a
+    Python loop over the pairs, or :func:`_export_scan` while exporting."""
     step = solvers.tree_fixed_step(method)
 
-    def pair(pe, po, ta, tb, tc, z, args):
-        z_mid = _one_interval(step, pf_even, pe, ta, tb, z, args, substeps)
-        return z_mid, _one_interval(step, pf_odd, po, tb, tc, z_mid, args, substeps)
+    def pair(pe, po, ta, dta, tb, dtb, z, args):
+        z_mid = _one_interval(step, pf_even, pe, ta, dta, z, args, substeps)
+        return z_mid, _one_interval(step, pf_odd, po, tb, dtb, z_mid, args, substeps)
 
     pair = _remat(pair, remat)
+    if torch.compiler.is_exporting():
+        return _export_scan(
+            lambda ps, ts, dt, z, a: pair(ps[0], ps[1], ts[0], dt / substeps, ts[1],
+                                          dt / substeps, z, a),
+            z0, pieces, grid_t, 2, args)
     zs = [z0]
     for i in range(0, len(grid_t) - 2, 2):
-        zs += pair(_piece(pieces, i), _piece(pieces, i + 1), grid_t[i],
-                   grid_t[i + 1], grid_t[i + 2], zs[-1], args)
+        ta, tb, tc = grid_t[i], grid_t[i + 1], grid_t[i + 2]
+        zs += pair(_piece(pieces, i), _piece(pieces, i + 1), ta, (tb - ta) / substeps,
+                   tb, (tc - tb) / substeps, zs[-1], args)
     return torch.stack(zs, dim=0)
 
 
@@ -522,8 +570,10 @@ def _t_matches_grid(t, grid_t, spline) -> bool:
     values are not read (that would sync the card): as the JAX package
     does for traced arrays, the shapes having matched, the documented
     contract (the model passes ``grid_points`` / ``interval``) is
-    trusted."""
-    if t is grid_t or t.device.type != "cpu":
+    trusted.  The spline's own ``interval`` is not read either, so an
+    exported model takes its knot times from the shapes alone."""
+    if t is grid_t or t.device.type != "cpu" or (
+            not t.requires_grad and t is getattr(spline, "_interval", None)):
         return True
     grid = spline.host_grid()
     values = t.tolist()
@@ -651,6 +701,13 @@ def cdeint(
         and _t_matches_grid(t, grid_t, X)
     )
     if not use_piece_scan:
+        if torch.compiler.is_exporting():
+            # The adaptive, Adams and scipy solves step under a controller
+            # on the host, which a traced program cannot carry.
+            raise ValueError(
+                f"a {method!r} solve (or output times other than the knot grid or "
+                "its interval) cannot be exported: only the fixed-grid piece scan "
+                f"({', '.join(solvers.FIXED_METHODS)}) traces into a program")
         return _generic_cdeint(X, func, z0, t, args, adjoint, vector_field_type, method,
                                atol, rtol, options, adjoint_options, return_stats)
     adj = dict(adjoint_options or {})

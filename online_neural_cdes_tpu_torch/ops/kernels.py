@@ -14,7 +14,12 @@ kernel, both on the tensor cores in 3xTF32, for H and HH up to 256; one
 CUDA-core kernel above that); on a CPU tensor it runs the plain version
 :func:`_forward_reference`, line for line the JAX package's
 ``_forward_reference``.  The choice follows the tensor's device only:
-nothing falls back from the kernel to the plain version.
+nothing falls back from the kernel to the plain version.  The forward is
+the op ``oncde::fused_field_forward`` (:func:`fused_field_forward_op`):
+its CUDA implementation launches the kernel, its CPU implementation is
+the plain version and its fake implementation gives the output's shape,
+so ``torch.export`` records the field as one node of an exported program
+(``serving_export``).
 
 Both kernels take float32 or bfloat16 storage (every operand of one
 dtype) and the JAX op's ``precision``: ``"float32"`` multiplies the
@@ -68,8 +73,8 @@ from online_neural_cdes_tpu_torch.ops import solvers
 from online_neural_cdes_tpu_torch.utils.cuda_build import CudaKernel
 
 __all__ = ["fused_matmul_field", "fused_matmul_field_multi", "fused_field_backward_multi",
-           "pack_fused_params", "fused_rk4_interval", "fused_rk4_interval_multi",
-           "fused_field_kernel", "fused_field_bwd_kernel", "fused_field_multi_kernel",
+           "fused_field_forward_op", "pack_fused_params", "fused_rk4_interval",
+           "fused_rk4_interval_multi", "fused_field_kernel", "fused_field_bwd_kernel", "fused_field_multi_kernel",
            "fused_field_bwd_multi_kernel", "fused_rk4_kernel", "fused_rk4_multi_kernel"]
 
 MAX_TRUNK = 4
@@ -303,12 +308,34 @@ def _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
     return out
 
 
+@torch.library.custom_op("oncde::fused_field_forward", mutates_args=(), device_types="cuda")
+def fused_field_forward_op(z: torch.Tensor, dx: torch.Tensor, head_w: torch.Tensor,
+                           head_b: torch.Tensor, trunk: list[torch.Tensor], hidden_dim: int,
+                           input_dim: int, precision: str) -> torch.Tensor:
+    """The fused field's forward as the op ``oncde::fused_field_forward``
+    (``trunk`` flat: w_1, b_1, ..., w_n, b_n), so ``torch.export`` records
+    it as one node of an exported program.  On a CUDA tensor it launches
+    ``csrc/fused_field.cu`` (:func:`_forward_kernel`, which raises on
+    anything the kernel does not take); on a CPU tensor it runs the plain
+    version; its fake version gives the (B, H) output's shape."""
+    return _forward_kernel(_unflat_trunk(trunk), head_w, head_b, z, dx, hidden_dim,
+                           input_dim, precision)
+
+
+@fused_field_forward_op.register_kernel("cpu")
+def _(z, dx, head_w, head_b, trunk, hidden_dim, input_dim, precision):
+    return _forward_reference(_unflat_trunk(trunk), head_w, head_b, z, dx, hidden_dim,
+                              input_dim, precision)
+
+
+@fused_field_forward_op.register_fake
+def _(z, dx, head_w, head_b, trunk, hidden_dim, input_dim, precision):
+    return z.new_empty((z.shape[0], hidden_dim))
+
+
 def _forward(trunk, head_w, head_b, z, dx, hidden_dim, input_dim, precision="float32"):
-    if z.is_cuda:
-        return _forward_kernel(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
-                               precision)
-    return _forward_reference(trunk, head_w, head_b, z, dx, hidden_dim, input_dim,
-                              precision)
+    return fused_field_forward_op(z, dx, head_w, head_b, _flat_trunk(trunk), hidden_dim,
+                                  input_dim, precision)
 
 
 def _backward_reference(trunk, head_w, head_b, z, dx, g, hidden_dim, input_dim,
@@ -662,8 +689,10 @@ def fused_matmul_field(trunk, head_w, head_b, z, dx, hidden_dim: int,
     dx = dx.reshape(-1, input_dim)
     flat = _flat_trunk(trunk)
     operands = (z, dx, head_w, head_b, *flat)
-    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in operands) or (
-            torch.is_grad_enabled() and any(t.requires_grad for t in operands)):
+    # Traced (``torch.export``'s scan bodies), the op is recorded as it is.
+    if not torch.compiler.is_compiling() and (any(
+            torch._C._functorch.is_functorch_wrapped_tensor(t) for t in operands) or (
+            torch.is_grad_enabled() and any(t.requires_grad for t in operands))):
         out = _FusedField.apply(hidden_dim, input_dim, precision, z, dx, head_w, head_b,
                                 *flat)
     else:

@@ -218,13 +218,20 @@ def _read(x: torch.Tensor) -> list:
 # Fixed-grid steppers of the piece scan (tuple states, host step sizes)
 # ---------------------------------------------------------------------------
 
+@torch.compiler.assume_constant_result
+def _to_bf16(x: float) -> float:
+    """``x`` rounded to bf16, as a float; a tracer (an exported solve)
+    takes the result as a constant."""
+    return torch.tensor(x, dtype=torch.bfloat16).item()
+
+
 class _Bf16(float):
     """A host scalar of a bf16 state: a float holding a bf16 value, every
     arithmetic result rounded to bf16 (through a CPU tensor: numpy has no
     bf16), as the JAX package's controller computes in the state's dtype."""
 
     def __new__(cls, x=0.0):
-        return super().__new__(cls, torch.tensor(float(x), dtype=torch.bfloat16).item())
+        return super().__new__(cls, _to_bf16(float(x)))
 
     def __add__(self, o):
         return _Bf16(float(self) + float(o))
@@ -279,7 +286,7 @@ def _nextafter(x, toward):
 
 # Host scalars of a state's dtype.
 _NUMPY = {torch.float64: np.float64, torch.float32: np.float32, torch.bfloat16: _Bf16}
-_HOST_ROUND = {**_NUMPY, torch.float16: np.float16}
+_HOST_ROUND = {**_NUMPY, torch.bfloat16: _to_bf16, torch.float16: np.float16}
 
 
 def _step_size(dt, y: torch.Tensor):

@@ -14,8 +14,9 @@ a harness bundle at the ``params`` it is given, in a model of its own.
 
 Work is enqueued on the current CUDA stream and read back only where a
 result leaves the server (``Predictor._collect``'s ``.cpu()``), so
-``predict_many`` keeps several batches in flight.  The export/deploy
-surface comes with a later slice (ROADMAP item 19).
+``predict_many`` keeps several batches in flight.  ``serving_export``
+writes either server as an artifact that serves without the model code,
+and ``deploy`` builds one from a trained checkpoint.
 
 ``mesh=`` (``parallel/mesh.py``) serves over a process group: every rank
 builds the server on its mesh device and calls it with the same requests;
@@ -43,6 +44,7 @@ from online_neural_cdes_tpu_torch.parallel.mesh import (
 )
 from online_neural_cdes_tpu_torch.utils.device import resolve_device
 from online_neural_cdes_tpu_torch.utils.params import linear_apply
+from online_neural_cdes_tpu_torch.utils.tree import map_arrays
 
 __all__ = ["OnlineNCDEStepper", "Predictor", "predictor_from_bundle"]
 
@@ -462,12 +464,20 @@ class OnlineNCDEStepper:
                         for key, ref in want.items()}
             if self.mesh is not None:   # the mesh's first rank's weights on every rank
                 snapshot = replicate(snapshot, self.mesh)
-            self._field = _tree(snapshot, "field.")
-            self._initial = _tree(snapshot, "initial.")
-            self._final = _tree(snapshot, "final.")
-            self._packed = (self.model.packed_field(self._field)
-                            if self.model.uses_fused_field else None)
+            self._w = self._weights(snapshot)
         self._params = snapshot
+
+    def _weights(self, state: dict) -> dict:
+        """What a tick reads from the weights ``state`` (keyed as
+        ``model.state_dict()``): the field's, ``initial`` and ``final``
+        trees, and the field packed for the fused op (None for a plain
+        field).  The live stepper packs its snapshot once; an exported
+        stepper module (``serving_export``) packs its weights argument."""
+        field = _tree(state, "field.")
+        return {"field": field, "initial": _tree(state, "initial."),
+                "final": _tree(state, "final."),
+                "packed": (self.model.packed_field(field)
+                           if self.model.uses_fused_field else None)}
 
     def _tensor(self, x) -> torch.Tensor:
         return _to_device(x, self.device, self.dtype)
@@ -485,14 +495,16 @@ class OnlineNCDEStepper:
         ``field(z, dx) -> dz/dt``."""
         return self._rk_step(lambda tt, zz: field(zz, dx), 0.0, 1.0, z)
 
-    def _advance(self, z, x_prev, x_new):
+    def _advance(self, w, z, x_prev, x_new):
+        """One tick at the weights ``w`` (:meth:`_weights`): (z, the filled
+        observation, the output)."""
         ch = self.model.rectilinear_time_channel
         filled = torch.where(torch.isnan(x_new), x_prev, x_new)
         dx_vals = filled - x_prev
-        dx_vals[..., ch] = 0.0
-        packed, H = self._packed, self.model.hidden_dim
+        dx_vals.select(-1, ch).zero_()
+        packed, H = w["packed"], self.model.hidden_dim
         if packed is None:
-            field, params = self.model.field, self._field
+            field, params = self.model.field, w["field"]
             dx_time = torch.zeros_like(filled)
             dx_time[..., ch] = filled[..., ch] - x_prev[..., ch]
 
@@ -513,33 +525,61 @@ class OnlineNCDEStepper:
 
         z = self._piece(time_field, z, dx_time)       # time-advance piece
         z = self._piece(value_field, z, dx_vals)      # value-update piece
-        return z, filled, self.readout(z)
+        return z, filled, self._readout(w, z)
+
+    def _block(self, w, z, x_prev, xs):
+        """K ticks over the (K, B, C) observations ``xs``: (z, the last
+        filled observation, the (K, B, out) outputs).  While
+        ``torch.export`` traces, the same tick under ``scan``."""
+        if torch.compiler.is_exporting():
+            from torch._higher_order_ops.scan import scan
+
+            w = map_arrays(w, torch.clone)   # a scan's inputs may not alias
+
+            def tick(carry, x_new):
+                zz, prev, y = self._advance(w, *carry, x_new)
+                return (zz, prev), (y.clone() if y is zz else y)
+
+            (z, x_prev), ys = scan(tick, (z, x_prev), xs)
+            return z, x_prev, ys
+        ys = []
+        for x_new in xs:
+            z, x_prev, y = self._advance(w, z, x_prev, x_new)
+            ys.append(y)
+        return z, x_prev, torch.stack(ys)
+
+    def _init(self, w, x0, static):
+        """(h0, the first observation with NaN -> 0) at the weights ``w``."""
+        model = self.model
+        x0 = torch.where(torch.isnan(x0), torch.zeros_like(x0), x0)
+        if static is None:
+            if model.use_initial:
+                z = linear_apply(w["initial"], x0)
+            else:
+                z = torch.zeros(x0.shape[:-1] + (model.hidden_dim,),
+                                dtype=x0.dtype, device=x0.device)
+        elif model.use_initial:
+            z = linear_apply(w["initial"], torch.cat([static, x0], dim=-1))
+        else:
+            z = linear_apply(w["initial"], static)
+        return z, x0
+
+    def _readout(self, w, z):
+        return linear_apply(w["final"], z) if self.model.apply_final_linear else z
 
     def init(self, x0):
         """State from the first (B, C) observations (NaN -> 0); mirrors the
         offline model's h0, including the static-only head when
         use_initial=False."""
-        model = self.model
         with torch.inference_mode():
-            x0 = self._streams(self._tensor(x0))
-            x0 = torch.where(torch.isnan(x0), torch.zeros_like(x0), x0)
-            if self.static is None:
-                if model.use_initial:
-                    z = linear_apply(self._initial, x0)
-                else:
-                    z = torch.zeros(x0.shape[:-1] + (model.hidden_dim,),
-                                    dtype=x0.dtype, device=x0.device)
-            elif model.use_initial:
-                z = linear_apply(self._initial, torch.cat([self.static, x0], dim=-1))
-            else:
-                z = linear_apply(self._initial, self.static)
+            z, x0 = self._init(self._w, self._streams(self._tensor(x0)), self.static)
         return {"z": z, "last_obs": x0}
 
     def step(self, state: dict, x_new):
         """Advance by one observation; returns (new_state, outputs) where
         outputs match the offline model's per-observation rows."""
         with torch.inference_mode():
-            z, filled, y = self._advance(state["z"], state["last_obs"],
+            z, filled, y = self._advance(self._w, state["z"], state["last_obs"],
                                          self._streams(self._tensor(x_new)))
             y = self._gathered(y)
         return {"z": z, "last_obs": filled}, y
@@ -552,18 +592,13 @@ class OnlineNCDEStepper:
             xs = self._tensor(xs)
             n_data = 1 if self.mesh is None else self.mesh.axis_size("data")
             _check_backlog_layout(xs, state["z"].shape[0] * n_data)
-            z, prev = state["z"], state["last_obs"]
-            ys = []
-            for x_new in self._streams(xs, axis=1):
-                z, prev, y = self._advance(z, prev, x_new)
-                ys.append(y)
-            return {"z": z, "last_obs": prev}, self._gathered(torch.stack(ys), axis=1)
+            z, prev, ys = self._block(self._w, state["z"], state["last_obs"],
+                                      self._streams(xs, axis=1))
+            return {"z": z, "last_obs": prev}, self._gathered(ys, axis=1)
 
     def readout(self, z: torch.Tensor) -> torch.Tensor:
-        if not self.model.apply_final_linear:
-            return z
         with torch.inference_mode():
-            return linear_apply(self._final, z)
+            return self._readout(self._w, z)
 
     def precompile(self, n_streams: int, block_sizes=()) -> int:
         """Run init, one tick and each catch-up block on zero observations:

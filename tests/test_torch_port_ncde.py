@@ -175,6 +175,8 @@ def test_import_loads_no_jax():
         "import online_neural_cdes_tpu_torch.parallel.ensemble\n"
         "import online_neural_cdes_tpu_torch.training\n"
         "import online_neural_cdes_tpu_torch.run\n"
+        "import online_neural_cdes_tpu_torch.serving_export\n"
+        "import online_neural_cdes_tpu_torch.deploy\n"
         "online_neural_cdes_tpu_torch.data.common.train_val_test_indices(20, [0, 1] * 10)\n"
         "online_neural_cdes_tpu_torch.training.config.parse_configuration_json('medical-sota')\n"
         "online_neural_cdes_tpu_torch.data.audio.mfcc([0.0] * 400, device='cpu')\n"

@@ -162,6 +162,16 @@ def test_mfcc_needs_a_device_when_no_gpu(monkeypatch):
 # ----------------------------------------------------------------- mimic_raw
 
 
+def test_mimic_query_sql_ships_with_the_port():
+    """The port carries the extraction SQL its MIMIC reader documents,
+    byte for byte the JAX package's."""
+    port = os.path.join(os.path.dirname(mimic_raw.__file__), "mimic_query.sql")
+    with open(port, "rb") as fh:
+        got = fh.read()
+    with open(os.path.join(os.path.dirname(jax_raw.__file__), "mimic_query.sql"), "rb") as fh:
+        assert got == fh.read()
+
+
 def _export(tmp_path, kind):
     """A raw directory holding one BigQuery export: the JAX test's pandas
     fixture (nanosecond stamps) or chip_smoke's writer (microsecond stamps,
