@@ -70,9 +70,9 @@ controls, and prints one JSON line per phase:
                 counts, the card's bf16 gradients against the CPU's on 16
                 rows (on their first 10 observations, each parameter's
                 held to half the CPU's own bf16-vs-f32 distance), the
-                first loss against the f32 one, 10 more
-                steps with a falling loss, step times, profile and peak
-                memory beside the f32 step's.
+                first loss against the f32 one, 5 more
+                steps with a falling loss, step times, the device profile
+                and peak memory beside the f32 step's.
 13. predict_bf16 -- one ``predict`` of a bf16 flagship model: launch counts,
                 and the card's outputs against the CPU's, held to the CPU's
                 own bf16-vs-f32 distance.
@@ -94,14 +94,13 @@ controls, and prints one JSON line per phase:
                 flagship widths, the JAX bench's config 4 ODE-RNN and GRU-dt,
                 GRU-D and the other GRU variants, the flagship with each
                 plain field; each serves one request batch and takes Adam
-                steps against a CPU copy (outputs, 16-row gradients), with
+                steps against a CPU copy (outputs, 8-row gradients), with
                 its kernel launches, host waits, step times and profile
-                (the plain-field flagships on 50 observations of the
-                flagship batch's 100; the CPU copy serves 16 of the 64
-                requests and 2 timed steps follow the counted one, 1 for a
-                plain field: cut for the run's time).  The kernel
-                phases also hold and time both field kernels at the zoo's
-                (512 | 64, 128, 128, 128, 3).
+                (the plain-field flagships on 30 observations of the
+                flagship batch's 100; the CPU copy serves 8 of the 64
+                requests and 1 timed step follows the counted one: cut for
+                the run's time).  The kernel phases also hold both field
+                kernels at the zoo's (512 | 64, 128, 128, 128, 3).
 
 17. logode   -- the JAX bench's config 6, the log-ODE NCDE at full size: a
                 B=256, L=4096, C=4 batch, ``apply_logsig_transform``
@@ -112,7 +111,7 @@ controls, and prints one JSON line per phase:
                 times, profile and peak memory, then one step of the same
                 NCDE on the raw series (32,760 / 16,380 launches) and the
                 trained model's auc, auprc, precision, f1 and accuracy.  The
-                kernel phases also hold and time both field kernels at its
+                kernel phases also hold both field kernels at its
                 (256, 32, 32, 10 | 4, 2).
 18. solver_extras -- on config 3: each Adams method's forward and training
                 step against the CPU (launches equal to its nfe, no host read
@@ -135,8 +134,8 @@ controls, and prints one JSON line per phase:
                 digest; card against CPU gradients on 16 rows; one step
                 traced, the trace naming the kernels; seconds of each
                 stage, step times with and without prefetch, busy share and
-                peak memory.  The kernel phases hold and time both field
-                kernels at the epoch's tail batch (130, 128, 128, 21 | 1, 2).
+                peak memory.  The kernel phases hold both field kernels at
+                the epoch's tail batch (130, 128, 128, 21 | 1, 2).
 20. harness  -- a configuration suite from the command line: the
                 medical-sota suite's ncde leg on the data phase's Sepsis
                 corpus (rectilinear, adjoint off, RK4, lr 5e-4, batches of
@@ -153,7 +152,7 @@ controls, and prints one JSON line per phase:
                 ``predictor_from_bundle``, 16 of them against the CPU, and
                 one training step's gradients at them on 16 rows against
                 the CPU port.  The kernel phases hold
-                and time both field kernels at its (1024, 128, 128, 21 | 1,
+                both field kernels at its (1024, 128, 128, 21 | 1,
                 2) and the forward at (467, 128, 128, 21 | 1, 2).
 21. wave     -- the same leg's three seeds (111, 222, 333) as one wave of
                 K=3 through ``run.main``: its launches only on the field
@@ -208,11 +207,22 @@ controls, and prints one JSON line per phase:
                 each rank's launches against the reckoning; and the flagship's
                 exported predictor and stepper loaded over the mesh
                 (``load_predictor(path, mesh=)``, ``load_stepper(path,
-                mesh=)``) against the same artifacts in one process.  A
-                rank's failure fails the phase.
+                mesh=)``) against the same artifacts in one process; and
+                the time-pipelined solve over a two-rank ``seq`` mesh
+                (``seq_checks``): the flagship at B=512 over 101
+                observations, 100 pieces a rank, M=4, through
+                ``ncde_apply_pipelined`` against rank 0's forward, one step
+                through the pipelined adjoint and one through autograd
+                (against rank 0's step), the adjoint's gradients on 8 rows
+                against the same pipeline on the CPU in float32 and
+                float64, the ranks equal to the bit, each rank's launches
+                of both field kernels by I against the reckoning, and the
+                peak memory of both steps at two lengths.  A rank's failure
+                fails the phase.
 
-Then a line with every kernel's numbers, a line with the run's seconds, a
-line with the card's name and power limit as ``nvidia-smi`` gives them,
+Each phase's seconds are printed as it ends.  Then a line with every
+kernel's numbers, a line with the run's seconds by phase, a line with the
+card's name and power limit as ``nvidia-smi`` gives them,
 and, as the last line, ``{"ok": true, "device": {...}}``.  Any failure
 raises: the run then exits non-zero without that last line.  It needs a
 CUDA card, and it imports nothing of JAX.
@@ -298,7 +308,8 @@ STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
 # leaves a margin of about 5 over the larger.
 CHAIN_RTOL, CHAIN_ATOL_REL = 1e-4, 3e-5
 # Training: B=512 flagship batch, 100 observations -> 199 knots.
-TRAIN_B, TRAIN_L, TRAIN_LR, TRAIN_STEPS = 512, 100, 5e-4, 10
+# TRAIN_STEPS timed steps follow the counted one (cut from 10 for the run's time).
+TRAIN_B, TRAIN_L, TRAIN_LR, TRAIN_STEPS = 512, 100, 5e-4, 5
 GRAD_ROWS = 16
 # Card vs CPU parameter gradients over 198 RK4 intervals forward and 198
 # reverse (adjoint) in f32, summed in other orders on the two devices: per
@@ -310,10 +321,11 @@ GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-3
 # SPLINE_ATOL_REL max|want|.
 SPLINE_RTOL, SPLINE_ATOL_REL = 1e-4, 1e-5
 SMOOTH_EPS = 0.5
-# Toy: 4096 paths of 3 points, batches of 1024, 20 epochs; card vs CPU
-# loss curves after 80 Adam steps in f32 (Adam divides by the root of the
-# second moment, which amplifies round-off where gradients are small).
-TOY_PATHS, TOY_BATCH, TOY_EPOCHS = 4096, 1024, 20
+# Toy: 4096 paths of 3 points, batches of 1024, 10 epochs (cut from 20 for
+# the run's time); card vs CPU loss curves after 40 Adam steps in f32 (Adam
+# divides by the root of the second moment, which amplifies round-off where
+# gradients are small).
+TOY_PATHS, TOY_BATCH, TOY_EPOCHS = 4096, 1024, 5   # 20, then 10, cut for the run's time
 TOY_RTOL, TOY_ATOL = 1e-3, 1e-4
 TOY_SCHEMES = ("rectilinear", "cubic_hermite", "cubic")
 # bf16 operands, each (storage dtype, precision) held against the plain
@@ -409,7 +421,7 @@ PREDICT_BF16_RATIO = 1.0
 # training step.
 CFG3_B, CFG3_L, CFG3_C, CFG3_H = 512, 24, 9, 32
 CFG3_SHAPE = (CFG3_B, CFG3_H, CFG3_H, CFG3_C, 2)
-CFG3_STEPS = 5
+CFG3_STEPS = 2      # timed steps (cut from 5 for the run's time)
 # The model zoo.  Kernels 1-2 at every shape the zoo's NCDEs give them
 # (three trunk layers): the stacked NCDE's (HH=128; I=21 for layer 0,
 # I = H = 128 for layer 1) and the attention NCDE's (HH=15, the JAX
@@ -433,7 +445,7 @@ CFG3_STEPS = 5
 # the CPU (products in 3xTF32 against f32, or summed in another order), and
 # one such decision moves the gradients it reaches by up to ~1e-2 of their
 # max (PERF.md); a row whose input cotangents show it leaves the gradient
-# comparison, at most ZOO_MAX_DROPPED of GRAD_ROWS rows.
+# comparison, at most ZOO_MAX_DROPPED of ZOO_GRAD_ROWS rows.
 # The JAX bench's config 6 (bench.py:800-856): the log-ODE length-for-width
 # trade at full size.  B=256 series of L=4096 steps, C=4 channels (time in
 # channel 0), depth-2 log-signatures over 8-step windows -> 513 knots of 10
@@ -445,7 +457,7 @@ CFG3_STEPS = 5
 LOGODE_B, LOGODE_L, LOGODE_C, LOGODE_H, LOGODE_DEPTH, LOGODE_WINDOW = 256, 4096, 4, 32, 2, 8
 LOGODE_SHAPES = [(LOGODE_B, LOGODE_H, LOGODE_H, 10, 2),
                  (LOGODE_B, LOGODE_H, LOGODE_H, LOGODE_C, 2)]
-LOGODE_LR, LOGODE_STEPS = 1e-3, 5
+LOGODE_LR, LOGODE_STEPS = 1e-3, 2      # timed steps (cut from 5 for the run's time)
 LOGSIG_RTOL, LOGSIG_ATOL_REL = 1e-5, 1e-5
 # The rest of the solvers on config 3: scipy on SCIPY_ROWS rows (a host
 # solve of a SCIPY_ROWS x 32 state through solve_ivp, one card read per
@@ -558,6 +570,28 @@ PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-6, 1e-5, 1e-7
 # ADAM_EPS, ``training.loop.make_optimizer``'s).
 ADAM_EPS = 1e-8
 PAR_RUN_RTOL, PAR_TIMEOUT_S = 1e-4, 300
+# The time-pipelined solve (item 18b) in the parallel phase's spawn: the
+# flagship at B=512 over 101 observations (200 rectilinear pieces, 100 a
+# rank, in (time, value) pairs), M=4 microbatches of 128 rows; the
+# adjoint's gradients on SEQ_ROWS rows at the same M, and the peak memory of
+# a step at B=64 over two lengths (4x the pieces) at SEQ_AUX_M microbatches.
+# The pipelined adjoint reverse-integrates the state through a rank's 100
+# intervals, which magnifies round-off (the CPU's float32 pipeline lands
+# 0.6-1% of a tensor's largest gradient from its float64 one), so its
+# gradients are held to the CPU's float64 pipeline at SEQ_ROWS_RATIO times
+# the CPU float32's own distance, per tensor, plus GRAD_RTOL of the tensor.
+# The peak memory is read on terminal outputs (the JAX test's check).
+SEQ_B, SEQ_L, SEQ_M = TRAIN_B, TRAIN_L + 1, 4
+SEQ_MEM_B, SEQ_MEM_LENGTHS = 64, (TRAIN_L // 2 + 1, 2 * TRAIN_L + 1)
+SEQ_ROWS, SEQ_AUX_M = GRAD_ROWS // 2, 2    # the memory check's microbatches
+SEQ_ROWS_RATIO = 4.0
+# The field kernels' shapes on the pipeline (a microbatch of the main path,
+# of the memory check and of the rows check, at I=21 and I=1), held against
+# their plain versions in the kernel phases (head_forward_grid sizes the
+# head's channel groups from the rows).
+SEQ_SHAPES = [(b, H, HH, i, 2) for b in (SEQ_B // SEQ_M, SEQ_MEM_B // SEQ_AUX_M,
+                                         SEQ_ROWS // SEQ_M) for i in (C, 1)]
+SEQ_MEM_DIRECT_GROWTH, SEQ_MEM_ADJOINT_GROWTH = 2.0, 1.5
 PAR_TOY_SUITE = "toy-data-parallel"
 # The export phase's stepper: ticks, then a backlog through blocks of K.
 EXPORT_TICKS, EXPORT_BACKLOG, EXPORT_BLOCK = 12, 16, 8
@@ -566,20 +600,23 @@ ZOO_HH_ATTN = 15
 ZOO_SHAPES = [(b, H, hh, i, 3) for hh in (HH, ZOO_HH_ATTN) for i in (C, H)
               for b in (TRAIN_B, N_REQUESTS)]
 CFG4_B, CFG4_L, CFG4_CLASSES = 1024, 89, 10
-# Timed Adam steps after the counted one (cut from 5 and 3 for the run's
-# time).
-ZOO_STEPS, ZOO_FIELD_STEPS = 2, 1
+# Timed Adam steps after the counted one (cut from 5 and 3 to 2 and 1, then
+# to 1 and 1, for the run's time).
+ZOO_STEPS, ZOO_FIELD_STEPS = 1, 1
 # The requests each zoo model's CPU copy serves, against the card's first
-# ones (cut from all 64 for the run's time).
-ZOO_CPU_REQUESTS = 16
+# ones (cut from all 64 to 16, then 8, for the run's time).
+ZOO_CPU_REQUESTS = 8
 # The six plain-field flagships train on ZOO_FIELD_L observations (the
-# flagship batch's 100 cut for the run's time).
-ZOO_FIELD_L = 50
+# flagship batch's 100 cut to 50, then 30, for the run's time).
+ZOO_FIELD_L = 30
 ZOO_FIELDS = [("gru", "matmul", None, False), ("minimal", "matmul", None, False),
               ("sparse", "matmul", 0.5, False), ("low-rank", "matmul", 0.5, True),
               ("original", "evaluate", None, False), ("original", "derivative", None, False)]
 ATTN_FLIP_RTOL = 1e-5
-ZOO_RESOLVED, ZOO_MAX_DROPPED = 0.1, GRAD_ROWS // 4
+# The rows of the zoo's card-vs-CPU gradients (cut from GRAD_ROWS for the
+# run's time: the CPU's backward over 99 intervals dominates the zoo).
+ZOO_GRAD_ROWS = GRAD_ROWS // 2
+ZOO_RESOLVED, ZOO_MAX_DROPPED = 0.1, ZOO_GRAD_ROWS // 4
 
 
 def emit(phase: str, **fields):
@@ -934,13 +971,15 @@ def phase_kernel(pk):
 
     gen = torch.Generator().manual_seed(1)
     own = torch.Generator().manual_seed(17)   # the harness shapes' draws
+    seq = torch.Generator().manual_seed(23)   # the pipeline's
     errors, timings = [], {}
     with torch.inference_mode():
         for shape in (SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + FWD_WIDE + LOGODE_SHAPES
-                      + DATA_SHAPES + HARNESS_SHAPES + RAW_SHAPES):
+                      + DATA_SHAPES + HARNESS_SHAPES + RAW_SHAPES + SEQ_SHAPES):
             B, Hd, HHd, I, n = shape
-            trunk, head_w, head_b, z, dx = random_field(
-                own if shape in HARNESS_SHAPES + RAW_SHAPES else gen, *shape, "cuda")
+            draw = (own if shape in HARNESS_SHAPES + RAW_SHAPES else
+                    seq if shape in SEQ_SHAPES else gen)
+            trunk, head_w, head_b, z, dx = random_field(draw, *shape, "cuda")
             got = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
             again = kernels.fused_matmul_field(trunk, head_w, head_b, z, dx, Hd, I)
             want = kernels._forward_reference(trunk, head_w, head_b, z, dx, Hd, I)
@@ -958,8 +997,10 @@ def phase_kernel(pk):
                            "gate_share": float((err / (KERNEL_RTOL * want.abs()
                                                        + KERNEL_ATOL)).max()),
                            "path": forward_grid(B, Hd, HHd, I)["path"]})
-        for shape in (TIMED + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES
-                      + HARNESS_SHAPES):
+        # Timed at the serving and training shapes and config 3's; the zoo's,
+        # log-ODE, data and harness shapes are held above, not timed (cut
+        # for the run's time).
+        for shape in TIMED + [CFG3_SHAPE]:
             B, Hd, HHd, I, n = shape
             trunk, head_w, head_b, z, dx = random_field(
                 own if shape in HARNESS_SHAPES else gen, *shape, "cuda")
@@ -1235,11 +1276,13 @@ def phase_kernel_bwd(pk):
 
     gen = torch.Generator().manual_seed(2)
     own = torch.Generator().manual_seed(19)   # the harness shapes' draws
+    seq = torch.Generator().manual_seed(29)   # the pipeline's
     errors, timings = [], {}
     for shape in (SWEEP + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES
-                  + HARNESS_SHAPES_BWD + RAW_SHAPES[:2]):
+                  + HARNESS_SHAPES_BWD + RAW_SHAPES[:2] + SEQ_SHAPES):
         B, Hd, HHd, I, n = shape
-        draw = own if shape in HARNESS_SHAPES_BWD + RAW_SHAPES else gen
+        draw = (own if shape in HARNESS_SHAPES_BWD + RAW_SHAPES else
+                seq if shape in SEQ_SHAPES else gen)
         trunk, head_w, head_b, z, dx = random_field(draw, *shape, "cuda")
         g = random_cotangent(draw, B, Hd, "cuda")
         args = (trunk, head_w, head_b, z, dx, g, Hd, I)
@@ -1277,8 +1320,9 @@ def phase_kernel_bwd(pk):
         raise AssertionError("backward kernel took H=257")
     if kernels.fused_field_bwd_kernel.launches != launches:
         raise AssertionError("backward kernel launched at H=257")
-    for shape in (TRAIN_SHAPES + [CFG3_SHAPE] + ZOO_SHAPES + LOGODE_SHAPES + DATA_SHAPES
-                  + HARNESS_SHAPES_BWD):
+    # Timed at the training shapes and config 3's; the zoo's, log-ODE, data
+    # and harness shapes are held above, not timed (cut for the run's time).
+    for shape in TRAIN_SHAPES + [CFG3_SHAPE]:
         B, Hd, HHd, I, n = shape
         draw = own if shape in HARNESS_SHAPES_BWD else gen
         trunk, head_w, head_b, z, dx = random_field(draw, *shape, "cuda")
@@ -1985,7 +2029,8 @@ def phase_train():
     # mean of the last three losses with the first.
     if not np.isfinite(losses).all() or not losses[-3:].mean() < losses[0]:
         raise AssertionError(f"training losses not finite and falling: {losses}")
-    profile = profile_call(lambda: step(inputs, labels, 1.0))
+    # Device time only: the host ops' table took ~11 s (cut for the run's time).
+    profile = profile_call(lambda: step(inputs, labels, 1.0), host=False)
     emit("train", batch=TRAIN_B, knots=2 * TRAIN_L - 1, intervals=intervals,
          kernel_launches=launches, expected_launches=expected,
          grads_vs_cpu={"rows": GRAD_ROWS, **grads_vs_cpu},
@@ -2100,7 +2145,8 @@ def phase_train_bf16(f32_step=None):
     losses = torch.stack(losses).cpu().numpy()
     if not np.isfinite(losses).all() or not losses[-3:].mean() < losses[0]:
         raise AssertionError(f"bf16 training losses not finite and falling: {losses}")
-    profile = profile_call(lambda: step(inputs, labels, 1.0))
+    # Device time only: the host ops' table took ~30 s (cut for the run's time).
+    profile = profile_call(lambda: step(inputs, labels, 1.0), host=False)
     emit("train_bf16", batch=TRAIN_B, intervals=intervals, compute_dtype="bfloat16",
          kernel_launches=launches, expected_launches=expected,
          grads_vs_cpu={"rows": GRAD_ROWS, "gate": "max", "ratio_limit": GRAD_BF16_RATIO,
@@ -2561,10 +2607,10 @@ def phase_adaptive():
     ``Predictor.predict`` against the CPU's, launches against the counts
     (its B=512 training step is cut for the run's time; config 3 with the
     adjoint runs the same reverse solve).  Each model's card and CPU nfe /
-    accepted / rejected are printed; a 3xTF32 round-off may flip a step
-    decision, so they are not gated, and with the adjoint the CPU is held
-    to the card on the card's own step grid (``following_steps``), with
-    the flagship's distance on its own steps printed beside."""
+    accepted / rejected are printed (the flagship's on the card only); a
+    3xTF32 round-off may flip a step decision, so they are not gated, and
+    with the adjoint the CPU is held to the card on the card's own step
+    grid (``following_steps``)."""
     from online_neural_cdes_tpu_torch import Predictor
     from online_neural_cdes_tpu_torch.ops import solvers
     from online_neural_cdes_tpu_torch.training.loop import make_train_step
@@ -2603,7 +2649,8 @@ def phase_adaptive():
         step_ms.append((time.perf_counter() - t0) * 1e3)
     if not np.isfinite(losses).all():
         raise AssertionError(f"config 3 losses not finite: {losses}")
-    profile = profile_call(lambda: step(coeffs, labels, 1.0))
+    # Device time only: the host ops' table took ~20 s (cut for the run's time).
+    profile = profile_call(lambda: step(coeffs, labels, 1.0), host=False)
     emit("adaptive", model="config3", source="bench.py:368-405", batch=CFG3_B,
          length=CFG3_L, shape=list(CFG3_SHAPE), solver="dopri5 min_step=0.5",
          adjoint=False, kernel_launches=launches, solver_counts=counts,
@@ -2670,32 +2717,29 @@ def phase_adaptive():
                                                                     static=static))
     expect_evals("flagship dopri5 predict", launches, counts)
     paths["predict"] = launches
-    solvers.reset_counts()
+    # The CPU on the card's steps only: its predict on its own steps (read,
+    # not gated) is cut for the run's time.
     t0 = time.perf_counter()
-    outs_free = pred_cpu.predict(requests, static=static)   # the CPU's own steps
-    cpu_counts = {kind: dict(c) for kind, c in solvers.COUNTS.items()}
     with following_steps(steps):
         outs_cpu = pred_cpu.predict(requests, static=static)
     cpu_seconds = time.perf_counter() - t0
-    err = share = free_err = 0.0
-    for r, g, c, f in zip(requests, outs, outs_cpu, outs_free):
+    err = share = 0.0
+    for r, g, c in zip(requests, outs, outs_cpu):
         if g.shape != (len(r), 1) or not np.isfinite(g).all():
             raise AssertionError(f"dopri5 predictor output shape {g.shape} or non-finite")
         np.testing.assert_allclose(g, c, rtol=SERVE_RTOL, atol=SERVE_ATOL)
         err = max(err, float(np.abs(g - c).max()))
         share = max(share, gate_share(g, c, SERVE_RTOL, SERVE_ATOL))
-        free_err = max(free_err, float(np.abs(g - f).max()))
-    t0 = time.perf_counter()
-    pred.predict(requests, static=static)
-    predict_ms = (time.perf_counter() - t0) * 1e3
+    # Timed under the device-only profiler (its own timed call cut for the
+    # run's time).
     profile = profile_call(lambda: pred.predict(requests, static=static), host=False)
+    predict_ms = profile["wall_ms"]
     emit("adaptive", model="flagship", path="predict", solver="dopri5 min_step=0.5",
          requests=N_REQUESTS, kernel_launches=launches, solver_counts=counts,
          host_reads=sum(c["reads"] for c in counts.values()),
-         card=solve_stats(counts), cpu=solve_stats(cpu_counts),
+         card=solve_stats(counts),
          vs_cpu_on_the_cards_steps={"max_abs_err": err, "gate_share": share,
                                     "rtol": SERVE_RTOL, "atol": SERVE_ATOL},
-         vs_cpu_on_its_own_steps={"max_abs_err": free_err, "gated": False},
          predict_ms=predict_ms, device_busy_ms=profile["device_busy_ms"],
          device_busy_share=profile["device_busy_share"], profile=profile,
          cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_part,
@@ -2876,7 +2920,7 @@ def zoo_case(name, model_string, make, inputs, labels, loss, expected_step,
     against the same call on the CPU in f32 within SERVE_RTOL / SERVE_ATOL
     (with ``resolve``, a chaotic model, on each request's rows that f32
     resolves against f64: :func:`resolved_rows`); the gradients on
-    GRAD_ROWS rows (``rows``) against the CPU's (:func:`zoo_grad_gate`);
+    ZOO_GRAD_ROWS rows (``rows``) against the CPU's (:func:`zoo_grad_gate`);
     the host's waits on the card in that forward and backward (gated to 0
     with ``gate_syncs``); one Adam step, counted and profiled, its kernel
     launches gated to ``expected_step`` (forward, backward), then ``steps``
@@ -2944,7 +2988,7 @@ def zoo_case(name, model_string, make, inputs, labels, loss, expected_step,
     elif serve is not None:
         out["forward"], paths["forward"] = serve(model, model_cpu)
 
-    rows = slice(0, GRAD_ROWS) if rows is None else rows
+    rows = slice(0, ZOO_GRAD_ROWS) if rows is None else rows
     out["grads_vs_cpu"], syncs = zoo_grad_gate(name, model, model_cpu, model64,
                                                take_rows(inputs, rows),
                                                take_rows(labels, rows), loss)
@@ -3029,7 +3073,7 @@ def attention_forward(inputs, rows, expected):
 
 
 def agreeing_rows(make, inputs, n):
-    """The first GRAD_ROWS of ``n`` rows whose attention keep masks agree on
+    """The first ZOO_GRAD_ROWS of ``n`` rows whose attention keep masks agree on
     the card and the CPU (same weights), as an index tensor."""
     model, model_cpu = make("cuda"), make("cpu")
     model_cpu.load_state_dict(model.state_dict())
@@ -3039,8 +3083,8 @@ def agreeing_rows(make, inputs, n):
         _, w_cpu = model_cpu.attention_weights(to_device(batch, "cpu"))
     length = w.shape[-1]
     agree = ((w.cpu() > 1.0 / length) == (w_cpu > 1.0 / length)).all(dim=-1)
-    rows = torch.nonzero(agree).flatten()[:GRAD_ROWS]
-    if rows.numel() < GRAD_ROWS:
+    rows = torch.nonzero(agree).flatten()[:ZOO_GRAD_ROWS]
+    if rows.numel() < ZOO_GRAD_ROWS:
         raise AssertionError(f"attention: only {rows.numel()} of {n} rows keep the same "
                              "states on card and CPU")
     return rows
@@ -3089,7 +3133,7 @@ def phase_zoo():
     paths.update(zoo_case(
         "attention", "ncde-attention", attention, inputs, one_label, "bce", attn_step,
         serve=attention_forward(inputs, N_REQUESTS, 3 * 4 * n),
-        rows=agreeing_rows(attention, inputs, 2 * GRAD_ROWS),
+        rows=agreeing_rows(attention, inputs, 2 * ZOO_GRAD_ROWS),
         source="bench.py:451-482 widths, statics in all three NCDEs, the JAX model's HH=15",
         field_shapes=[[TRAIN_B, H, ZOO_HH_ATTN, C, 3], [TRAIN_B, H, ZOO_HH_ATTN, H, 3]]))
     sparse_attn = attention("cuda", use_sparsemax=True)
@@ -3733,7 +3777,7 @@ def phase_data():
                                         "weight_grad", "trunk_backward")}
         if len(files) != 1 or not all(named.values()):
             raise AssertionError(f"data: trace files {files}, kernel names found {named}")
-        profile = profile_call(lambda: pre_step(inputs, labels, 1.0))
+        profile = profile_call(lambda: pre_step(inputs, labels, 1.0), host=False)
         emit("data", corpus_after_exclusions=corpus,
              splits=[len(d.temporal) for d in (train, val, test)],
              seconds=seconds, padded_rows=rows, padded_labels=[b[1].shape[1] for b in host],
@@ -5277,6 +5321,8 @@ def par_checks(rank, spec, device):
         if ref:
             out["ref"]["run"] = [r for _, r in port_run.main(
                 args + ["--ledger", toy["serial_ledger"]] + device_args)]
+    if spec.get("seq"):
+        out["seq"] = seq_checks(rank, spec, device)
     if spec.get("artifacts"):
         out["export"] = export_mesh_checks(rank, spec, device)
     return out
@@ -5347,6 +5393,181 @@ def export_mesh_checks(rank, spec, device):
             out[f"refusal_{name}"] = str(exc)
         out[f"ensemble_{key}"] = stream(load_stepper(path, mesh=ens_mesh), odd)
         out["ref"][f"ensemble_{key}"] = stream(load_stepper(path, device=device), odd)
+    return out
+
+
+@contextmanager
+def launches_by_width(device):
+    """Counts each field kernel's launches by their I (the value pieces'
+    21 channels, the time pieces' 1) while open, into the dict it yields
+    (``forward_I21``, ``backward_I1``, ...); on the CPU it counts nothing."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    widths, saved = {}, []
+    if device.type == "cuda":
+        # The C entry points' I argument: forward position 13, backward 19.
+        for key, attr, index in (("forward", "fused_field_kernel", 13),
+                                 ("backward", "fused_field_bwd_kernel", 19)):
+            kernel = getattr(kernels, attr)
+            fn = kernel.function()
+
+            def by_width(*args, _fn=fn, _key=key, _index=index):
+                name = f"{_key}_I{args[_index]}"
+                widths[name] = widths.get(name, 0) + 1
+                return _fn(*args)
+
+            saved.append((kernel, fn))
+            kernel._fn = by_width
+    try:
+        yield widths
+    finally:
+        for kernel, fn in saved:
+            kernel._fn = fn
+
+
+def _seq_model(spec, device, dtype, adjoint):
+    from online_neural_cdes_tpu_torch import NeuralCDE
+
+    return NeuralCDE(
+        input_dim=spec["C"], hidden_dim=spec["H"], output_dim=1, static_dim=spec["S"],
+        hidden_hidden_dim=spec["HH"], num_layers=spec["layers"], interpolation="rectilinear",
+        solver="rk4", return_sequences=True, adjoint=adjoint,
+        generator=torch.Generator().manual_seed(0), device=device, dtype=dtype)
+
+
+def _seq_grads(model, inputs, labels, mesh, adjoint, microbatches):
+    """Gradients of the masked BCE through the pipelined forward."""
+    from online_neural_cdes_tpu_torch.parallel import PipelinedNCDE
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+
+    piped = PipelinedNCDE(model, mesh=mesh, microbatches=microbatches, adjoint=adjoint)
+    piped.zero_grad(set_to_none=True)
+    masked_temporal_loss(make_loss("bce"), piped(inputs), labels).backward()
+    return _grads(piped)
+
+
+def _seq_peak(model, inputs, labels, mesh, adjoint, microbatches):
+    """Bytes allocated on the card above what was live before, at the peak
+    of one pipelined step (the spline, h0, forward, loss, backward) on the
+    terminal states (as the JAX test's memory check: per-knot outputs are
+    themselves as long as the series); the inputs are the caller's."""
+    from online_neural_cdes_tpu_torch.parallel import pipelined_cde_solve
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+    from online_neural_cdes_tpu_torch.utils.params import linear_apply
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    spline, h0 = model._setup_h0(inputs)
+    func, even, args, vf = model.make_solve_func(h0)
+    hidden = pipelined_cde_solve(spline, func, h0, args, mesh=mesh, substeps=1,
+                                 microbatches=microbatches, vector_field_type=vf,
+                                 adjoint=adjoint, even_func=even)
+    masked_temporal_loss(make_loss("bce"), linear_apply(model.final, hidden),
+                         labels[:, :1]).backward()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def seq_checks(rank, spec, device):
+    """The time-pipelined solve (item 18b) over a ``seq`` mesh of the
+    group's ranks, the flagship at ``spec["seq"]``'s batch (B rows of L
+    observations, M microbatches; aux_M for the memory check):
+    ``ncde_apply_pipelined`` forward; one
+    Adam step through the pipelined adjoint and one through autograd
+    (``adjoint=False``), each a ``make_train_step`` of ``PipelinedNCDE``
+    without ``mesh=``; the adjoint's gradients on SEQ_ROWS rows on the
+    card, and over the same group on the CPU in float32 and float64 (the
+    plain versions); and the peak memory of an adjoint and a direct step
+    at two lengths.  Each card call's launches, by kernel and by I.  Rank
+    0 also runs the forward and both steps on one process (``ref``)."""
+    from online_neural_cdes_tpu_torch import linear_interpolation_coeffs
+    from online_neural_cdes_tpu_torch.parallel import (
+        PipelinedNCDE, make_sequence_mesh, ncde_apply_pipelined)
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+
+    seq = spec["seq"]
+    dtype = getattr(torch, spec["dtype"])
+    M, lr = seq["M"], spec["lr"]
+    mesh = make_sequence_mesh(spec["world"], devices=spec["device"])
+    out = {"launches": {}, "widths": {}, "ms": {}, "ref": {}, "ref_ms": {}}
+    ref = spec["reference"] and rank == 0
+
+    def run(name, fn):
+        with launches_by_width(device) as widths:
+            t0 = time.perf_counter()
+            result, launches = _par_counted(fn, device)
+            out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        if launches is not None:
+            out["launches"][name], out["widths"][name] = launches, widths
+        return result
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        out["ref_ms"][name] = (time.perf_counter() - t0) * 1e3
+        return result
+
+    def batch(B, L, dev, dt, rows=None):
+        x, static, labels = par_batch(dict(spec, B=B, L=L), 41)
+        x, static, labels = x[:rows], static[:rows], labels[:rows]
+        coeffs = linear_interpolation_coeffs(torch.as_tensor(x, dtype=dt, device=dev),
+                                             rectilinear=0)
+        return ((torch.as_tensor(static, dtype=dt, device=dev), coeffs),
+                torch.as_tensor(labels, dtype=dt, device=dev))
+
+    inputs, labels = batch(seq["B"], seq["L"], device, dtype)
+
+    m = _seq_model(spec, device, dtype, False)
+    with torch.no_grad():
+        out["forward"] = run("seq_forward", lambda: ncde_apply_pipelined(
+            m, inputs, mesh=mesh, microbatches=M))
+        if ref:
+            out["ref"]["forward"] = timed("forward", lambda: m(inputs))
+
+    for name, adjoint in (("adjoint_step", True), ("direct_step", False)):
+        m = _seq_model(spec, device, dtype, adjoint)
+        init = _state(m)
+        step = make_train_step(PipelinedNCDE(m, mesh=mesh, microbatches=M, adjoint=adjoint),
+                               loss="bce", lr=lr)
+        loss = run(f"seq_{name}", lambda: step(inputs, labels, 1.0))
+        out[name] = {"loss": loss, "grads": _grads(m), "params": _state(m), "init": init}
+        if ref:
+            m = _seq_model(spec, device, dtype, adjoint)
+            step = make_train_step(m, loss="bce", lr=lr)
+            loss = timed(name, lambda: step(inputs, labels, 1.0))
+            out["ref"][name] = {"loss": loss, "grads": _grads(m), "params": _state(m)}
+
+    # The adjoint's gradients on SEQ_ROWS rows: the card, then the same
+    # pipeline on the CPU (the plain versions) in float32 and float64.
+    rows = seq["rows"]
+    m = _seq_model(spec, device, dtype, True)
+    rows_in, rows_lab = batch(seq["B"], seq["L"], device, dtype, rows)
+    out["adjoint_rows"] = run("seq_adjoint_rows", lambda: _seq_grads(
+        m, rows_in, rows_lab, mesh, True, M))
+    cpu_mesh = make_sequence_mesh(spec["world"], devices="cpu")
+    for dt in (torch.float32, torch.float64):
+        m_cpu = _seq_model(spec, torch.device("cpu"), dt, True)
+        m_cpu.load_state_dict({k: v.to("cpu", dt) for k, v in m.state_dict().items()})
+        cpu_in, cpu_lab = batch(seq["B"], seq["L"], "cpu", dt, rows)
+        t0 = time.perf_counter()
+        out[f"adjoint_rows_cpu_{str(dt)[6:]}"] = _seq_grads(m_cpu, cpu_in, cpu_lab, cpu_mesh,
+                                                            True, M)
+        out["ms"][f"adjoint_rows_cpu_{str(dt)[6:]}"] = (time.perf_counter() - t0) * 1e3
+
+    # Peak memory of a step at two lengths (the card only).
+    if device.type == "cuda":
+        out["peak_bytes"] = {}
+        for adjoint in (True, False):
+            key = "adjoint" if adjoint else "direct"
+            out["peak_bytes"][key] = []
+            for L in seq["memory_lengths"]:
+                m = _seq_model(spec, device, dtype, adjoint)
+                mem_in, mem_lab = batch(seq["memory_B"], L, device, dtype)
+                out["peak_bytes"][key].append(run(f"seq_memory_{key}_{L}", lambda: _seq_peak(
+                    m, mem_in, mem_lab, mesh, adjoint, seq["aux_M"])))
     return out
 
 
@@ -5485,7 +5706,10 @@ def phase_parallel():
                     reference=True, out=tmp, artifacts=artifacts,
                     toy={"suite": PAR_TOY_SUITE, "config_dir": config_dir, "root": root,
                          "ledger": os.path.join(tmp, "dp.jsonl"),
-                         "serial_ledger": os.path.join(tmp, "serial.jsonl")})
+                         "serial_ledger": os.path.join(tmp, "serial.jsonl")},
+                    seq={"B": SEQ_B, "L": SEQ_L, "M": SEQ_M, "rows": SEQ_ROWS,
+                         "aux_M": SEQ_AUX_M, "memory_B": SEQ_MEM_B,
+                         "memory_lengths": SEQ_MEM_LENGTHS})
         t0 = time.perf_counter()
         ranks = par_spawn(spec, PAR_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
@@ -5519,6 +5743,15 @@ def phase_parallel():
             for name, want in want_export.items():
                 expect_launches(f"parallel: rank {r['rank']} {name}",
                                 r["export"]["launches"][name], **want)
+        want_seq = seq_launches(spec)
+        for r in ranks:
+            for name, (want, widths) in want_seq.items():
+                expect_launches(f"parallel: rank {r['rank']} {name}",
+                                r["seq"]["launches"][name], **want)
+                if r["seq"]["widths"][name] != widths:
+                    raise AssertionError(f"parallel: rank {r['rank']} {name} launched "
+                                         f"{r['seq']['widths'][name]} by width, expected "
+                                         f"{widths}")
         gates, serial, failed = par_verify(ranks)
         emit("parallel", failed=failed, world_of_one=world_of_one, ranks=len(ranks), backend="gloo",
              device="cuda:0", spawn_seconds=spawn_s,
@@ -5536,6 +5769,22 @@ def phase_parallel():
                   "serial": {k: serial[k] for k in (
                       "train.loss", "val.loss", "test.loss", "time_per_epoch")}},
              ce_padded_rows=ranks[0]["ce_step"]["padded_rows"],
+             seq={"batch": {"B": SEQ_B, "L": SEQ_L, "M": SEQ_M, "rows": SEQ_ROWS,
+                            "aux_M": SEQ_AUX_M, "memory_B": SEQ_MEM_B,
+                            "memory_lengths": SEQ_MEM_LENGTHS},
+                  "launches": {f"rank{r['rank']}": r["seq"]["launches"] for r in ranks},
+                  "by_width": {f"rank{r['rank']}": r["seq"]["widths"] for r in ranks},
+                  "expected": {k: {"kernels": w, "by_width": b}
+                               for k, (w, b) in want_seq.items()},
+                  "pipelined_ms": {f"rank{r['rank']}": r["seq"]["ms"] for r in ranks},
+                  "one_process_ms": ranks[0]["seq"]["ref_ms"],
+                  "peak_bytes": {f"rank{r['rank']}": r["seq"]["peak_bytes"] for r in ranks},
+                  "tolerance": {"forward_rtol": SERVE_RTOL, "forward_atol": SERVE_ATOL,
+                                "loss_rtol": SERVE_RTOL, "grad_rtol": GRAD_RTOL,
+                                "grad_atol_per_max": GRAD_ATOL_REL,
+                                "rows_ratio": SEQ_ROWS_RATIO,
+                                "memory_direct_growth": SEQ_MEM_DIRECT_GROWTH,
+                                "memory_adjoint_growth": SEQ_MEM_ADJOINT_GROWTH}},
              phase_seconds=time.perf_counter() - t_phase)
         if failed:
             raise AssertionError(f"parallel: {len(failed)} gates failed: {failed}")
@@ -5546,7 +5795,39 @@ def phase_parallel():
             "dp_predict": r0["predict"], "dp_stream": r0["stream"],
             "dp_ensemble_step": r0["ensemble_step"], "dp_toy_suite": r0["run_data_parallel"],
             "dp_artifact_predict": ranks[0]["export"]["launches"]["artifact_predict"],
-            "dp_artifact_stream": ranks[0]["export"]["launches"]["artifact_stream"]}
+            "dp_artifact_stream": ranks[0]["export"]["launches"]["artifact_stream"],
+            **{name: ranks[0]["seq"]["launches"][name] for name in (
+                "seq_forward", "seq_adjoint_step", "seq_direct_step")}}
+
+
+def seq_launches(spec):
+    """Each pipelined call's launches on a rank, by kernel and by I: RK4
+    evaluates the field 4 times an interval, a rank's chunk is Tc =
+    pieces / ranks intervals for each of M microbatches, half of them
+    value pieces (I=C) and half time pieces (I=1); the adjoint's forward
+    pass and its reverse stages each evaluate the field once a stage and
+    the reverse stages take its VJP; autograd takes the VJP of every
+    forward evaluation."""
+    seq, world, c = spec["seq"], spec["world"], spec["C"]
+
+    def counts(L, adjoint, M=seq["M"]):
+        evals = 4 * M * (2 * L - 2) // world
+        fwd, bwd = (2 * evals, evals) if adjoint else (evals, evals)
+        widths = {f"forward_I{c}": fwd // 2, "forward_I1": fwd // 2}
+        if bwd:
+            widths.update({f"backward_I{c}": bwd // 2, "backward_I1": bwd // 2})
+        return {"forward": fwd, "backward": bwd}, widths
+
+    evals = 4 * seq["M"] * (2 * seq["L"] - 2) // world
+    want = {"seq_forward": ({"forward": evals},
+                            {f"forward_I{c}": evals // 2, "forward_I1": evals // 2}),
+            "seq_adjoint_step": counts(seq["L"], True),
+            "seq_direct_step": counts(seq["L"], False),
+            "seq_adjoint_rows": counts(seq["L"], True)}
+    for L in seq["memory_lengths"]:
+        want[f"seq_memory_adjoint_{L}"] = counts(L, True, seq["aux_M"])
+        want[f"seq_memory_direct_{L}"] = counts(L, False, seq["aux_M"])
+    return want
 
 
 def par_artifacts(tmp):
@@ -5591,6 +5872,24 @@ def par_grad_gate(what, got, want):
     return (max(p[0] for p in parts), max(p[1] for p in parts), all(p[2] for p in parts))
 
 
+def own_update_gate(what, got, got_grads, init, lr, keys=None):
+    """Raise unless the weights ``got`` (those of ``keys``) after Adam's
+    first step are the update from ``init`` by the step's own gradients,
+    lr g / (|g| + eps) (x10 on the readout), within PAR_PARAM_RTOL |w| +
+    PAR_PARAM_ATOL; returns the largest |err|."""
+    worst = 0.0
+    for k in keys or got:
+        w, g = got[k], got_grads[k].double()
+        k_lr = lr * (10.0 if k.split(".")[0] == "final" else 1.0)
+        own = init[k].double() - k_lr * g / (g.abs() + ADAM_EPS)
+        err = (w.double() - own).abs()
+        if bool((err > PAR_PARAM_ATOL + PAR_PARAM_RTOL * own.abs()).any()):
+            raise AssertionError(f"{what} {k}: not Adam's update from its own gradients, "
+                                 f"max |err| {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
 def adam_gate(what, got, want, grads, got_grads, init, lr):
     """Weights after one Adam step (the learning rate ``lr``, x10 on the
     readout), sharded against one process.  Adam's first step moves a
@@ -5606,16 +5905,11 @@ def adam_gate(what, got, want, grads, got_grads, init, lr):
     def update(x):
         return x / (x.abs() + ADAM_EPS)
 
-    share, worst, own_worst, moved = 0.0, 0.0, 0.0, 0
+    own_worst = own_update_gate(what, got, got_grads, init, lr, keys=want)
+    share, worst, moved = 0.0, 0.0, 0
     for k, w in want.items():
         g_got, w = got[k].double(), w.double()
         k_lr = lr * (10.0 if k.split(".")[0] == "final" else 1.0)
-        own = init[k].double() - k_lr * update(got_grads[k].double())
-        own_err = (g_got - own).abs()
-        if bool((own_err > PAR_PARAM_ATOL + PAR_PARAM_RTOL * own.abs()).any()):
-            raise AssertionError(f"{what} {k}: not Adam's update from its own gradients, "
-                                 f"max |err| {float(own_err.max())}")
-        own_worst = max(own_worst, float(own_err.max()))
         err = (g_got - w).abs()
         tight = PAR_PARAM_ATOL + PAR_PARAM_RTOL * w.abs()
         g = grads[k].double()
@@ -5737,7 +6031,100 @@ def par_verify(ranks):
                 "train.loss", "val.loss", "test.loss")], PAR_RUN_RTOL, 0.0))
     if [os.path.basename(f) for f in ranks[0]["run_files"]] != ["dp.jsonl"]:
         failed.append(f"parallel: ledger files {ranks[0]['run_files']}")
+    if "seq" in ranks[0]:
+        gates["seq"] = seq_verify(ranks, failed, check, gate)
     return gates, serial, failed
+
+
+def _frobenius_ratios(got, want, yardstick):
+    """Per tensor ||got - want|| / ||yardstick - want|| (Frobenius), 0 / 0
+    read as 0."""
+    return {k: ratio(float((got[k].double().cpu() - w.double()).norm()),
+                     float((yardstick[k].double() - w.double()).norm()))
+            for k, w in want.items()}
+
+
+def seq_verify(ranks, failed, check, gate):
+    """The time-pipelined solve's gates (``seq_checks``): every rank's
+    results equal rank 0's to the bit; the forward against one process's
+    at the serving gate; both steps' losses at SERVE_RTOL (the forwards'
+    gate) and their weights Adam's update from their own gradients; the
+    direct step's gradients against one process's at the gradient gate and
+    its weights against one process's (``adam_gate``); the adjoint's
+    gradients on SEQ_ROWS rows no further from the CPU's float64 pipeline
+    (Frobenius, per tensor) than SEQ_ROWS_RATIO times the CPU's float32
+    pipeline is, plus GRAD_RTOL of the tensor (the readout's and h0's
+    gradients, which no reverse integration magnifies, sit far inside
+    round-off of either);
+    the peak memory of a step from the shorter length to the longer: the
+    direct step's at least SEQ_MEM_DIRECT_GROWTH times, the adjoint's at
+    most SEQ_MEM_ADJOINT_GROWTH times and below the direct step's.  The
+    adjoint step's distance to one process's interval adjoint is read, not
+    gated (the pipelined adjoint reverse-integrates the state through a
+    rank's chunk; see PERF.md)."""
+    seq0, ref = ranks[0]["seq"], ranks[0]["seq"]["ref"]
+    out = {"forward": [], "adjoint_step": [], "direct_step": [], "adjoint_rows": [],
+           "memory": []}
+    for r in ranks[1:]:
+        for key in ("forward", "adjoint_step", "direct_step", "adjoint_rows",
+                    "adjoint_rows_cpu_float32", "adjoint_rows_cpu_float64"):
+            if not _same_bits(r["seq"][key], seq0[key]):
+                failed.append(f"parallel: seq {key} differs between ranks")
+    for r in ranks:
+        seq, i = r["seq"], r["rank"]
+        what = f"parallel: rank {i} seq"
+        line = gate(f"{what} forward", seq["forward"], ref["forward"], SERVE_RTOL, SERVE_ATOL)
+        err = (seq["forward"] - ref["forward"]).abs().reshape(len(ref["forward"]), -1)
+        scale = ref["forward"].abs().reshape(len(ref["forward"]), -1).amax(1)
+        line.update(rows_differing=int((err.amax(1) > 0).sum()), rows=len(ref["forward"]),
+                    max_err_per_row_max=float((err.amax(1) / scale).max()))
+        out["forward"].append(line)
+        for name in ("adjoint_step", "direct_step"):
+            got, want = seq[name], ref[name]
+            entry = {"loss": gate(f"{what} {name} loss", got["loss"].reshape(1),
+                                  want["loss"].reshape(1), SERVE_RTOL, 0.0),
+                     "own_update_max_abs_err": check(own_update_gate, f"{what} {name}",
+                                                     got["params"], got["grads"],
+                                                     got["init"], r["lr"])}
+            if name == "direct_step":
+                grads = check(par_grad_gate, f"{what} {name}", got["grads"], want["grads"])
+                entry["grads"] = (grads if isinstance(grads, dict) else
+                                  dict(zip(("max_abs_err", "gate_share", "bit_identical"),
+                                           grads)))
+                entry["params"] = check(adam_gate, f"{what} {name}", got["params"],
+                                        want["params"], want["grads"], got["grads"],
+                                        got["init"], r["lr"])
+            else:   # read, not gated
+                entry["vs_interval_adjoint_max_err_per_max"] = max(
+                    float((got["grads"][k].double() - w.double()).abs().max()
+                          / w.double().abs().max()) for k, w in want["grads"].items())
+            out[name].append(entry)
+        want64, cpu32 = seq["adjoint_rows_cpu_float64"], seq["adjoint_rows_cpu_float32"]
+        ratios = _frobenius_ratios(seq["adjoint_rows"], want64, cpu32)
+        shares = {k: float((seq["adjoint_rows"][k].double().cpu() - w.double()).norm())
+                  / (SEQ_ROWS_RATIO * float((cpu32[k].double() - w.double()).norm())
+                     + GRAD_RTOL * float(w.double().norm()))
+                  for k, w in want64.items()}
+        worst = max(shares.values())
+        if not worst <= 1.0:
+            failed.append(f"{what} adjoint gradients on the rows: gate share {worst} "
+                          f"(ratios to the CPU float32's distance to float64: {ratios})")
+        out["adjoint_rows"].append({
+            "gate_share": worst, "max_ratio": max(ratios.values()),
+            "median_ratio": float(np.median(list(ratios.values()))), "by_tensor": ratios,
+            "gate": {"ratio": SEQ_ROWS_RATIO, "rtol": GRAD_RTOL},
+            "cpu_float32_vs_float64_max_err_per_max": max(
+                float((seq["adjoint_rows_cpu_float32"][k].double() - w.double()).abs().max()
+                      / w.double().abs().max())
+                for k, w in seq["adjoint_rows_cpu_float64"].items())})
+        peak = seq.get("peak_bytes")
+        if peak is not None:
+            adj, direct = peak["adjoint"], peak["direct"]
+            if not (direct[1] >= SEQ_MEM_DIRECT_GROWTH * direct[0]
+                    and adj[1] <= SEQ_MEM_ADJOINT_GROWTH * adj[0] and adj[1] < direct[1]):
+                failed.append(f"{what} peak memory: adjoint {adj}, direct {direct} bytes")
+            out["memory"].append({"adjoint_bytes": adj, "direct_bytes": direct})
+    return out
 
 
 def times(t):
@@ -5757,6 +6144,20 @@ def kernel_entry(name, source, replaces, launches, max_err, timings):
             "timed_shape": list(TRAIN_SHAPE),
             "by_shape": [{"shape": list(shape), **times(t)}
                          for shape, t in timings.items()]}
+
+
+PHASE_SECONDS = {}
+
+
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, its seconds added to PHASE_SECONDS[name] and printed
+    (also when it raises)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+        print(json.dumps({"timed_phase": name, "seconds": PHASE_SECONDS[name]}), flush=True)
 
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
@@ -5781,60 +6182,65 @@ def main(argv=None) -> int:
     pk = peaks(torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
-    phase_env()
-    phase_build()
+    timed_phase("env", phase_env)
+    timed_phase("build", phase_build)
     if "kernel" in phases:
-        max_err, timings, timings_bf16, timings_multi_fwd = phase_kernel(pk)
+        max_err, timings, timings_bf16, timings_multi_fwd = timed_phase(
+            "kernel", phase_kernel, pk)
     if "kernel_bwd" in phases:
-        max_err_bwd, timings_bwd, timings_bwd_bf16, timings_multi_bwd = phase_kernel_bwd(pk)
+        max_err_bwd, timings_bwd, timings_bwd_bf16, timings_multi_bwd = timed_phase(
+            "kernel_bwd", phase_kernel_bwd, pk)
     if "kernel_rk4" in phases:
         (max_err_rk4, max_err_multi, timings_rk4, timings_multi,
-         timings_rk4_bf16) = phase_kernel_rk4(pk)
+         timings_rk4_bf16) = timed_phase("kernel_rk4", phase_kernel_rk4, pk)
     if phases & {"predictor", "stepper", "export"}:
-        model, requests, static, outs, serve_launches = phase_predictor()
+        model, requests, static, outs, serve_launches = timed_phase("predictor", phase_predictor)
     if "stepper" in phases:
-        phase_stepper(model, requests, static, outs)
+        timed_phase("stepper", phase_stepper, model, requests, static, outs)
     f32_step = None
     if "train" in phases:
-        train_launches, f32_step = phase_train()
+        train_launches, f32_step = timed_phase("train", phase_train)
     if "chains" in phases:
-        chain_launches = phase_chains()
+        chain_launches = timed_phase("chains", phase_chains)
     if "splines" in phases:
-        hermite_serve, hermite_train = phase_splines()
+        hermite_serve, hermite_train = timed_phase("splines", phase_splines)
     if "toy" in phases:
-        phase_toy()
+        timed_phase("toy", phase_toy)
     if "train_bf16" in phases:
-        train_bf16_launches = phase_train_bf16(f32_step)
+        train_bf16_launches = timed_phase("train_bf16", phase_train_bf16, f32_step)
     if "predict_bf16" in phases:
-        predict_bf16_launches = phase_predict_bf16()
+        predict_bf16_launches = timed_phase("predict_bf16", phase_predict_bf16)
     if "bench_bf16_leg" in phases:
-        phase_bench_bf16_leg()
+        timed_phase("bench_bf16_leg", phase_bench_bf16_leg)
     if "adaptive" in phases:
-        adaptive_launches = phase_adaptive()
+        adaptive_launches = timed_phase("adaptive", phase_adaptive)
     if "zoo" in phases:
-        zoo_launches = phase_zoo()
+        zoo_launches = timed_phase("zoo", phase_zoo)
     if "logode" in phases:
-        logode_launches = phase_logode()
+        logode_launches = timed_phase("logode", phase_logode)
     if "solver_extras" in phases:
-        extras_launches = phase_solver_extras()
+        extras_launches = timed_phase("solver_extras", phase_solver_extras)
     if "data" in phases:
-        data_launches = phase_data()
+        data_launches = timed_phase("data", phase_data)
     serial = deploy = None
     if "harness" in phases:
-        harness_launches, serial, deploy = phase_harness()
+        harness_launches, serial, deploy = timed_phase("harness", phase_harness)
     if "wave" in phases:
-        wave_launches = phase_wave(serial)
+        wave_launches = timed_phase("wave", phase_wave, serial)
     if "raw_data" in phases:
-        raw_launches = phase_raw_data()
+        raw_launches = timed_phase("raw_data", phase_raw_data)
     if "export" in phases:
         if deploy is None:   # the checkpoint to deploy from: the harness's
-            _, _, deploy = phase_harness()
-        export_launches = phase_export(model, requests, static, outs, deploy)
+            _, _, deploy = timed_phase("harness", phase_harness)
+        export_launches = timed_phase("export", phase_export, model, requests, static,
+                                      outs, deploy)
     if "parallel" in phases:
-        parallel_launches = phase_parallel()
+        parallel_launches = timed_phase("parallel", phase_parallel)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
+        print(json.dumps({"seconds": time.perf_counter() - t0, "by_phase": PHASE_SECONDS}),
+              flush=True)
         print(card_line(), flush=True)
         return 0
 
@@ -5900,7 +6306,8 @@ def main(argv=None) -> int:
                  for k, t in timings_multi.items()],
         "launches_by_path": paths("rk4_multi")})
     print(json.dumps({"kernels": entries}), flush=True)
-    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
+    print(json.dumps({"seconds": time.perf_counter() - t0, "by_phase": PHASE_SECONDS}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,6 +138,13 @@ def _piece(pieces: dict, i: int) -> dict:
     return {k: v[i] for k, v in pieces.items()}
 
 
+def _split_pairs(pieces: dict):
+    """The even and the odd pieces of a paired scan (JAX ``_split_pairs``):
+    ``({k: v[0::2]}, {k: v[1::2]})``."""
+    return ({k: v[0::2] for k, v in pieces.items()},
+            {k: v[1::2] for k, v in pieces.items()})
+
+
 def _one_interval(step, pf, piece, t0, dt, z, args, substeps):
     """One knot interval from ``t0`` in ``substeps`` steps of the host
     float ``dt``."""
@@ -242,7 +249,7 @@ def _fixed_scan_forward_paired(pf_even, pf_odd, z0, grid_t, pieces, args,
 
 
 def _interval_adjoint_bwd(step, pf, piece, piece_wrt, t0, t1, z_end, a, args,
-                          args_wrt, args_bar, substeps):
+                          args_wrt, args_bar, substeps, return_state=False):
     """Reverse one knot interval of the augmented adjoint state ``(z, a_z,
     a_piece, a_args)`` with the tuple stepper (JAX
     ``_interval_adjoint_bwd``): in the substituted time s = -tau the field
@@ -268,7 +275,8 @@ def _interval_adjoint_bwd(step, pf, piece, piece_wrt, t0, t1, z_end, a, args,
         out = step(aug_f, -t1 + k * dt, dt, aug)
         aug = tuple(o.to(r.dtype) for o, r in zip(out, aug))
     n_p = len(piece_wrt)
-    return aug[1], list(aug[2 + n_p:]), list(aug[2:2 + n_p])
+    out = aug[1], list(aug[2 + n_p:]), list(aug[2:2 + n_p])
+    return (aug[0], *out) if return_state else out
 
 
 class _Setup:

@@ -345,12 +345,14 @@ class LinearInterpolation(_InterpolationBase):
         dt = self.t[index + 1] - self.t[index]
         return self._shape_out((nxt - prev) / dt[:, None], t)
 
-    def piece_data(self):
-        """Time-major pieces: {"x0", "dxdt"}, each (L-1, ..., C).  ``dxdt``
-        is made contiguous, so each piece's (..., C) slice is too (the
-        fused field's kernel takes contiguous tensors only)."""
-        x = torch.movedim(self.coeffs, -2, 0)          # (L, ..., C)
-        dt = self.t[1:] - self.t[:-1]
+    def piece_data(self, lo: int = 0, hi: Optional[int] = None):
+        """Time-major pieces: {"x0", "dxdt"}, each (L-1, ..., C), or only
+        pieces ``lo`` to ``hi`` (exclusive), built from those knots alone.
+        ``dxdt`` is made contiguous, so each piece's (..., C) slice is too
+        (the fused field's kernel takes contiguous tensors only)."""
+        hi = self.coeffs.shape[-2] - 1 if hi is None else hi
+        x = torch.movedim(self.coeffs[..., lo:hi + 1, :], -2, 0)   # (hi-lo+1, ..., C)
+        dt = self.t[lo + 1:hi + 1] - self.t[lo:hi]
         dt = dt.reshape((-1,) + (1,) * (x.dim() - 1))
         return {"x0": x[:-1], "dxdt": ((x[1:] - x[:-1]) / dt).contiguous()}
 
@@ -404,11 +406,12 @@ class CubicSpline(_InterpolationBase):
                              for c in (self.b, self.two_c, self.three_d))
         return self._shape_out(b + (two_c + three_d * frac) * frac, t)
 
-    def piece_data(self):
+    def piece_data(self, lo: int = 0, hi: Optional[int] = None):
         """Time-major pieces {"a", "b", "two_c", "three_d"}, each (L-1, ...,
-        C) and contiguous."""
-        return {"a": _time_major(self.a), "b": _time_major(self.b),
-                "two_c": _time_major(self.two_c), "three_d": _time_major(self.three_d)}
+        C) and contiguous, or only pieces ``lo`` to ``hi`` (exclusive)."""
+        hi = self.b.shape[-2] if hi is None else hi
+        return {key: _time_major(getattr(self, key)[..., lo:hi, :])
+                for key in ("a", "b", "two_c", "three_d")}
 
     @staticmethod
     def piece_derivative(piece, frac):
@@ -573,20 +576,23 @@ class SmoothLinearInterpolation(_InterpolationBase):
                           nxt - prev)
         return self._shape_out(out, t)
 
-    def piece_data(self):
+    def piece_data(self, lo: int = 0, hi: Optional[int] = None):
         """Time-major pieces: {"x0", "dxdt"} (L-1, ..., C), the matching
         polynomials "mc" (L-1, ..., C, P) (piece 0 has none: zeros),
-        "has_match" and "eps" (L-1,)."""
-        x = torch.movedim(self.coeffs, -2, 0)            # (L, ..., C)
-        mc = torch.movedim(self.matching_coeffs, -3, 0)  # (L-2, ..., C, P)
-        mc = torch.cat([torch.zeros_like(mc[:1]), mc], dim=0)
-        n_pieces = x.shape[0] - 1
+        "has_match" and "eps" (L-1,); or only pieces ``lo`` to ``hi``
+        (exclusive), built from those knots alone."""
+        hi = self.coeffs.shape[-2] - 1 if hi is None else hi
+        x = torch.movedim(self.coeffs[..., lo:hi + 1, :], -2, 0)   # (hi-lo+1, ..., C)
+        # Piece i's matching polynomial is the (i-1)-th: (hi-lo, ..., C, P).
+        mc = torch.movedim(self.matching_coeffs[..., max(lo - 1, 0):hi - 1, :, :], -3, 0)
+        if lo == 0:
+            mc = torch.cat([mc.new_zeros((1,) + mc.shape[1:]), mc], dim=0)
         return {
             "x0": x[:-1].contiguous(),
             "dxdt": (x[1:] - x[:-1]).contiguous(),  # unit knot spacing
             "mc": mc.contiguous(),
-            "has_match": torch.arange(n_pieces, device=x.device) > 0,
-            "eps": torch.full((n_pieces,), self.eps, dtype=x.dtype, device=x.device),
+            "has_match": torch.arange(lo, hi, device=x.device) > 0,
+            "eps": torch.full((hi - lo,), self.eps, dtype=x.dtype, device=x.device),
         }
 
     @staticmethod

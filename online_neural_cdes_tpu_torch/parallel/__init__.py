@@ -1,9 +1,5 @@
-"""Data parallelism and seed ensembles over ``torch.distributed``
-(``mesh.py``, ``ensemble.py``).
-
-The JAX package's third module here, ``parallel/sequence.py`` (the
-time-pipelined solve over a ``seq`` axis with its reverse-schedule
-adjoint), is ROADMAP item 18b: its entry points raise, naming it.
+"""Data parallelism, seed ensembles and the time-pipelined solve over
+``torch.distributed`` (``mesh.py``, ``ensemble.py``, ``sequence.py``).
 """
 
 from online_neural_cdes_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -11,18 +7,9 @@ from online_neural_cdes_tpu_torch.parallel.mesh import (  # noqa: F401
     replicate,
     shard_batch,
 )
-
-
-def _sequence_not_ported(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"parallel.{name} is not ported yet (ROADMAP item 18b: parallel/sequence.py, "
-            "the time-pipelined solve over a seq axis and its reverse-schedule adjoint)")
-
-    refuse.__name__ = name
-    return refuse
-
-
-make_sequence_mesh = _sequence_not_ported("make_sequence_mesh")
-ncde_apply_pipelined = _sequence_not_ported("ncde_apply_pipelined")
-pipelined_cde_solve = _sequence_not_ported("pipelined_cde_solve")
+from online_neural_cdes_tpu_torch.parallel.sequence import (  # noqa: F401
+    PipelinedNCDE,
+    make_sequence_mesh,
+    ncde_apply_pipelined,
+    pipelined_cde_solve,
+)

@@ -77,6 +77,23 @@ class Mesh:
     def axis_index(self, axis: str) -> int:
         return int(self.coords[axis])
 
+    def rank_along(self, axis: str, index: int) -> int:
+        """The global rank at ``index`` along ``axis`` that shares every
+        other coordinate with this rank (the grid is row-major over
+        ``ranks``)."""
+        coords = [index if name == axis else self.coords[name] for name in self.axis_names]
+        shape = [self.shape[name] for name in self.axis_names]
+        return self.ranks[int(np.ravel_multi_index(coords, shape))]
+
+    def neighbour(self, axis: str, step: int) -> Optional[int]:
+        """The global rank ``step`` places along ``axis`` from this one
+        (+1 the next, -1 the previous), or None past either end: the peer
+        of a point-to-point send, which takes global ranks."""
+        index = self.axis_index(axis) + step
+        if not 0 <= index < self.axis_size(axis):
+            return None
+        return self.rank_along(axis, index)
+
     def __repr__(self):
         return (f"Mesh(axes={self.shape}, coords={self.coords}, device={self.device}, "
                 f"backend={dist.get_backend(self.group)})")

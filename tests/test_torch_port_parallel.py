@@ -55,7 +55,9 @@ SERVE_RTOL, SERVE_ATOL = 1e-10, 1e-12
 RUN_RTOL = 1e-5
 SPEC = dict(world=2, device="cpu", dtype="float64", B=8, L=6, C=3, H=8, HH=16, layers=2,
             S=2, lr=1e-2, accum=2, classes=3, requests=6, buckets=(2, 8),
-            length_multiple=4, streams=4, ticks=6, reference=True)
+            length_multiple=4, streams=4, ticks=6, reference=True,
+            seq={"B": 8, "L": 5, "M": 4, "rows": 4, "aux_M": 2, "memory_B": 8,
+                 "memory_lengths": (5, 9)})
 SPAWN_TIMEOUT_S = 240
 
 
@@ -193,6 +195,30 @@ def test_the_smoke_gates_pass_here_and_catch_a_missed_update(ranks):
         r["epoch_step"]["first"]["params"] = dict(results[0]["ref"]["epoch_step"]["init"])
     _, _, failed = chip_smoke.par_verify(broken)
     assert failed and all("epoch_step" in f and "not Adam's update" in f for f in failed)
+
+
+def test_pipelined_solve_over_the_mesh_matches_one_process(ranks):
+    """``chip_smoke.seq_checks`` (the parallel phase's item 18b checks) on
+    the CPU: ``ncde_apply_pipelined`` over a two-rank ``seq`` mesh against
+    the model in one process (rtol 1e-9), the direct step's gradients and
+    weights against one process's, both ranks equal to the bit, and the
+    adjoint's gradients on the rows equal to the float64 pipeline's."""
+    results, _ = ranks
+    ref = results[0]["seq"]["ref"]
+    for r in results:
+        seq = r["seq"]
+        _close(seq["forward"], ref["forward"], what=f"rank {r['rank']}")
+        _close(seq["direct_step"]["loss"], ref["direct_step"]["loss"])
+        for k, g in ref["direct_step"]["grads"].items():
+            _close(seq["direct_step"]["grads"][k], g, what=k)
+            _close(seq["direct_step"]["params"][k], ref["direct_step"]["params"][k],
+                   PARAM_RTOL, PARAM_ATOL, k)
+        _close(seq["adjoint_step"]["loss"], ref["adjoint_step"]["loss"])
+        for k, g in seq["adjoint_rows_cpu_float64"].items():
+            assert torch.equal(seq["adjoint_rows"][k], g), k
+    gates = chip_smoke.par_verify(results)[0]["seq"]
+    assert gates["adjoint_rows"][0]["max_ratio"] == 0.0
+    assert gates["memory"] == []
 
 
 def test_padded_ce_tail_has_nan_masks_that_differ_by_shard(ranks):
@@ -361,14 +387,3 @@ def test_mesh_needs_a_process_group_and_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="devices='cpu'"):
         pm._rank_device(0, None)
-
-
-@pytest.mark.parametrize("name", ["make_sequence_mesh", "ncde_apply_pipelined",
-                                  "pipelined_cde_solve"])
-def test_sequence_pipeline_is_refused_naming_18b(name):
-    """``parallel/sequence.py`` (the time-pipelined solve) is ROADMAP item
-    18b: the JAX package's entry points exist in the port and refuse."""
-    from online_neural_cdes_tpu_torch import parallel
-
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18b"):
-        getattr(parallel, name)(mesh=None)

@@ -153,17 +153,21 @@ def test_watchdog_kills_a_hung_child(toy_dataset, tmp_path):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    """Item 18a is ported (tests/test_torch_port_parallel.py runs
-    --data-parallel); what stays refused: a mesh that is not one, and the
-    sequence-pipelined solve, item 18b."""
+    """Items 18a and 18b are ported (tests/test_torch_port_parallel.py runs
+    --data-parallel, tests/test_torch_port_sequence.py the pipelined
+    solve); what stays refused: a mesh that is not one.  The pipeline's
+    entry points are the real ones: a sequence mesh asks for a process
+    group as every mesh does, and refuses nothing by item."""
     from online_neural_cdes_tpu_torch import parallel
+    from online_neural_cdes_tpu_torch.parallel import sequence
 
     ledger_path = str(tmp_path / "ledger.jsonl")
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         sweep.run("toy", ledger_path=ledger_path, mesh=object(), device="cpu")
     for name in ("make_sequence_mesh", "ncde_apply_pipelined", "pipelined_cde_solve"):
-        with pytest.raises(NotImplementedError, match="item 18b"):
-            getattr(parallel, name)()
+        assert getattr(parallel, name) is getattr(sequence, name)
+    with pytest.raises(RuntimeError, match="initialize_multihost"):
+        parallel.make_sequence_mesh(2, devices="cpu")
 
 
 # ------------------------------------------------ predictor_from_bundle
