@@ -97,7 +97,8 @@ controls, and prints one JSON line per phase:
                 steps against a CPU copy (outputs, 8-row gradients), with
                 its kernel launches, host waits, step times and profile
                 (the plain-field flagships on 30 observations of the
-                flagship batch's 100; the CPU copy serves 8 of the 64
+                flagship batch's 100, the stacked and attention NCDEs on
+                50; the CPU copy serves 8 of the 64
                 requests and 1 timed step follows the counted one: cut for
                 the run's time).  The kernel phases also hold both field
                 kernels at the zoo's (512 | 64, 128, 128, 128, 3).
@@ -109,7 +110,8 @@ controls, and prints one JSON line per phase:
                 interval adjoint, BCE, Adam lr 1e-3: gradients against the
                 CPU port on 16 rows, a step's launches (4,096 / 2,048), step
                 times, profile and peak memory, then one step of the same
-                NCDE on the raw series (32,760 / 16,380 launches) and the
+                NCDE on the raw series' first 1,025 observations (8,192 /
+                4,096 launches; cut for the run's time) and the
                 trained model's auc, auprc, precision, f1 and accuracy.  The
                 kernel phases also hold both field kernels at its
                 (256, 32, 32, 10 | 4, 2).
@@ -154,21 +156,7 @@ controls, and prints one JSON line per phase:
                 the CPU port.  The kernel phases hold
                 both field kernels at its (1024, 128, 128, 21 | 1,
                 2) and the forward at (467, 128, 128, 21 | 1, 2).
-21. wave     -- the same leg's three seeds (111, 222, 333) as one wave of
-                K=3 through ``run.main``: its launches only on the field
-                kernels' multi entries, as many as one config's serial run
-                (each epoch and evaluation too), lanes 111 and 222 against
-                the harness phase's serial runs, a wave step's and a serial
-                step's host and event ms, busy share and peak memory on the
-                first batch; a 4-trial ``trainer__lr`` search as one wave
-                of K=4 with no failed trial and its best parameters in the
-                ledger; ``run.main --analyse --tables-out`` on both
-                ledgers, every table cell mean +- std.  The kernel phases
-                end with a ``kernel_multi`` line each: the multi entries at
-                K=1 equal to the single entry to the bit, at K=3 and 4 on
-                the harness shapes against the plain K versions in f32 and
-                bf16 storage, timed beside K single calls.
-22. raw_data -- the raw-archive builders on synthetic archives at the
+21. raw_data -- the raw-archive builders on synthetic archives at the
                 published shapes of the paper's benchmark datasets
                 (CharacterTrajectories' .ts files and a timestamped one,
                 BeijingPM2pt5's TSER file, SpeechCommands' wavs with short
@@ -181,11 +169,40 @@ controls, and prints one JSON line per phase:
                 launches against its batches' reckoning, and its best
                 weights served against the CPU.  The kernel phases hold
                 both field kernels at its shapes.
+22. wave     -- the same leg's three seeds (111, 222, 333) as one wave of
+                K=3 through ``run.main``: its launches only on the field
+                kernels' multi entries, as many as one config's serial run
+                (each epoch and evaluation too), lanes 111 and 222 against
+                the harness phase's serial runs, a wave step's and a serial
+                step's host and event ms, busy share and peak memory on the
+                first batch; a 4-trial ``trainer__lr`` search as one wave
+                of K=4 with no failed trial and its best parameters in the
+                ledger; ``run.main --analyse --tables-out`` on both
+                ledgers, every table cell mean +- std.  The kernel phases
+                end with a ``kernel_multi`` line each: the multi entries at
+                K=1 equal to the single entry to the bit, at K=3 and 4 on
+                the harness shapes against the plain K versions in f32 and
+                bf16 storage, timed beside K single calls.  Then the
+                waves over the solvers (item 17c): five K=3 seed waves
+                through ``run_trials_vmapped`` for one epoch each on the
+                raw_data phase's BeijingPM2pt5 archive (the interval
+                adjoint rectilinear and linear, hermite-dopri5 with and
+                without the adjoint, an ODE-RNN on dopri5), their launches
+                only on the multi entries as the K-lane counts reckon them;
+                and one wave gradient step beside its lanes' serial steps
+                for the harness leg with the adjoint (496 / 248 multi
+                launches), hermite-dopri5 on the first Beijing batch and
+                config 3 through ``odeint_adjoint``: launches as reckoned,
+                each lane's nfe / accepted / rejected against its serial
+                solve's, its gradients on 16 rows at the gradient gate
+                (the zoo's relu-row rules; a serial adaptive solve follows
+                the lane's steps), wall and busy ms, device reads an
+                attempt and masked lane-attempts.
 23. export   -- the exported serving artifact: the flagship predictor's
-                grid (14 keys: one program a length, 7, each serving both
-                buckets) exported and loaded with no model object,
-                the 64 requests served to the bit of the live ``Predictor``
-                with its 888 launches, both timed; the stepper (64 streams,
+                grid at length multiple 64 (4 keys: one program a length,
+                2, each serving both buckets) exported and loaded with no
+                model object, the 64 requests served to the bit of the live
+                ``Predictor`` with its 1,016 launches, both timed; the stepper (64 streams,
                 a catch-up block of 8) over 12 ticks and a 16-row backlog to
                 the bit of the live stepper; ``deploy --verify`` from the
                 harness phase's checkpoint, ``--update-params-only`` to its
@@ -242,8 +259,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -455,6 +473,9 @@ CFG3_STEPS = 2      # timed steps (cut from 5 for the run's time)
 # the same f32 formulas, the window cumsum over 512 windows summed in
 # another order, so |err| <= LOGSIG_RTOL |want| + LOGSIG_ATOL_REL max|want|.
 LOGODE_B, LOGODE_L, LOGODE_C, LOGODE_H, LOGODE_DEPTH, LOGODE_WINDOW = 256, 4096, 4, 32, 2, 8
+# The raw-series step trains on the first LOGODE_RAW_L observations (all
+# 4,096 before PR 18; cut for the run's time).
+LOGODE_RAW_L = 1025
 LOGODE_SHAPES = [(LOGODE_B, LOGODE_H, LOGODE_H, 10, 2),
                  (LOGODE_B, LOGODE_H, LOGODE_H, LOGODE_C, 2)]
 LOGODE_LR, LOGODE_STEPS = 1e-3, 2      # timed steps (cut from 5 for the run's time)
@@ -516,7 +537,7 @@ MULTI_MAIN = (3, HARNESS_SHAPES_BWD[0])      # the kernels line's timed multi sh
 # WAVE_TRIALS trials over trainer__lr as one wave of WAVE_TRIALS lanes,
 # one epoch each, and the analysis tables of both ledgers.
 WAVE_SEEDS, WAVE_SUITE, WAVE_SEARCH = (111, 222, 333), "sepsis-ncde-wave", "sepsis-ncde-lr"
-WAVE_TRIALS, WAVE_STEPS = 4, 5
+WAVE_TRIALS, WAVE_STEPS = 4, 2      # timed steps (cut from 5 in PR 18)
 WAVE_RTOL, WAVE_AUC_ATOL = 1e-3, 1e-3
 # The raw_data phase: synthetic raw archives at the published shapes of the
 # paper's benchmark datasets (dataset.json5), each builder run on them, and
@@ -595,7 +616,14 @@ SEQ_MEM_DIRECT_GROWTH, SEQ_MEM_ADJOINT_GROWTH = 2.0, 1.5
 PAR_TOY_SUITE = "toy-data-parallel"
 # The export phase's stepper: ticks, then a backlog through blocks of K.
 EXPORT_TICKS, EXPORT_BACKLOG, EXPORT_BLOCK = 12, 16, 8
-EXPORT_REPS, OP_CALLS = 10, 200
+EXPORT_REPS, OP_CALLS = 4, 200     # timed predicts: 10 before PR 18
+# The exported flagship grid's length multiple: 64 (lengths 64 and 128: 4
+# keys, 2 programs) since PR 18, 16 before (lengths 16..112: 14 keys, 7
+# programs, ~7 s of torch.export each), cut for the run's time.  A
+# request's rows do not depend on how far it is padded (the pad freezes
+# the state and the kernels' grids follow the rows), so the served rows
+# still equal the predictor phase's to the bit.
+EXPORT_LENGTH_MULTIPLE = 64
 ZOO_HH_ATTN = 15
 ZOO_SHAPES = [(b, H, hh, i, 3) for hh in (HH, ZOO_HH_ATTN) for i in (C, H)
               for b in (TRAIN_B, N_REQUESTS)]
@@ -609,6 +637,9 @@ ZOO_CPU_REQUESTS = 8
 # The six plain-field flagships train on ZOO_FIELD_L observations (the
 # flagship batch's 100 cut to 50, then 30, for the run's time).
 ZOO_FIELD_L = 30
+# The stacked and attention NCDEs train on the flagship batch's first
+# ZOO_NCDE_L observations (its 100 before PR 18, cut for the run's time).
+ZOO_NCDE_L = 50
 ZOO_FIELDS = [("gru", "matmul", None, False), ("minimal", "matmul", None, False),
               ("sparse", "matmul", 0.5, False), ("low-rank", "matmul", 0.5, True),
               ("original", "evaluate", None, False), ("original", "derivative", None, False)]
@@ -2712,9 +2743,11 @@ def phase_adaptive():
     pred_cpu = Predictor(model_cpu, coeff_fn=rectilinear_coeffs, batch_buckets=(1, 64),
                          length_multiple=LENGTH_MULTIPLE, device="cpu")
     steps = []
+    t0 = time.perf_counter()
     with recording_steps(steps):
         outs, launches, counts = solve_counted(lambda: pred.predict(requests,
                                                                     static=static))
+    predict_ms = (time.perf_counter() - t0) * 1e3
     expect_evals("flagship dopri5 predict", launches, counts)
     paths["predict"] = launches
     # The CPU on the card's steps only: its predict on its own steps (read,
@@ -2730,18 +2763,15 @@ def phase_adaptive():
         np.testing.assert_allclose(g, c, rtol=SERVE_RTOL, atol=SERVE_ATOL)
         err = max(err, float(np.abs(g - c).max()))
         share = max(share, gate_share(g, c, SERVE_RTOL, SERVE_ATOL))
-    # Timed under the device-only profiler (its own timed call cut for the
-    # run's time).
-    profile = profile_call(lambda: pred.predict(requests, static=static), host=False)
-    predict_ms = profile["wall_ms"]
+    # predict_ms is the counted call's wall time: its profiled call was cut
+    # for the run's time (PR 18), so its device busy time is not measured.
     emit("adaptive", model="flagship", path="predict", solver="dopri5 min_step=0.5",
          requests=N_REQUESTS, kernel_launches=launches, solver_counts=counts,
          host_reads=sum(c["reads"] for c in counts.values()),
          card=solve_stats(counts),
          vs_cpu_on_the_cards_steps={"max_abs_err": err, "gate_share": share,
                                     "rtol": SERVE_RTOL, "atol": SERVE_ATOL},
-         predict_ms=predict_ms, device_busy_ms=profile["device_busy_ms"],
-         device_busy_share=profile["device_busy_share"], profile=profile,
+         predict_ms=predict_ms, device_busy_ms="not measured",
          cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_part,
          phase_seconds=time.perf_counter() - t_phase)
     # The flagship's adjoint training step (~73 s) is cut for the run's time
@@ -3106,8 +3136,8 @@ def phase_zoo():
     t_phase = time.perf_counter()
     paths = {}
     gen = lambda: torch.Generator().manual_seed(0)
-    n = TRAIN_L - 1                       # linear intervals of the flagship batch
-    inputs, labels = train_batch("cuda", coeff_fn=linear_coeffs)
+    n = ZOO_NCDE_L - 1                    # linear intervals of the zoo's NCDE batch
+    inputs, labels = train_batch("cuda", coeff_fn=linear_coeffs, length=ZOO_NCDE_L)
     serve_linear = {"coeff_fn": lambda device: linear_coeffs}
 
     def stacked(device, dtype=torch.float32):
@@ -3308,16 +3338,17 @@ def phase_logode(device="cuda"):
     # The same NCDE on the raw series: one step, counted and timed.
     t_part = time.perf_counter()
     raw = logode_model(LOGODE_C, device)
-    raw_coeffs = linear_interpolation_coeffs(torch.from_numpy(x).to(device))
+    raw_coeffs = linear_interpolation_coeffs(
+        torch.from_numpy(x[:, :LOGODE_RAW_L]).to(device))
     raw_step = make_train_step(raw, loss="bce", lr=LOGODE_LR)
     t0 = time.perf_counter()
     raw_loss, raw_launches = counted(lambda: raw_step(raw_coeffs, labels, 1.0))
     raw_ms = (time.perf_counter() - t0) * 1e3
-    expect_launches("one raw-series step", raw_launches, forward=8 * (LOGODE_L - 1),
-                    backward=4 * (LOGODE_L - 1))
+    expect_launches("one raw-series step", raw_launches, forward=8 * (LOGODE_RAW_L - 1),
+                    backward=4 * (LOGODE_RAW_L - 1))
     if not np.isfinite(float(raw_loss)):
         raise AssertionError(f"raw-series loss not finite: {raw_loss}")
-    emit("logode", path="raw_series", knots=LOGODE_L, shape=list(LOGODE_SHAPES[1]),
+    emit("logode", path="raw_series", knots=LOGODE_RAW_L, shape=list(LOGODE_SHAPES[1]),
          kernel_launches=raw_launches, train_step_ms={"one_sample": raw_ms},
          step_ratio_raw_over_logsig=raw_ms / float(np.median(step_ms)),
          launch_ratio_raw_over_logsig=raw_launches["forward"] / launches["forward"],
@@ -3907,6 +3938,29 @@ def phase_harness():
         configs, _ = config.parse_configuration_json(HARNESS_SUITE, config_dir)
         cfg = configs[-1]
 
+        # Seed 222 again, in a spawned child on the card, with its own
+        # checkpoint and trace directories: started here, beside the
+        # in-process suite (its first ~20 s start an interpreter and a CUDA
+        # context), and joined before the phase ends (PR 18, for the run's
+        # time).
+        child_dir = os.path.join(tmp, "child")
+        child_configs = os.path.join(child_dir, "configurations")
+        os.makedirs(child_configs)
+        shutil.copy(os.path.join(config.DEFAULT_CONFIG_DIR, "dataset.json5"), child_configs)
+        with open(os.path.join(child_configs, "configurations.json5"), "w") as fh:
+            json.dump({HARNESS_SUITE: harness_suite(os.path.join(child_dir, "best"),
+                                                    os.path.join(child_dir, "traces"))}, fh)
+
+        def isolated():
+            t0 = time.perf_counter()
+            out = sweep.run(HARNESS_SUITE, ledger_path=os.path.join(child_dir, "ledger.jsonl"),
+                            data_root=root, config_dir=child_configs, shard_index=1,
+                            num_shards=2, config_timeout_s=300)
+            return out, time.perf_counter() - t0
+
+        child_pool = ThreadPoolExecutor(max_workers=1)
+        child_run = child_pool.submit(isolated)
+
         # The launches the batches call for: RK4 evaluates the field 4 times
         # an interval; a training step differentiates every evaluation
         # (autograd through the solve), an evaluation runs the forward; the
@@ -3969,20 +4023,6 @@ def phase_harness():
         if again:
             raise AssertionError(f"harness: the re-run completed {len(again)} configs")
 
-        # Seed 222 again, in a spawned child on the card.
-        t0 = time.perf_counter()
-        iso = sweep.run(HARNESS_SUITE, ledger_path=os.path.join(tmp, "isolated.jsonl"),
-                        data_root=root, config_dir=config_dir, shard_index=1,
-                        num_shards=2, config_timeout_s=300)
-        child_s = time.perf_counter() - t0
-        if len(iso) != 1 or iso[0][0]["seed"] != HARNESS_SEEDS[1]:
-            raise AssertionError(f"harness: the isolated run completed {iso}")
-        child = iso[0][1]
-        for key in ("test.loss", "test.auc", "test.auprc", "best_epoch"):
-            if child[key] != inproc[key]:
-                raise AssertionError(f"harness: isolated {key} {child[key]!r} against "
-                                     f"{inproc[key]!r} in process")
-
         # The best weights from the checkpoint, served.
         params = load_checkpoint(os.path.join(ckpt, "best_params"), bundle.model.state_dict())
         for k, v in params.items():
@@ -4026,6 +4066,16 @@ def phase_harness():
         want = slice_grads(bundle_cpu.model, bundle_cpu.prepare_batch(inputs),
                            bundle_cpu.prepare_labels(labels), GRAD_ROWS)
         grads_vs_cpu = grad_gate("harness: ", got, want)
+
+        iso, child_s = child_run.result()
+        child_pool.shutdown()
+        if len(iso) != 1 or iso[0][0]["seed"] != HARNESS_SEEDS[1]:
+            raise AssertionError(f"harness: the isolated run completed {iso}")
+        child = iso[0][1]
+        for key in ("test.loss", "test.auc", "test.auprc", "best_epoch"):
+            if child[key] != inproc[key]:
+                raise AssertionError(f"harness: isolated {key} {child[key]!r} against "
+                                     f"{inproc[key]!r} in process")
 
         # What the export phase deploys from: the suite's config, the
         # checkpointed best weights (seed 222's, the suite's last) and seed
@@ -4135,7 +4185,7 @@ def op_dispatch_us():
 
 def phase_export(model, requests, static, outs, deploy):
     """The exported serving artifact on the card.  The flagship predictor's
-    grid (buckets 1 and 64, lengths 16..112: 14 keys, 7 programs) exported, loaded
+    grid (buckets 1 and 64, lengths 64 and 128: 4 keys, 2 programs) exported, loaded
     with no model object and serving the 64 requests to the bit of the
     live ``Predictor`` (and of the predictor phase's outputs ``outs``),
     each ``predict`` with the live one's kernel launches; both timed over
@@ -4161,9 +4211,9 @@ def phase_export(model, requests, static, outs, deploy):
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
     try:
-        # The flagship predictor.
+        # The flagship predictor, at EXPORT_LENGTH_MULTIPLE.
         pred = Predictor(model, coeff_fn=rectilinear_coeffs, batch_buckets=(1, N_REQUESTS),
-                         length_multiple=LENGTH_MULTIPLE, device="cuda")
+                         length_multiple=EXPORT_LENGTH_MULTIPLE, device="cuda")
         path = os.path.join(tmp, "predictor")
         t0 = time.perf_counter()
         n_modules = export_predictor(pred, path, channels=C, max_length=MAX_LEN,
@@ -4172,7 +4222,7 @@ def phase_export(model, requests, static, outs, deploy):
         t0 = time.perf_counter()
         loaded = load_predictor(path)
         load_s = time.perf_counter() - t0
-        padded_len = -(-MAX_LEN // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
+        padded_len = -(-MAX_LEN // EXPORT_LENGTH_MULTIPLE) * EXPORT_LENGTH_MULTIPLE
         expected = 4 * (2 * padded_len - 2)
         first_s = time.perf_counter()
         loaded.predict(requests, static=static)      # the module's first call
@@ -4416,6 +4466,440 @@ def mean_std_cells(table):
     return n
 
 
+# ---------------------------------------------------------------------------
+# Waves over the solvers (ROADMAP item 17c; the wave phase's solver legs)
+# ---------------------------------------------------------------------------
+
+# The wave phase's solver legs, each a K=3 seed wave (WAVE_SEEDS).  Through
+# ``run_trials_vmapped`` for one epoch each, on the raw_data phase's
+# synthetic BeijingPM2pt5 archive (RAW_TSR_CASES cases, L=24, 10 channels;
+# batches of BEIJING_B, one a split: the suite's 512 raised for the run's
+# time, each epoch's passes being bound by the K-lane controller's host
+# work, not by rows) at the flagship's widths: the interval adjoint
+# (rectilinear, paired; and linear), the hermite-dopri5 leg of the
+# interpolation suite (configurations.json5) with and without the adjoint,
+# and an ODE-RNN on dopri5.  Then one wave step beside the serial steps of
+# its lanes' weights for three legs: (a) the harness leg with the adjoint
+# (Sepsis, B=1,024, the first batch's 62 intervals), (b) hermite-dopri5 on
+# the first Beijing batch, (c) the JAX bench's config 3 with the adjoint
+# (``odeint_adjoint``): the batch's wave step launches only the multi
+# entries, as reckoned; on its first GRAD_ROWS rows each lane's loss and
+# gradients are held against the serial step of its weights at the train
+# phase's gradient gate (both on the card; a K-replica launch groups the
+# head's channels otherwise than a single one, ``head_forward_grid``, so
+# the two round differently and a serial adaptive solve follows the lane's
+# accepted steps); each lane's nfe / accepted / rejected on the batch
+# against its serial solve's (equal expected, a flip printed); the wave's
+# and each serial gradient step's wall and busy ms, under the device-only
+# profiler.
+BEIJING_B = 1024
+SOLVER_WAVES = {
+    "beijing-rectilinear-adjoint": ("rectilinear", {"adjoint": True, "solver": "rk4"}),
+    "beijing-linear-adjoint": ("linear", {"adjoint": True, "solver": "rk4"}),
+    "beijing-hermite-dopri5": ("hermite", {"adjoint": False, "solver": "dopri5"}),
+    "beijing-hermite-dopri5-adjoint": ("hermite", {"adjoint": True, "solver": "dopri5"}),
+    "beijing-odernn-dopri5": (None, {"model_string": "odernn", "adjoint": False,
+                                     "solver": "dopri5"}),
+}
+ADJOINT_WAVE = "sepsis-ncde-adjoint-wave"
+RAW_ROOT = {}   # the raw_data phase's processed BeijingPM2pt5, kept until exit
+
+
+def solver_wave_suites():
+    """The solver legs' suites (see SOLVER_WAVES) and the harness leg with
+    the adjoint (leg a)."""
+    out = {}
+    for name, (interp, model) in SOLVER_WAVES.items():
+        out[name] = {
+            "hyperparameters": ["set"], "seed": list(WAVE_SEEDS),
+            "dataset_name": [RAW_TSR_NAME],
+            "dataset": {"interpolation": [interp], "batch_size": [BEIJING_B]},
+            "model": {"model_string": ["ncde"], "interpolation_eps": [None],
+                      "hidden_dim": [H], "hidden_hidden_dim": [HH],
+                      "num_layers": [N_LAYERS], **{k: [v] for k, v in model.items()}},
+            "trainer": {"max_epochs": [1]}}
+    adjoint = harness_suite(None, None)
+    adjoint["seed"] = list(WAVE_SEEDS)
+    adjoint["model"]["adjoint"] = [True]
+    adjoint["trainer"] = {"lr": [HARNESS_LR], "max_epochs": [1]}
+    out[ADJOINT_WAVE] = adjoint
+    return out
+
+
+def beijing_root():
+    """The data root holding the processed BeijingPM2pt5 archive: the
+    raw_data phase's, or one built here from the same synthetic archive
+    when that phase did not run."""
+    if not RAW_ROOT:
+        from online_neural_cdes_tpu_torch.data import builders
+
+        root = tempfile.mkdtemp(prefix="chip_smoke_beijing_")
+        atexit.register(shutil.rmtree, root, True)
+        raw = os.path.join(root, "raw")
+        write_tser(raw, RAW_TSR_NAME, RAW_TSR_CASES)
+        builders.build_tsr(RAW_TSR_NAME, root=os.path.join(root, "processed"), raw_dir=raw)
+        RAW_ROOT["processed"] = os.path.join(root, "processed")
+    return RAW_ROOT["processed"]
+
+
+def keep_beijing(processed_root):
+    """The raw_data phase's processed BeijingPM2pt5 copied to a root that
+    lives until exit, for the wave phase's solver legs."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_beijing_")
+    atexit.register(shutil.rmtree, root, True)
+    shutil.copytree(os.path.join(processed_root, "TSR"), os.path.join(root, "TSR"))
+    RAW_ROOT["processed"] = root
+
+
+def lane_loss_grads(bundle, states, prepared, labels, loss):
+    """Each lane's loss and gradients as the wave's step takes them: one
+    ``torch.func.vmap`` of the loss over the stacked weights and plain
+    autograd of the losses' sum.  Returns (losses (K,), a gradient dict a
+    lane)."""
+    from online_neural_cdes_tpu_torch.training import wave
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+
+    model, pointwise = bundle.model, make_loss(loss)
+    names = [n for n, _ in model.named_parameters()]
+    stacked = wave._stack_states(states)
+    params = {k: stacked[k].detach().requires_grad_() for k in names}
+    buffers = {k: v for k, v in stacked.items() if k not in params}
+
+    def lane(p, b):
+        preds = torch.func.functional_call(model, (p, b), (prepared,))
+        return masked_temporal_loss(pointwise, preds, labels, sqrt=loss == "rmse")
+
+    losses = torch.func.vmap(lane)(params, buffers)
+    grads = torch.autograd.grad(losses.sum(), list(params.values()))
+    return losses.detach(), [{n: g[j].detach() for n, g in zip(names, grads)}
+                             for j in range(len(states))]
+
+
+def serial_loss_grads(bundle, state, prepared, labels, loss):
+    """One lane's loss and gradients on its own (the serial step's)."""
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+
+    model = bundle.model
+    params = {n: state[n].detach().clone().requires_grad_() for n, _ in
+              model.named_parameters()}
+    buffers = {k: v for k, v in state.items() if k not in params}
+    preds = torch.func.functional_call(model, (params, buffers), (prepared,))
+    value = masked_temporal_loss(make_loss(loss), preds, labels, sqrt=loss == "rmse")
+    grads = torch.autograd.grad(value, list(params.values()))
+    return value.detach(), {n: g.detach() for n, g in zip(params, grads)}
+
+
+def lane_reckoning(counts):
+    """The multi entries' launches that the solvers' K-lane counts reckon:
+    every K-lane field evaluation one forward-multi launch; the replay's
+    and the reverse solves' (not the reverse's one f(t_i, y_i) an output
+    interval, ``lane_solves``) one backward-multi launch each too."""
+    get = lambda kind, key: counts.get(kind, {}).get(key, 0)
+    return {"forward_multi": sum(get(k, "lane_evals") for k in ("forward", "replay",
+                                                                 "reverse")),
+            "backward_multi": get("replay", "lane_evals") + get("reverse", "lane_evals")
+            - get("reverse", "lane_solves")}
+
+
+def lane_search(counts):
+    """The K-lane controller's figures from the solvers' counts: attempts,
+    device reads an attempt, lane-attempts that rode masked."""
+    fwd = counts.get("forward", {})
+    attempts = fwd.get("attempts", 0)
+    return {"attempts": attempts, "wasted_lane_attempts": fwd.get("wasted", 0),
+            "reads_per_attempt": fwd.get("reads", 0) / attempts if attempts else None,
+            "lane_evals": {k: c.get("lane_evals", 0) for k, c in counts.items()}}
+
+
+@contextmanager
+def recording_lane_steps(steps):
+    """Appends each lane's accepted steps of the K-lane solves run inside,
+    in their order, to ``steps[j]`` (as :func:`recording_steps` does for a
+    serial solve)."""
+    from online_neural_cdes_tpu_torch.ops import solvers
+
+    attempt = solvers._LaneController.attempt
+
+    def recorded(lc, st, active, fits=False):
+        accepted, fit = attempt(lc, st, active, fits)
+        for j, step in enumerate(accepted):
+            if step is not None:
+                steps[j].append(step)
+        return accepted, fit
+
+    solvers._LaneController.attempt = recorded
+    try:
+        yield steps
+    finally:
+        solvers._LaneController.attempt = attempt
+
+
+def lane_input_grads(bundle, states, inputs, labels, loss):
+    """Each lane's loss, parameter gradients and input cotangents, every
+    lane with its own copy of ``inputs`` and its own row of ``labels``
+    (K, ...): one ``torch.func.vmap`` of the loss, plain autograd of the
+    sum (the wave's step)."""
+    from online_neural_cdes_tpu_torch.training import wave
+    from online_neural_cdes_tpu_torch.training.metrics import make_loss, masked_temporal_loss
+
+    model, pointwise, k = bundle.model, make_loss(loss), len(states)
+    names = [n for n, _ in model.named_parameters()]
+    stacked = wave._stack_states(states)
+    params = {n: stacked[n].detach().requires_grad_() for n in names}
+    buffers = {n: v for n, v in stacked.items() if n not in params}
+    single = isinstance(inputs, torch.Tensor)
+    leaves = tuple(t.detach().unsqueeze(0).expand((k,) + tuple(t.shape)).clone()
+                   .requires_grad_() for t in ((inputs,) if single else inputs))
+
+    def lane(p, b, xs, lab):
+        preds = torch.func.functional_call(model, (p, b), (xs[0] if single else tuple(xs),))
+        return masked_temporal_loss(pointwise, preds, lab, sqrt=loss == "rmse")
+
+    losses = torch.func.vmap(lane)(params, buffers, leaves, labels)
+    grads = torch.autograd.grad(losses.sum(), [*params.values(), *leaves], allow_unused=True)
+    n = len(names)
+    return (losses.detach(),
+            [{name: g[j].detach() for name, g in zip(names, grads[:n]) if g is not None}
+             for j in range(k)],
+            [tuple(None if g is None else g[j].detach() for g in grads[n:]) for j in range(k)])
+
+
+@contextmanager
+def recording_lane_counts(rows):
+    """Appends each lane's (nfe, accepted, rejected) of every K-lane
+    forward solve run inside to ``rows``, one list of K a solve."""
+    from online_neural_cdes_tpu_torch.ops import solvers
+
+    count = solvers._LaneController.count
+
+    def recorded(lc, st):
+        if solvers._KIND[-1] == "forward":
+            rows.append([(int(st.nfe[j]), int(st.accepted[j]), int(st.rejected[j]))
+                         for j in range(lc.k)])
+        return count(lc, st)
+
+    solvers._LaneController.count = recorded
+    try:
+        yield rows
+    finally:
+        solvers._LaneController.count = count
+
+
+def profiled_counted(fn):
+    """:func:`solve_counted` of ``fn`` as one call under the device-only
+    profiler: (result, launches, solver counts, the call's wall ms, the
+    card's busy ms and share)."""
+    box = {}
+
+    def run():
+        box["out"] = solve_counted(fn)
+
+    prof = profile_call(run, host=False)
+    return (*box["out"], {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                               "device_busy_share")})
+
+
+def lanes_against_serial(what, bundle, states, prepared, labels, loss, expect):
+    """A wave of ``states`` against each lane's serial step.  The batch's
+    gradient step (forward and backward) as one wave gives the launches
+    (``expect(counts)``, 0 on the single entries) and its wall and busy ms;
+    each lane's serial gradient step on the batch gives its own, K of them
+    beside the wave's.  An adaptive solve's nfe / accepted / rejected a
+    lane on the batch against its serial solve's: equal expected, any flip
+    printed.  On the batch's first GRAD_ROWS rows each lane's gradients
+    are held against the serial step of its weights at the zoo's gate
+    (:func:`zoo_grad_gate`'s rules: every tensor at the gradient gate, after
+    up to ZOO_MAX_DROPPED rows whose input cotangents differ past theirs, a
+    relu decision that a K-replica launch and a single one round to
+    different sides, leave the loss, each printed); a serial adaptive solve
+    follows the lane's own accepted steps (``following_steps``)."""
+    k = len(states)
+    lane_counts = []
+    with recording_lane_counts(lane_counts):
+        (losses, _), launches, counts, wave_time = profiled_counted(
+            lambda: lane_loss_grads(bundle, states, prepared, labels, loss))
+    want = expect(counts)
+    expect_launches(f"{what}: the wave step", launches, **want)
+    serial_runs = [profiled_counted(lambda state=state: serial_loss_grads(
+        bundle, state, prepared, labels, loss)) for state in states]
+    adaptive = bool(lane_counts)
+    flips, batch_counts = [], None
+    if adaptive:
+        batch_counts = []
+        for j, run in enumerate(serial_runs):
+            fwd = run[2]["forward"]
+            row = {"nfe": [lane_counts[0][j][0], fwd["nfe"]],
+                   "accepted": [lane_counts[0][j][1], fwd["accepted"]],
+                   "rejected": [lane_counts[0][j][2], fwd["rejected"]]}
+            if any(a != b for a, b in row.values()):
+                flips.append({"lane": j, **row})
+            batch_counts.append(row)
+    busy = [run[3]["device_busy_ms"] for run in serial_runs]
+    times = {"wave_step": wave_time, "serial_steps": [run[3] for run in serial_runs],
+             "k_serial_wall_ms": sum(run[3]["wall_ms"] for run in serial_runs),
+             "k_serial_busy_ms": (sum(busy) if all(isinstance(b, float) for b in busy)
+                                  else "not measured")}
+
+    rows = slice(0, GRAD_ROWS)
+    sub = take_rows(prepared, rows)
+    lane_labels = labels[rows].unsqueeze(0).repeat((k,) + (1,) * (labels.dim()))
+    steps = [[] for _ in states]
+    with recording_lane_steps(steps):
+        _, got, got_in = lane_input_grads(bundle, states, sub, lane_labels, loss)
+
+    def serial(j):
+        from online_neural_cdes_tpu_torch.training.metrics import (
+            make_loss, masked_temporal_loss,
+        )
+
+        model = bundle.model
+        model.load_state_dict(states[j])
+        model.zero_grad(set_to_none=True)
+        single = isinstance(sub, torch.Tensor)
+        leaves = tuple(t.detach().clone().requires_grad_()
+                       for t in ((sub,) if single else sub))
+        with following_steps(steps[j]) if adaptive else nullcontext():
+            preds = model(leaves[0] if single else leaves)
+            masked_temporal_loss(make_loss(loss), preds, lane_labels[j],
+                                 sqrt=loss == "rmse").backward()
+        return ({n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}, tuple(t.grad for t in leaves))
+
+    lanes, dropped_by_lane = [], {}
+    wants = [serial(j) for j in range(k)]
+    for j, (w, w_in) in enumerate(wants):
+        shares = row_shares(got_in[j], [None if t is None else t.cpu() for t in w_in])
+        dropped = {r: s for r, s in enumerate(shares) if not s <= 1.0}
+        if len(dropped) > ZOO_MAX_DROPPED:
+            raise AssertionError(f"{what}: lane {j}: {len(dropped)} of {len(shares)} rows' "
+                                 f"input cotangents differ past their gate: {dropped}")
+        if dropped:
+            lane_labels[j, list(dropped)] = float("nan")
+            dropped_by_lane[j] = dropped
+        lanes.append({"loss": [float(losses[j]), float(serial_runs[j][0][0])],
+                      "serial_launches": serial_runs[j][1],
+                      "input_cotangent_share": max(s for s in shares if s <= 1.0),
+                      "dropped_rows": dropped})
+    if dropped_by_lane:
+        _, got, _ = lane_input_grads(bundle, states, sub, lane_labels, loss)
+        for j in dropped_by_lane:
+            wants[j] = serial(j)
+    gates = []
+    for j, (w, _) in enumerate(wants):
+        w = {n: t.cpu() for n, t in w.items()}
+        if set(got[j]) != set(w):
+            raise AssertionError(f"{what}: lane {j}'s gradients reach {sorted(got[j])}, "
+                                 f"its serial step's {sorted(w)}")
+        per = {n: gate_share(got[j][n].cpu(), t, GRAD_RTOL,
+                             GRAD_ATOL_REL * float(t.abs().max())) for n, t in w.items()}
+        failed = {n: sh for n, sh in per.items() if not sh <= 1.0}
+        if failed:
+            raise AssertionError(f"{what}: lane {j}'s gradients past their gate: {failed}")
+        gates.append(max(per.values()))
+        lanes[j]["grad_gate_share"] = max(per.values())
+    return {"launches": launches, "expected": want, "solver_counts": counts,
+            "search": lane_search(counts), "grad_rows": GRAD_ROWS,
+            "max_grad_gate_share": max(gates), "lanes": lanes, "times": times,
+            "batch_counts_wave_serial": batch_counts, "count_flips": flips}
+
+
+def solver_waves(config_dir, sepsis_root):
+    """The wave phase's solver legs (see SOLVER_WAVES): each suite through
+    ``run_trials_vmapped`` on the card for one epoch, then legs (a)-(c) a
+    step each beside their serial steps.  Returns the launches by path."""
+    from online_neural_cdes_tpu_torch.data.loader import Batches
+    from online_neural_cdes_tpu_torch.ops import solvers
+    from online_neural_cdes_tpu_torch.training import config, wave
+    from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
+
+    root = beijing_root()
+    paths = {}
+    for name, (interp, model) in SOLVER_WAVES.items():
+        t0 = time.perf_counter()
+        cfgs, _ = config.parse_configuration_json(name, config_dir)
+        bundle, (train, val, test) = load_and_setup(cfgs[0], root)
+        results, launches, counts = solve_counted(
+            lambda: wave.run_trials_vmapped(cfgs, data_root=root))   # the main path
+        if model.get("model_string") == "odernn":
+            want = {}           # the plain field: no kernel
+        elif model["solver"] == "rk4":
+            def iv(data):
+                return [b[0].shape[1] - 1 for b in Batches(data, BEIJING_B)]
+            train_iv = iv(train)
+            evals = sum(train_iv) + sum(iv(val)) + sum(iv(val)) + sum(iv(test))
+            want = {"forward_multi": 4 * train_iv[0] + 8 * sum(train_iv) + 4 * evals,
+                    "backward_multi": 4 * sum(train_iv)}
+        else:
+            want = lane_reckoning(counts)
+        expect_launches(f"wave {name}", launches, **want)
+        if len(results) != len(WAVE_SEEDS) or not all(
+                np.isfinite(r["test.loss"]) and r["epochs_run"] == 1 for r in results):
+            raise AssertionError(f"wave {name}: {results}")
+        emit("wave", leg=name, run_trials_vmapped={
+                 "lanes": len(results), "launches": launches, "expected": want,
+                 "search": lane_search(counts),
+                 "nfe": [r["nfe"] for r in results],
+                 "test_loss": [r["test.loss"] for r in results],
+                 "seconds": time.perf_counter() - t0})
+        paths[f"wave_{name}"] = launches
+
+    # (a) The harness leg with the adjoint: B=1,024 on Sepsis, K=3.
+    t0 = time.perf_counter()
+    cfgs, _ = config.parse_configuration_json(ADJOINT_WAVE, config_dir)
+    bundle, (train, _, _) = load_and_setup(cfgs[0], sepsis_root)
+    inputs, labels = next(iter(Batches(train, HARNESS_B)))
+    prepared, labels = bundle.prepare_batch(inputs), bundle.prepare_labels(labels)
+    iv = split_intervals(train)[0]
+    states = [bundle.init(s) for s in WAVE_SEEDS]
+    leg = lanes_against_serial(
+        "wave adjoint", bundle, states, prepared, labels, "bce",
+        lambda counts: {"forward_multi": 8 * iv, "backward_multi": 4 * iv})
+    for lane in leg["lanes"]:
+        expect_launches("wave adjoint: a serial step", lane["serial_launches"],
+                        forward=8 * iv, backward=4 * iv)
+    emit("wave", leg="a_adjoint_step", batch=HARNESS_B, intervals=iv, **leg,
+         seconds=time.perf_counter() - t0)
+    paths["wave_adjoint_step"] = leg["launches"]
+
+    # (b) hermite-dopri5 on the first Beijing batch, K=3.
+    t0 = time.perf_counter()
+    cfgs, _ = config.parse_configuration_json("beijing-hermite-dopri5", config_dir)
+    bundle, (train, _, _) = load_and_setup(cfgs[0], root)
+    inputs, labels = next(iter(Batches(train, BEIJING_B)))
+    prepared, labels = bundle.prepare_batch(inputs), bundle.prepare_labels(labels)
+    states = [bundle.init(s) for s in WAVE_SEEDS]
+    leg = lanes_against_serial("wave dopri5", bundle, states, prepared, labels, "rmse",
+                               lane_reckoning)
+    emit("wave", leg="b_dopri5_step", batch=BEIJING_B, **leg,
+         seconds=time.perf_counter() - t0)
+    paths["wave_dopri5_step"] = leg["launches"]
+
+    # (c) config 3 with the adjoint (odeint_adjoint), K=3.
+    t0 = time.perf_counter()
+    model, coeffs, cfg3_labels = config3("cuda", adjoint=True)
+    states = [config3_state(s) for s in WAVE_SEEDS]
+
+    bundle = types.SimpleNamespace(model=model)   # the step helpers' view of a bundle
+    leg = lanes_against_serial("wave odeint_adjoint", bundle, states, coeffs, cfg3_labels,
+                               "mse", lane_reckoning)
+    emit("wave", leg="c_odeint_adjoint_step", batch=CFG3_B, **leg,
+         seconds=time.perf_counter() - t0)
+    paths["wave_odeint_adjoint_step"] = leg["launches"]
+    solvers.reset_counts()
+    return paths
+
+
+def config3_state(seed):
+    """Config 3's weights drawn from ``seed`` (the lanes of leg c)."""
+    from online_neural_cdes_tpu_torch import NeuralCDE
+
+    return NeuralCDE(input_dim=CFG3_C, hidden_dim=CFG3_H, output_dim=1,
+                     hidden_hidden_dim=CFG3_H, num_layers=2, interpolation="hermite",
+                     return_sequences=False, adjoint=True, solver="dopri5",
+                     generator=torch.Generator().manual_seed(seed),
+                     device="cuda").state_dict()
+
+
 def phase_wave(serial=None):
     """A suite's seeds as one wave on the card: the harness phase's suite
     with medical-sota's three seeds through ``run.main`` (co-scheduled: one
@@ -4444,7 +4928,7 @@ def phase_wave(serial=None):
         os.makedirs(config_dir)
         shutil.copy(os.path.join(config.DEFAULT_CONFIG_DIR, "dataset.json5"), config_dir)
         with open(os.path.join(config_dir, "configurations.json5"), "w") as fh:
-            json.dump(wave_suites(), fh)
+            json.dump({**wave_suites(), **solver_wave_suites()}, fh)
         configs, _ = config.parse_configuration_json(WAVE_SUITE, config_dir)
         bundle, (train, val, test) = load_and_setup(configs[0], root)
         train_iv = split_intervals(train)
@@ -4600,10 +5084,14 @@ def phase_wave(serial=None):
                      "seconds": search_s, "best_parameters": best[0]["info"][
                          "best_parameters"], "scores": [e["results"]["score"]
                                                        for e in trials]},
-             tables=tables, phase_seconds=time.perf_counter() - t_phase)
+             tables=tables, seconds=time.perf_counter() - t_phase)
+        # The solver legs (item 17c).
+        solver_paths = solver_waves(config_dir, root)
+        emit("wave", phase_seconds=time.perf_counter() - t_phase)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"wave": launches, "wave_step": wave_timed["launches"], "search": search_launches}
+    return {"wave": launches, "wave_step": wave_timed["launches"], "search": search_launches,
+            **solver_paths}
 
 
 # ---------------------------------------------------------------------------
@@ -4844,6 +5332,7 @@ def phase_raw_data():
             raise AssertionError("raw_data: the timestamped file's columns")
         tsr_path = timed("tsr", lambda: builders.build_tsr(RAW_TSR_NAME, root=root,
                                                             raw_dir=tsr))
+        keep_beijing(root)          # the wave phase's solver legs train on it
         sc = timed("speech_commands", lambda: builders.build_speech_commands(
             root=root, raw_dir=speech))
         for name, path, n, channels, labels in (
@@ -6162,8 +6651,8 @@ def timed_phase(name, fn, *args):
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
           "chains", "splines", "toy", "train_bf16", "predict_bf16", "bench_bf16_leg",
-          "adaptive", "zoo", "logode", "solver_extras", "data", "harness", "wave",
-          "raw_data", "export", "parallel")
+          "adaptive", "zoo", "logode", "solver_extras", "data", "harness", "raw_data",
+          "wave", "export", "parallel")
 
 
 def main(argv=None) -> int:
@@ -6225,10 +6714,10 @@ def main(argv=None) -> int:
     serial = deploy = None
     if "harness" in phases:
         harness_launches, serial, deploy = timed_phase("harness", phase_harness)
-    if "wave" in phases:
-        wave_launches = timed_phase("wave", phase_wave, serial)
     if "raw_data" in phases:
         raw_launches = timed_phase("raw_data", phase_raw_data)
+    if "wave" in phases:
+        wave_launches = timed_phase("wave", phase_wave, serial)
     if "export" in phases:
         if deploy is None:   # the checkpoint to deploy from: the harness's
             _, _, deploy = timed_phase("harness", phase_harness)

@@ -37,7 +37,9 @@ and ``train``, the experiment and sweep runners and their command line
 (``training.config``, ``.ledger``, ``.harness``, ``.experiment``,
 ``.sweep``, ``run``), the toy dataset builder (``data.builders``) and
 ``serving.predictor_from_bundle``; waves, hyperopt and analysis
-(``training.wave``, ``.hyperopt``, ``.analyse``); and the raw-archive
+(``training.wave``, ``.hyperopt``, ``.analyse``), the waves over the
+interval adjoint, ``odeint_adjoint`` and the adaptive and Adams solvers
+too (the solves' vmap rules, a K-lane host controller); and the raw-archive
 builders (``data.ts_format``, ``.download``, ``.audio``, ``.mimic_raw``,
 ``.builders``) and data parallelism with seed ensembles over
 ``torch.distributed`` (``parallel.mesh``, ``parallel.ensemble``, ``mesh=``

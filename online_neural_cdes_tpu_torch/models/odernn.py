@@ -86,8 +86,16 @@ class ODERNN(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.ode_out["w"].dtype
 
-    def _ode_func(self, t, h, args):
-        return linear_apply(self.ode_out, mlp_apply(self.ode_net, h, final_activation=torch.tanh))
+    def _ode_weights(self) -> dict:
+        """The ODE's weights as plain nested dicts and lists, handed to the
+        solve as its ``args`` (a wave's solve batches them over its lanes)."""
+        return {"net": [{"w": layer["w"], "b": layer["b"]} for layer in self.ode_net],
+                "out": {"w": self.ode_out["w"], "b": self.ode_out["b"]}}
+
+    @staticmethod
+    def _ode_func(t, h, weights):
+        return linear_apply(weights["out"], mlp_apply(weights["net"], h,
+                                                      final_activation=torch.tanh))
 
     def step_gaps(self, length: int, times=None, dtype=np.float32) -> np.ndarray:
         """The ODE's span before each of the ``length`` observations, on the
@@ -109,9 +117,10 @@ class ODERNN(nn.Module):
         gi = linear_apply(self.cell["ih"], x)            # every step's input projection
         h = torch.zeros(x.shape[:-2] + (self.hidden_dim,), dtype=x.dtype, device=x.device)
         hs = []
+        weights = self._ode_weights()
         for i, dt in enumerate(gaps):
             span = np.array([0.0, dt], dtype=np_dtype)
-            h = odeint(self._ode_func, h, span, None, method=self.solver)[-1]
+            h = odeint(self._ode_func, h, span, weights, method=self.solver)[-1]
             h = update(gi[..., i, :], self.cell, h)
             hs.append(h)
         out = torch.stack(hs, dim=-2) if self.return_sequences else h

@@ -316,11 +316,18 @@ class _ReverseSolve:
     field arguments, which of them need cotangents, and the running
     ``args_bar``."""
 
-    def __init__(self, ctx, setup: _Setup):
+    def __init__(self, ctx, setup: _Setup, lanes=None):
         zs, *leaves = ctx.saved_tensors
         pieces, arg_leaves = setup.split(leaves)
-        need = ctx.needs_input_grad[2:]
+        # K lanes (``lanes``: each leaf's lane dim, 0 or None): the states
+        # are (K, L, ..., H) and the pieces and args as they came.
+        need = ctx.needs_input_grad[2 if lanes is None else 3:]
         n_p = len(setup.piece_keys)
+        self.lanes = lanes
+        if lanes is not None:
+            self.piece_dims, arg_dims = setup.split(lanes)
+            self.arg_dims = list(arg_dims)
+            zs = zs.movedim(1, 0)                     # knot-major: zs[i] is (K, ..., H)
         self.zs = zs
         self.setup = setup
         self.pieces = pieces
@@ -328,16 +335,24 @@ class _ReverseSolve:
         self.arg_need = list(need[n_p:])
         self.arg_leaves = [t.detach().requires_grad_(n)
                            for t, n in zip(arg_leaves, self.arg_need)]
-        self.args = setup.rebuild_args(self.arg_leaves)
+        # The K-lane field rebuilds the args from their leaves inside its vmap.
+        self.args = (setup.rebuild_args(self.arg_leaves) if lanes is None
+                     else self.arg_leaves)
         self.args_wrt = [t for t, n in zip(self.arg_leaves, self.arg_need) if n]
         self.args_bar = [torch.zeros_like(t) for t in self.args_wrt]
         self.step = solvers.tree_fixed_step(setup.adj_method, live=2)
         self.piece_bars = {k: [None] * (len(setup.grid) - 1) for k in self.piece_need}
 
+    def lane_field(self, pf):
+        """``pf`` for K lanes (:func:`_lane_field`)."""
+        return _lane_field(pf, self.piece_dims, self.arg_dims, self.setup.rebuild_args)
+
     def interval(self, pf, i, a):
         """Reverse interval i (knots i -> i+1) from the adjoint ``a`` at
         knot i+1; returns ``a`` at knot i."""
-        piece = {k: v[i].detach().requires_grad_(k in self.piece_need)
+        lane_piece = self.lanes is not None
+        piece = {k: (v[:, i] if lane_piece and self.piece_dims[k] == 0 else v[i])
+                 .detach().requires_grad_(k in self.piece_need)
                  for k, v in self.pieces.items()}
         a, self.args_bar, piece_bar = _interval_adjoint_bwd(
             self.step, pf, piece, [piece[k] for k in self.piece_need],
@@ -349,25 +364,48 @@ class _ReverseSolve:
 
     def grads(self, a0):
         """The Function's input cotangents: (None, z0, *pieces, *args)."""
-        piece_grads = [torch.stack(self.piece_bars[k]) if k in self.piece_bars
-                       else None for k in self.setup.piece_keys]
+        piece_grads = [torch.stack(self.piece_bars[k], dim=1 if self.lanes is not None
+                                   and self.piece_dims[k] == 0 else 0)
+                       if k in self.piece_bars else None for k in self.setup.piece_keys]
         bars = iter(self.args_bar)
         arg_grads = [next(bars) if n else None for n in self.arg_need]
         return (None, a0, *piece_grads, *arg_grads)
+
+
+def _lane_major(k, tensor, dim):
+    """A vmap rule's operand with its lane dim first: moved (a view), or an
+    unbatched one expanded over the lanes (its gradient sums over them)."""
+    if dim is None:
+        return tensor.expand((k,) + tuple(tensor.shape))
+    return tensor.movedim(dim, 0)
+
+
+def _needs_adjoint(tensors) -> bool:
+    """Whether a solve is differentiated: grad mode on and an input that
+    requires grad, or a ``torch.func.vmap`` lane tensor (the wave's step,
+    whose lanes report no ``requires_grad``; its vmap rule decides)."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad or torch._C._functorch.is_batchedtensor(x) for x in tensors)
 
 
 class _FixedCDEAdjoint(torch.autograd.Function):
     """JAX ``_fixed_cde_adjoint``: the piece scan forward (run with no
     autograd graph, keeping the knot states), the interval adjoint
     backward.  Inputs ``(setup, z0, *piece leaves, *arg leaves)``; output
-    the knot states (L, ..., H)."""
+    the knot states (L, ..., H).  Under ``torch.func.vmap`` (a wave's K
+    models sharing the grid and the pieces, their weights batched) its
+    ``vmap`` rule records :class:`_FixedCDEAdjointLanes`, as
+    ``jax.vmap`` batches the JAX ``custom_vjp``."""
 
     @staticmethod
-    def forward(ctx, setup, z0, *leaves):
-        zs = setup.scan(z0, leaves)
+    def forward(setup, z0, *leaves):
+        return setup.scan(z0, leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        setup, _, *leaves = inputs
         ctx.setup = setup
-        ctx.save_for_backward(zs, *leaves)
-        return zs
+        ctx.save_for_backward(output, *leaves)
 
     @staticmethod
     def backward(ctx, grad_zs):
@@ -376,6 +414,14 @@ class _FixedCDEAdjoint(torch.autograd.Function):
         for i in range(len(ctx.setup.grid) - 2, -1, -1):
             a = rev.interval(ctx.setup.pfs[0], i, a + grad_zs[i + 1])
         return rev.grads(a + grad_zs[0])
+
+    @staticmethod
+    def vmap(info, in_dims, setup, z0, *leaves):
+        k = info.batch_size
+        dims = [None if d is None else 0 for d in in_dims[2:]]
+        leaves = [t if d is None else t.movedim(d, 0) for t, d in zip(leaves, in_dims[2:])]
+        zs = _FixedCDEAdjointLanes.apply(setup, dims, _lane_major(k, z0, in_dims[1]), *leaves)
+        return zs, 0
 
 
 class _FixedCDEAdjointPaired(_FixedCDEAdjoint):
@@ -392,6 +438,62 @@ class _FixedCDEAdjointPaired(_FixedCDEAdjoint):
             a = rev.interval(pf_odd, i + 1, a + grad_zs[i + 2])
             a = rev.interval(pf_even, i, a + grad_zs[i + 1])
         return rev.grads(a + grad_zs[0])
+
+
+def _lane_field(pf, piece_dims, arg_dims, rebuild_args):
+    """The K-lane piece field: ``pf`` under ``torch.func.vmap`` over the
+    lanes' states and weights (the pieces shared unless batched), so the
+    fused field takes its kernels' multi entries.  ``args`` is the list of
+    arg leaves."""
+
+    def lanes(piece, t, frac, z, arg_leaves):
+        def one(piece, z, arg_leaves):
+            return pf(piece, t, frac, z, rebuild_args(list(arg_leaves)))
+
+        mapped = torch.func.vmap(one, in_dims=({k: piece_dims[k] for k in piece}, 0,
+                                                list(arg_dims)))
+        return mapped(piece, z, list(arg_leaves))
+
+    return lanes
+
+
+class _FixedCDEAdjointLanes(torch.autograd.Function):
+    """The interval adjoint of K lanes (what :class:`_FixedCDEAdjoint`'s
+    vmap rule records): inputs ``(setup, dims, z0 (K, ..., H), *piece
+    leaves, *arg leaves)``, a leaf batched along dim 0 where ``dims`` says
+    0 and shared where it says None.  The forward is the piece scan under
+    ``torch.func.vmap`` (4 forward-multi launches an RK4 interval on the
+    card); the backward reverses each interval for every lane at once with
+    plain autograd over the vmapped field (per RK4 interval 4 forward-multi
+    and 4 backward-multi launches, the serial adjoint's 8 / 4 single
+    ones).  Output the lanes' knot states (K, L, ..., H)."""
+
+    @staticmethod
+    def forward(setup, dims, z0, *leaves):
+        return torch.func.vmap(setup.scan, in_dims=(0, list(dims)))(z0, list(leaves))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        setup, dims, _, *leaves = inputs
+        ctx.setup, ctx.dims = setup, dims
+        ctx.save_for_backward(output, *leaves)
+
+    @staticmethod
+    def backward(ctx, grad_zs):
+        setup = ctx.setup
+        rev = _ReverseSolve(ctx, setup, lanes=ctx.dims)
+        a = torch.zeros_like(grad_zs[:, 0])
+        n = len(setup.grid) - 1
+        if len(setup.pfs) == 2:
+            pf_even, pf_odd = (rev.lane_field(pf) for pf in setup.pfs)
+            for i in range(n - 2, -1, -2):
+                a = rev.interval(pf_odd, i + 1, a + grad_zs[:, i + 2])
+                a = rev.interval(pf_even, i, a + grad_zs[:, i + 1])
+        else:
+            pf = rev.lane_field(setup.pfs[0])
+            for i in range(n - 1, -1, -1):
+                a = rev.interval(pf, i, a + grad_zs[:, i + 1])
+        return (None, *rev.grads(a + grad_zs[:, 0]))
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +539,39 @@ class _AdjointSetup:
                               atol=self.atol, method=self.method,
                               options=dict(self.options))
 
+    def reverse_options(self, n_args: int) -> dict:
+        """The reverse solves' options (``seminorm``: the parameter-gradient
+        blocks weigh 0 in the step control)."""
+        opts = dict(self.adj_options)
+        if self.seminorm:
+            opts["error_weights"] = [1.0] * (2 * self.n_y + 1) + [0.0] * n_args
+        return opts
+
+    # K lanes (``_OdeintAdjointLanes``)
+
+    def flat(self, tt, y_leaves, arg_leaves):
+        """The field of one lane on flat leaves."""
+        return flatten(self.func(tt, self.rebuild_y(list(y_leaves)),
+                                 self.rebuild_args(list(arg_leaves))))[0]
+
+    def lane_func(self, k, arg_leaves):
+        """The K-lane field over (K, ...) arg leaves: ``func_k(t, y)``."""
+        mapped = torch.func.vmap(self.flat, in_dims=(0, 0, 0))
+        return lambda t, y: mapped(t, list(y), list(arg_leaves))
+
+    @staticmethod
+    def lane_solve(options, rtol, atol, method, t_host, y_leaves, tuple_state) -> dict:
+        """``solvers.odeint_lanes``' settings as ``solvers.odeint`` would
+        take them for these leaves (a tuple state's error per leaf unless
+        ``norm="rms"``)."""
+        options = dict(options)
+        per_leaf = tuple_state and options.pop("norm", None) != "rms"
+        options.pop("norm", None)
+        time_dtype = (y_leaves[0].dtype if method in solvers.ADAPTIVE_METHODS
+                      else solvers._time_dtype(np.asarray(t_host)))
+        return dict(rtol=rtol, atol=atol, method=method, options=options,
+                    per_leaf=per_leaf, time_dtype=time_dtype)
+
 
 class _OdeintAdjoint(torch.autograd.Function):
     """JAX ``_odeint_adjoint``: the forward solve with no autograd graph;
@@ -447,15 +582,19 @@ class _OdeintAdjoint(torch.autograd.Function):
     integrated (its block is part of the error norm) whether or not it
     requires grad, and ``vt``, the output times' gradient, is integrated
     always.  Inputs ``(setup, t, *y0 leaves, *arg leaves)``; outputs the
-    state's leaves at every output time."""
+    state's leaves at every output time.  Under ``torch.func.vmap`` its
+    ``vmap`` rule records :class:`_OdeintAdjointLanes`."""
 
     @staticmethod
-    def forward(ctx, setup, t, *leaves):
+    def forward(setup, t, *leaves):
         ys = setup.solve(leaves[:setup.n_y], t, leaves[setup.n_y:])
-        ys = tuple(flatten(ys)[0])
+        return tuple(flatten(ys)[0])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        setup, t, *leaves = inputs
         ctx.setup = setup
-        ctx.save_for_backward(t, *leaves[setup.n_y:], *ys)
-        return ys
+        ctx.save_for_backward(t, *leaves[setup.n_y:], *output)
 
     @staticmethod
     def backward(ctx, *grad_ys):
@@ -492,9 +631,7 @@ class _OdeintAdjoint(torch.autograd.Function):
         vt = torch.zeros((), dtype=dtype, device=device)
         args_bar = [torch.zeros_like(leaf) for leaf in args_d]
         t_bar = [None] * len(t_host)
-        opts = dict(setup.adj_options)
-        if setup.seminorm:
-            opts["error_weights"] = [1.0] * (2 * n_y + 1) + [0.0] * len(args_d)
+        opts = setup.reverse_options(len(args_d))
         with solvers.counting_as("reverse"):
             for i in range(len(t_host) - 1, 0, -1):
                 y_i = [y[i] for y in ys]
@@ -519,6 +656,115 @@ class _OdeintAdjoint(torch.autograd.Function):
         t_bar[0] = vt
         t_grad = (torch.stack(t_bar).to(t.dtype).to(t.device)
                   if ctx.needs_input_grad[1] else None)
+        need_args = ctx.needs_input_grad[2 + n_y:]
+        return (None, t_grad, *a,
+                *[bar if need else None for bar, need in zip(args_bar, need_args)])
+
+    @staticmethod
+    def vmap(info, in_dims, setup, t, *leaves):
+        if in_dims[1] is not None:
+            raise ValueError("output times that differ between a wave's lanes do not wave "
+                             "(ROADMAP item 17d)")
+        k = info.batch_size
+        # Every leaf per lane: each lane integrates its own cotangent of a
+        # shared argument (a spline's coefficients) in its reverse solve,
+        # as its serial backward does; the expand sums them.
+        leaves = [_lane_major(k, leaf, d) for leaf, d in zip(leaves, in_dims[2:])]
+        out = _OdeintAdjointLanes.apply(setup, t, *leaves)
+        return out, (0,) * len(out)
+
+
+class _OdeintAdjointLanes(torch.autograd.Function):
+    """``odeint_adjoint`` for K lanes (what :class:`_OdeintAdjoint`'s vmap
+    rule records): inputs ``(setup, t, *y0 leaves, *arg leaves)``, every
+    leaf (K, ...).  The forward is the K-lane solve
+    (:func:`solvers.odeint_lanes`, the field under ``torch.func.vmap``)
+    with no graph; the backward, under plain autograd, integrates every
+    lane's augmented state ``(y, a, vt, args_bar)`` in reverse over each
+    output interval with the K-lane controller, each reverse stage one
+    K-lane field evaluation and its VJP.  ``seminorm`` leaves each lane's
+    parameter-gradient block out of its own step control."""
+
+    @staticmethod
+    def forward(setup, t, *leaves):
+        k = leaves[0].shape[0]
+        t_host = solvers._host(t)
+        func_k = setup.lane_func(k, leaves[setup.n_y:])
+        ys, _ = solvers.odeint_lanes(func_k, list(leaves[:setup.n_y]), t_host, k,
+                                     **setup.lane_solve(
+                                         setup.options, setup.rtol, setup.atol, setup.method,
+                                         t_host, leaves[:setup.n_y], not isinstance(
+                                             setup.rebuild_y(list(leaves[:setup.n_y])),
+                                             torch.Tensor)))
+        return tuple(ys)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        setup, t, *leaves = inputs
+        ctx.setup = setup
+        ctx.save_for_backward(t, *leaves[setup.n_y:], *output)
+
+    @staticmethod
+    def backward(ctx, *grad_ys):
+        setup = ctx.setup
+        t, *rest = ctx.saved_tensors
+        n_y = setup.n_y
+        arg_leaves, ys = rest[:len(rest) - n_y], rest[len(rest) - n_y:]
+        k = ys[0].shape[0]
+        grad_ys = [torch.zeros_like(y) if g is None else g for g, y in zip(grad_ys, ys)]
+        args_d = [leaf.detach() for leaf in arg_leaves]
+        func_k = setup.lane_func(k, args_d)
+        mapped = torch.func.vmap(setup.flat, in_dims=(0, 0, 0))
+        dtype, device = ys[0].dtype, ys[0].device
+
+        def aug_dynamics(s, aug):
+            """:class:`_OdeintAdjoint`'s augmented dynamics for every lane:
+            ``s`` the (K,) times."""
+            y, a = aug[:n_y], aug[n_y:2 * n_y]
+            with torch.enable_grad():
+                tau = (-s).detach().requires_grad_()
+                y_ = [leaf.detach().requires_grad_() for leaf in y]
+                th = [leaf.detach().requires_grad_() for leaf in args_d]
+                f = mapped(tau, y_, th)
+                inputs = [tau, *y_, *th]
+                vjps = torch.autograd.grad(f, inputs, list(a), allow_unused=True)
+            vjps = [torch.zeros_like(x) if v is None else v for v, x in zip(vjps, inputs)]
+            return [*[-fl.detach() for fl in f], *vjps[1:1 + n_y], vjps[0],
+                    *vjps[1 + n_y:]]
+
+        t_host = solvers._host(t)
+        a = [torch.zeros_like(y[:, 0]) for y in ys]
+        vt = torch.zeros(k, dtype=dtype, device=device)
+        args_bar = [torch.zeros_like(leaf) for leaf in args_d]
+        t_bar = [None] * len(t_host)
+        opts = setup.reverse_options(len(args_d))
+        with solvers.counting_as("reverse"):
+            for i in range(len(t_host) - 1, 0, -1):
+                y_i = [y[:, i] for y in ys]
+                g_i = [g[:, i] for g in grad_ys]
+                f_i = func_k(torch.full((k,), float(t_host[i]), dtype=t.dtype, device=device),
+                             y_i)
+                solvers._count(evals=k, lane_evals=1)
+                # Each lane's dL/dt_i as its serial backward sums it.
+                dl_dt = torch.stack([sum((g[j] * f[j]).sum() for g, f in zip(g_i, f_i))
+                                     for j in range(k)]).to(dtype)
+                vt = vt - dl_dt
+                a = [al + gl for al, gl in zip(a, g_i)]
+                s_span = np.array([-t_host[i], -t_host[i - 1]], dtype=t_host.dtype)
+                aug0 = [*y_i, *a, vt, *args_bar]
+                path, _ = solvers.odeint_lanes(
+                    aug_dynamics, aug0, s_span, k,
+                    **setup.lane_solve(opts, setup.adj_rtol, setup.adj_atol, setup.adj_method,
+                                       s_span, aug0, True))
+                aug1 = [p[:, -1] for p in path]
+                a, vt, args_bar = aug1[n_y:2 * n_y], aug1[2 * n_y], aug1[2 * n_y + 1:]
+                t_bar[i] = dl_dt
+        a = [al + g[:, 0] for al, g in zip(a, grad_ys)]
+        t_bar[0] = vt
+        t_grad = (torch.stack(t_bar, dim=1).to(t.dtype).to(t.device)
+                  if ctx.needs_input_grad[1] else None)
+        if t_grad is not None:
+            t_grad = t_grad.sum(0)           # t is shared by the lanes
         need_args = ctx.needs_input_grad[2 + n_y:]
         return (None, t_grad, *a,
                 *[bar if need else None for bar, need in zip(args_bar, need_args)])
@@ -558,8 +804,7 @@ def odeint_adjoint(
         adjoint_options.pop("step_size")
     y_leaves, rebuild_y = flatten(y0)
     arg_leaves, rebuild_args = flatten(args)
-    if not (torch.is_grad_enabled() and any(
-            x.requires_grad for x in (t, *y_leaves, *arg_leaves))):
+    if not _needs_adjoint((t, *y_leaves, *arg_leaves)):
         return solvers.odeint(func, y0, t, args, rtol=rtol, atol=atol, method=method,
                               options=options)
     setup = _AdjointSetup(func, rebuild_y, len(y_leaves), rebuild_args, rtol, atol,
@@ -744,8 +989,7 @@ def cdeint(
     piece_keys = sorted(pieces)
     arg_leaves, rebuild_args = flatten(args)
     leaves = [pieces[k] for k in piece_keys] + arg_leaves
-    if adjoint and torch.is_grad_enabled() and any(
-            t_.requires_grad for t_ in (z0, *leaves)):
+    if adjoint and _needs_adjoint((z0, *leaves)):
         setup = _Setup(pfs, grid, piece_keys, rebuild_args, method, substeps,
                        adj_method, adj_substeps)
         function = _FixedCDEAdjointPaired if paired else _FixedCDEAdjoint

@@ -185,7 +185,8 @@ ADAPTIVE_METHODS = {
 
 COUNTS: dict = {}
 _KIND = ["forward"]
-_COUNT_KEYS = ("solves", "nfe", "accepted", "rejected", "reads", "evals")
+_COUNT_KEYS = ("solves", "nfe", "accepted", "rejected", "reads", "evals", "lane_solves",
+               "attempts", "wasted", "lane_evals")
 
 
 def reset_counts() -> None:
@@ -481,6 +482,30 @@ class _ErrorNorm:
         return _max_combine(torch._foreach_div([norms[i] for i in live],
                                                [math.sqrt(self.counts[i]) for i in live]))
 
+    def ratio_lanes(self, r, k: int) -> torch.Tensor:
+        """:meth:`ratio` of each of ``k`` lanes (``r``'s leaves (k, ...),
+        the norm's shapes one lane's), with the same arithmetic: every
+        lane's leaf norms in one ``_foreach_norm``; one block of several
+        leaves sums its squares lane by lane."""
+        if len(self.blocks) == 1 and len(r) > 1:
+            return torch.stack([self.ratio([x[j] for x in r]) for j in range(k)])
+        live = [i for i, w in enumerate(self.weights)
+                if not (isinstance(w, (int, float)) and w == 0)]
+        if not live:
+            return torch.zeros(k, dtype=r[0].dtype, device=r[0].device)
+        scaled = []
+        for j in range(k):
+            for i in live:
+                w = self.weights[i]
+                plain = w is None or (isinstance(w, (int, float)) and w == 1)
+                scaled.append(r[i][j] if plain else r[i][j] * w)
+        norms = torch.stack(torch._foreach_norm(scaled)).reshape(k, len(live))
+        if len(self.blocks) == 1:
+            return torch.sqrt(norms[:, 0].square() / self.counts[0])
+        roots = torch.tensor([math.sqrt(self.counts[i]) for i in live], dtype=norms.dtype,
+                             device=norms.device)
+        return (norms / roots).amax(1)
+
     def blended(self, e5, e3, dt_abs):
         """DOP853's blended ratio in each block, max-combined."""
         n5, n3 = _norms(e5, self.weights), _norms(e3, self.weights)
@@ -532,7 +557,12 @@ def _select_initial_step(func, t0, y0, order, rtol, atol, f0):
     y1 = [yl + h0 * fl for yl, fl in zip(y0, f0)]
     f1 = func(float(t0) + h0, y1)
     d2 = rms(torch._foreach_sub(f1, f0)) / h0
-    d0_, d1_, d2_, h0_ = (S(v) for v in _read(torch.stack([d0, d1, d2, h0])))
+    return _initial_step_host(S, order, *_read(torch.stack([d0, d1, d2, h0])))
+
+
+def _initial_step_host(S, order, d0, d1, d2, h0):
+    """The heuristic's host part, from the norms read off the device."""
+    d1_, d2_, h0_ = S(d1), S(d2), S(h0)
     with np.errstate(all="ignore"):
         if d1_ <= 1e-15 and d2_ <= 1e-15:
             h1 = np.maximum(S(1e-6), h0_ * S(1e-3))
@@ -765,7 +795,8 @@ def _adams_coefficient_tables(max_order: int):
 
 
 def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, atol=1e-4,
-                     max_order: int = _ADAMS_MAX_ORDER, max_iters: int = _ADAMS_MAX_ITERS):
+                     max_order: int = _ADAMS_MAX_ORDER, max_iters: int = _ADAMS_MAX_ITERS,
+                     lanes: int = 0):
     """``substeps`` uniform Adams steps per output interval of the uniform
     host times ``t``.  The first two steps are RK4 (3/8) bootstraps that
     reuse the step's f_n as k1; then the predictor (Adams-Bashforth of the
@@ -774,7 +805,9 @@ def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, at
     ratio of the last change falls below 1.  That test is a 0-d bool on
     the state's device (``torch.where``), never read by the host: a
     corrected step makes 1 + max_iters field calls and no host read, and
-    its nfe counts them all, as the JAX package's fixed-length scan."""
+    its nfe counts them all, as the JAX package's fixed-length scan.
+    ``lanes`` > 0: the leaves stack that many lanes (a wave's), each with
+    its own convergence test."""
     max_order = int(max(max_order, _ADAMS_MIN_ORDER))
     hist_len = max_order - 1
     n_steps = (len(t) - 1) * substeps
@@ -814,7 +847,8 @@ def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, at
                 mrow = moul_tab[order + 1]
                 hm0 = float(h * S(mrow[0]))
                 delta = torch._foreach_mul(dot(mrow[1:], hist[:order]), float(h))
-                done = torch.zeros((), dtype=torch.bool, device=y[0].device)
+                done = torch.zeros((lanes,) if lanes else (), dtype=torch.bool,
+                                   device=y[0].device)
                 for _ in range(max_iters):
                     f_c = func(tt + h_t, torch._foreach_add(y, dy))
                     dy_new = torch._foreach_add(torch._foreach_mul(f_c, hm0), delta)
@@ -822,13 +856,17 @@ def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, at
                         torch._foreach_abs(dy), torch._foreach_abs(dy_new)), rtol_f), atol_f)
                     err = torch._foreach_div(torch._foreach_abs(torch._foreach_sub(dy, dy_new)),
                                              scale)
-                    ratio = torch.stack([e.max() for e in err]).max()
-                    dy = [torch.where(done, a, b) for a, b in zip(dy, dy_new)]
+                    if lanes:
+                        ratio = torch.stack([e.reshape(lanes, -1).amax(1) for e in err]).amax(0)
+                        dy = [torch.where(_per_lane(done, a), a, b) for a, b in zip(dy, dy_new)]
+                    else:
+                        ratio = torch.stack([e.max() for e in err]).max()
+                        dy = [torch.where(done, a, b) for a, b in zip(dy, dy_new)]
                     done = done | (ratio < 1.0)
                 nfe += max_iters
             y = torch._foreach_add(y, dy)
         states.append(list(y))
-    _count(solves=1, nfe=nfe, accepted=n_steps)
+    _count(solves=max(lanes, 1), nfe=nfe * max(lanes, 1), accepted=n_steps * max(lanes, 1))
     return _stack(states[::substeps]), _stats(nfe, n_steps, 0)
 
 
@@ -987,15 +1025,10 @@ class _Controller:
         err3 = torch._foreach_div(_lincomb(tab.c_error_alt, k), scale)
         return self.norm.blended(err5, err3, float(abs(dt)))
 
-    def attempt(self, s: _RKState):
-        """One attempted step: (new state, the step's (t0, dt, t1, t1_eval,
-        reseed time) if accepted else None)."""
+    def judge(self, dt, ratio):
+        """(accept, next step size) of an attempted step of size ``dt``
+        whose error ratio the host read (host scalars)."""
         S = self.S
-        t0 = s.t1
-        dt, t1, t1_eval = self.clamp(t0, s.dt)
-        y1, f1, err, k = _runge_kutta_step(self.func, s.y1, s.f1, t0, dt, self.tableau,
-                                           t1_eval)
-        ratio = S(_read(self.error_ratio(err, s.y1, y1, k, dt))[0])
         accept = bool(ratio <= 1.0)
         if dt > self.max_step:
             accept = False
@@ -1005,6 +1038,18 @@ class _Controller:
             dt_next = _optimal_step_size(dt, ratio, self.safety, self.ifactor,
                                          self.dfactor, self.tableau.order)
             dt_next = S(np.minimum(np.maximum(dt_next, self.min_step), self.max_step))
+        return accept, dt_next
+
+    def attempt(self, s: _RKState):
+        """One attempted step: (new state, the step's (t0, dt, t1, t1_eval,
+        reseed time) if accepted else None)."""
+        S = self.S
+        t0 = s.t1
+        dt, t1, t1_eval = self.clamp(t0, s.dt)
+        y1, f1, err, k = _runge_kutta_step(self.func, s.y1, s.f1, t0, dt, self.tableau,
+                                           t1_eval)
+        ratio = S(_read(self.error_ratio(err, s.y1, y1, k, dt))[0])
+        accept, dt_next = self.judge(dt, ratio)
         nfe = s.nfe + self.n_stages - 1
         if not accept:
             return dataclasses.replace(s, dt=dt_next, nfe=nfe, rejected=s.rejected + 1), None
@@ -1188,6 +1233,571 @@ def _time_dtype(t_host: np.ndarray) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
+# K lanes: the adaptive and Adams solves of a ``torch.func.vmap`` (a
+# training wave's K models).  The JAX package's vmapped ``lax.while_loop``
+# gives every lane its own t, dt and accept/reject decisions and runs
+# until every lane is done.  Here K host controllers run side by side:
+# every attempt evaluates the stages of all K lanes at once (the field
+# under ``torch.func.vmap``, so the fused field takes its kernels' multi
+# entries), each lane at its own times, and reads the K error ratios in one
+# device read; a lane that is done, or that is waiting for the others,
+# rides the attempt masked (its step size 0, its state kept by a
+# ``torch.where``), as the batched while-loop does.  Each lane's host
+# arithmetic is its serial controller's (:meth:`_Controller.clamp`,
+# :meth:`_Controller.judge`), so its accepted grid is its serial solve's.
+# ---------------------------------------------------------------------------
+
+
+def _batched(tensors) -> bool:
+    """Whether any of ``tensors`` is a ``torch.func.vmap`` lane tensor."""
+    return any(isinstance(x, torch.Tensor) and torch._C._functorch.is_batchedtensor(x)
+               for x in tensors)
+
+
+def _per_lane(col: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (K,) column shaped to broadcast against a (K, ...) leaf."""
+    return col.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _add_scaled_lanes(y, h, s):
+    """y + h * s leaf by leaf, ``h`` a (K,) column (one multiply and one add,
+    as :func:`_add_scaled`)."""
+    if s is None:
+        return list(y)
+    return [yl + sl * _per_lane(h, sl) for yl, sl in zip(y, s)]
+
+
+def _where_lanes(mask, a, b):
+    """Lane by lane, ``a``'s leaves where ``mask`` (a (K,) bool tensor), else
+    ``b``'s."""
+    return [torch.where(_per_lane(mask, x), x, y) for x, y in zip(a, b)]
+
+
+def _stage_times(tableau: ButcherTableau, t0, dt, t1_eval):
+    """The stages' evaluation times of one step, as :func:`_runge_kutta_step`
+    computes them on the host."""
+    S = type(dt)
+    out = []
+    for alpha_i in tableau.alpha:
+        ti = t0 + dt * S(alpha_i)
+        if alpha_i == 1.0 and t1_eval is not None:
+            ti = t1_eval
+        out.append(ti)
+    return out
+
+
+def _runge_kutta_step_lanes(func_k, y0, f0, times, dt, tableau: ButcherTableau,
+                            error=True):
+    """:func:`_runge_kutta_step` for K lanes: ``times`` (stages - 1, K) the
+    stages' times, ``dt`` the (K,) step sizes, both on the device."""
+    k = [f0]
+    for i, beta_row in enumerate(tableau.beta):
+        k.append(func_k(times[i], _add_scaled_lanes(y0, dt, _lincomb(beta_row, k))))
+    y1 = _add_scaled_lanes(y0, dt, _lincomb(tableau.c_sol, k))
+    err = None
+    if error:
+        err = [e * _per_lane(dt, e) for e in _lincomb(tableau.c_error, k)]
+    return y1, k[-1], err, k
+
+
+def _fit_from_stages_lanes(y0, y1, k, cols, tableau: ButcherTableau):
+    """:func:`_fit_from_stages` for K lanes; ``cols`` holds the (K,)
+    columns ``dt``, ``2 dt`` and ``dt / 8`` (host products in the state's
+    dtype, as the serial fit's)."""
+    dt, h2, q = cols
+    if tableau.mid is not None:
+        y_mid = _add_scaled_lanes(y0, dt, _lincomb(tableau.mid, k))
+    else:
+        y_mid = [(a + b) * 0.5 + (k0 - kl) * _per_lane(q, a)
+                 for a, b, k0, kl in zip(y0, y1, k[0], k[-1])]
+    out = []
+    for y0l, y1l, yml, f0l, f1l in zip(y0, y1, y_mid, k[0], k[-1]):
+        h, h2l = _per_lane(dt, y0l), _per_lane(h2, y0l)
+        a = (f1l - f0l) * h2l - (y1l + y0l) * 8.0 + yml * 16.0
+        b = (f0l * 5.0 - f1l * 3.0) * h + y0l * 18.0 + y1l * 14.0 - yml * 32.0
+        c = (f1l - f0l * 4.0) * h - y0l * 11.0 - y1l * 5.0 + yml * 16.0
+        out.append((a, b, c, f0l * h, y0l))
+    return out
+
+
+def _interp_evaluate_lanes(coeffs, x):
+    """:func:`_interp_evaluate` at a (K,) column of fractions."""
+    out = []
+    for leaf in coeffs:
+        acc = leaf[0]
+        xl = _per_lane(x, acc)
+        for c in leaf[1:]:
+            acc = acc * xl + c
+        out.append(acc)
+    return out
+
+
+class _Lanes:
+    """The host state of K lanes of one adaptive solve: each lane's times,
+    step size and counts in host arrays (of the state's scalar type); the
+    states and FSAL derivatives stacked on the device."""
+
+    def __init__(self, k, t0, dt0, nfe, y, f):
+        self.t0 = np.full(k, t0, dtype=object)
+        self.t1 = np.full(k, t0, dtype=object)
+        self.dt = np.asarray(dt0, dtype=object)
+        self.nfe = np.full(k, nfe, np.int64)
+        self.accepted = np.zeros(k, np.int64)
+        self.rejected = np.zeros(k, np.int64)
+        self.y, self.f = y, f
+
+
+class _LaneController:
+    """K lanes of a :class:`_Controller` (see the section's comment).
+    ``func_k(t, y)`` evaluates the field for every lane: ``t`` a (K,)
+    tensor of times, ``y`` a list of (K, ...) leaves."""
+
+    def __init__(self, func_k, y0, k, t, tableau, **kw):
+        self.ctl = _Controller(None, [leaf[0] for leaf in y0], t, tableau, **kw)
+        if self.ctl.S is _Bf16:
+            raise ValueError("a bfloat16 adaptive solve does not wave (ROADMAP item 17d)")
+        self.func_k, self.y0, self.k = func_k, list(y0), k
+        self.S, self.tableau = self.ctl.S, tableau
+        self.device = y0[0].device
+        self.attempts = 0
+        self.wasted = 0
+
+    def column(self, values) -> torch.Tensor:
+        """Host values of the state's dtype as a device tensor (one copy)."""
+        return torch.from_numpy(np.asarray(values, dtype=self.S)).to(self.device)
+
+    def evals(self, n: int = 1) -> None:
+        _count(lane_evals=n)
+
+    def start(self) -> _Lanes:
+        ctl, S, k = self.ctl, self.S, self.k
+        t0 = ctl.t[0]
+        f0 = self.func_k(self.column([t0] * k), self.y0)
+        self.evals()
+        nfe = 1
+        with torch.no_grad():
+            if ctl.first_step is None:
+                dt0 = self.initial_steps(t0, f0)
+                nfe += 1
+            else:
+                dt0 = [S(ctl.first_step)] * k
+        out = []
+        for d in dt0:
+            if ctl.min_step_given:
+                d = np.maximum(d, ctl.min_step)
+            out.append(S(np.minimum(d, ctl.max_step)))
+        return _Lanes(k, t0, out, nfe, list(self.y0), f0)
+
+    def initial_steps(self, t0, f0):
+        """:func:`_select_initial_step` for every lane: the lanes' norms
+        and h0 on the device, read once."""
+        ctl, k, y0 = self.ctl, self.k, self.y0
+        scale = torch._foreach_add(torch._foreach_mul(torch._foreach_abs(y0), float(ctl.rtol)),
+                                   float(ctl.atol))
+        n = sum(leaf[0].numel() for leaf in y0)
+
+        def rms(xs):
+            q = torch._foreach_div(xs, scale)
+            return torch.stack([_rms(_norms([leaf[j] for leaf in q]), n) for j in range(k)])
+
+        d0, d1 = rms(y0), rms(f0)
+        small = (d0 < 1e-5) | (d1 < 1e-5)
+        h0 = torch.where(small, torch.full_like(d0, 1e-6),
+                         0.01 * d0 / torch.where(d1 == 0, torch.ones_like(d1), d1))
+        y1 = [yl + _per_lane(h0, fl) * fl for yl, fl in zip(y0, f0)]
+        f1 = self.func_k(float(t0) + h0, y1)
+        self.evals()
+        d2 = rms(torch._foreach_sub(f1, f0)) / h0
+        vals = np.asarray(_read(torch.stack([d0, d1, d2, h0]))).reshape(4, k)
+        return [_initial_step_host(self.S, self.tableau.order - 1, *vals[:, j])
+                for j in range(k)]
+
+    def ratios(self, err, y0, y1, k, dts):
+        """Every lane's error ratio, one device read."""
+        ctl, tab = self.ctl, self.tableau
+        scale = torch._foreach_add(torch._foreach_mul(torch._foreach_maximum(
+            torch._foreach_abs(y0), torch._foreach_abs(y1)), float(ctl.rtol)), float(ctl.atol))
+        lanes = range(self.k)
+        if tab.c_error_alt is None:
+            out = ctl.norm.ratio_lanes(torch._foreach_div(err, scale), self.k)
+        else:
+            dt_col = self.column(dts)
+            err5 = torch._foreach_div([e / _per_lane(dt_col, e) for e in err], scale)
+            err3 = torch._foreach_div(_lincomb(tab.c_error_alt, k), scale)
+            out = torch.stack([ctl.norm.blended([x[j] for x in err5], [x[j] for x in err3],
+                                                float(abs(dts[j]))) for j in lanes])
+        return [self.S(v) for v in _read(out)]
+
+    def attempt(self, st: _Lanes, active, fits: bool = False):
+        """One attempt of the lanes in ``active`` (host bools); the others
+        ride masked.  Updates ``st`` and returns each lane's accepted step
+        ``(t0, dt, t1, t1_eval, reseed)`` or None, with the accepted steps'
+        dense-output fits (stacked, every lane's) when ``fits``."""
+        ctl, S, k = self.ctl, self.S, self.k
+        rows, plans = [], []
+        for j in range(k):
+            if active[j]:
+                dt, t1, t1_eval = ctl.clamp(st.t1[j], st.dt[j])
+            else:
+                dt, t1, t1_eval = S(0), st.t1[j], None
+            plans.append((dt, t1, t1_eval))
+            rows.append([dt, S(2) * dt, S(0.125) * dt]
+                        + _stage_times(self.tableau, st.t1[j], dt, t1_eval))
+        table = self.column(np.asarray(rows, dtype=object).T)    # a row per column
+        y1, f1, err, stages = _runge_kutta_step_lanes(self.func_k, st.y, st.f, table[3:],
+                                                      table[0], self.tableau)
+        self.evals(len(self.tableau.alpha))
+        ratios = self.ratios(err, st.y, y1, stages, [p[0] for p in plans])
+        self.attempts += 1
+        self.wasted += int(k - np.count_nonzero(active))
+        steps = [None] * k
+        accept = np.zeros(k, bool)
+        reseeds = []
+        for j in range(k):
+            if not active[j]:
+                continue
+            dt, t1, t1_eval = plans[j]
+            ok, dt_next = ctl.judge(dt, ratios[j])
+            st.nfe[j] += ctl.n_stages - 1
+            st.dt[j] = dt_next
+            if not ok:
+                st.rejected[j] += 1
+                continue
+            accept[j] = True
+            reseed = ctl.jump_reseed(t1)
+            if reseed is not None:
+                reseeds.append((j, reseed))
+                st.nfe[j] += 1
+            steps[j] = (st.t1[j], dt, t1, t1_eval, reseed)
+            st.t0[j], st.t1[j] = st.t1[j], t1
+            st.accepted[j] += 1
+        fit = None
+        if accept.any():
+            mask = torch.from_numpy(accept).to(self.device)
+            if fits:
+                fit = (mask, _fit_from_stages_lanes(st.y, y1, stages, table[:3], self.tableau))
+            st.y = _where_lanes(mask, y1, st.y)
+            st.f = _where_lanes(mask, f1, st.f)
+        if reseeds:
+            # An accepted step ending on a declared jump seeds the next
+            # step's FSAL stage just past it (:meth:`_Controller.attempt`).
+            col = self.column([dict(reseeds).get(j, st.t1[j]) for j in range(k)])
+            fr = self.func_k(col, st.y)
+            self.evals()
+            mask = torch.zeros(k, dtype=torch.bool)
+            mask[[j for j, _ in reseeds]] = True
+            st.f = _where_lanes(mask.to(self.device), fr, st.f)
+        return steps, fit
+
+    def count(self, st: _Lanes) -> None:
+        _count(solves=self.k, lane_solves=1, nfe=int(st.nfe.sum()),
+               accepted=int(st.accepted.sum()), rejected=int(st.rejected.sum()),
+               attempts=self.attempts, wasted=self.wasted)
+
+
+def _lane_stats(st: _Lanes, **extra):
+    out = {"nfe": torch.tensor(st.nfe, dtype=torch.int32),
+           "accepted": torch.tensor(st.accepted, dtype=torch.int32),
+           "rejected": torch.tensor(st.rejected, dtype=torch.int32)}
+    out.update({key: torch.tensor(v) for key, v in extra.items()})
+    return out
+
+
+def _adaptive_integrate_lanes(func_k, y0, k, t, tableau, max_num_steps, **kw):
+    """:func:`_adaptive_integrate` for K lanes: each lane's outputs from its
+    own last accepted step's dense output, as its serial solve's.  Returns
+    (per leaf (K, len(t), ...), per-lane stats)."""
+    lc = _LaneController(func_k, y0, k, t, tableau, **kw)
+    st = lc.start()
+    t = lc.ctl.t
+    n_out = len(t) - 1
+    nxt = np.zeros(k, np.int64)             # each lane's next output
+    outs = [None] * n_out
+    fit = None                              # the lanes' last accepted fits
+
+    def needs_step(j):
+        t_out = t[1 + nxt[j]]
+        return (t_out > st.t1[j] and st.accepted[j] + st.rejected[j] < max_num_steps
+                and st.dt[j] > 0)
+
+    while True:
+        emits = {}
+        for j in range(k):
+            while nxt[j] < n_out and not needs_step(j):
+                emits.setdefault(int(nxt[j]), []).append(j)
+                nxt[j] += 1
+        for i, lanes in emits.items():
+            t_out = t[1 + i]
+            if t_out <= t[0]:
+                value = list(y0)
+            else:
+                dense = [j for j in lanes if t_out <= st.t1[j]]
+                value = _nan_like(y0)
+                if dense:
+                    with np.errstate(all="ignore"):
+                        xs = [lc.S((t_out - st.t0[j]) / (st.t1[j] - st.t0[j])) if j in dense
+                              else lc.S(0) for j in range(k)]
+                    picked = torch.zeros(k, dtype=torch.bool)
+                    picked[dense] = True
+                    value = _where_lanes(picked.to(lc.device),
+                                         _interp_evaluate_lanes(fit, lc.column(xs)), value)
+            if outs[i] is None:
+                outs[i] = value
+            else:
+                mask = torch.zeros(k, dtype=torch.bool)
+                mask[lanes] = True
+                outs[i] = _where_lanes(mask.to(lc.device), value, outs[i])
+        if (nxt >= n_out).all():
+            break
+        active = np.asarray([nxt[j] < n_out for j in range(k)])
+        _, new = lc.attempt(st, active, fits=True)
+        if new is not None:
+            mask, coeffs = new
+            fit = coeffs if fit is None else [
+                tuple(torch.where(_per_lane(mask, a), a, b) for a, b in zip(na, oa))
+                for na, oa in zip(coeffs, fit)]
+    lc.count(st)
+    ys = [torch.stack([o[i] for o in [list(y0)] + outs], dim=1) for i in range(len(y0))]
+    return ys, _lane_stats(st)
+
+
+def _adaptive_integrate_diff_lanes(func_k, y0, k, t, t_tensor, tableau, max_num_steps,
+                                   max_steps, needs_grad, **kw):
+    """:func:`_adaptive_integrate_diff` for K lanes: each lane's accepted
+    grid found under no grad by the K-lane controller, then the lanes
+    replayed together with grad over their grids padded to the longest (a
+    padded step has dt = 0 and leaves its lane's state as it is), each
+    lane's outputs from its own steps' dense outputs."""
+    if not needs_grad:
+        ys, stats = _adaptive_integrate_lanes(func_k, y0, k, t, tableau, max_num_steps, **kw)
+        stats["grid_exhausted"] = torch.zeros(k, dtype=torch.bool)
+        return ys, stats
+    if t_tensor is not None and t_tensor.requires_grad:
+        raise ValueError("output times that take gradients do not wave (ROADMAP item 17d)")
+    lc = _LaneController(func_k, y0, k, t, tableau, **kw)
+    S, t = lc.S, lc.ctl.t
+    t_end = t[-1]
+    steps = [[] for _ in range(k)]
+    with torch.no_grad():
+        st = lc.start()
+
+        def going(j):
+            return (st.t1[j] < t_end and st.accepted[j] + st.rejected[j] < max_num_steps
+                    and len(steps[j]) < max_steps and st.dt[j] > 0)
+
+        active = np.asarray([going(j) for j in range(k)])
+        while active.any():
+            accepted, _ = lc.attempt(st, active)
+            for j, step in enumerate(accepted):
+                if step is not None:
+                    steps[j].append(step)
+            active = np.asarray([going(j) for j in range(k)])
+    lc.count(st)
+    exhausted = [bool(st.t1[j] < t_end) for j in range(k)]
+
+    # Which recorded step each output falls in, lane by lane.
+    n_out = len(t) - 1
+    where_out = np.full((k, n_out), -1, np.int64)
+    xs = np.zeros((k, n_out), dtype=object)
+    for j in range(k):
+        ts_full = [t[0]] + [step[2] for step in steps[j]]
+        for o, t_out in enumerate(t[1:]):
+            if t_out <= t[0] or (exhausted[j] and t_out > st.t1[j]) or not steps[j]:
+                continue
+            i = min(max(bisect.bisect_left(ts_full, t_out) - 1, 0), len(steps[j]) - 1)
+            a, _, b, _, _ = steps[j][i]
+            denom = b - a if b != a else S(1)
+            where_out[j, o] = i
+            xs[j, o] = S((t_out - a) / denom)
+    n_max = max(len(lane) for lane in steps)
+    rows = np.zeros((n_max, 4 + len(tableau.alpha), k), dtype=object)
+    live = np.zeros((n_max, k), bool)
+    for j in range(k):
+        t_last = t[0]
+        for i in range(n_max):
+            if i < len(steps[j]):
+                a, dt, b, t1_eval, reseed = steps[j][i]
+                live[i, j] = True
+                rows[i, :, j] = ([dt, S(2) * dt, S(0.125) * dt,
+                                  reseed if reseed is not None else b]
+                                 + _stage_times(tableau, a, dt, t1_eval))
+                t_last = b
+            else:
+                rows[i, :, j] = [S(0)] * 3 + [t_last] * (1 + len(tableau.alpha))
+    outs = [list(y0) if t_out <= t[0] else _nan_like(y0) for t_out in t[1:]]
+    with counting_as("replay"):
+        if n_max:
+            table = lc.column(rows.astype(S))
+            live_dev = torch.from_numpy(live).to(lc.device)
+            x_dev = lc.column(xs.T.astype(S))
+        f = func_k(lc.column([t[0]] * k), y0)
+        y, evals = list(y0), 1
+        for i in range(n_max):
+            row = table[i]
+            y1, f1, _, stages = _runge_kutta_step_lanes(func_k, y, f, row[4:], row[0],
+                                                        tableau, error=False)
+            evals += len(tableau.alpha)
+            wanted = sorted({o for j in range(k) for o in np.flatnonzero(where_out[j] == i)})
+            if wanted:
+                fit = _fit_from_stages_lanes(y, y1, stages, row[:3], tableau)
+                for o in wanted:
+                    mask = torch.from_numpy(where_out[:, o] == i).to(lc.device)
+                    outs[o] = _where_lanes(mask, _interp_evaluate_lanes(fit, x_dev[o]),
+                                           outs[o])
+            reseeding = [j for j in range(k) if live[i, j] and steps[j][i][4] is not None]
+            if reseeding:
+                fr = func_k(row[3], y1)
+                evals += 1
+                mask = torch.zeros(k, dtype=torch.bool)
+                mask[reseeding] = True
+                f1 = _where_lanes(mask.to(lc.device), fr, f1)
+            y = _where_lanes(live_dev[i], y1, y)
+            f = _where_lanes(live_dev[i], f1, f)
+        _count(evals=evals * k, lane_evals=evals)
+    ys = [torch.stack([o[i] for o in [list(y0)] + outs], dim=1) for i in range(len(y0))]
+    for leaf in ys:
+        if leaf.requires_grad:
+            leaf.register_hook(lambda g: torch.where(torch.isnan(g), torch.zeros_like(g), g))
+    return ys, _lane_stats(st, grid_exhausted=exhausted)
+
+
+def _adaptive_kwargs(options: dict, rtol, atol, per_leaf: bool) -> dict:
+    """The adaptive controller's settings, popped from ``options``."""
+    return dict(
+        rtol=rtol, atol=atol,
+        min_step=float(options.pop("min_step", 0.0)),
+        max_step=float(options.pop("max_step", float("inf"))),
+        first_step=options.pop("first_step", None),
+        safety=float(options.pop("safety", 0.9)),
+        ifactor=float(options.pop("ifactor", 10.0)),
+        dfactor=float(options.pop("dfactor", 0.2)),
+        step_t=options.pop("step_t", None),
+        jump_t=options.pop("jump_t", None),
+        error_weights=options.pop("error_weights", None),
+        error_blocks=per_leaf,
+    )
+
+
+def odeint_lanes(func_k, y0, t_host, k: int, *, rtol, atol, method: str, options: dict,
+                 per_leaf: bool, needs_grad: bool = False, t_tensor=None,
+                 time_dtype=None):
+    """``odeint``'s solve for K lanes of stacked leaves: ``func_k(t, y)``
+    takes a (K,) tensor of times and a list of (K, ...) leaves.  Returns
+    (per leaf (K, len(t), ...), per-lane stats).  The fixed and Adams
+    methods step every lane on the shared grid; the adaptive ones run
+    :class:`_LaneController` (differentiable when ``options`` asks for it
+    and ``needs_grad``).  ``scipy_solver`` does not wave: the JAX package
+    cannot trace its host callback either."""
+    options = dict(options)
+    S = _NUMPY[y0[0].dtype]
+    device, dtype = y0[0].device, y0[0].dtype
+    time_dtype = time_dtype or dtype
+
+    def host_time_func(tt, yy):
+        return func_k(torch.full((k,), float(tt), dtype=time_dtype, device=device), yy)
+
+    def lane_major(ys):
+        return [torch.movedim(leaf, 0, 1) for leaf in ys]
+
+    def lane_stats(stats):
+        return {key: v.expand(k) if v.dim() == 0 else v for key, v in stats.items()}
+
+    if method in FIXED_METHODS:
+        options.pop("remat", None)
+        if options.pop("grid_constructor", None) is not None:
+            raise ValueError("a grid_constructor solve does not wave (ROADMAP item 17d)")
+        ys, stats = _fixed_grid_integrate(host_time_func, y0, t_host, S, method,
+                                          _substeps_from_options(options, t_host))
+        _count(lane_evals=int(stats["nfe"]))
+        return lane_major(ys), lane_stats(stats)
+    if method in ADAMS_METHODS:
+        ys, stats = _adams_integrate(
+            host_time_func, y0, t_host, S, _substeps_from_options(options, t_host),
+            correct=method == "implicit_adams", rtol=float(rtol), atol=float(atol),
+            max_order=int(options.pop("max_order", _ADAMS_MAX_ORDER)),
+            max_iters=int(options.pop("max_iters", _ADAMS_MAX_ITERS)), lanes=k)
+        _count(lane_evals=int(stats["nfe"]))
+        return lane_major(ys), lane_stats(stats)
+    if method == "scipy_solver":
+        raise ValueError("scipy_solver does not wave: its solve is a host callback, which "
+                         "the JAX package cannot trace under jax.vmap either")
+    if method not in ADAPTIVE_METHODS:
+        raise ValueError(f"Unknown method {method!r}")
+    differentiable = bool(options.pop("differentiable", False))
+    max_steps_opt = options.pop("max_steps", None)
+    kwargs = _adaptive_kwargs(options, rtol, atol, per_leaf)
+    max_num_steps = int(options.pop("max_num_steps", 2**31 - 1))
+    tab = ADAPTIVE_METHODS[method]
+    if differentiable:
+        n_landings = len(t_host) - 1 if (tab.mid is None and tab.order > 4) else 0
+        max_steps = _resolve_max_steps(
+            max_steps_opt, t_host, kwargs["min_step"], kwargs["step_t"],
+            kwargs["jump_t"]) + (0 if max_steps_opt is not None else n_landings)
+        return _adaptive_integrate_diff_lanes(func_k, y0, k, t_host, t_tensor, tab,
+                                              max_num_steps, max_steps, needs_grad, **kwargs)
+    return _adaptive_integrate_lanes(func_k, y0, k, t_host, tab, max_num_steps, **kwargs)
+
+
+class _LaneSolve(torch.autograd.Function):
+    """``odeint``'s adaptive and Adams solves under ``torch.func.vmap``.
+    Inputs ``(spec, *state leaves, *arg leaves)``; outputs the state's
+    leaves at every output time and the stats.  Only its ``vmap`` rule
+    runs: it stacks the lanes and solves them with :func:`odeint_lanes`
+    on plain tensors, whose autograd graph (the replay's, or the solve's
+    own for a plain adaptive solve, as serially) reaches the stacked
+    weights; the wave's step differentiates it with plain autograd."""
+
+    @staticmethod
+    def forward(spec, *leaves):
+        raise RuntimeError("the K-lane solve runs only under torch.func.vmap")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the K-lane solve is differentiated through its vmap rule's "
+                           "graph")
+
+    @staticmethod
+    def vmap(info, in_dims, spec, *leaves):
+        k = info.batch_size
+        n_y = spec.n_y
+        y = [leaf.movedim(d, 0) if d is not None
+             else leaf.expand((k,) + tuple(leaf.shape)) for leaf, d in
+             zip(leaves[:n_y], in_dims[1:1 + n_y])]
+        args = [leaf if d is None else leaf.movedim(d, 0)
+                for leaf, d in zip(leaves[n_y:], in_dims[1 + n_y:])]
+        arg_dims = [None if d is None else 0 for d in in_dims[1 + n_y:]]
+        needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (*y, *args))
+        ys, stats = odeint_lanes(spec.func_k(k, args, arg_dims), y, spec.t_host, k,
+                                 needs_grad=needs_grad, **spec.solve)
+        spec.keys = sorted(stats)
+        out = (*ys, *[stats[key] for key in spec.keys])
+        return out, (0,) * len(out)
+
+
+class _LaneSpec:
+    """What :class:`_LaneSolve` needs besides tensors: the single-lane field
+    ``flat(t, state leaves, arg leaves)`` and the solve's settings."""
+
+    def __init__(self, flat, n_y, t_host, solve):
+        self.flat, self.n_y, self.t_host, self.solve = flat, n_y, t_host, solve
+        self.keys = None
+
+    def func_k(self, k, args, arg_dims):
+        """The K-lane field: the single-lane field under ``torch.func.vmap``
+        over the lanes' times, states and arguments."""
+        mapped = torch.func.vmap(self.flat, in_dims=(0, 0, arg_dims))
+
+        def func_k(t, y):
+            return mapped(t, list(y), list(args))
+
+        return func_k
+
+
+# ---------------------------------------------------------------------------
 # Public entry point
 # ---------------------------------------------------------------------------
 
@@ -1243,7 +1853,10 @@ def odeint(
             return [l.to(dtype) for l in flatten(func(tt, state, args))[0]]
         return flat_func
 
-    if method in FIXED_METHODS:
+    if method not in FIXED_METHODS and _batched((*y, *flatten(args)[0], t_tensor)):
+        ys, stats = _vmapped_solve(func, y, rebuild, dtypes, dtype, args, t_host, t_tensor,
+                                   method, rtol, atol, options, per_leaf)
+    elif method in FIXED_METHODS:
         remat = bool(options.pop("remat", False))
         grid_constructor = options.pop("grid_constructor", None)
         flat_func = make_func(_time_dtype(t_host))
@@ -1272,19 +1885,7 @@ def odeint(
         flat_func = make_func(dtype)
         differentiable = bool(options.pop("differentiable", False))
         max_steps_opt = options.pop("max_steps", None)
-        kwargs = dict(
-            rtol=rtol, atol=atol,
-            min_step=float(options.pop("min_step", 0.0)),
-            max_step=float(options.pop("max_step", float("inf"))),
-            first_step=options.pop("first_step", None),
-            safety=float(options.pop("safety", 0.9)),
-            ifactor=float(options.pop("ifactor", 10.0)),
-            dfactor=float(options.pop("dfactor", 0.2)),
-            step_t=options.pop("step_t", None),
-            jump_t=options.pop("jump_t", None),
-            error_weights=options.pop("error_weights", None),
-            error_blocks=per_leaf,
-        )
+        kwargs = _adaptive_kwargs(options, rtol, atol, per_leaf)
         max_num_steps = int(options.pop("max_num_steps", 2**31 - 1))
         tab = ADAPTIVE_METHODS[method]
         if differentiable:
@@ -1311,6 +1912,28 @@ def odeint(
     if return_stats:
         return ys, stats
     return ys
+
+
+def _vmapped_solve(func, y, rebuild, dtypes, dtype, args, t_host, t_tensor, method, rtol,
+                   atol, options, per_leaf):
+    """``odeint``'s adaptive and Adams solves under ``torch.func.vmap``:
+    through :class:`_LaneSolve`, whose vmap rule solves the K lanes
+    together.  Returns what the serial branches return, each lane's."""
+    if t_tensor is not None and _batched((t_tensor,)):
+        raise ValueError("output times that differ between a wave's lanes do not wave "
+                         "(ROADMAP item 17d)")
+    arg_leaves, rebuild_args = flatten(args)
+
+    def flat(tt, yy, aa):
+        state = rebuild([l.to(d) for l, d in zip(yy, dtypes)])
+        return [l.to(dtype) for l in flatten(func(tt, state, rebuild_args(list(aa))))[0]]
+
+    time_dtype = dtype if method in ADAPTIVE_METHODS else _time_dtype(t_host)
+    spec = _LaneSpec(flat, len(y), t_host, dict(
+        rtol=rtol, atol=atol, method=method, options=options, per_leaf=per_leaf,
+        t_tensor=t_tensor, time_dtype=time_dtype))
+    out = _LaneSolve.apply(spec, *y, *arg_leaves)
+    return list(out[:len(y)]), dict(zip(spec.keys, out[len(y):]))
 
 
 # ---------------------------------------------------------------------------

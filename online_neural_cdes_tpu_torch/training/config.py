@@ -3,8 +3,8 @@ the per-dataset option merge, stored hyperopt results, test-mode shrinkage.
 
 PyTorch port's counterpart of the JAX package's ``training/config.py``,
 with the same functions and the same results.  The suites and the dataset
-registry are the port's own copies (``configurations/*.json5``), read by a
-small reader of the JSON5 the two files use (``load_json``): the machines
+registry are the port's own copies (``configurations/*.json5``), read by
+the port's own JSON5 reader (``loads_json5``, ``load_json``): the machines
 the port runs on need not have the ``json5`` package.
 """
 
@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import copy
 import itertools
-import json
 import os
 from typing import List, Optional
 
@@ -29,66 +28,232 @@ _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_CONFIG_DIR = os.path.join(_HERE, "configurations")
 
 
-def _json5_to_json(text: str) -> str:
-    """The JSON5 subset of the suites as JSON: ``//`` line comments are
-    dropped, and so is a comma whose next token is ``}`` or ``]``; strings
-    (double-quoted, with their escapes) pass through untouched.  Single
-    quotes and block comments raise ``ValueError``; anything else outside
-    JSON (unquoted keys, ``Infinity``, hex numbers) is left for
-    ``json.loads`` to refuse."""
-    out = []
-    i, n = 0, len(text)
+# White space of the JSON5 grammar (ECMAScript's WhiteSpace and
+# LineTerminator): the JSON set, vertical tab, form feed, NBSP, BOM, the
+# line and paragraph separators and every other Unicode space separator.
+_SPACE = frozenset(" \t\n\r\v\f\u00a0\ufeff\u1680\u2000\u2001\u2002\u2003\u2004"
+                   "\u2005\u2006\u2007\u2008\u2009\u200a\u2028\u2029\u202f\u205f\u3000")
+_ESCAPES = {"b": "\b", "f": "\f", "n": "\n", "r": "\r", "t": "\t", "v": "\v", "0": "\0"}
+_LINE_ENDS = ("\r\n", "\n", "\r", "\u2028", "\u2029")
 
-    def skip_blank(j):
-        """Index of the next character that is neither white space nor
-        inside a ``//`` comment."""
-        while j < n:
-            if text[j] in " \t\r\n":
-                j += 1
-            elif text.startswith("//", j):
-                end = text.find("\n", j)
-                j = n if end < 0 else end
+
+class _Json5Reader:
+    """A recursive-descent reader of JSON5 (https://spec.json5.org), the
+    grammar ``json5.loads`` reads: ``//`` and ``/* */`` comments, trailing
+    commas, unquoted (identifier) keys, single- and double-quoted strings
+    with JSON5's escapes and line continuations, and numbers with a leading
+    ``+``, a leading or trailing ``.``, hexadecimal ``0x``, ``Infinity`` and
+    ``NaN``.  Integers and hexadecimals read as ``int``, the rest as
+    ``float``; a repeated key keeps its last value.  Anything else raises
+    ``ValueError`` with its offset."""
+
+    def __init__(self, text: str):
+        self.text, self.i = text, 0
+
+    def fail(self, what: str):
+        raise ValueError(f"{what} at offset {self.i} of the JSON5 text")
+
+    def blank(self):
+        text, n = self.text, len(self.text)
+        while self.i < n:
+            if text[self.i] in _SPACE:
+                self.i += 1
+            elif text.startswith("//", self.i):
+                ends = [j for j in (text.find(e, self.i) for e in _LINE_ENDS) if j >= 0]
+                self.i = min(ends) if ends else n
+            elif text.startswith("/*", self.i):
+                end = text.find("*/", self.i + 2)
+                if end < 0:
+                    self.fail("unterminated block comment")
+                self.i = end + 2
             else:
-                return j
-        return j
+                return
 
-    while i < n:
-        ch = text[i]
-        if ch == '"':
-            j = i + 1
-            while j < n and text[j] != '"':
-                j += 2 if text[j] == "\\" else 1
-            if j >= n:
-                raise ValueError(f"unterminated string at offset {i}")
-            out.append(text[i:j + 1])
-            i = j + 1
-        elif text.startswith("//", i):
-            i = skip_blank(i)
-        elif text.startswith("/*", i):
-            raise ValueError(f"block comments are outside the JSON5 subset read here "
-                             f"(offset {i})")
-        elif ch == "'":
-            raise ValueError(f"single-quoted strings are outside the JSON5 subset read "
-                             f"here (offset {i})")
-        elif ch == ",":
-            j = skip_blank(i + 1)
-            if j >= n or text[j] not in "}]":
-                out.append(ch)
-            i += 1
-        else:
-            out.append(ch)
-            i += 1
-    return "".join(out)
+    def peek(self) -> str:
+        return self.text[self.i] if self.i < len(self.text) else ""
 
+    def value(self):
+        self.blank()
+        ch = self.peek()
+        if ch == "{":
+            return self.obj()
+        if ch == "[":
+            return self.array()
+        if ch in "\"'":
+            return self.string()
+        for word, val in (("null", None), ("true", True), ("false", False)):
+            if self.text.startswith(word, self.i) and not self._ident_char(self.i + len(word)):
+                self.i += len(word)
+                return val
+        if ch and (ch in "+-.0123456789" or self.text.startswith(("Infinity", "NaN"), self.i)):
+            return self.number()
+        self.fail("unexpected character" if ch else "unexpected end")
 
-def _refuse_constant(name):
-    raise ValueError(f"{name} is outside the JSON5 subset read here")
+    def _ident_char(self, j: int) -> bool:
+        return j < len(self.text) and (self.text[j].isalnum() or self.text[j] in "_$")
+
+    def obj(self) -> dict:
+        out = {}
+        self.i += 1
+        while True:
+            self.blank()
+            if self.peek() == "}":
+                self.i += 1
+                return out
+            key = self.string() if self.peek() in "\"'" else self.identifier()
+            self.blank()
+            if self.peek() != ":":
+                self.fail("expected ':'")
+            self.i += 1
+            out[key] = self.value()
+            self.blank()
+            if self.peek() == ",":
+                self.i += 1
+            elif self.peek() != "}":
+                self.fail("expected ',' or '}'")
+
+    def array(self) -> list:
+        out = []
+        self.i += 1
+        while True:
+            self.blank()
+            if self.peek() == "]":
+                self.i += 1
+                return out
+            out.append(self.value())
+            self.blank()
+            if self.peek() == ",":
+                self.i += 1
+            elif self.peek() != "]":
+                self.fail("expected ',' or ']'")
+
+    def identifier(self) -> str:
+        """An ECMAScript IdentifierName, ``\\uXXXX`` escapes included."""
+        chars = []
+        while self.i < len(self.text):
+            ch = self.text[self.i]
+            if ch == "\\":
+                if not self.text.startswith("\\u", self.i):
+                    self.fail("bad escape in a key")
+                chars.append(self._hex(self.i + 2, 4))
+                self.i += 6
+            elif ch in "_$" or ch.isalpha() or (chars and (ch.isalnum()
+                                                            or ch in "\u200c\u200d")):
+                chars.append(ch)
+                self.i += 1
+            else:
+                break
+        if not chars or chars[0].isdigit():
+            self.fail("expected a key")
+        return "".join(chars)
+
+    def _hex(self, j: int, width: int) -> str:
+        digits = self.text[j:j + width]
+        if len(digits) != width or any(c not in "0123456789abcdefABCDEF" for c in digits):
+            self.i = j
+            self.fail("bad hexadecimal escape")
+        return chr(int(digits, 16))
+
+    def string(self) -> str:
+        quote = self.text[self.i]
+        self.i += 1
+        chars = []
+        while True:
+            if self.i >= len(self.text):
+                self.fail("unterminated string")
+            ch = self.text[self.i]
+            if ch == quote:
+                self.i += 1
+                return "".join(chars)
+            if ch in "\n\r":
+                self.fail("unterminated string")
+            if ch != "\\":
+                chars.append(ch)
+                self.i += 1
+                continue
+            nxt = self.text[self.i + 1:self.i + 2]
+            line_end = next((e for e in _LINE_ENDS if self.text.startswith(e, self.i + 1)),
+                            None)
+            if line_end is not None:                  # a line continuation
+                self.i += 1 + len(line_end)
+            elif nxt == "x":
+                chars.append(self._hex(self.i + 2, 2))
+                self.i += 4
+            elif nxt == "u":
+                chars.append(self._hex(self.i + 2, 4))
+                self.i += 6
+            elif nxt in _ESCAPES and not (nxt == "0" and self.text[self.i + 2:self.i + 3]
+                                          .isdigit()):
+                chars.append(_ESCAPES[nxt])
+                self.i += 2
+            elif nxt == "" or nxt.isdigit():
+                self.fail("bad escape")
+            else:
+                chars.append(nxt)
+                self.i += 2
+
+    def number(self):
+        text, start = self.text, self.i
+        sign = 1
+        if text[self.i] in "+-":
+            sign = -1 if text[self.i] == "-" else 1
+            self.i += 1
+        for word, val in (("Infinity", float("inf")), ("NaN", float("nan"))):
+            if text.startswith(word, self.i):
+                self.i += len(word)
+                return sign * val
+        if text.startswith(("0x", "0X"), self.i):
+            j = self.i + 2
+            while j < len(text) and text[j] in "0123456789abcdefABCDEF":
+                j += 1
+            if j == self.i + 2:
+                self.fail("bad hexadecimal number")
+            value = int(text[self.i + 2:j], 16)
+            self.i = j
+            return sign * value
+        j = self.i
+        while j < len(text) and text[j].isdigit():
+            j += 1
+        int_digits = text[self.i:j]
+        if len(int_digits) > 1 and int_digits[0] == "0":
+            self.fail("a leading zero")
+        is_float = False
+        if j < len(text) and text[j] == ".":
+            is_float = True
+            j += 1
+            frac_start = j
+            while j < len(text) and text[j].isdigit():
+                j += 1
+            if not int_digits and j == frac_start:
+                self.fail("bad number")
+        elif not int_digits:
+            self.fail("bad number")
+        if j < len(text) and text[j] in "eE":
+            is_float = True
+            j += 1
+            if j < len(text) and text[j] in "+-":
+                j += 1
+            exp_start = j
+            while j < len(text) and text[j].isdigit():
+                j += 1
+            if j == exp_start:
+                self.i = j
+                self.fail("bad exponent")
+        literal = text[start:j]
+        self.i = j
+        return float(literal) if is_float else int(literal)
 
 
 def loads_json5(text: str):
-    """Parse the JSON5 subset of the configuration files (see
-    :func:`_json5_to_json`); input outside it raises ``ValueError``."""
-    return json.loads(_json5_to_json(text), parse_constant=_refuse_constant)
+    """Parse JSON5 text (the grammar of ``json5.loads``, see
+    :class:`_Json5Reader`); anything that is not JSON5 raises
+    ``ValueError``."""
+    reader = _Json5Reader(text)
+    value = reader.value()
+    reader.blank()
+    if reader.i != len(text):
+        reader.fail("extra data")
+    return value
 
 
 def load_json(path: str) -> dict:

@@ -12,8 +12,8 @@ PyTorch port's counterpart of the JAX package's ``training/sweep.py``:
   wave (``training/wave.py``), at most ``max_wave_size`` configs a wave;
   every member is marked running before its wave and saved on its own
   after it, so dedup and resume behave as on the serial path.  A group
-  whose model cannot wave (``WaveUnsupported``: the interval adjoint,
-  ``odeint_adjoint``, adaptive solvers; ROADMAP item 17c) runs its members
+  whose model cannot wave (``WaveUnsupported``: ``scipy_solver``, a
+  bfloat16 adaptive step, ROADMAP item 17d) runs its members
   one after another;
 - a ``"hyperopt"`` suite runs each config as one search
   (``training/hyperopt.py``), which waves its same-shape candidates;

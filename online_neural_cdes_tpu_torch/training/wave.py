@@ -15,18 +15,23 @@ its labels are shared by every lane.  On the card, the fused field's Functions
 take the K lanes to the kernels' multi entry points
 (``ops/kernels.py``): one launch sequence per stage for the whole wave,
 as Pallas's batching rule gives the TPU kernel under ``jax.vmap``.  The
+solves have vmap rules of their own (``ops/cdeint.py``,
+``ops/solvers.py``): the interval adjoint and ``odeint_adjoint`` record
+K-lane Functions whose backward reverses every lane at once, and an
+adaptive or Adams solve runs K host controllers side by side, each lane
+with its own times, step sizes and accept/reject decisions, as JAX's
+vmapped ``lax.while_loop`` gives each lane.  The
 update is a stacked Adam (:class:`StackedAdam`) with per-lane learning
 rates, in the serial step's order of operations, so each lane follows its
 serial run (``harness.train``).  The host bookkeeping -- plateau schedule,
 early stopping, per-lane ``max_epochs``, the best weights and the cost
 share -- is the JAX wave's, vectorised over the lanes.
 
-A bundle whose step cannot be stacked raises :class:`WaveUnsupported`
-(ROADMAP item 17c): an NCDE through the interval adjoint
-(``adjoint: true`` with a fixed-step solver) or ``odeint_adjoint``, and any
-model on an adaptive or multistep solver, whose controller reads the
-device per attempted step.  The sweep and the hyperopt search catch only
-that exception and run such members one after another.
+A bundle whose step cannot be stacked raises :class:`WaveUnsupported`:
+``scipy_solver``, a host callback the JAX package cannot trace under
+``jax.vmap`` either, and a bfloat16 step over an adaptive solver (ROADMAP
+item 17d).  The sweep and the hyperopt search catch only that exception
+and run such members one after another.
 """
 
 from __future__ import annotations
@@ -66,8 +71,8 @@ WAVE_UNSUPPORTED_TRAINER_KEYS = frozenset({
 
 
 class WaveUnsupported(ValueError):
-    """A wave group whose model's step cannot be stacked (ROADMAP item
-    17c); its members train one after another."""
+    """A wave group whose model's step cannot be stacked; its members train
+    one after another."""
 
 
 def _shape_signature(point: dict) -> tuple:
@@ -108,27 +113,29 @@ def config_wave_groups(configs: List[dict]):
     return list(groups.values())
 
 
-def check_waveable(model) -> None:
+def check_waveable(model, compute_dtype=None) -> None:
     """Raise :class:`WaveUnsupported` for a model whose step cannot be
-    stacked: a solve whose controller reads the device per attempted step
-    (adaptive and multistep solvers, ``scipy_solver``), or an NCDE whose
-    gradient runs through the interval adjoint or ``odeint_adjoint``."""
-    from online_neural_cdes_tpu_torch.models.ncde import NeuralCDE
-    from online_neural_cdes_tpu_torch.ops.solvers import FIXED_METHODS
+    stacked: a ``scipy_solver`` solve (a host callback through
+    ``scipy.integrate.solve_ivp``, which the JAX package cannot trace under
+    ``jax.jit`` or ``jax.vmap`` either, so its wave refuses it too: parity,
+    not a gap), or a bfloat16 step over an adaptive solver (ROADMAP item
+    17d).  Every other model stacks: the interval adjoint, ``odeint_adjoint``
+    and the adaptive and Adams solves have vmap rules of their own."""
+    from online_neural_cdes_tpu_torch.ops.solvers import ADAPTIVE_METHODS
 
     for module in model.modules():
         solver = getattr(module, "solver", None)
-        if solver is not None and solver not in FIXED_METHODS:
+        if solver == "scipy_solver":
             raise WaveUnsupported(
-                f"{type(module).__name__} with solver {solver!r}: its controller reads "
-                "the device per attempted step, so its lanes cannot share one step; "
-                "waves over adaptive solvers are ROADMAP item 17c")
-        if isinstance(module, NeuralCDE) and module.adjoint:
+                f"{type(module).__name__} with solver 'scipy_solver': its solve is a host "
+                "callback (scipy.integrate.solve_ivp) that no vmapped program can carry; "
+                "the JAX package cannot trace it under jax.vmap either, so its members "
+                "train one after another")
+        if solver in ADAPTIVE_METHODS and compute_dtype is not None and str(
+                compute_dtype).replace("torch.", "") in ("bfloat16", "bf16"):
             raise WaveUnsupported(
-                f"NeuralCDE with adjoint=True (solver {solver!r}): the interval "
-                "adjoint's reverse scan is not stacked; waves over the adjoint are "
-                "ROADMAP item 17c (train with adjoint: false, autograd through the "
-                "solver's steps, to wave)")
+                f"{type(module).__name__} with solver {solver!r} in bfloat16: the K-lane "
+                "controller steps float32 and float64 states (ROADMAP item 17d)")
 
 
 class StackedAdam:
@@ -278,11 +285,11 @@ def _select_rows(mask_np, new: dict, old: dict) -> dict:
 
 
 def _probe_nfe(bundle, state, train_batches):
-    """``harness._probe_nfe`` for the stacked weights: an epoch's NFE for an
-    NCDE (the first batch's, read from one vmapped forward, times the
-    number of batches; the fixed grid's is every lane's), None for the
-    other models.  The forward is the wave's, so it launches the kernels'
-    multi entries as every other call of the wave."""
+    """``harness._probe_nfe`` for the stacked weights: each lane's epoch NFE
+    for an NCDE (its first batch's, read from one vmapped forward, times
+    the number of batches), None for the other models.  The forward is the
+    wave's, so it launches the kernels' multi entries as every other call
+    of the wave, and an adaptive solve's NFE is each lane's own."""
     from online_neural_cdes_tpu_torch.models.ncde import NeuralCDE
 
     if not isinstance(bundle.model, NeuralCDE):
@@ -296,7 +303,7 @@ def _probe_nfe(bundle, state, train_batches):
 
     with torch.no_grad():
         per_lane = torch.func.vmap(nfe)(state)
-    return int(per_lane[0]) * len(train_batches)
+    return [int(v) * len(train_batches) for v in per_lane.tolist()]
 
 
 def _wave_evaluate(bundle, state, batches, loss_name, metric_names, k):
@@ -363,7 +370,7 @@ def run_trials_vmapped(trial_cfgs: List[dict], data_root: str = "data/processed"
     from online_neural_cdes_tpu_torch.data.loader import Batches
     from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
     from online_neural_cdes_tpu_torch.training.harness import (
-        PLATEAU_MIN_LR, PLATEAU_REL_THRESHOLD,
+        PLATEAU_MIN_LR, PLATEAU_REL_THRESHOLD, _nfe_is_adaptive,
     )
     from online_neural_cdes_tpu_torch.utils.profiling import device_sync
 
@@ -402,7 +409,7 @@ def run_trials_vmapped(trial_cfgs: List[dict], data_root: str = "data/processed"
     ds = dict(cfg0.get("dataset", {}))
     trainer_cfg = dict(cfg0.get("trainer", {}))
     bundle, (train_data, val_data, test_data) = load_and_setup(cfg0, data_root, device)
-    check_waveable(bundle.model)
+    check_waveable(bundle.model, trainer_cfg.get("compute_dtype"))
 
     loss_str = trainer_cfg.get("loss_str", "bce")
     metric_names = tuple(trainer_cfg.get("metrics", ("loss",)))
@@ -428,9 +435,13 @@ def run_trials_vmapped(trial_cfgs: List[dict], data_root: str = "data/processed"
     test_batches = Batches(test_data, batch_size)
     if len(train_batches) == 0:
         raise ValueError("Training split is empty — nothing to train on.")
-    # A fixed grid's NFE does not depend on the weights (an adaptive solve
-    # does not wave): probe once.
-    nfe_per_epoch = _probe_nfe(bundle, state, train_batches)
+    # The sequential records' NFE: a fixed grid's does not depend on the
+    # weights (probe once); an adaptive solve's does, so each lane's is
+    # re-probed at its own trained weights after every epoch it is active
+    # in, and accumulated (the JAX wave's bookkeeping).
+    nfe_adaptive = _nfe_is_adaptive(bundle.model)
+    nfe_fixed = None if nfe_adaptive else _probe_nfe(bundle, state, train_batches)
+    nfe_total = np.zeros(k, np.int64)
 
     best_score = np.full(k, np.inf)
     best_state = {key: v.detach().clone() for key, v in state.items()}
@@ -461,6 +472,10 @@ def run_trials_vmapped(trial_cfgs: List[dict], data_root: str = "data/processed"
         device_sync(values)
         epochs_run[active] = epoch + 1
         n_wave_epochs = epoch + 1
+        if nfe_adaptive:
+            per_lane = _probe_nfe(bundle, state, train_batches)
+            if per_lane is not None:
+                nfe_total += np.where(active, per_lane, 0)
 
         val_results = _wave_evaluate(bundle, state, val_batches, loss_str, metric_names, k)
         scores = np.asarray([sign * r[monitor] for r in val_results], np.float64)
@@ -507,14 +522,20 @@ def run_trials_vmapped(trial_cfgs: List[dict], data_root: str = "data/processed"
     results = []
     for i in range(k):
         e_i = max(int(epochs_run[i]), 1)
+        if nfe_adaptive and nfe_total[i] > 0:
+            nfe_i = int(nfe_total[i])
+            nfe_per_epoch_i = nfe_i / e_i
+        else:
+            nfe_per_epoch_i = None if nfe_fixed is None else nfe_fixed[i]
+            nfe_i = None if nfe_fixed is None else nfe_fixed[i] * int(epochs_run[i])
         res = {
             "num_params": int(num_params),
             "elapsed_time": per_epoch_share * e_i,
             "time_per_epoch": per_epoch_share,
             "epochs_run": int(epochs_run[i]),
             "best_epoch": int(best_epoch[i]),
-            "nfe_per_epoch": nfe_per_epoch,
-            "nfe": None if nfe_per_epoch is None else nfe_per_epoch * int(epochs_run[i]),
+            "nfe_per_epoch": nfe_per_epoch_i,
+            "nfe": nfe_i,
             "memory_usage": None,
             "history": histories[i],
         }

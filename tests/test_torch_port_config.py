@@ -1,7 +1,7 @@
 """Parity of the PyTorch port's configuration suites and run ledger
 against the JAX package, on the CPU: the port's JSON5 reader against
-``json5`` (the configuration files and edge cases; what lies outside the
-subset raises), the port's copies of the configuration files, every
+``json5`` (the configuration files, edge cases and the rest of the JSON5
+grammar; what is not JSON5 raises), the port's copies of the configuration files, every
 suite's expanded config list and run name with and without test mode
 (``"load"`` suites against hyperopt results written by the JAX ledger),
 ``nested_parameter_grid``, ``parse_dataset_json``, ``update_hyperparams``,
@@ -47,21 +47,47 @@ def test_reader_matches_json5_on_edge_cases(text):
     assert config.loads_json5(text) == json5.loads(text)
 
 
+JSON5_GRAMMAR = [
+    "{'a': 1}",                                   # single quotes
+    '{a: 1, $b_2: 2, _c: 3}',                     # identifier keys
+    '{"a": 1 /* block */, /* and\n lines */ "b": 2}',
+    '{"a": Infinity, "b": -Infinity, "c": +Infinity}',
+    '{"a": NaN, "b": -NaN}',
+    '{"a": 0x10, "b": -0X1f, "c": +0xA}',         # hexadecimals
+    '{"a": .5, "b": 5., "c": +1, "d": -.25e-2, "e": 1E3}',
+    "{'s': 'it\\'s \\x41\\u0042 a line\\\ncontinued', t: \"q'\"}",
+    '[\'\\0\\b\\f\\n\\r\\t\\v\\/\\z\', "\\"\\\\"]',   # escapes
+    '{a: 1, a: 2}',                               # the last value of a key
+    '\ufeff {\u00a0"k"\u2028:\u3000[1,\t2,],}',   # JSON5 white space
+    '-0',
+    '"top level"',
+]
+
+
+@pytest.mark.parametrize("text", JSON5_GRAMMAR)
+def test_reader_matches_json5_on_its_grammar(text):
+    """Unquoted keys, ``.5`` / ``5.`` / ``+1`` / ``0x10``, ``Infinity`` /
+    ``NaN``, single quotes, block comments, line continuations: the
+    reader's value is ``json5.loads``' (NaN compared by its repr)."""
+    assert repr(config.loads_json5(text)) == repr(json5.loads(text))
+
+
 @pytest.mark.parametrize("text", [
-    "{'a': 1}",                # single quotes
-    '{a: 1}',                  # unquoted key
-    '{"a": 1 /* block */}',    # block comment
-    '{"a": Infinity}',
-    '{"a": -Infinity}',
-    '{"a": NaN}',
-    '{"a": 0x10}',             # hex
-    '{"a": .5}',
-    '{"a": +1}',
+    "{'a': 1",                 # unclosed object
+    '{a b}',                   # missing colon
+    '[1,,2]',                  # empty element
+    '{"a": 0x}',               # hex without digits
+    '{"a": 1.e}',              # exponent without digits
+    '{"a": 01}',               # leading zero
+    '[1] x',                   # extra data
+    '{1a: 2}',                 # key starting with a digit
+    "'a\nb'",                 # raw line break in a string
 ])
 def test_reader_refuses_json5_outside_the_subset(text):
-    """Valid JSON5 that the configuration files do not use raises; it is
-    never read as something else."""
-    json5.loads(text)
+    """Text that is not JSON5 raises ``ValueError``, as ``json5.loads``
+    refuses it; it is never read as something else."""
+    with pytest.raises(ValueError):
+        json5.loads(text)
     with pytest.raises(ValueError):
         config.loads_json5(text)
 

@@ -34,10 +34,15 @@ from online_neural_cdes_tpu_torch.ops import interpolation
 from online_neural_cdes_tpu_torch.ops.fill import forward_fill, linear_fill
 from online_neural_cdes_tpu_torch.training import loop
 from online_neural_cdes_tpu_torch.utils.convert import flatten_tree
+from jax_native_live import jax_native_live, make_live  # noqa: F401  (the fixture)
 
 torch.set_num_threads(1)
 
 RTOL = 1e-5
+
+# The ragged interpolations compared here go through the JAX package's native
+# library on its side too.
+pytestmark = pytest.mark.usefixtures("jax_native_live")
 
 
 def _ragged(seed=0, n=6, channels=3, low=3, high=12):

@@ -6,8 +6,8 @@ re-running only a missing record and a stale one (after the JAX package's
 ``tests/test_metrics_and_search.py``); then real toy searches whose
 same-shape trials train as one wave, equal to the same search run trial by
 trial, the failure sentinel with its traceback logged, the wave's catch
-of ``WaveUnsupported`` alone, and a ``"hyperopt"`` suite through
-``sweep.run`` and the CLI."""
+of ``WaveUnsupported`` alone, adjoint and dopri5 searches as waves, and a
+``"hyperopt"`` suite through ``sweep.run`` and the CLI."""
 
 import json
 import logging
@@ -252,12 +252,18 @@ def test_a_failed_trial_scores_the_sentinel_and_logs_its_traceback(toy_dataset, 
 
 
 def test_the_wave_catches_wave_unsupported_alone(toy_dataset, monkeypatch):
-    """An adjoint model's wave is rejected and its trials run one by one;
-    any other error of a wave propagates."""
+    """A wave its model refuses (``WaveUnsupported``, as ``check_waveable``
+    raises for ``scipy_solver``) has its trials run one by one; any other
+    error of a wave propagates."""
     calls = _count_waves(monkeypatch)
+
+    def refuse(model, compute_dtype=None):
+        raise wave.WaveUnsupported("refused for the test")
+
     search = _toy_search(wave_size=2, total_trials=2)
-    search["model"]["adjoint"] = True
-    res = ho.run_hyperopt(search, data_root=toy_dataset, device="cpu")
+    with monkeypatch.context() as patched:
+        patched.setattr(wave, "check_waveable", refuse)
+        res = ho.run_hyperopt(search, data_root=toy_dataset, device="cpu")
     assert calls == [2] and np.isfinite(res["best_score"]) and "error" not in res
 
     def broken(cfgs, **kw):
@@ -267,6 +273,28 @@ def test_the_wave_catches_wave_unsupported_alone(toy_dataset, monkeypatch):
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         ho.run_hyperopt(_toy_search(wave_size=2, total_trials=2), data_root=toy_dataset,
                         device="cpu")
+
+
+@pytest.mark.parametrize("model", [{"adjoint": True}, {"solver": "dopri5"}],
+                         ids=["adjoint", "dopri5"])
+def test_a_search_waves_adjoint_and_adaptive_trials(model, toy_dataset, monkeypatch, tmp_path):
+    """Candidates of an adjoint model, or of a dopri5 one (each lane its
+    own accepted steps), train as one wave: one ``run_trials_vmapped``
+    call, each trial's score that of the search run trial by trial."""
+    calls = _count_waves(monkeypatch)
+    search = _toy_search(wave_size=2, total_trials=2)
+    search["model"].update(model)
+    if "solver" in model:
+        search["dataset"]["interpolation"] = "hermite"
+    kw = dict(data_root=toy_dataset, run_name="h", device="cpu")
+    ho.run_hyperopt(search, ledger=Ledger(str(tmp_path / "w.jsonl")), **kw)
+    assert calls == [2]
+    ho.run_hyperopt({**search, "wave_vmap": False}, ledger=Ledger(str(tmp_path / "s.jsonl")),
+                    **kw)
+    assert calls == [2]
+    got, want = (_records(Ledger(str(tmp_path / f)), "h") for f in ("w.jsonl", "s.jsonl"))
+    assert [r[3] for r in got] == [r[3] for r in want]
+    np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want], rtol=1e-5)
 
 
 def test_mesh_names_item_18():

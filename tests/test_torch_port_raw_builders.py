@@ -33,7 +33,11 @@ from online_neural_cdes_tpu.data import mimic_raw as jax_raw
 from online_neural_cdes_tpu.data import ts_format as jax_ts
 from online_neural_cdes_tpu_torch.data import audio, builders, download, mimic, mimic_raw
 from online_neural_cdes_tpu_torch.data import ts_format
+from jax_native_live import jax_native_live, make_live  # noqa: F401  (the fixture)
 from test_raw_builders import _synthetic_bigquery_csv
+
+# Every comparison here goes through a ragged interpolation on the JAX side.
+pytestmark = pytest.mark.usefixtures("jax_native_live")
 
 torch.set_num_threads(1)
 
@@ -351,6 +355,19 @@ def test_character_trajectories_builder_matches_jax(tmp_path):
         assert npz["temporal_data_raw"].shape[0] == 56
         assert set(np.unique(npz["labels"])) <= set(range(20))
         assert npz["temporal_data_raw"][0].shape[1] == 4   # time + 3 dimensions
+
+
+def test_a_negative_cached_jax_library_is_made_live_again(tmp_path):
+    """A worker that met the JAX library half written caches the failure
+    and its ``interpolate`` takes the XLA builders; the fixture's reset
+    loads the library again and the comparison passes under it."""
+    from online_neural_cdes_tpu.data import native as jax_native
+
+    jax_native._lib, jax_native._load_failed = None, True
+    assert not jax_native.available()
+    make_live()
+    assert jax_native.available() and jax_native._lib is not None
+    test_character_trajectories_builder_matches_jax(tmp_path)
 
 
 @pytest.mark.parametrize("name", ["BeijingPM2pt5", "BeijingPM10"])

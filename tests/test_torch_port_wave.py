@@ -4,9 +4,11 @@ calls, the K-replica forms against one replica at a time, ``StackedAdam``
 against ``torch.optim.Adam``, the grouping rules against the JAX
 package's, ``run_trials_vmapped`` lanes against the port's serial
 ``train`` (f64, rtol 1e-9) and against the JAX wave from the same initial
-weights (rtol 1e-5), ``WaveUnsupported`` for the adjoint and adaptive
-bundles, and the co-scheduled sweep against ``co_schedule=False`` with the
-wave-size cap, partial completion and an isolated wave child."""
+weights (rtol 1e-5), and the co-scheduled sweep against
+``co_schedule=False`` with the wave-size cap, partial completion and an
+isolated wave child.  The waves over the adjoint and the adaptive and
+Adams solvers, and what still refuses to wave, are in
+``test_torch_port_wave_adjoint.py``."""
 
 import functools
 import json
@@ -364,18 +366,6 @@ def test_wave_matches_the_jax_wave(model_string, toy_dataset, f64_setup, monkeyp
 # ------------------------------------------------------------- refusals
 
 
-@pytest.mark.parametrize("model,solver,adjoint", [
-    ("ncde", "rk4", True), ("ncde", "dopri5", False), ("ncde", "dopri5", True),
-    ("odernn", "dopri5", False)])
-def test_unsupported_bundles_raise_naming_17c(model, solver, adjoint, toy_dataset):
-    cfg = _toy_cfg(model)
-    cfg["model"].update(solver=solver, adjoint=adjoint)
-    with pytest.raises(wave.WaveUnsupported, match="17c"):
-        wave.run_trials_vmapped([cfg, {**cfg, "seed": 1}], data_root=toy_dataset,
-                                device="cpu")
-    assert issubclass(wave.WaveUnsupported, ValueError)
-
-
 def test_mismatched_or_unsupported_configs_raise(toy_dataset):
     cfg = _toy_cfg("ncde")
     other = {**cfg, "model": {**cfg["model"], "hidden_dim": 9}}
@@ -479,22 +469,6 @@ def test_isolated_wave_child_returns_plain_json(toy_dataset, tmp_path):
         assert "best_params" not in res
         assert all(type(res[k]) in (int, float) for k in ("test.loss", "num_params"))
     _same_results(_by_seed(isolated), _by_seed(inproc))
-
-
-def test_an_adjoint_seed_group_runs_its_members_serially(toy_dataset, tmp_path, monkeypatch):
-    """A group whose model cannot wave (the interval adjoint) is rejected
-    by ``WaveUnsupported`` and runs one config after another."""
-    suite = {**SEEDS_SUITE, "seed": [0, 1],
-             "model": {**SEEDS_SUITE["model"], "adjoint": [True]}}
-    config_dir = _write_config_dir(tmp_path, {"adj": suite})
-    calls = _counting(monkeypatch)
-    completed = sweep.run("adj", ledger_path=str(tmp_path / "l.jsonl"), data_root=toy_dataset,
-                          config_dir=config_dir, device="cpu")
-    assert calls == [[0, 1]] and sorted(_by_seed(completed)) == [0, 1]
-    solo = sweep.run("adj", ledger_path=str(tmp_path / "s.jsonl"), data_root=toy_dataset,
-                     config_dir=config_dir, co_schedule=False, device="cpu")
-    for seed, res in _by_seed(solo).items():
-        assert res["test.loss"] == _by_seed(completed)[seed]["test.loss"]
 
 
 def test_a_wave_error_that_is_not_wave_unsupported_propagates(toy_dataset, tmp_path,
