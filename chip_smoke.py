@@ -594,8 +594,10 @@ PAR_RUN_RTOL, PAR_TIMEOUT_S = 1e-4, 300
 # The time-pipelined solve (item 18b) in the parallel phase's spawn: the
 # flagship at B=512 over 101 observations (200 rectilinear pieces, 100 a
 # rank, in (time, value) pairs), M=4 microbatches of 128 rows; the
-# adjoint's gradients on SEQ_ROWS rows at the same M, and the peak memory of
-# a step at B=64 over two lengths (4x the pieces) at SEQ_AUX_M microbatches.
+# adjoint's gradients on SEQ_ROWS rows at SEQ_ROWS_M microbatches (cut from 4
+# for the run's time: half the CPU references' solves), and the
+# peak memory of a step at B=64 over two lengths (4x the pieces) at SEQ_AUX_M
+# microbatches.
 # The pipelined adjoint reverse-integrates the state through a rank's 100
 # intervals, which magnifies round-off (the CPU's float32 pipeline lands
 # 0.6-1% of a tensor's largest gradient from its float64 one), so its
@@ -605,13 +607,14 @@ PAR_RUN_RTOL, PAR_TIMEOUT_S = 1e-4, 300
 SEQ_B, SEQ_L, SEQ_M = TRAIN_B, TRAIN_L + 1, 4
 SEQ_MEM_B, SEQ_MEM_LENGTHS = 64, (TRAIN_L // 2 + 1, 2 * TRAIN_L + 1)
 SEQ_ROWS, SEQ_AUX_M = GRAD_ROWS // 2, 2    # the memory check's microbatches
+SEQ_ROWS_M = 2
 SEQ_ROWS_RATIO = 4.0
 # The field kernels' shapes on the pipeline (a microbatch of the main path,
 # of the memory check and of the rows check, at I=21 and I=1), held against
 # their plain versions in the kernel phases (head_forward_grid sizes the
 # head's channel groups from the rows).
 SEQ_SHAPES = [(b, H, HH, i, 2) for b in (SEQ_B // SEQ_M, SEQ_MEM_B // SEQ_AUX_M,
-                                         SEQ_ROWS // SEQ_M) for i in (C, 1)]
+                                         SEQ_ROWS // SEQ_ROWS_M) for i in (C, 1)]
 SEQ_MEM_DIRECT_GROWTH, SEQ_MEM_ADJOINT_GROWTH = 2.0, 1.5
 PAR_TOY_SUITE = "toy-data-parallel"
 # The export phase's stepper: ticks, then a backlog through blocks of K.
@@ -1838,9 +1841,12 @@ def profile_call(fn, host=True):
     """One call of ``fn`` (ending in a synchronize) under torch.profiler:
     device time by kernel name and the device's busy share of the call's
     wall time, from the profiler's raw events, and the host's kernel
-    launches; with ``host``, the host ops by self time too (their tracing
+    launches and memory copies (``cudaMemcpy*`` calls) and the CPU
+    seconds the process spent in the call (every thread); with ``host``, the host ops by self time too (their tracing
     and ``key_averages`` take about a minute a million events, so the
     adaptive flagship's calls leave them out)."""
+    import resource
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1848,11 +1854,13 @@ def profile_call(fn, host=True):
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     torch.cuda.synchronize()
     with profile(activities=activities) as prof:
+        r0 = resource.getrusage(resource.RUSAGE_SELF)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, launches = {}, 0
+        r1 = resource.getrusage(resource.RUSAGE_SELF)
+    by_name, launches, copies = {}, 0, 0
     for evt in prof.profiler.kineto_results.events():
         if evt.device_type() == DeviceType.CUDA:
             entry = by_name.setdefault(evt.name()[:60], [0, 0.0])
@@ -1860,14 +1868,17 @@ def profile_call(fn, host=True):
             entry[1] += evt.duration_ns() / 1e6
         elif evt.name().startswith("cudaLaunchKernel"):
             launches += 1
+        elif evt.name().startswith("cudaMemcpy"):
+            copies += 1
     device_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     out = {"wall_ms": wall_ms,
+           "host_cpu_s": r1.ru_utime - r0.ru_utime + r1.ru_stime - r0.ru_stime,
            "device_busy_ms": device_ms if by_name else "not measured",
            "device_busy_share": device_ms / wall_ms if by_name else "not measured",
            "device_events": sum(n for n, _ in by_name.values()),
            "top": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top],
-           "host_kernel_launches": launches}
+           "host_kernel_launches": launches, "host_copies": copies}
     if host:
         ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
         out["host_top"] = [{"name": e.key[:60], "count": e.count,
@@ -2776,7 +2787,123 @@ def phase_adaptive():
          phase_seconds=time.perf_counter() - t_phase)
     # The flagship's adjoint training step (~73 s) is cut for the run's time
     # (PERF.md); config 3 trains through the same reverse solve above.
+    paths.update(adaptive_export_leg(model, pred, requests, static, outs, launches, counts,
+                                     predict_ms))
     return {f"adaptive_{k}": v for k, v in paths.items()}
+
+
+def solve_counts(counts):
+    return {k: counts.get("forward", {}).get(k, 0)
+            for k in ("solves", "nfe", "accepted", "rejected")}
+
+
+def export_against_live(what, live_pred, requests, static, live_outs, live_launches,
+                        live_counts, export_kw, live_ms=None):
+    """``live_pred`` exported (``export_kw``: its one length bucket), loaded
+    with no model object and serving ``requests``: the loaded ``predict``'s
+    solve counts (nfe / accepted / rejected) and kernel launches equal to
+    the live one's, its rows within the serving gate of the live rows
+    (bit-identity read, not gated).  Then its times beside the live
+    predictor's: the counted call (the loaded program's first; ``live_ms``
+    the live counted call's) and one more call of each side under the
+    profiler (wall ms, host CPU seconds, device busy time, host kernel
+    launches and copies).  Returns its readings."""
+    from online_neural_cdes_tpu_torch.serving_export import export_predictor, load_predictor
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_adaptive_")
+    try:
+        path = os.path.join(tmp, "artifact")
+        t0 = time.perf_counter()
+        n = export_predictor(live_pred, path, **export_kw)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_predictor(path, device=live_pred.device)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, launches, counts = solve_counted(lambda: loaded.predict(requests,
+                                                                     static=static))
+        first_ms = (time.perf_counter() - t0) * 1e3
+        if solve_counts(counts) != solve_counts(live_counts):
+            raise AssertionError(f"{what}: the loaded predict's solve counts "
+                                 f"{solve_counts(counts)}, the live one's "
+                                 f"{solve_counts(live_counts)}")
+        if launches != live_launches:
+            raise AssertionError(f"{what}: the loaded predict launched {launches}, the "
+                                 f"live one {live_launches}")
+        err = share = 0.0
+        for g, w in zip(got, live_outs):
+            if g.shape != w.shape or not np.isfinite(g).all():
+                raise AssertionError(f"{what}: a loaded row {g.shape} or not finite")
+            err = max(err, float(np.abs(g - w).max()))
+            share = max(share, gate_share(g, w, SERVE_RTOL, SERVE_ATOL))
+        if share > 1.0:
+            raise AssertionError(f"{what}: loaded rows at {share} of the serving gate")
+        profiles = {name: profile_call(lambda p=p: p.predict(requests, static=static),
+                                       host=False)
+                    for name, p in (("live", live_pred), ("loaded", loaded))}
+        return {"shapes_exported": n, "export_seconds": export_s, "load_seconds": load_s,
+                "artifact_bytes": artifact_bytes(path), "solve_counts": solve_counts(counts),
+                "kernel_launches": launches,
+                "vs_live": {"max_abs_err": err, "gate_share": share,
+                            "bit_identical": all(np.array_equal(g, w)
+                                                 for g, w in zip(got, live_outs))},
+                "predict_ms": {"loaded": first_ms, "live": live_ms},
+                "torch_threads": torch.get_num_threads(),
+                "profiled": {name: {k: prof[k] for k in (
+                    "wall_ms", "host_cpu_s", "device_busy_ms", "device_busy_share",
+                    "host_kernel_launches", "host_copies")}
+                    for name, prof in profiles.items()}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def adaptive_export_leg(model, pred, requests, static, outs, launches, counts, predict_ms):
+    """The dopri5 flagship predictor exported with one length bucket (the
+    64 requests' padded length), loaded with no model object, serving the
+    same 64 requests: its nfe / accepted / rejected and kernel-1 launches
+    equal to the live ``predict``'s (``launches``, ``counts``), rows within
+    the serving gate; the live and loaded calls' times side by side
+    (``predict_ms``: the live counted call's; ``export_against_live``)."""
+    from online_neural_cdes_tpu_torch import Predictor
+
+    t0 = time.perf_counter()
+    padded = -(-max(len(r) for r in requests) // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
+    one_bucket = Predictor(model, coeff_fn=rectilinear_coeffs, batch_buckets=(N_REQUESTS,),
+                           length_multiple=padded, device="cuda")
+    line = export_against_live(
+        "adaptive export", one_bucket, requests, static, outs, launches, counts,
+        dict(channels=C, max_length=padded, static_dim=STATIC), live_ms=predict_ms)
+    emit("adaptive", model="flagship", path="exported_predict", solver="dopri5 min_step=0.5",
+         requests=N_REQUESTS, length=padded, live_solve_counts=solve_counts(counts),
+         live_kernel_launches=launches, **line, seconds=time.perf_counter() - t0)
+    return {"exported_predict": line["kernel_launches"]}
+
+
+def adams_export_leg(device):
+    """An implicit Adams model at config 3's shapes (Hermite, C=9, H=HH=32,
+    2 layers; 64 requests of its 24 observations) exported with one length
+    bucket, loaded with no model object and serving the requests against
+    the live predictor: solve counts and kernel launches equal, rows within
+    the serving gate."""
+    from online_neural_cdes_tpu_torch import (
+        Predictor, hermite_cubic_coefficients_with_backward_differences as hermite)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(N_REQUESTS, CFG3_L, CFG3_C)).astype(np.float32)
+    x[:, :, 0] = np.arange(CFG3_L)
+    requests = list(x)
+    pred = Predictor(config3_model(device, "implicit_adams"), coeff_fn=hermite,
+                     batch_buckets=(N_REQUESTS,), length_multiple=CFG3_L, device=device)
+    live, launches, counts = solve_counted(lambda: pred.predict(requests))
+    expect_launches("implicit_adams export: the live predict", launches,
+                    forward=counts["forward"]["nfe"])
+    line = export_against_live("implicit_adams export", pred, requests, None, live, launches,
+                               counts, dict(channels=CFG3_C, max_length=CFG3_L))
+    emit("solver_extras", path="implicit_adams_exported_predict", model="config3",
+         requests=N_REQUESTS, live_solve_counts=solve_counts(counts),
+         live_kernel_launches=launches, **line, seconds=time.perf_counter() - t0)
+    return {"implicit_adams_exported_predict": line["kernel_launches"]}
 
 
 # ---------------------------------------------------------------- zoo
@@ -3459,6 +3586,9 @@ def phase_solver_extras(device="cuda"):
                                               SERVE_ATOL)},
              grads_vs_cpu={"rows": int(grad_rows.sum()), **grads}, train_step_ms=step_ms,
              seconds=time.perf_counter() - t_part)
+
+    # -- an Adams model as an exported artifact ----------------------------
+    paths.update(adams_export_leg(device))
 
     # -- scipy_solver, forward only ---------------------------------------
     t_part = time.perf_counter()
@@ -4873,6 +5003,7 @@ def solver_waves(config_dir, sepsis_root):
     emit("wave", leg="b_dopri5_step", batch=BEIJING_B, **leg,
          seconds=time.perf_counter() - t0)
     paths["wave_dopri5_step"] = leg["launches"]
+    paths.update(hermite_dopri5_deploy_leg(cfgs[0], states[0], root))
 
     # (c) config 3 with the adjoint (odeint_adjoint), K=3.
     t0 = time.perf_counter()
@@ -4887,6 +5018,51 @@ def solver_waves(config_dir, sepsis_root):
     paths["wave_odeint_adjoint_step"] = leg["launches"]
     solvers.reset_counts()
     return paths
+
+
+def hermite_dopri5_deploy_leg(cfg, state, root):
+    """The ``hermite-dopri5`` config's weights (a lane of leg b, kept with
+    ``utils/checkpoint.py``) through ``deploy --verify`` on the card: its
+    adaptive solve exported at the Beijing series' length (the Hermite
+    build serves that length alone: ``exact_length`` in the manifest),
+    loaded and held to the live predictor to the bit; the loaded artifact
+    refuses a shorter request."""
+    from online_neural_cdes_tpu_torch.serving_export import load_predictor
+    from online_neural_cdes_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_dopri5_")
+    try:
+        ckpt = save_checkpoint(os.path.join(tmp, "best_params"), state)
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as fh:
+            json.dump(cfg, fh)
+        art = os.path.join(tmp, "art")
+        summary, launches = counted(lambda: deploy_main([
+            "--config", cfg_path, "--checkpoint", ckpt, "--out", art,
+            "--data-root", root, "--batch-buckets", "8", "--verify"]))
+        if summary.get("verified") != "bit-exact" or summary["shapes_exported"] != 1:
+            raise AssertionError(f"wave hermite-dopri5 deploy: {summary}")
+        with open(os.path.join(art, "manifest.json")) as fh:
+            exact = json.load(fh).get("exact_length")
+        if exact != summary["max_length"]:
+            raise AssertionError(f"wave hermite-dopri5 deploy: exact_length {exact}, "
+                                 f"the corpus length {summary['max_length']}")
+        refusal = None
+        try:
+            load_predictor(art, device="cuda").predict(
+                [np.zeros((exact // 2, summary["channels"]), np.float32)])
+        except ValueError as exc:
+            refusal = str(exc)
+        if not refusal or f"exactly {exact} observations" not in refusal:
+            raise AssertionError("wave hermite-dopri5 deploy: a request of "
+                                 f"{exact // 2} observations was not refused ({refusal})")
+        emit("wave", leg="hermite_dopri5_deploy", summary=summary, exact_length=exact,
+             short_request_refused=True, kernel_launches=launches,
+             seconds=time.perf_counter() - t0)
+        return {"deploy_hermite_dopri5": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def config3_state(seed):
@@ -5814,6 +5990,8 @@ def par_checks(rank, spec, device):
         out["seq"] = seq_checks(rank, spec, device)
     if spec.get("artifacts"):
         out["export"] = export_mesh_checks(rank, spec, device)
+    if spec.get("c3"):
+        out["c3"] = c3_checks(rank, spec, device)
     return out
 
 
@@ -5882,6 +6060,203 @@ def export_mesh_checks(rank, spec, device):
             out[f"refusal_{name}"] = str(exc)
         out[f"ensemble_{key}"] = stream(load_stepper(path, mesh=ens_mesh), odd)
         out["ref"][f"ensemble_{key}"] = stream(load_stepper(path, device=device), odd)
+    return out
+
+
+def c3_batch(c3, rows, seed):
+    """Series (rows, L, C), time in channel 0, whose second half of rows is
+    4 times rougher than the first (so each shard's own controller would
+    take other steps than the whole batch's: ROADMAP C3), and float
+    targets, one a series (``return_sequences=False``) or one a time."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, c3["L"], c3["C"]))
+    x[rows // 2:] *= 4.0
+    x[..., 0] = np.arange(c3["L"])
+    shape = (rows, c3["L"]) if c3["return_sequences"] else (rows,)
+    return x, rng.normal(size=shape)
+
+
+def c3_coeffs(c3):
+    from online_neural_cdes_tpu_torch import (
+        hermite_cubic_coefficients_with_backward_differences, linear_interpolation_coeffs)
+
+    return (hermite_cubic_coefficients_with_backward_differences
+            if c3["interpolation"] == "hermite" else linear_interpolation_coeffs)
+
+
+def c3_model(c3, solver, device, dtype, adjoint=False):
+    """The C3 checks' NCDE on ``solver``: weights from seed 0, or the JAX
+    package's from ``c3["params"][solver]`` where given."""
+    from online_neural_cdes_tpu_torch import NeuralCDE
+    from online_neural_cdes_tpu_torch.utils.convert import params_from_jax
+
+    model = NeuralCDE(
+        input_dim=c3["C"], hidden_dim=c3["H"], output_dim=1, hidden_hidden_dim=c3["HH"],
+        num_layers=c3["layers"], interpolation=c3["interpolation"],
+        return_sequences=c3["return_sequences"], solver=solver, adjoint=adjoint,
+        generator=torch.Generator().manual_seed(0), device=device, dtype=dtype)
+    params = c3.get("params", {}).get(solver)
+    if params is not None:
+        with np.load(params) as npz:
+            params_from_jax(dict(npz), model)
+    return model
+
+
+def c3_bundle(c3, device, dtype):
+    """The C3 checks' NCDE on dopri5 as a bundle (``harness.setup_model``),
+    for the seed ensemble."""
+    from online_neural_cdes_tpu_torch.training import harness
+
+    return harness.setup_model(
+        "ncde", input_dim=c3["C"], output_dim=1, hidden_dim=c3["H"],
+        hidden_hidden_dim=c3["HH"], num_layers=c3["layers"],
+        interpolation=c3["interpolation"], adjoint=False, solver="dopri5",
+        return_sequences=c3["return_sequences"], device=device, dtype=dtype)
+
+
+def c3_checks(rank, spec, device):
+    """ROADMAP C3 over a mesh of the group's ranks (``spec["c3"]``): for
+    each adaptive solver, ``Predictor(mesh=)`` on requests whose second
+    half of rows is rougher (one rank's rows smooth, the other's rough),
+    the loaded artifact of ``c3["artifacts"][solver]`` over the same mesh,
+    and one ``make_train_step(mesh=)`` step on such a batch; each with this
+    rank's solve counts (``solvers.COUNTS``) and, on the card, kernel
+    launches; with ``c3["ensemble"]`` (K seeds, their stacked weights from
+    ``c3["ensemble_params"]`` where given), a dopri5 ``make_ensemble_step``
+    over (1 ensemble x the world's data): every rank solves the K lanes on
+    its rows, each lane's controller deciding over the whole batch.  On
+    rank 0 the same in one process (``ref``).  Then the refusals: an
+    adaptive ``odeint_adjoint`` step and a ``scipy_solver`` forward over
+    the mesh."""
+    from online_neural_cdes_tpu_torch import Predictor
+    from online_neural_cdes_tpu_torch.ops import solvers
+    from online_neural_cdes_tpu_torch.parallel import ensemble
+    from online_neural_cdes_tpu_torch.parallel import mesh as pm
+    from online_neural_cdes_tpu_torch.serving_export import load_predictor
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+    from online_neural_cdes_tpu_torch.utils.convert import params_from_jax
+
+    c3 = spec["c3"]
+    dtype = getattr(torch, spec["dtype"])
+    mesh = pm.make_mesh(spec["world"], devices=spec["device"])
+    ref = spec["reference"] and rank == 0
+    coeff_fn = c3_coeffs(c3)
+    out = {"rank": rank, "lr": c3["lr"], "ref": {}}
+
+    def counted_solve(fn):
+        solvers.reset_counts()
+        result, launches = _par_counted(fn, device)
+        return {"out": result, "launches": launches,
+                "counts": {k: solvers.COUNTS.get("forward", {}).get(k, 0)
+                           for k in ("solves", "nfe", "accepted", "rejected")}}
+
+    x_req, _ = c3_batch(c3, c3["requests"], 43)
+    requests = [r.astype(np.float32) for r in x_req]
+    serve_kw = dict(coeff_fn=coeff_fn, batch_buckets=(c3["requests"],),
+                    length_multiple=c3["L"])
+    x, labels = c3_batch(c3, c3["B"], 41)
+    inputs = coeff_fn(torch.as_tensor(x, dtype=dtype, device=device))
+    labels = torch.as_tensor(labels, dtype=dtype, device=device)
+    shard_in, shard_lab = pm.shard_batch((inputs, labels), mesh)
+
+    def step(model, mesh_, batch):
+        init = _state(model)
+        run = make_train_step(model, loss=c3["loss"], lr=c3["lr"], mesh=mesh_)
+        res = counted_solve(lambda: run(*batch, 1.0))
+        res.update(params=model.state_dict(), grads=_grads(model), init=init)
+        return res
+
+    for solver in c3["solvers"]:
+        model = c3_model(c3, solver, device, dtype)
+        out[f"{solver}_predict"] = counted_solve(
+            lambda: Predictor(model, mesh=mesh, **serve_kw).predict(requests))
+        path = c3.get("artifacts", {}).get(solver)
+        if path:
+            loaded = load_predictor(path, mesh=mesh)
+            out[f"{solver}_artifact"] = counted_solve(lambda: loaded.predict(requests))
+        out[f"{solver}_step"] = step(pm.replicate(c3_model(c3, solver, device, dtype), mesh),
+                                     mesh, (shard_in, shard_lab))
+        if ref:
+            out["ref"][f"{solver}_predict"] = counted_solve(
+                lambda: Predictor(model, device=device, **serve_kw).predict(requests))
+            if path:
+                loaded = load_predictor(path, device=device)
+                out["ref"][f"{solver}_artifact"] = counted_solve(
+                    lambda: loaded.predict(requests))
+            out["ref"][f"{solver}_step"] = step(c3_model(c3, solver, device, dtype), None,
+                                                (inputs, labels))
+    if c3.get("ensemble"):
+        bundle = c3_bundle(c3, device, dtype)
+
+        def ens_step(mesh_, batch):
+            stacked = None
+            if c3.get("ensemble_params"):
+                with np.load(c3["ensemble_params"]) as npz:
+                    stacked = params_from_jax(dict(npz), bundle.model, stacked=True)
+            state, adam = ensemble.init_ensemble(bundle, c3["ensemble"], mesh=mesh_,
+                                                 params=stacked)
+            init = {k: v.detach().clone() for k, v in state.items()}
+            grads = _record_grads(adam)
+            run = ensemble.make_ensemble_step(bundle, loss=c3["loss"], lr=c3["lr"],
+                                              mesh=mesh_)
+            res = counted_solve(lambda: run(state, adam, *batch, 1.0)[2])
+            res.update(params=state, grads=grads, init=init)
+            return res
+
+        ens_mesh = ensemble.make_ensemble_mesh(1, spec["world"], devices=spec["device"])
+        out["dopri5_ensemble_step"] = ens_step(ens_mesh,
+                                               pm.shard_batch((inputs, labels), ens_mesh))
+        if ref:
+            out["ref"]["dopri5_ensemble_step"] = ens_step(None, (inputs, labels))
+    refusals = []
+    for solver, adjoint in (("dopri5", True), ("scipy_solver", False)):
+        model = c3_model(c3, solver, device, dtype, adjoint=adjoint)
+        try:
+            make_train_step(model, loss=c3["loss"], lr=c3["lr"], mesh=mesh)(
+                shard_in, shard_lab, 1.0)
+            refusals.append(None)
+        except ValueError as exc:
+            refusals.append(str(exc))
+    out["refusals"] = refusals
+    return out
+
+
+def c3_verify(ranks, failed, check, gate):
+    """The C3 checks' gates (``c3_checks``): every rank's solve counts (nfe /
+    accepted / rejected) and kernel launches equal one process's, the
+    served rows (live and loaded) within the serving gate of one
+    process's, the step's loss at PAR_LOSS_RTOL, its gradients at the
+    gradient gate and its weights Adam's update (``adam_gate``); both
+    refusals name C3.  Returns the readings."""
+    ref = ranks[0]["c3"]["ref"]
+    out = {}
+    for r in ranks:
+        c3, i = r["c3"], r["rank"]
+        for key, want in ref.items():
+            got = c3[key]
+            what = f"parallel: rank {i} c3 {key}"
+            if got["counts"] != want["counts"]:
+                failed.append(f"{what}: counts {got['counts']}, one process's "
+                              f"{want['counts']}")
+            if got["launches"] != want["launches"]:
+                failed.append(f"{what}: launches {got['launches']}, one process's "
+                              f"{want['launches']}")
+            line = {"counts": got["counts"], "one_process": want["counts"],
+                    "launches": got["launches"]}
+            if key.endswith("_step"):
+                line["loss"] = gate(f"{what} loss", got["out"].reshape(-1),
+                                    want["out"].reshape(-1), PAR_LOSS_RTOL, 0.0)
+                grads = check(par_grad_gate, what, got["grads"], want["grads"])
+                line["grads"] = grads if isinstance(grads, dict) else dict(
+                    zip(("max_abs_err", "gate_share", "bit_identical"), grads))
+                line["params"] = check(adam_gate, what, got["params"], want["params"],
+                                       want["grads"], got["grads"], want["init"], c3["lr"])
+            else:
+                line["rows"] = gate(f"{what} rows", got["out"], want["out"], SERVE_RTOL,
+                                    SERVE_ATOL)
+            out.setdefault(key, []).append(line)
+        if not all(msg and "C3" in msg for msg in c3["refusals"]):
+            failed.append(f"parallel: rank {i} c3 refusals {c3['refusals']}")
     return out
 
 
@@ -6029,13 +6404,14 @@ def seq_checks(rank, spec, device):
             loss = timed(name, lambda: step(inputs, labels, 1.0))
             out["ref"][name] = {"loss": loss, "grads": _grads(m), "params": _state(m)}
 
-    # The adjoint's gradients on SEQ_ROWS rows: the card, then the same
-    # pipeline on the CPU (the plain versions) in float32 and float64.
-    rows = seq["rows"]
+    # The adjoint's gradients on SEQ_ROWS rows (``rows_M`` microbatches):
+    # the card, then the same pipeline on the CPU (the plain versions) in
+    # float32 and float64.
+    rows, rows_M = seq["rows"], seq.get("rows_M", M)
     m = _seq_model(spec, device, dtype, True)
     rows_in, rows_lab = batch(seq["B"], seq["L"], device, dtype, rows)
     out["adjoint_rows"] = run("seq_adjoint_rows", lambda: _seq_grads(
-        m, rows_in, rows_lab, mesh, True, M))
+        m, rows_in, rows_lab, mesh, True, rows_M))
     cpu_mesh = make_sequence_mesh(spec["world"], devices="cpu")
     for dt in (torch.float32, torch.float64):
         m_cpu = _seq_model(spec, torch.device("cpu"), dt, True)
@@ -6043,7 +6419,7 @@ def seq_checks(rank, spec, device):
         cpu_in, cpu_lab = batch(seq["B"], seq["L"], "cpu", dt, rows)
         t0 = time.perf_counter()
         out[f"adjoint_rows_cpu_{str(dt)[6:]}"] = _seq_grads(m_cpu, cpu_in, cpu_lab, cpu_mesh,
-                                                            True, M)
+                                                            True, rows_M)
         out["ms"][f"adjoint_rows_cpu_{str(dt)[6:]}"] = (time.perf_counter() - t0) * 1e3
 
     # Peak memory of a step at two lengths (the card only).
@@ -6187,16 +6563,18 @@ def phase_parallel():
         # predictor (bucket 64) and its stepper (63 and 64 streams).
         t0 = time.perf_counter()
         artifacts = par_artifacts(tmp)
+        c3 = c3_spec(tmp)
         artifacts_s = time.perf_counter() - t0
         spec = dict(world=2, device="cuda:0", dtype="float32", B=TRAIN_B, L=PAR_LENGTH, C=C,
                     H=H, HH=HH, layers=N_LAYERS, S=STATIC, lr=TRAIN_LR, accum=2,
                     classes=PAR_CLASSES, requests=N_REQUESTS, buckets=(2, N_REQUESTS),
                     length_multiple=LENGTH_MULTIPLE, streams=PAR_STREAMS, ticks=PAR_TICKS,
-                    reference=True, out=tmp, artifacts=artifacts,
+                    reference=True, out=tmp, artifacts=artifacts, c3=c3,
                     toy={"suite": PAR_TOY_SUITE, "config_dir": config_dir, "root": root,
                          "ledger": os.path.join(tmp, "dp.jsonl"),
                          "serial_ledger": os.path.join(tmp, "serial.jsonl")},
                     seq={"B": SEQ_B, "L": SEQ_L, "M": SEQ_M, "rows": SEQ_ROWS,
+                         "rows_M": SEQ_ROWS_M,
                          "aux_M": SEQ_AUX_M, "memory_B": SEQ_MEM_B,
                          "memory_lengths": SEQ_MEM_LENGTHS})
         t0 = time.perf_counter()
@@ -6259,7 +6637,7 @@ def phase_parallel():
                       "train.loss", "val.loss", "test.loss", "time_per_epoch")}},
              ce_padded_rows=ranks[0]["ce_step"]["padded_rows"],
              seq={"batch": {"B": SEQ_B, "L": SEQ_L, "M": SEQ_M, "rows": SEQ_ROWS,
-                            "aux_M": SEQ_AUX_M, "memory_B": SEQ_MEM_B,
+                            "rows_M": SEQ_ROWS_M, "aux_M": SEQ_AUX_M, "memory_B": SEQ_MEM_B,
                             "memory_lengths": SEQ_MEM_LENGTHS},
                   "launches": {f"rank{r['rank']}": r["seq"]["launches"] for r in ranks},
                   "by_width": {f"rank{r['rank']}": r["seq"]["widths"] for r in ranks},
@@ -6285,6 +6663,7 @@ def phase_parallel():
             "dp_ensemble_step": r0["ensemble_step"], "dp_toy_suite": r0["run_data_parallel"],
             "dp_artifact_predict": ranks[0]["export"]["launches"]["artifact_predict"],
             "dp_artifact_stream": ranks[0]["export"]["launches"]["artifact_stream"],
+            **{f"dp_c3_{key}": ranks[0]["c3"][key]["launches"] for key in ranks[0]["c3"]["ref"]},
             **{name: ranks[0]["seq"]["launches"][name] for name in (
                 "seq_forward", "seq_adjoint_step", "seq_direct_step")}}
 
@@ -6312,11 +6691,31 @@ def seq_launches(spec):
                             {f"forward_I{c}": evals // 2, "forward_I1": evals // 2}),
             "seq_adjoint_step": counts(seq["L"], True),
             "seq_direct_step": counts(seq["L"], False),
-            "seq_adjoint_rows": counts(seq["L"], True)}
+            "seq_adjoint_rows": counts(seq["L"], True, seq.get("rows_M", seq["M"]))}
     for L in seq["memory_lengths"]:
         want[f"seq_memory_adjoint_{L}"] = counts(L, True, seq["aux_M"])
         want[f"seq_memory_direct_{L}"] = counts(L, False, seq["aux_M"])
     return want
+
+
+def c3_spec(tmp):
+    """The parallel phase's C3 checks (``c3_checks``): config 3's model on
+    dopri5 and on implicit Adams (Hermite, C=9, H=HH=32, 2 layers, one
+    output a series, MSE) on its B=512 batch and 64 requests of its 24
+    observations, the second half of each 4 times rougher; the dopri5
+    predictor exported with one bucket."""
+    from online_neural_cdes_tpu_torch import Predictor
+    from online_neural_cdes_tpu_torch.serving_export import export_predictor
+
+    c3 = dict(B=CFG3_B, requests=N_REQUESTS, L=CFG3_L, C=CFG3_C, H=CFG3_H, HH=CFG3_H,
+              layers=2, interpolation="hermite", return_sequences=False, loss="mse",
+              lr=5e-3, solvers=("dopri5", "implicit_adams"))
+    path = os.path.join(tmp, "c3_dopri5_artifact")
+    export_predictor(Predictor(c3_model(c3, "dopri5", torch.device("cuda"), torch.float32),
+                               coeff_fn=c3_coeffs(c3), batch_buckets=(c3["requests"],),
+                               length_multiple=c3["L"], device="cuda"),
+                     path, channels=c3["C"], max_length=c3["L"])
+    return dict(c3, artifacts={"dopri5": path})
 
 
 def par_artifacts(tmp):
@@ -6522,6 +6921,8 @@ def par_verify(ranks):
         failed.append(f"parallel: ledger files {ranks[0]['run_files']}")
     if "seq" in ranks[0]:
         gates["seq"] = seq_verify(ranks, failed, check, gate)
+    if "c3" in ranks[0]:
+        gates["c3"] = c3_verify(ranks, failed, check, gate)
     return gates, serial, failed
 
 

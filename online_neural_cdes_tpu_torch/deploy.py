@@ -14,7 +14,13 @@ for the config's interpolation key, and writes an artifact
 
 The model and the export run on the card unless ``--device cpu`` is
 given; ``--platforms`` (default ``cuda,cpu``) names the devices the
-artifact may be loaded on.
+artifact may be loaded on.  Every solver but ``scipy_solver`` exports
+(the adaptive and Adams ones as their tensor form).  A config on a
+global-spline key (``hermite``, ``cubic``: a ``hermite-dopri5`` leg) serves
+requests of the corpus length only, where no length pad touches the
+build: its predictor takes ``exact_length`` (one length bucket, recorded
+in the manifest), and the live and the loaded predictor refuse any other
+request length.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ __all__ = [
 ]
 
 
+_GLOBAL_SPLINE_KEYS = ("cubic", "hermite")
+
+
 def serving_coeff_fn(interpolation: Optional[str]):
     """The raw-series -> model-inputs transform for a dataset
     interpolation key: what ``data/common.py::interpolate`` does to the
@@ -44,8 +53,10 @@ def serving_coeff_fn(interpolation: Optional[str]):
     values with the prepended time channel (``temporal_data_raw``'s).
 
     Keys whose coefficient build cannot reproduce the training-time
-    forward under the predictor's length padding are refused with a
-    recipe rather than served skewed."""
+    forward under the predictor's length padding (``cubic``, ``hermite``)
+    are refused with a recipe rather than served skewed;
+    :func:`build_predictor_from_config` serves them at the corpus length
+    alone (:func:`_global_spline_key`)."""
     from online_neural_cdes_tpu_torch.data.common import _coeff_fn
     from online_neural_cdes_tpu_torch.data.loader import (
         parse_interpolation_string, parse_logsig_string,
@@ -76,7 +87,7 @@ def serving_coeff_fn(interpolation: Optional[str]):
             "export with interpolation='rectilinear' over the augmented "
             "channels instead.")
 
-    if data_key in ("cubic", "hermite"):
+    if data_key in _GLOBAL_SPLINE_KEYS:
         # A forward-filled length pad is not inert for these builds: the
         # natural cubic's solve is global and the Hermite pad pieces carry
         # the last backward difference, so the state keeps moving across
@@ -84,11 +95,11 @@ def serving_coeff_fn(interpolation: Optional[str]):
         raise ValueError(
             f"{data_key} serving under length padding deviates from the "
             "training-time coefficient build (global/derivative-carrying "
-            "spline). Either serve full-length requests only by passing "
-            "an explicit coeff_fn= (the builder from data.common._coeff_fn"
-            f"({data_key!r})) and exporting with --length-multiple equal "
-            "to the corpus length, or train with a pad-inert key "
-            "(linear / rectilinear / logsig-*).")
+            "spline). Either serve requests of one length only: "
+            "build_predictor_from_config and the deploy command do so at the "
+            "corpus length (Predictor(exact_length=) with the builder from "
+            f"data.common._coeff_fn({data_key!r})), or train with a pad-inert "
+            "key (linear / rectilinear / logsig-*).")
 
     if data_key == "raw":
         raise ValueError(
@@ -97,14 +108,29 @@ def serving_coeff_fn(interpolation: Optional[str]):
             "linear_forward_fill / logsig-* -- or pass an explicit "
             "coeff_fn= for a custom request transform.")
 
-    builder = _coeff_fn(data_key)
+    return _first_row_filled(_coeff_fn(data_key))
 
+
+def _first_row_filled(builder):
     def coeff_fn(x):
         # interpolate()'s causal initial-NaN -> 0 fill.
         first = x[:, :1].masked_fill(torch.isnan(x[:, :1]), 0.0)
         return builder(torch.cat([first, x[:, 1:]], dim=1))
 
     return coeff_fn
+
+
+def _global_spline_key(interpolation: Optional[str]) -> Optional[str]:
+    """The data key (``cubic`` or ``hermite``) when the served build of
+    ``interpolation`` is a global spline, which serves at one request
+    length only; else None."""
+    from online_neural_cdes_tpu_torch.data.loader import parse_interpolation_string
+
+    data_key, model_interp = parse_interpolation_string(interpolation)
+    if model_interp is not None and (model_interp.startswith("logsig")
+                                     or model_interp == "rectilinear-intensity"):
+        return None
+    return data_key if data_key in _GLOBAL_SPLINE_KEYS else None
 
 
 def _rebuild(config: dict, checkpoint: str, data_root: Optional[str], device=None):
@@ -153,11 +179,15 @@ def build_predictor_from_config(
 ):
     """Rebuild the trained model from ``config`` + ``checkpoint`` (on
     ``device``: the card unless ``"cpu"``) and wrap it as a raw-request
-    :class:`~online_neural_cdes_tpu_torch.serving.Predictor`.
+    :class:`~online_neural_cdes_tpu_torch.serving.Predictor`.  A
+    global-spline key (``hermite``, ``cubic``) serves with
+    ``exact_length`` the longest corpus series: requests of that length
+    only, in one length bucket.
 
     Returns ``(predictor, info)``; ``info`` carries the export defaults
     derived from the corpus: raw ``channels``, ``max_length`` (the longest
     series), ``static_dim`` and ``model_string``."""
+    from online_neural_cdes_tpu_torch.data.common import _coeff_fn
     from online_neural_cdes_tpu_torch.serving import predictor_from_bundle
 
     bundle, splits, params, channels, max_length, _ = (
@@ -166,7 +196,13 @@ def build_predictor_from_config(
     if bundle.model_string in ("ncde", "ncde-stacked", "ncde-attention"):
         # NCDE bundles train on precomputed coefficients; serving takes raw
         # rows, so the coefficient build moves into the predictor.
-        if "coeff_fn" not in serving_kw:
+        spline_key = _global_spline_key(ds.get("interpolation"))
+        if "coeff_fn" not in serving_kw and spline_key is not None:
+            # A length pad would change this build (serving_coeff_fn): the
+            # predictor serves the corpus length alone.
+            serving_kw["coeff_fn"] = _first_row_filled(_coeff_fn(spline_key))
+            serving_kw["exact_length"] = max_length
+        elif "coeff_fn" not in serving_kw:
             serving_kw["coeff_fn"] = serving_coeff_fn(ds.get("interpolation"))
         model = bundle.model
         serving_kw.setdefault(
@@ -226,13 +262,15 @@ def build_stepper_from_config(
 def _verify_against_live(predictor, out_dir, channels, max_len, static_dim,
                          reduced_dtype):
     """Load-and-compare gate: synthetic rows (time channel first, the
-    corpus input space) through the loaded artifact against the live
-    predictor, on its device.  Reduced-precision artifacts compare within
-    tolerance, float32 to the bit.  Returns the 'verified' summary."""
+    corpus input space; every one the predictor's ``exact_length`` long
+    where it has one) through the loaded artifact against the live predictor, on
+    its device.  Reduced-precision artifacts compare within tolerance,
+    float32 to the bit.  Returns the 'verified' summary."""
     from online_neural_cdes_tpu_torch.serving_export import load_predictor
 
     rng = np.random.default_rng(0)
-    lengths = sorted({min(4, max_len), max(1, max_len // 2), max_len})
+    lengths = ([predictor.exact_length] * 3 if predictor.exact_length is not None
+               else sorted({min(4, max_len), max(1, max_len // 2), max_len}))
     rows = []
     for L in lengths:
         r = rng.normal(size=(L, channels)).astype(np.float32)
@@ -399,7 +437,8 @@ def main(argv=None) -> str:
                     help="comma-separated request-batch buckets")
     ap.add_argument("--length-multiple", type=int, default=16)
     ap.add_argument("--max-length", type=int, default=None,
-                    help="longest request to cover (default: corpus max)")
+                    help="longest request to cover (default: corpus max; a "
+                         "hermite or cubic config serves the corpus max alone)")
     ap.add_argument("--platforms", default="cuda,cpu",
                     help="devices the artifact may be loaded on")
     ap.add_argument("--device", default=None,
@@ -478,6 +517,10 @@ def main(argv=None) -> str:
         batch_buckets=tuple(int(b) for b in args.batch_buckets.split(",")),
         length_multiple=args.length_multiple)
     max_length = args.max_length or info["max_length"]
+    if predictor.exact_length is not None and max_length != predictor.exact_length:
+        raise ValueError(
+            f"--max-length {max_length}: this config's coefficient build serves "
+            f"requests of the corpus length {predictor.exact_length} only")
     platforms = tuple(args.platforms.split(","))
     n = export_predictor(predictor, args.out, channels=info["channels"],
                          max_length=max_length, static_dim=info["static_dim"],

@@ -789,7 +789,9 @@ def odeint_adjoint(
     control) and its solver options (by default the forward's).  Gradients
     reach ``y0``, ``t`` and the tensors of ``args`` (nested dicts, lists,
     tuples and splines).  With no gradient needed it is ``odeint``."""
-    if not isinstance(t, torch.Tensor):
+    if not isinstance(t, torch.Tensor) and not torch.compiler.is_exporting():
+        # (A traced program keeps host times as numpy: it makes no tensor
+        # it would have to read back.)
         t = torch.as_tensor(np.asarray(t))
     # Resolve grid-from-step_size against the concrete output times: the
     # reverse solves integrate one output interval at a time.
@@ -809,6 +811,10 @@ def odeint_adjoint(
                               options=options)
     setup = _AdjointSetup(func, rebuild_y, len(y_leaves), rebuild_args, rtol, atol,
                           method, options, adjoint_options)
+    if setup.adj_method in (*solvers.ADAPTIVE_METHODS, "implicit_adams", "scipy_solver"):
+        # The reverse state carries the parameter adjoint, a partial sum
+        # over this rank's rows: its norm is not a sum over rows.
+        solvers.refuse_rank_local(f"odeint_adjoint's reverse {setup.adj_method!r} solve")
     return rebuild_y(list(_OdeintAdjoint.apply(setup, t, *y_leaves, *arg_leaves)))
 
 
@@ -852,17 +858,26 @@ def _generic_cdeint(X, func, z0, t, args, adjoint, vector_field_type, method, at
                     rtol, options, adjoint_options, return_stats):
     """JAX ``cdeint``'s generic branch (see :func:`cdeint`)."""
     vf = _make_cde_field(func, vector_field_type)
-    theta = (X, args)
     if not t.requires_grad:
         # The solvers step with host times: the knot grid's host copy (all
         # of it, or the end points for the spline's interval), or one read
         # of the times.
         if t is X.grid_points or t is X.interval:
             grid = X.host_grid()
-            t = torch.tensor(grid if t is X.grid_points else (grid[0], grid[-1]),
-                             dtype=t.dtype)
+            grid = grid if t is X.grid_points else (grid[0], grid[-1])
+            # A traced program makes no host tensor: its times stay numpy.
+            t = (np.asarray(grid, dtype=solvers._NUMPY[t.dtype])
+                 if torch.compiler.is_exporting() else torch.tensor(grid, dtype=t.dtype))
         else:
             t = solvers._host_tensor(t)
+    if torch.compiler.is_exporting():
+        # The traced solve's loops take the spline's and the arguments'
+        # tensors as inputs, which may not alias one another (a spline's
+        # pieces are views of its coefficients): copies.
+        leaves, rebuild = flatten(X)
+        X = rebuild([leaf.clone() for leaf in leaves])
+        args = map_arrays(args, torch.clone)
+    theta = (X, args)
     if "step_size" in options:
         options["substeps"] = _resolve_substeps(options, solvers._host(t))
         options.pop("step_size")
@@ -955,12 +970,18 @@ def cdeint(
     )
     if not use_piece_scan:
         if torch.compiler.is_exporting():
-            # The adaptive, Adams and scipy solves step under a controller
-            # on the host, which a traced program cannot carry.
-            raise ValueError(
-                f"a {method!r} solve (or output times other than the knot grid or "
-                "its interval) cannot be exported: only the fixed-grid piece scan "
-                f"({', '.join(solvers.FIXED_METHODS)}) traces into a program")
+            # The adaptive and Adams solves trace into their tensor form
+            # (``solvers._adaptive_integrate_traced``, ``_adams_scan``).
+            if method == "scipy_solver":
+                raise ValueError(
+                    "a 'scipy_solver' solve cannot be exported: it steps in scipy on the "
+                    "host, which a traced program cannot carry (nor can the JAX package's "
+                    "exporter)")
+            if not (t is X.grid_points or t is X.interval):
+                raise ValueError(
+                    "output times other than the knot grid or its interval cannot be "
+                    "exported: an exported solve takes its times from the spline's "
+                    "host grid")
         return _generic_cdeint(X, func, z0, t, args, adjoint, vector_field_type, method,
                                atol, rtol, options, adjoint_options, return_stats)
     adj = dict(adjoint_options or {})

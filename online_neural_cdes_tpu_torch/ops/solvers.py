@@ -23,6 +23,14 @@ scalar of the state's dtype, as the JAX package does its time arithmetic
 in ``y0.dtype``.  A field receives its time as a 0-d tensor on the state's
 device (made by a fill, so no host-to-device copy waits on the card).
 
+While ``torch.export`` traces (``torch.compiler.is_exporting()``, the one
+switch), the adaptive and Adams solves take a tensor form instead
+(:func:`_adaptive_integrate_traced`, :func:`_adams_scan`: JAX's
+``lax.while_loop`` controller and Adams scan), so an exported program
+carries its own controller.  Over a mesh's data axis every reduction over
+the batch that decides a step goes through ``ops/reduce.py``, so each rank
+takes the steps one process takes over the whole batch.
+
 ``COUNTS`` holds what the adaptive solves did since ``reset_counts()``, by
 kind of solve: the forward solves, ``odeint_adjoint``'s reverse solves and
 the differentiable solve's replay (``counting_as``): solves, nfe, accepted
@@ -60,6 +68,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from online_neural_cdes_tpu_torch.ops import reduce as _reduce
 from online_neural_cdes_tpu_torch.utils.tree import flatten
 
 __all__ = ["odeint", "odeint_event", "combine_event_functions", "FIXED_METHODS",
@@ -402,6 +411,13 @@ def _add_scaled(y, h, s):
     return torch._foreach_add(y, torch._foreach_mul(s, float(h)))
 
 
+def _add_scaled_t(y, h: torch.Tensor, s):
+    """:func:`_add_scaled` with ``h`` a 0-d tensor (the same arithmetic)."""
+    if s is None:
+        return list(y)
+    return [yl + sl * h for yl, sl in zip(y, s)]
+
+
 def _norms(xs, weights=None):
     """Per leaf ||x w|| (a list of 0-d tensors); leaves whose weight is 0
     give None."""
@@ -418,7 +434,32 @@ def _norms(xs, weights=None):
 
 def _rms(norms, count: int) -> torch.Tensor:
     """sqrt(sum of the given leaves' sums of squares / count)."""
-    return torch.sqrt(torch.stack(norms).square().sum() / count)
+    return torch.sqrt(_sum_over_rows(torch.stack(norms).square().sum(), count) / count)
+
+
+def _sum_over_rows(sums: torch.Tensor, count: int) -> torch.Tensor:
+    """``sums`` over this process's ``count`` entries; over a data axis
+    (``ops/reduce.py``: a group set, or a program being exported) every
+    rank's, rescaled to this rank's share, so ``result / count`` is the mean
+    over the whole batch and the solves divide as they do alone."""
+    return _reduce.all_reduce(sums, count, "sum") if _reduce.active() else sums
+
+
+def _max_over_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (a largest value over this process's rows) maxed over the data
+    axis when one is set."""
+    return _reduce.all_reduce(x, 1, "max") if _reduce.active() else x
+
+
+def refuse_rank_local(what: str) -> None:
+    """Raise when a data axis is set (ROADMAP fault C3): ``what`` decides
+    its steps on this rank's rows alone, and no reduction of its makes them
+    the whole batch's."""
+    if _reduce.group() is not None:
+        raise ValueError(
+            f"{what} over a data axis of more than one rank would decide its steps on "
+            "each rank's rows alone (ROADMAP C3); run it in one process, or use a "
+            "fixed-grid method or an adaptive forward solve")
 
 
 # ---------------------------------------------------------------------------
@@ -474,9 +515,11 @@ class _ErrorNorm:
         norms = _norms(r, self.weights)
         live = [i for i, n in enumerate(norms) if n is not None]
         if not live:
-            return torch.zeros((), dtype=r[0].dtype, device=r[0].device)
+            return r[0].new_zeros(())
         if len(self.blocks) == 1:
             return _rms([norms[i] for i in live], self.counts[0])
+        if _reduce.active():   # each leaf's RMS over every rank's rows
+            return _max_combine([_rms([norms[i]], self.counts[i]) for i in live])
         # One block per leaf: ||r_i w_i|| / sqrt(count_i), for every leaf in
         # one launch.
         return _max_combine(torch._foreach_div([norms[i] for i in live],
@@ -501,7 +544,12 @@ class _ErrorNorm:
                 scaled.append(r[i][j] if plain else r[i][j] * w)
         norms = torch.stack(torch._foreach_norm(scaled)).reshape(k, len(live))
         if len(self.blocks) == 1:
-            return torch.sqrt(norms[:, 0].square() / self.counts[0])
+            return torch.sqrt(_sum_over_rows(norms[:, 0].square(), self.counts[0])
+                              / self.counts[0])
+        if _reduce.active():   # each leaf's RMS over every rank's rows
+            return torch.stack([torch.sqrt(_sum_over_rows(norms[:, j].square(), self.counts[i])
+                                           / self.counts[i]) for j, i in enumerate(live)],
+                               1).amax(1)
         roots = torch.tensor([math.sqrt(self.counts[i]) for i in live], dtype=norms.dtype,
                              device=norms.device)
         return (norms / roots).amax(1)
@@ -513,10 +561,12 @@ class _ErrorNorm:
         for block, n in zip(self.blocks, self.counts):
             live = [i for i in block if n5[i] is not None]
             if not live:
-                out.append(torch.zeros((), dtype=e5[0].dtype, device=e5[0].device))
+                out.append(e5[0].new_zeros(()))
                 continue
             s5 = torch.stack([n5[i] for i in live]).square().sum()
             s3 = torch.stack([n3[i] for i in live]).square().sum()
+            if _reduce.active():   # the block's two sums over every rank's rows
+                s5, s3 = _sum_over_rows(torch.stack([s5, s3]), n).unbind()
             denom = s5 + 0.01 * s3
             val = dt_abs * s5 / torch.sqrt(torch.clamp(denom, min=1e-30) * float(n))
             out.append(torch.where(denom > 0.0, val, torch.zeros_like(val)))
@@ -539,10 +589,9 @@ def _optimal_step_size(last_step, error_ratio, safety, ifactor, dfactor, order):
     return S(last_step * factor)
 
 
-def _select_initial_step(func, t0, y0, order, rtol, atol, f0):
-    """Hairer, Norsett & Wanner heuristic (reference misc.py:32-71): the
-    norms and h0 on the device, read once (d0, d1, d2 and h0 stacked)."""
-    S = type(t0)
+def _initial_norms(func, t0, y0, rtol, atol, f0):
+    """The heuristic's norms on the device: (d0, d1, d2, h0), 0-d tensors
+    (``t0`` a host scalar or, traced, a 0-d tensor)."""
     scale = torch._foreach_add(torch._foreach_mul(torch._foreach_abs(y0), float(rtol)),
                                float(atol))
     n = sum(yl.numel() for yl in y0)
@@ -555,9 +604,16 @@ def _select_initial_step(func, t0, y0, order, rtol, atol, f0):
     h0 = torch.where(small, torch.full_like(d0, 1e-6),
                      0.01 * d0 / torch.where(d1 == 0, torch.ones_like(d1), d1))
     y1 = [yl + h0 * fl for yl, fl in zip(y0, f0)]
-    f1 = func(float(t0) + h0, y1)
+    f1 = func((t0 if isinstance(t0, torch.Tensor) else float(t0)) + h0, y1)
     d2 = rms(torch._foreach_sub(f1, f0)) / h0
-    return _initial_step_host(S, order, *_read(torch.stack([d0, d1, d2, h0])))
+    return d0, d1, d2, h0
+
+
+def _select_initial_step(func, t0, y0, order, rtol, atol, f0):
+    """Hairer, Norsett & Wanner heuristic (reference misc.py:32-71): the
+    norms and h0 on the device, read once (d0, d1, d2 and h0 stacked)."""
+    norms = _initial_norms(func, t0, y0, rtol, atol, f0)
+    return _initial_step_host(type(t0), order, *_read(torch.stack(norms)))
 
 
 def _initial_step_host(S, order, d0, d1, d2, h0):
@@ -569,6 +625,51 @@ def _initial_step_host(S, order, d0, d1, d2, h0):
         else:
             h1 = (S(0.01) / np.maximum(d1_, d2_)) ** S(1.0 / float(order + 1))
         return S(np.minimum(S(100.0) * h0_, h1))
+
+
+@torch.library.custom_op("oncde::controller_pow", mutates_args=())
+def controller_pow(x: torch.Tensor, exponent: float) -> torch.Tensor:
+    """``x ** exponent`` for the 0-d tensor ``x`` as the host controller
+    computes it: numpy scalars of x's dtype (``exponent`` rounded to it),
+    with one read of ``x``.  A device's own ``pow`` rounds otherwise now
+    and then (float32 on the card), and an ulp of a step size moves every
+    later step: with ``torch.pow`` on an H100 the exported dopri5 flagship
+    took 5,012 / 361 / 474 evaluations / accepted / rejected steps where
+    the live one took 5,018 / 360 / 476 (PERF.md).  With this op an
+    exported solve steps as the live one."""
+    S = _NUMPY[x.dtype]
+    with np.errstate(all="ignore"):
+        value = S(x.item()) ** S(exponent)
+    return torch.full_like(x, float(value))
+
+
+@controller_pow.register_fake
+def _(x, exponent):
+    return torch.empty_like(x)
+
+
+def _initial_step_traced(order, d0, d1, d2, h0):
+    """:func:`_initial_step_host` on 0-d tensors (the traced controller's,
+    JAX's ``_select_initial_step`` tail)."""
+    tiny = (d1 <= 1e-15) & (d2 <= 1e-15)
+    h1 = torch.where(tiny, torch.maximum(torch.full_like(h0, 1e-6), h0 * 1e-3),
+                     controller_pow(torch.full_like(h0, 0.01) / torch.maximum(d1, d2),
+                                    1.0 / (order + 1)))
+    return torch.minimum(100.0 * h0, h1)
+
+
+def _optimal_step_traced(last_step, error_ratio, safety, ifactor, dfactor, order):
+    """:func:`_optimal_step_size` on 0-d tensors (JAX's branchless form)."""
+    zero = error_ratio == 0
+    dfac = torch.where(error_ratio < 1, torch.ones_like(last_step),
+                       torch.full_like(last_step, float(dfactor)))
+    safe = torch.where(zero, torch.ones_like(error_ratio), error_ratio)
+    # Tensors of the state's dtype throughout, as numpy's scalars (a float
+    # divided by a tensor multiplies by its reciprocal).
+    factor = torch.minimum(torch.full_like(last_step, float(ifactor)), torch.maximum(
+        torch.full_like(safe, float(safety)) / controller_pow(safe, 1.0 / order), dfac))
+    factor = torch.where(zero, torch.full_like(last_step, float(ifactor)), factor)
+    return last_step * factor
 
 
 # ---------------------------------------------------------------------------
@@ -600,9 +701,12 @@ def _runge_kutta_step(func, y0, f0, t0, dt, tableau: ButcherTableau,
 
 def _interp_fit(y0, y1, y_mid, f0, f1, dt):
     """Quartic fit matching y0, y1, y_mid, f0, f1 on one step; per leaf
-    the five coefficients, highest power first."""
-    S = type(dt)
-    h, h2 = float(dt), float(S(2) * dt)
+    the five coefficients, highest power first.  ``dt`` a host scalar or
+    a 0-d tensor (the traced controller's)."""
+    if isinstance(dt, torch.Tensor):
+        h, h2 = dt, dt * 2.0
+    else:
+        h, h2 = float(dt), float(type(dt)(2) * dt)
     out = []
     for y0l, y1l, yml, f0l, f1l in zip(y0, y1, y_mid, f0, f1):
         a = (f1l - f0l) * h2 - (y1l + y0l) * 8.0 + yml * 16.0
@@ -628,12 +732,13 @@ def _interp_evaluate(coeffs, x):
 
 
 def _fit_from_stages(y0, y1, k, dt, tableau: ButcherTableau):
-    S = type(dt)
+    traced = isinstance(dt, torch.Tensor)
     if tableau.mid is not None:
-        y_mid = _add_scaled(y0, dt, _lincomb(tableau.mid, k))
+        y_mid = (_add_scaled_t(y0, dt, _lincomb(tableau.mid, k)) if traced
+                 else _add_scaled(y0, dt, _lincomb(tableau.mid, k)))
     else:
         # Cubic-Hermite midpoint: exact for methods of order <= 3.
-        q = float(S(0.125) * dt)
+        q = dt * 0.125 if traced else float(type(dt)(0.125) * dt)
         y_mid = [(a + b) * 0.5 + (k0 - kl) * q
                  for a, b, k0, kl in zip(y0, y1, k[0], k[-1])]
     return _interp_fit(y0, y1, y_mid, k[0], k[-1], dt)
@@ -831,6 +936,9 @@ def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, at
         wide = _lincomb([float(S(c)) for c in coeffs], [[l.float() for l in f] for f in fs])
         return [l.to(torch.bfloat16) for l in wide]
 
+    if torch.compiler.is_exporting() and not lanes:
+        return _adams_scan(func, y0, t, S, substeps, correct, rtol_f, atol_f, max_iters,
+                           hist_len, n_steps, h_t, bash_tab, moul_tab)
     y, hist, nfe, states = list(y0), [], 0, [list(y0)]
     for i in range(n_steps):
         tt = t[0] + T(i) * h_t
@@ -862,12 +970,98 @@ def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, at
                     else:
                         ratio = torch.stack([e.max() for e in err]).max()
                         dy = [torch.where(done, a, b) for a, b in zip(dy, dy_new)]
-                    done = done | (ratio < 1.0)
+                    done = done | (_max_over_rows(ratio) < 1.0)
                 nfe += max_iters
             y = torch._foreach_add(y, dy)
         states.append(list(y))
     _count(solves=max(lanes, 1), nfe=nfe * max(lanes, 1), accepted=n_steps * max(lanes, 1))
     return _stack(states[::substeps]), _stats(nfe, n_steps, 0)
+
+
+def _adams_scan(func, y0, t, S, substeps, correct, rtol_f, atol_f, max_iters, hist_len,
+                n_steps, h_t, bash_tab, moul_tab):
+    """:func:`_adams_integrate` as ``torch.export`` records it, JAX's
+    fixed-length form: the two RK4 bootstraps ahead of the loop, then one
+    ``scan`` over the remaining steps with each step's times and
+    coefficient rows (zero-padded to the history's length, rounded to the
+    state's dtype) streamed in and the history a stacked carry; the
+    corrector's ``max_iters`` convergence-frozen updates as in the live
+    solve.  The sums run in the live solve's order (a padded zero adds
+    nothing), so the program does the live solve's arithmetic."""
+    from torch._higher_order_ops.scan import scan
+
+    T = type(t[0])
+    ref, n_y = y0[0], len(y0)
+    time_dtype = _time_dtype(t)
+    h = float(S(h_t))
+    wide = S is _Bf16        # a bf16 history summed in f32, rounded once
+    row_dtype = torch.float32 if wide else ref.dtype
+
+    def at(tt):
+        return ref.new_full((), float(tt), dtype=time_dtype)
+
+    def func_t(tt, yy):
+        return func(tt if isinstance(tt, torch.Tensor) else at(tt), yy)
+
+    def dot(row, stack):
+        acc = None
+        for j in range(hist_len):
+            term = (stack[j].float() if wide else stack[j]) * row[j]
+            acc = term if acc is None else acc + term
+        return acc.to(ref.dtype) * h
+
+    tts = [t[0] + T(i) * h_t for i in range(n_steps)]
+    y, states = list(y0), [list(y0)]
+    hist = [ref.new_zeros((hist_len,) + tuple(leaf.shape)) for leaf in y0]
+    n_boot = min(_ADAMS_MIN_ORDER - 2, n_steps)
+    for i in range(n_boot):
+        f_n = func_t(tts[i], y)
+        hist = [torch.cat([f[None], hl[:-1]]) for f, hl in zip(f_n, hist)]
+        y, _ = _rk4_38_step(func_t, tts[i], h_t, y, S, f0=f_n)
+        states.append(list(y))
+    rows = []
+    for i in range(n_boot, n_steps):
+        order = min(i + 1, hist_len)
+        brow, mrow = np.zeros(hist_len), np.zeros(hist_len)
+        brow[:order] = [float(S(c)) for c in bash_tab[order]]
+        mfull = moul_tab[order + 1]
+        mrow[:order] = [float(S(c)) for c in mfull[1:]]
+        rows.append((brow, mrow, float(S(h) * S(mfull[0]))))
+
+    def combine(carry, x):
+        y, hist = list(carry[:n_y]), list(carry[n_y:])
+        tt, tc, brow, mrow, hm0 = x
+        f_n = func_t(tt, y)
+        hist = [torch.cat([f[None], hl[:-1]]) for f, hl in zip(f_n, hist)]
+        dy = [dot(brow, hl) for hl in hist]
+        if correct:
+            delta = [dot(mrow, hl) for hl in hist]
+            done = ref.new_zeros((), dtype=torch.bool)
+            for _ in range(max_iters):
+                f_c = func_t(tc, [a + b for a, b in zip(y, dy)])
+                dy_new = [fc * hm0 + d for fc, d in zip(f_c, delta)]
+                err = [(a - b).abs() / (torch.maximum(a.abs(), b.abs()) * rtol_f + atol_f)
+                       for a, b in zip(dy, dy_new)]
+                ratio = _max_over_rows(torch.stack([e.max() for e in err]).max())
+                dy = [torch.where(done, a, b) for a, b in zip(dy, dy_new)]
+                done = done | (ratio < 1.0)
+        y = [a + b for a, b in zip(y, dy)]
+        return [*[leaf.clone() for leaf in y], *hist], y
+
+    if rows:
+        xs = (torch.stack([at(tts[i]) for i in range(n_boot, n_steps)]),
+              torch.stack([at(tts[i] + h_t) for i in range(n_boot, n_steps)]),
+              torch.tensor(np.stack([r[0] for r in rows]), dtype=row_dtype, device=ref.device),
+              torch.tensor(np.stack([r[1] for r in rows]), dtype=row_dtype, device=ref.device),
+              torch.stack([ref.new_full((), r[2]) for r in rows]))
+        _, rest = scan(combine, [*[leaf.clone() for leaf in y], *hist], xs)
+    ys = [torch.cat([torch.stack([s[i] for s in states])] + ([rest[i]] if rows else []))
+          [::substeps] for i in range(n_y)]
+    n_adams = n_steps - n_boot
+    nfe = n_steps + 3 * n_boot + (max_iters * n_adams if correct else 0)
+    count = ref.new_zeros((), dtype=torch.int32)
+    return ys, _record_traced({"nfe": count + nfe, "accepted": count + n_steps,
+                               "rejected": count.clone()})
 
 
 # ---------------------------------------------------------------------------
@@ -1021,8 +1215,11 @@ class _Controller:
         if tab.c_error_alt is None:
             return self.norm.ratio(torch._foreach_div(err, scale))
         # DOP853 blended 5th/3rd-order error (Hairer; scipy semantics).
-        err5 = torch._foreach_div(torch._foreach_div(err, float(dt)), scale)
         err3 = torch._foreach_div(_lincomb(tab.c_error_alt, k), scale)
+        if isinstance(dt, torch.Tensor):   # the traced controller's
+            err5 = [e / dt / sc for e, sc in zip(err, scale)]
+            return self.norm.blended(err5, err3, dt.abs())
+        err5 = torch._foreach_div(torch._foreach_div(err, float(dt)), scale)
         return self.norm.blended(err5, err3, float(abs(dt)))
 
     def judge(self, dt, ratio):
@@ -1079,6 +1276,8 @@ def _nan_like(y):
 
 
 def _adaptive_integrate(func, y0, t, tableau, max_num_steps, **kw):
+    if torch.compiler.is_exporting():
+        return _adaptive_integrate_traced(func, y0, t, tableau, max_num_steps, **kw)
     ctl = _Controller(func, y0, t, tableau, **kw)
     s = ctl.start()
     t = ctl.t
@@ -1098,6 +1297,154 @@ def _adaptive_integrate(func, y0, t, tableau, max_num_steps, **kw):
             outs.append(ctl.output(s, t_out))
     _count(solves=1, nfe=s.nfe, accepted=s.accepted, rejected=s.rejected)
     return _stack(outs), _stats(s.nfe, s.accepted, s.rejected)
+
+
+# ---------------------------------------------------------------------------
+# The traced controller.  ``torch.export`` cannot carry the host controller,
+# so while a program is exported (``torch.compiler.is_exporting()``, and
+# nothing else, picks this form) the adaptive solve is the JAX package's
+# ``_adaptive_machinery`` / ``_adaptive_integrate`` in tensors: a ``scan``
+# over the output times, each advancing by a ``while_loop`` of attempts
+# whose state (y1, f1, t0, t1, dt, the last accepted step's dense-output
+# coefficients, nfe, accepted, rejected) lives on the device, accept and
+# reject as ``torch.where``.  Each attempt is the host controller's
+# (:meth:`_Controller.clamp`, ``attempt``, ``judge``) on 0-d tensors of the
+# state's dtype, with the same stages, norms and dense output, so the two
+# take the same steps; only the step-size arithmetic (a ``pow``) may round
+# differently from numpy by an ulp.  Constants come from the state
+# (``new_full``) so a loaded program makes them on its own device.
+# ---------------------------------------------------------------------------
+
+_TRACED = []
+
+
+@contextlib.contextmanager
+def traced_stats():
+    """Collects the stats (``nfe``, ``accepted``, ``rejected``: int32
+    tensors) of the traced adaptive and Adams solves run inside into the
+    list it yields: an exported program returns them
+    (``serving_export``)."""
+    out = []
+    _TRACED.append(out)
+    try:
+        yield out
+    finally:
+        _TRACED.pop()
+
+
+def _record_traced(stats: dict) -> dict:
+    if _TRACED:
+        _TRACED[-1].append(stats)
+    return stats
+
+
+def _adaptive_integrate_traced(func, y0, t, tableau, max_num_steps, **kw):
+    """:func:`_adaptive_integrate` as ``torch.export`` records it (see the
+    section's comment).  Returns (per leaf the states at ``t``, stats)."""
+    from torch._higher_order_ops.scan import scan
+    from torch._higher_order_ops.while_loop import while_loop
+
+    ctl = _Controller(func, y0, t, tableau, **kw)
+    S, t = ctl.S, ctl.t
+    ref, n_y = y0[0], len(y0)
+
+    def const(v):
+        return ref.new_full((), float(v))
+
+    def table(values):
+        return torch.stack([const(v) for v in values])
+
+    count = ref.new_zeros((), dtype=torch.int32)
+    f0 = func(const(t[0]), y0)
+    nfe0 = 1
+    if ctl.first_step is None:
+        dt0 = _initial_step_traced(tableau.order - 1, *_initial_norms(
+            func, const(t[0]), y0, ctl.rtol, ctl.atol, f0))
+        nfe0 += 1
+    else:
+        dt0 = const(S(ctl.first_step))
+    if ctl.min_step_given:
+        dt0 = torch.maximum(dt0, const(ctl.min_step))
+    dt0 = torch.minimum(dt0, const(ctl.max_step))
+    special = table(ctl.special) if ctl.special.shape[0] else None
+    jumps = table(ctl.jumps) if ctl.jumps.shape[0] else None
+    min_step, max_step, t_first = const(ctl.min_step), const(ctl.max_step), const(t[0])
+    n_stages = len(tableau.c_sol)
+
+    def unpack(state):
+        y1, f1 = list(state[:n_y]), list(state[n_y:2 * n_y])
+        t0, t1, dt = state[2 * n_y:2 * n_y + 3]
+        interp = list(state[2 * n_y + 3:-3])
+        return y1, f1, t0, t1, dt, interp, state[-3:]
+
+    def attempt(*state):
+        y1, f1, t0_was, t1_was, dt, interp, (nfe, accepted, rejected) = unpack(state)
+        t0 = t1_was
+        t1 = t0 + dt
+        t1_eval = None
+        if special is not None:   # clamp onto the next declared point
+            i = torch.searchsorted(special, t0.reshape(1), right=True)
+            nxt = special.index_select(0, i.clamp(max=special.shape[0] - 1)).reshape(())
+            hit = (i.reshape(()) < special.shape[0]) & (t0 < nxt) & (nxt < t1)
+            t1 = torch.where(hit, nxt, t1)
+            dt = t1 - t0
+            t1_eval = torch.where((special == t1).any(), torch.nextafter(t1, t0), t1)
+        k = [f1]
+        for alpha, beta in zip(tableau.alpha, tableau.beta):
+            ti = t1_eval if (alpha == 1.0 and t1_eval is not None) else t0 + dt * alpha
+            k.append(func(ti, _add_scaled_t(y1, dt, _lincomb(beta, k))))
+        y_new = _add_scaled_t(y1, dt, _lincomb(tableau.c_sol, k))
+        err = [e * dt for e in _lincomb(tableau.c_error, k)]
+        ratio = ctl.error_ratio(err, y1, y_new, k, dt)
+        accept = ((ratio <= 1.0) & ~(dt > max_step)) | (dt <= min_step)
+        dt_next = _optimal_step_traced(dt, ratio, ctl.safety, ctl.ifactor, ctl.dfactor,
+                                       tableau.order)
+        dt_next = torch.minimum(torch.maximum(dt_next, min_step), max_step)
+        f_new, nfe = k[-1], nfe + (n_stages - 1)
+        if jumps is not None:
+            # Landing on a declared jump: the next step's FSAL stage from
+            # just past it, evaluated only when it lands.
+            hit_jump = accept & (jumps == t1).any()
+            f_new = list(torch.cond(
+                hit_jump, lambda tt, *ys: tuple(func(tt, list(ys))),
+                lambda tt, *ys: tuple(x.clone() for x in f_new),
+                (torch.nextafter(t1, t1 + 1), *y_new)))
+            nfe = nfe + hit_jump.to(torch.int32)
+        fit = [c for leaf in _fit_from_stages(y1, y_new, k, dt, tableau) for c in leaf]
+
+        def pick(new, old):
+            return [torch.where(accept, a, b) for a, b in zip(new, old)]
+
+        return (*pick(y_new, y1), *pick(f_new, f1), *pick((t0, t1), (t0_was, t1_was)),
+                dt_next, *pick(fit, interp), nfe, accepted + accept.to(torch.int32),
+                rejected + (~accept).to(torch.int32))
+
+    def advance_to(state, t_out):
+        def going(*st):
+            *_, t1, dt, _, (nfe, accepted, rejected) = unpack(st)
+            return (t_out > t1) & (accepted + rejected < max_num_steps) & (dt > 0)
+
+        state = while_loop(going, attempt, tuple(state))
+        _, _, t0, t1, _, interp, _ = unpack(state)
+        x = (t_out - t0) / (t1 - t0)
+        outs = []
+        for i, y0l in enumerate(y0):
+            acc = interp[5 * i]
+            for c in interp[5 * i + 1:5 * i + 5]:
+                acc = acc * x + c
+            acc = torch.where(t_out > t1, torch.full_like(acc, float("nan")), acc)
+            outs.append(torch.where(t_out <= t_first, y0l, acc))
+        return [x.clone() for x in state], outs
+
+    interp0 = [c for leaf in y0
+               for c in [torch.zeros_like(leaf) for _ in range(4)] + [leaf.clone()]]
+    state0 = [*[leaf.clone() for leaf in y0], *[f.clone() for f in f0], t_first.clone(),
+              t_first.clone(), dt0, *[c.clone() for c in interp0], count + nfe0,
+              count.clone(), count.clone()]
+    state, rest = scan(advance_to, state0, table(t[1:]))
+    ys = [torch.cat([y0l[None], r]) for y0l, r in zip(y0, rest)]
+    nfe, accepted, rejected = state[-3:]
+    return ys, _record_traced({"nfe": nfe, "accepted": accepted, "rejected": rejected})
 
 
 def _adaptive_integrate_diff(func, y0, t, t_tensor, tableau, max_num_steps, max_steps,
@@ -1880,6 +2227,7 @@ def odeint(
             max_order=int(options.pop("max_order", _ADAMS_MAX_ORDER)),
             max_iters=int(options.pop("max_iters", _ADAMS_MAX_ITERS)))
     elif method == "scipy_solver":
+        refuse_rank_local("a scipy_solver solve")
         ys, stats = _scipy_integrate(make_func(dtype), y, t_host, rtol, atol, options)
     elif method in ADAPTIVE_METHODS:
         flat_func = make_func(dtype)

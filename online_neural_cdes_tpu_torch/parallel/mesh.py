@@ -16,7 +16,11 @@ device.  The JAX names keep their meaning on top of that idiom:
 - a step built with ``mesh=`` all-reduces what it must (the loss's sums and
   counts, the gradients), so every rank takes the same update, and a
   forward built with it all-gathers the rows, so every rank returns every
-  row.
+  row;
+- :func:`data_reductions` makes the adaptive and Adams solves inside it
+  decide their steps over the whole batch (``ops/reduce.py``), as JAX's
+  one program over the sharded batch does: the ``mesh=`` entry points
+  enter it around the model call.
 
 The caller starts the processes and picks the backend
 (:func:`initialize_multihost`): NCCL between cards; gloo on the CPU, and
@@ -27,18 +31,20 @@ of an axis in the same order.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from online_neural_cdes_tpu_torch.ops import reduce as _reduce
 from online_neural_cdes_tpu_torch.utils.tree import map_arrays
 
 __all__ = [
     "Mesh", "Sharding", "make_mesh", "make_grid_mesh", "shard_batch", "replicate",
     "check_mesh",
-    "data_parallel_sharding", "data_axis_size", "initialize_multihost",
+    "data_parallel_sharding", "data_axis_size", "initialize_multihost", "data_reductions",
     "DATA_AXIS", "ENSEMBLE_AXIS",
 ]
 
@@ -194,6 +200,17 @@ def data_axis_size(mesh: Mesh) -> int:
     batch, bucket and stream sizes (an (ensemble, data) mesh shards batches
     over its data axis only)."""
     return mesh.axis_size(DATA_AXIS)
+
+
+def data_reductions(mesh: Optional[Mesh]):
+    """A context in which the solves' step-deciding reductions span the
+    mesh's data axis (``ops/reduce.py``): each rank then takes the steps
+    one process takes over the whole batch.  The ensemble axis is not
+    reduced over (each member is its own model).  With no mesh, or a data
+    axis of one rank, the solves run as in one process, to the bit."""
+    if mesh is None or data_axis_size(mesh) == 1:
+        return contextlib.nullcontext()
+    return _reduce.over(mesh.groups[DATA_AXIS])
 
 
 def data_parallel_sharding(mesh: Mesh):

@@ -39,8 +39,8 @@ from online_neural_cdes_tpu_torch.data.loader import pad_ragged
 from online_neural_cdes_tpu_torch.ops import solvers as _solvers
 from online_neural_cdes_tpu_torch.ops.kernels import fused_matmul_field
 from online_neural_cdes_tpu_torch.parallel.mesh import (
-    all_gather_rows, check_mesh, data_axis_size, data_parallel_sharding, replicate,
-    shard_batch,
+    all_gather_rows, check_mesh, data_axis_size, data_parallel_sharding, data_reductions,
+    replicate, shard_batch,
 )
 from online_neural_cdes_tpu_torch.utils.device import resolve_device
 from online_neural_cdes_tpu_torch.utils.params import linear_apply
@@ -159,6 +159,10 @@ class Predictor:
         accept_static: whether requests may carry static features.
         device: where to serve (the CUDA card unless "cpu" is asked for;
             this rank's mesh device with a mesh).
+        exact_length: serve requests of exactly this many observations and
+            refuse any other (a coefficient build that a length pad would
+            change: the natural cubic and Hermite splines); the one length
+            bucket is then this length, whatever ``length_multiple`` says.
     """
 
     def __init__(
@@ -173,6 +177,7 @@ class Predictor:
         accept_static: bool = True,
         *,
         device=None,
+        exact_length: Optional[int] = None,
     ):
         self.device = _mesh_device(mesh, device)
         _check_model_device(model, self.device)
@@ -190,7 +195,8 @@ class Predictor:
                     "evenly over it"
                 )
             replicate(model, mesh)
-        self.length_multiple = length_multiple
+        self.exact_length = exact_length
+        self.length_multiple = length_multiple if exact_length is None else exact_length
         self.rectilinear_rows = rectilinear_rows
         self.pad_forward_fill = pad_forward_fill
         self.accept_static = accept_static
@@ -204,7 +210,10 @@ class Predictor:
     def bucket_grid(self, max_length: int):
         """Every (batch bucket, padded length) shape :meth:`predict` can
         dispatch for requests up to ``max_length`` (which pads UP to the
-        next multiple, so the top bucket is included)."""
+        next multiple, so the top bucket is included; with ``exact_length``
+        that length alone)."""
+        if self.exact_length is not None:
+            return [(b, self.exact_length) for b in self.batch_buckets]
         top = _round_up(max_length, self.length_multiple)
         lengths = range(self.length_multiple, top + 1, self.length_multiple)
         return [(b, L) for b in self.batch_buckets for L in lengths]
@@ -231,6 +240,11 @@ class Predictor:
                 "call predict without static"
             )
         lengths = [len(s) for s in series]
+        if self.exact_length is not None and set(lengths) != {self.exact_length}:
+            raise ValueError(
+                f"this predictor serves requests of exactly {self.exact_length} "
+                f"observations (its coefficient build is not inert under a length "
+                f"pad); got lengths {sorted(set(lengths))}")
         n = len(series)
         nb = self._bucket_batch(n)
 
@@ -256,7 +270,8 @@ class Predictor:
             inputs = self.coeff_fn(_to_device(padded, self.device, dtype))
             if static is not None:
                 inputs = (_to_device(static, self.device, dtype), inputs)
-            out = self.model(inputs)
+            with data_reductions(self.mesh):   # one controller over the bucket
+                out = self.model(inputs)
             if self.mesh is not None:
                 out = _gather_streams(out, self.mesh)
             return out, lengths

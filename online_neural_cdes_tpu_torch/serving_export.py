@@ -25,6 +25,15 @@ weights they equal the JAX artifact's leaf for leaf; the manifest's
 Each module's loop over the knots is one ``scan`` (``ops/cdeint.py``), not
 an unrolled copy per knot, and runs the interval function the live solve
 runs, so a loaded artifact serves the live server's outputs to the bit.
+An adaptive or Adams solve (every method but ``scipy_solver``, which the
+JAX package cannot export either) traces into its tensor form
+(``ops/solvers.py``: a ``scan`` over the output times of ``while_loop``
+attempts, or a ``scan`` over the Adams steps): its program also returns
+the solves' nfe / accepted / rejected, which the loaded predictor counts
+under ``solvers.COUNTS`` as the live solve does (manifest key
+``solve_stats``), and its step-deciding reductions are the op
+``oncde::data_all_reduce`` (``ops/reduce.py``), so a loaded artifact over
+a mesh steps as one process over the whole bucket.
 The fused field is the op ``oncde::fused_field_forward``
 (``ops/kernels.py``): its kernel on the card, its plain version on the
 CPU.  A module is traced on the server's device and moved to the device
@@ -38,7 +47,8 @@ server over a mesh does.
 
 The loader imports this module, the servers and the op library, never a
 model class.  Exported programs run their ``scan`` nodes as a loop over
-the combine graph (:func:`_loop_scans`), one call an element.
+the combine graph and their ``while_loop`` nodes as a Python ``while``
+over the body graph (:func:`_loop_scans`).
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ import numpy as np
 import torch
 
 from online_neural_cdes_tpu_torch.ops import kernels  # noqa: F401  (registers the op)
+from online_neural_cdes_tpu_torch.ops import solvers
 from online_neural_cdes_tpu_torch.parallel.mesh import data_axis_size, replicate
 from online_neural_cdes_tpu_torch.serving import (
     Predictor, _check_backlog_layout, _gather_streams, _mesh_device, _round_up,
@@ -340,23 +351,36 @@ def _scan_loop(combine_fn, init, xs, additional_inputs):
     return (*carry, *[torch.stack([o[j] for o in outs]) for j in range(len(outs[0]))])
 
 
+def _while_loop(cond_fn, body_fn, carried_inputs, additional_inputs):
+    """A ``while_loop`` node's semantics: ``body_fn`` while ``cond_fn``
+    holds (one host read of its 0-d bool each time), the carry threaded
+    through."""
+    carried = tuple(carried_inputs)
+    while bool(cond_fn(*carried, *additional_inputs)):
+        carried = tuple(body_fn(*carried, *additional_inputs))
+    return carried
+
+
 def _loop_scans(gm: torch.fx.GraphModule) -> torch.fx.GraphModule:
     """Run every ``scan`` node of a loaded program through
-    :func:`_scan_loop`.  ``scan``'s own eager implementation evaluates the
-    combine graph once more for the outputs' shapes in some releases of
-    PyTorch (one more interval's kernel launches for nothing)."""
-    scan_op = torch.ops.higher_order.scan
+    :func:`_scan_loop` and every ``while_loop`` node through
+    :func:`_while_loop`.  ``scan``'s own eager implementation evaluates
+    the combine graph once more for the outputs' shapes in some releases of
+    PyTorch (one more interval's kernel launches for nothing); the Python
+    loops do each iteration once whatever the release."""
+    loops = {torch.ops.higher_order.scan: _scan_loop,
+             torch.ops.higher_order.while_loop: _while_loop}
     for sub in gm.modules():
         if not isinstance(sub, torch.fx.GraphModule):
             continue
         changed = False
         for node in sub.graph.nodes:
-            if node.op == "call_function" and node.target is scan_op:
+            if node.op == "call_function" and node.target in loops:
                 if len(node.args) != 4 or node.kwargs:
                     raise RuntimeError(
-                        f"unexpected scan node layout {len(node.args)} args, kwargs "
-                        f"{sorted(node.kwargs)} (torch {torch.__version__})")
-                node.target = _scan_loop
+                        f"unexpected {node.target} node layout {len(node.args)} args, "
+                        f"kwargs {sorted(node.kwargs)} (torch {torch.__version__})")
+                node.target = loops[node.target]
                 changed = True
         if changed:
             sub.recompile()
@@ -442,9 +466,9 @@ def export_predictor(
     float checkpoints to it.
 
     Needs a ``coeff_fn`` and a model that ``torch.export`` can trace
-    (every coefficient builder and fixed-grid model of the port; an
-    adaptive or Adams solver steps on the host and is refused) and a
-    predictor without a mesh: shard at serve time with
+    (every coefficient builder and model of the port, on every solver
+    but ``scipy_solver``, which steps in scipy on the host and is
+    refused) and a predictor without a mesh: shard at serve time with
     ``load_predictor(path, mesh=)``.  Returns the number of shapes
     exported."""
     if predictor.mesh is not None:
@@ -461,6 +485,8 @@ def export_predictor(
     dtype = (getattr(torch, params_dtype) if params_dtype is not None
              else getattr(model, "dtype", torch.float32))
 
+    traced_solves = [False]   # whether the traced forward ran adaptive or Adams solves
+
     def forward(params, series, static=None):
         # A preparation may cast to its own model's dtype (a recurrent
         # bundle's): the inputs go in at the weights' dtype.
@@ -468,7 +494,15 @@ def export_predictor(
                             lambda t: t.to(dtype) if t.is_floating_point() else t)
         if static is not None:
             inputs = (static.to(dtype), inputs)
-        return torch.func.functional_call(model, dict(zip(names, params)), (inputs,))
+        with solvers.traced_stats() as traced:
+            out = torch.func.functional_call(model, dict(zip(names, params)), (inputs,))
+        traced_solves[0] = bool(traced)
+        if not traced:
+            return out
+        # An adaptive or Adams solve: its (nfe, accepted, rejected), a row
+        # a solve.
+        return out, torch.stack([torch.stack([s["nfe"], s["accepted"], s["rejected"]])
+                                 for s in traced])
 
     fwd = forward if static_dim is None else (
         lambda params, static, series: forward(params, series, static))
@@ -494,13 +528,19 @@ def export_predictor(
         "length_multiple": predictor.length_multiple,
         "channels": channels,
         "static_dim": static_dim,
-        "max_length": _round_up(max_length, predictor.length_multiple),
+        "max_length": (predictor.exact_length or
+                       _round_up(max_length, predictor.length_multiple)),
         "rectilinear_rows": predictor.rectilinear_rows,
         "pad_forward_fill": predictor.pad_forward_fill,
         "return_sequences": bool(getattr(model, "return_sequences", False)),
         "platforms": list(platforms),
         "n_leaves": len(leaves),
     }
+    if traced_solves[0]:
+        manifest["solve_stats"] = True
+    if predictor.exact_length is not None:
+        # The loaded predictor refuses every other length, as the live one.
+        manifest["exact_length"] = predictor.exact_length
     _write_artifact(path, leaves, named, manifest)
     return len(named)
 
@@ -536,16 +576,25 @@ class _ExportedModel(torch.nn.Module):
                 f"{self._manifest['batch_buckets']}, lengths <= "
                 f"{self._manifest['max_length']}); re-export with export_predictor("
                 "..., max_length=...) covering it")
-        if static is None:
-            return self._modules[key](self._flat, series)
-        return self._modules[key](self._flat, static, series)
+        args = (series,) if static is None else (static, series)
+        out = self._modules[key](self._flat, *args)
+        if not self._manifest.get("solve_stats"):
+            return out
+        out, stats = out
+        # The program's solves, counted as the live solves count theirs
+        # (one read).
+        nfe, accepted, rejected = np.asarray(solvers._read(stats)).reshape(-1, 3).sum(0)
+        solvers._count(solves=stats.shape[0], nfe=nfe, accepted=accepted, rejected=rejected)
+        return out
 
 
 def load_predictor(path: str, mesh=None, *, device=None) -> Predictor:
     """A serving-ready :class:`Predictor` from an artifact written by
     :func:`export_predictor`, with no model code: the artifact's bucket
     grid and padding policy, every shape served by its loaded module.
-    Requests outside the grid raise with the re-export recipe.
+    Requests outside the grid raise with the re-export recipe; an artifact
+    of a predictor with ``exact_length`` (the manifest's key) refuses any
+    other request length, as the live predictor does.
 
     ``device``: where to serve (the CUDA card unless ``"cpu"`` is asked
     for; with no card visible it raises).  ``mesh``: a ``parallel.mesh``
@@ -574,6 +623,7 @@ def load_predictor(path: str, mesh=None, *, device=None) -> Predictor:
         accept_static=manifest["static_dim"] is not None,
         mesh=mesh,
         device=device,
+        exact_length=manifest.get("exact_length"),
     )
 
 

@@ -15,8 +15,10 @@ passes its shard of the batch (``shard_batch``), the loss is the global
 NaN-masked mean (the per-rank loss sums and label counts are all-reduced,
 and each rank differentiates its sum over the global count), the
 gradients are all-reduced, and every rank takes the same update, so the
-weights and Adam's state stay replicated.  A forward built with ``mesh=``
-all-gathers the rows.  ``make_epoch_step`` runs the steps as a plain loop;
+weights and Adam's state stay replicated.  The adaptive and Adams solves
+of a step or a forward with ``mesh=`` decide their steps over the whole
+batch (``parallel.mesh.data_reductions``), as one process does.  A
+forward built with ``mesh=`` all-gathers the rows.  ``make_epoch_step`` runs the steps as a plain loop;
 capturing the step in a CUDA graph is ROADMAP item D5.
 """
 
@@ -28,7 +30,7 @@ import torch
 from torch import nn
 
 from online_neural_cdes_tpu_torch.parallel.mesh import (
-    all_gather_rows, all_reduce_sum, check_mesh,
+    all_gather_rows, all_reduce_sum, check_mesh, data_reductions,
 )
 from online_neural_cdes_tpu_torch.training.metrics import (
     make_loss, masked_temporal_loss, masked_temporal_loss_parts,
@@ -180,7 +182,8 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
 
         def step(inputs, labels):
             optimizer.zero_grad(set_to_none=True)
-            value = loss_and_grads(inputs, labels)
+            with data_reductions(mesh):
+                value = loss_and_grads(inputs, labels)
             optimizer.step()
             return value
 
@@ -191,7 +194,8 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
 
     def apply_scaled(inputs, labels, lr_scale, final_mult):
         adam.zero_grad(set_to_none=True)
-        value = loss_and_grads(inputs, labels)
+        with data_reductions(mesh):
+            value = loss_and_grads(inputs, labels)
         # Read the groups at each call: ``adam.load_state_dict`` (a resume)
         # replaces the group dicts.
         rest, final = adam.param_groups
@@ -291,7 +295,7 @@ def make_eval_step(model: nn.Module, mesh=None) -> Callable:
     check_mesh(mesh)
 
     def step(inputs):
-        with torch.inference_mode():
+        with torch.inference_mode(), data_reductions(mesh):
             out = model(inputs)
             return out if mesh is None else all_gather_rows(out, mesh)
 

@@ -205,7 +205,7 @@ def make_wave_step(bundle, loss: str = "bce", compute_dtype=None, final_key: str
     before the backward, as ``training/loop.py``'s data-parallel step) and
     the gradients are all-reduced, so the ranks of a data group take the
     same update."""
-    from online_neural_cdes_tpu_torch.parallel.mesh import all_reduce_sum
+    from online_neural_cdes_tpu_torch.parallel.mesh import all_reduce_sum, data_reductions
     from online_neural_cdes_tpu_torch.training.loop import _cast_floats, _compute_dtype
     from online_neural_cdes_tpu_torch.training.metrics import (
         make_loss, masked_temporal_loss, masked_temporal_loss_parts,
@@ -260,7 +260,8 @@ def make_wave_step(bundle, loss: str = "bce", compute_dtype=None, final_key: str
                 grads = torch.autograd.grad(values.sum(), list(params.values()),
                                             allow_unused=True)
             else:
-                values, grads = sharded_grads(params, buffers, prepared, labels)
+                with data_reductions(mesh):   # each lane's steps over the whole batch
+                    values, grads = sharded_grads(params, buffers, prepared, labels)
         # A weight the loss does not reach gets a zero gradient: its Adam
         # update is 0, as the serial step's skip leaves it.
         adam.step({k: torch.zeros_like(p) if g is None else g

@@ -385,6 +385,54 @@ def test_cli_verify_gate(tmp_path, corpus, capsys):
     assert summary["verified"] == "bit-exact"
 
 
+def test_cli_exports_and_verifies_a_hermite_dopri5_config(tmp_path, corpus, capsys):
+    """A ``hermite-dopri5`` config (``configurations.json5:157-171``'s model:
+    Hermite, dopri5, ``adjoint: false``) exports: its adaptive solve traces
+    into the tensor controller, and its global-spline build serves the
+    corpus length alone (``exact_length`` in the manifest, one length
+    bucket), so ``--verify`` holds the loaded artifact to the live
+    predictor to the bit and a corpus row served equals the bundle's
+    forward on its stored Hermite coefficients.  A request of another
+    length (a partial history, or a longer one) is refused by the live and
+    the loaded predictor alike, never padded into the bucket."""
+    config = _config("hermite")
+    config["model"]["solver"] = "dopri5"
+    bundle, params, ckpt, cfg = _checkpoint(tmp_path, config, corpus, 3)
+    out = str(tmp_path / "artifact")
+    _cli(cfg, ckpt, out, corpus, "--verify")
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["verified"] == "bit-exact"
+    assert (summary["shapes_exported"], summary["max_length"]) == (1, LENGTH)
+    with open(os.path.join(out, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    assert manifest["solve_stats"] is True and manifest["exact_length"] == LENGTH
+    npz = _npz(corpus)
+    idx = npz["test_idxs"][:3]
+    loaded = load_predictor(out, device="cpu")
+    served = loaded.predict(list(npz["temporal_data_raw"][idx]))
+    live, _ = build_predictor_from_config(config, ckpt, data_root=corpus,
+                                          batch_buckets=(4,), device="cpu")
+    assert live.exact_length == loaded.exact_length == LENGTH
+    # The build reproduces the corpus's coefficients; the adaptive steps
+    # are the whole bucket's (the first request again pads it to 4), and a
+    # step grid moved by the builds' round-off would move the rows by the
+    # solve's tolerance, so the rows are held on the served build.
+    bucket = np.concatenate([idx, idx[:1]])
+    raw = np.stack(list(npz["temporal_data_raw"][bucket])).astype(np.float32)
+    coeffs = live.coeff_fn(torch.from_numpy(raw)).numpy()
+    np.testing.assert_allclose(coeffs, np.asarray(npz["temporal_data_hermite"][bucket]),
+                               rtol=RTOL, atol=ATOL)
+    _close_rows(served, _direct(bundle, params, coeffs))
+    row = np.asarray(npz["temporal_data_raw"][idx[0]], np.float32)
+    for pred in (live, loaded):
+        for bad in ([row[:LENGTH // 2]], [row, row[:-1]],
+                    [np.concatenate([row, row[-1:]])]):
+            with pytest.raises(ValueError, match=f"exactly {LENGTH} observations"):
+                pred.predict(bad)
+    with pytest.raises(ValueError, match="corpus length"):
+        _cli(cfg, ckpt, str(tmp_path / "b"), corpus, "--max-length", str(2 * LENGTH))
+
+
 def test_cli_needs_a_device_when_no_gpu(tmp_path, corpus, monkeypatch):
     """With no --device and no card visible the command raises, never
     drifting to the CPU."""

@@ -13,6 +13,21 @@ package's single-device steps (``make_train_step``, ``make_epoch_step``,
 ``make_ensemble_step``), whose weights the ranks load through
 ``params_from_jax``, and against rank 0's single-process runs.
 
+ROADMAP C3 in the same spawn (``chip_smoke.c3_checks``): ``Predictor(mesh=)``
+over dopri5, bosh3, implicit Adams (the corrector's max) and dopri8 (the
+blended error), the loaded dopri5 artifact over the mesh and a
+``make_train_step(mesh=)`` step each, and a dopri5 ``make_ensemble_step``
+over (1 ensemble x 2 data) (the K-lane norms), on rows whose second half
+is 4x rougher (one rank's shard smooth, the other's rough).  Every rank
+decides its steps over the whole batch (``parallel.mesh.data_reductions``):
+its nfe / accepted / rejected equal one process's, and its rows, loss and
+weights equal the JAX package's single-device ``Predictor``,
+``make_train_step`` and ``make_ensemble_step`` at rtol 1e-7 (JAX's own
+sharded bosh3 run is 8e-9 from its one-device run).  Without the reductions each rank's controller
+steps on its own rows: the bosh3 rows then sit ~1e-2 off.  An adaptive
+``odeint_adjoint`` step and a ``scipy_solver`` forward over the mesh are
+refused by name.
+
 Tolerances: float64 (the model and batches), losses and forwards at rtol
 1e-9 against JAX (the same formulas, sums split by shard), the weights
 after an Adam step at rtol 1e-8 (Adam divides by the root of the second
@@ -40,9 +55,13 @@ import test_torch_port_workers
 from online_neural_cdes_tpu.models.ncde import NeuralCDE as JaxNeuralCDE
 from online_neural_cdes_tpu.ops import interpolation as jax_interp
 from online_neural_cdes_tpu.parallel import ensemble as jax_ensemble
+from online_neural_cdes_tpu.serving import Predictor as JaxPredictor
 from online_neural_cdes_tpu.training import loop as jax_loop
+from online_neural_cdes_tpu_torch import Predictor
 from online_neural_cdes_tpu_torch.data.builders import build_toy_bm
+from online_neural_cdes_tpu_torch.ops import reduce as data_reduce
 from online_neural_cdes_tpu_torch.parallel import ensemble, mesh as pm
+from online_neural_cdes_tpu_torch.serving_export import export_predictor
 from online_neural_cdes_tpu_torch.training import loop
 from online_neural_cdes_tpu_torch.training.config import DEFAULT_CONFIG_DIR
 from online_neural_cdes_tpu_torch.utils.convert import flatten_tree
@@ -58,6 +77,18 @@ SPEC = dict(world=2, device="cpu", dtype="float64", B=8, L=6, C=3, H=8, HH=16, l
             length_multiple=4, streams=4, ticks=6, reference=True,
             seq={"B": 8, "L": 5, "M": 4, "rows": 4, "aux_M": 2, "memory_B": 8,
                  "memory_lengths": (5, 9)})
+C3 = dict(B=8, requests=8, L=12, C=3, H=8, HH=16, layers=2, interpolation="linear",
+          return_sequences=True, loss="mse", lr=1e-2,
+          solvers=("dopri5", "bosh3", "implicit_adams", "dopri8"), ensemble=2)
+# DOP853's error estimate on the rough rows is chaotic in round-off: JAX's
+# own dopri8 rows move by 1.5e-2 of a value when its weights move by one
+# ulp, so dopri8 is held to the port's one-process run, not to JAX's.
+C3_JAX_SOLVERS = ("dopri5", "bosh3", "implicit_adams")
+C3_RTOL, C3_ATOL = 1e-7, 1e-12
+# Against the port's one process: the shards' partial sums round otherwise
+# than the whole batch's, and the error estimates magnify that (bosh3's rows
+# 1.7e-7 apart, dopri8's 2.8e-7); without the reductions they sit ~1e-3 off.
+C3_ONE_PROCESS_RTOL = 1e-6
 SPAWN_TIMEOUT_S = 240
 
 
@@ -107,7 +138,8 @@ def ranks(tmp_path_factory):
                       "hidden_hidden_dim": [16], "num_layers": [2], "adjoint": [True],
                       "solver": ["rk4"]},
             "trainer": {"max_epochs": [1]}}}, fh)
-    spec = dict(SPEC, out=str(tmp), params=_save(tmp / "params.npz", jparams),
+    c3, c3_want = _c3_setup(tmp)
+    spec = dict(SPEC, out=str(tmp), params=_save(tmp / "params.npz", jparams), c3=c3,
                 ce_params=_save(tmp / "ce.npz", jce_params),
                 ensemble_params=_save(tmp / "ensemble.npz", jens_params),
                 toy={"suite": "toy-dp", "config_dir": config_dir, "root": root,
@@ -136,7 +168,58 @@ def ranks(tmp_path_factory):
     p, _, v = jax_ensemble.make_ensemble_step(jens, loss="bce", lr=lr)(
         jens_params, opt, inputs, labels, 1.0)
     want["ensemble_step"] = {"loss": v, "params": p}
+    want["c3"] = c3_want
     return results, want
+
+
+def _c3_jax(solver):
+    return JaxNeuralCDE(input_dim=C3["C"], hidden_dim=C3["H"], output_dim=1,
+                        hidden_hidden_dim=C3["HH"], num_layers=C3["layers"],
+                        interpolation=C3["interpolation"],
+                        return_sequences=C3["return_sequences"], solver=solver, adjoint=False)
+
+
+def _c3_jax_coeffs(x):
+    return jax_interp.linear_interpolation_coeffs(jnp.asarray(x).astype(jnp.float64))
+
+
+def _c3_setup(tmp):
+    """The C3 spec (JAX weights a solver, the dopri5 artifact, the dopri5
+    ensemble's stacked weights) and the JAX package's single-device
+    references: each solver's ``Predictor`` rows and ``make_train_step``
+    loss and weights, and ``make_ensemble_step``'s losses and weights."""
+    c3 = dict(C3, params={}, artifacts={})
+    want = {}
+    x_req, _ = chip_smoke.c3_batch(C3, C3["requests"], 43)
+    requests = [r.astype(np.float32) for r in x_req]
+    x, labels = chip_smoke.c3_batch(C3, C3["B"], 41)
+    for i, solver in enumerate(C3["solvers"]):
+        jm = _c3_jax(solver)
+        jparams = _f64(jm.init(jax.random.PRNGKey(7 + i)))
+        c3["params"][solver] = _save(tmp / f"c3_{solver}.npz", jparams)
+        rows = JaxPredictor(jm, jparams, coeff_fn=_c3_jax_coeffs,
+                            batch_buckets=(C3["requests"],),
+                            length_multiple=C3["L"]).predict(requests)
+        p, _, v = jax_loop.make_train_step(jm, loss=C3["loss"], lr=C3["lr"], donate=False)(
+            jparams, jax_loop.init_adam_state(jparams), _c3_jax_coeffs(x),
+            jnp.asarray(labels), 1.0)
+        want[solver] = {"predict": rows, "step": {"loss": v, "params": p}}
+    jm = _c3_jax("dopri5")
+    jens_params, _ = jax_ensemble.init_ensemble(jm, C3["ensemble"],
+                                                base_key=jax.random.PRNGKey(9))
+    jens_params = _f64(jens_params)
+    c3["ensemble_params"] = _save(tmp / "c3_ensemble.npz", jens_params)
+    opt = jax.vmap(jax_loop.init_adam_state)(jens_params)
+    p, _, v = jax_ensemble.make_ensemble_step(jm, loss=C3["loss"], lr=C3["lr"])(
+        jens_params, opt, _c3_jax_coeffs(x), jnp.asarray(labels), 1.0)
+    want["ensemble"] = {"loss": v, "params": p}
+    model = chip_smoke.c3_model(c3, "dopri5", torch.device("cpu"), torch.float64)
+    path = str(tmp / "c3_dopri5_artifact")
+    export_predictor(Predictor(model, coeff_fn=chip_smoke.c3_coeffs(C3),
+                               batch_buckets=(C3["requests"],), length_multiple=C3["L"],
+                               device="cpu"), path, channels=C3["C"], max_length=C3["L"])
+    c3["artifacts"]["dopri5"] = path
+    return c3, want
 
 
 def _close(got, want, rtol=RTOL, atol=ATOL, what=""):
@@ -378,6 +461,141 @@ class _two_way:
 
     def axis_index(self, axis):
         return 0
+
+
+@pytest.mark.parametrize("solver", C3_JAX_SOLVERS)
+def test_c3_sharded_adaptive_solves_match_the_jax_single_device_ones(ranks, solver):
+    """Each rank's ``Predictor(mesh=)`` rows (and the loaded artifact's),
+    its step's loss and its weights after the step: the JAX package's
+    single-device ``Predictor`` and ``make_train_step`` on the whole batch,
+    at rtol 1e-7."""
+    results, want = ranks
+    want = want["c3"][solver]
+    for r in results:
+        c3 = r["c3"]
+        for key in ("predict", "artifact"):
+            if f"{solver}_{key}" not in c3:
+                continue
+            for g, w in zip(c3[f"{solver}_{key}"]["out"], want["predict"]):
+                np.testing.assert_allclose(g, np.asarray(w), rtol=C3_RTOL, atol=C3_ATOL,
+                                           err_msg=f"rank {r['rank']} {key}")
+        step = c3[f"{solver}_step"]
+        _close(step["out"], want["step"]["loss"], C3_RTOL, C3_ATOL, f"{solver} loss")
+        flat = flatten_tree(jax.tree.map(np.asarray, want["step"]["params"]))
+        for name, w in flat.items():
+            _close(step["params"][name], w, C3_RTOL, C3_ATOL, f"{solver} {name}")
+
+
+@pytest.mark.parametrize("key", [f"{s}_{k}" for s in C3["solvers"] for k in ("predict", "step")
+                                 if f"{s}_{k}" != "dopri8_predict"]
+                         + ["dopri5_artifact", "dopri5_ensemble_step"])
+def test_c3_sharded_solves_match_one_process(ranks, key):
+    """Each rank's rows (live and loaded), loss and weights after the step
+    equal the port's one-process run on the whole batch at rtol 1e-6.
+    dopri8's served rows are left to the counts and the serving gate
+    (``test_c3_each_rank_steps_as_one_process``): on the requests' rough
+    rows they sit 2.8e-7 to 4.3e-5 of a value from one process's from run
+    to run, as JAX's own move by 1.5e-2 when its weights move by an ulp."""
+    results, _ = ranks
+    want = results[0]["c3"]["ref"][key]
+    for r in results:
+        got, what = r["c3"][key], f"rank {r['rank']} {key}"
+        if key.endswith("_step"):
+            _close(got["out"], want["out"], C3_ONE_PROCESS_RTOL, C3_ATOL, f"{what} loss")
+            for name, w in want["params"].items():
+                _close(got["params"][name], w, C3_ONE_PROCESS_RTOL, C3_ATOL,
+                       f"{what} {name}")
+        else:
+            for g, w in zip(got["out"], want["out"]):
+                _close(g, w, C3_ONE_PROCESS_RTOL, C3_ATOL, what)
+
+
+def test_c3_sharded_ensemble_step_matches_the_jax_single_device_one(ranks):
+    """The dopri5 seed ensemble over (1 ensemble x 2 data): every rank
+    solves both seeds' lanes on its rows, each lane's controller deciding
+    over the whole batch (the K-lane norms reduced over the data axis), so
+    its losses and both seeds' weights after the step equal JAX's
+    single-device ``make_ensemble_step`` at rtol 1e-7."""
+    results, want = ranks
+    want = want["c3"]["ensemble"]
+    flat = flatten_tree(jax.tree.map(np.asarray, want["params"]))
+    for r in results:
+        step = r["c3"]["dopri5_ensemble_step"]
+        _close(step["out"], want["loss"], C3_RTOL, C3_ATOL, f"rank {r['rank']} losses")
+        for name, w in flat.items():
+            _close(step["params"][name], w, C3_RTOL, C3_ATOL, f"rank {r['rank']} {name}")
+
+
+def test_c3_each_rank_steps_as_one_process(ranks):
+    """Every rank's nfe / accepted / rejected (live, loaded and the step's)
+    equal one process's on the whole batch, and the smoke run's C3 gates
+    (``chip_smoke.c3_verify``) pass; both ranks take their solves'
+    decisions together, so their counts are equal too."""
+    results, _ = ranks
+    ref = results[0]["c3"]["ref"]
+    assert sorted(ref) == sorted([f"{s}_{k}" for s in C3["solvers"]
+                                  for k in ("predict", "step")]
+                                 + ["dopri5_artifact", "dopri5_ensemble_step"])
+    for r in results:
+        for key, want in ref.items():
+            assert r["c3"][key]["counts"] == want["counts"], (r["rank"], key)
+            assert want["counts"]["solves"] >= 1, key
+            # The RK controllers reject steps on these rows; Adams steps on
+            # a fixed grid, its corrector iterating to the L-inf tolerance.
+            assert key.startswith("implicit_adams") or want["counts"]["rejected"] > 0, key
+    failed = []
+    gates = chip_smoke.c3_verify(results, failed, lambda fn, *a: fn(*a),
+                                 lambda *a: dict(zip(("max_abs_err", "gate_share",
+                                                      "bit_identical"),
+                                                     chip_smoke.par_gate(*a))))
+    assert failed == [] and set(gates) == set(ref)
+
+
+def test_c3_adaptive_adjoint_and_scipy_are_refused_over_a_mesh(ranks):
+    """A step through ``odeint_adjoint``'s adaptive reverse solve (its state
+    carries the parameter adjoint, a partial sum a rank) and a
+    ``scipy_solver`` forward would decide on a rank's rows alone: refused,
+    naming C3."""
+    results, _ = ranks
+    for r in results:
+        adjoint, scipy = r["c3"]["refusals"]
+        assert "odeint_adjoint's reverse 'dopri5' solve" in adjoint and "C3" in adjoint
+        assert "a scipy_solver solve" in scipy and "C3" in scipy
+
+
+def test_a_world_of_one_adaptive_solve_is_bit_identical():
+    """Over a world of one rank (gloo, in this process) a dopri5 step and
+    ``Predictor(mesh=)`` equal the ones without a mesh bit for bit, and so
+    does the reducing form itself, forced over the world's group."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        address = f"tcp://localhost:{s.getsockname()[1]}"
+    dist.init_process_group("gloo", init_method=address, world_size=1, rank=0)
+    try:
+        mesh = pm.make_mesh(1, devices="cpu")
+        cpu, f64 = torch.device("cpu"), torch.float64
+        x, labels = chip_smoke.c3_batch(C3, C3["B"], 41)
+        coeffs = chip_smoke.c3_coeffs(C3)(torch.as_tensor(x))
+        labels = torch.as_tensor(labels)
+        requests = [r.astype(np.float32) for r in chip_smoke.c3_batch(C3, 4, 43)[0]]
+        kw = dict(coeff_fn=chip_smoke.c3_coeffs(C3), batch_buckets=(4,),
+                  length_multiple=C3["L"])
+        for reducing in (False, True):
+            context = data_reduce.over(dist.group.WORLD) if reducing else pm.data_reductions(
+                mesh)
+            got, want = (chip_smoke.c3_model(C3, "dopri5", cpu, f64) for _ in range(2))
+            with context:
+                a = loop.make_train_step(got, loss="mse", lr=1e-2, mesh=mesh)(coeffs,
+                                                                              labels, 1.0)
+                rows = Predictor(got, mesh=mesh, **kw).predict(requests)
+            b = loop.make_train_step(want, loss="mse", lr=1e-2)(coeffs, labels, 1.0)
+            assert torch.equal(a, b), reducing
+            for k, v in got.state_dict().items():
+                assert torch.equal(v, want.state_dict()[k]), (reducing, k)
+            for g, w in zip(rows, Predictor(want, device="cpu", **kw).predict(requests)):
+                np.testing.assert_array_equal(g, w)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_mesh_needs_a_process_group_and_a_device(monkeypatch):

@@ -232,6 +232,31 @@ def test_roundtrip_sequence_outputs_and_manifest(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
+def test_an_exact_length_predictor_refuses_other_lengths_live_and_loaded(tmp_path):
+    """``Predictor(exact_length=)`` (a global-spline build, which a length
+    pad would change) has the one length bucket, whatever
+    ``length_multiple`` says; the manifest records it, so the loaded
+    predictor serves that length to the bit and, as the live one, refuses
+    a shorter or a longer request instead of padding it."""
+    _, _, tm = _pair(dict(PRED_KW, return_sequences=True))
+    pred = Predictor(tm, coeff_fn=linear_interpolation_coeffs, batch_buckets=(2, 4),
+                     length_multiple=8, exact_length=6, device="cpu")
+    assert pred.bucket_grid(50) == [(2, 6), (4, 6)]
+    assert export_predictor(pred, str(tmp_path), channels=3, max_length=6) == 2
+    manifest = json.load(open(tmp_path / "manifest.json"))
+    assert (manifest["exact_length"], manifest["max_length"]) == (6, 6)
+    loaded = load_predictor(str(tmp_path), device="cpu")
+    assert (loaded.exact_length, loaded.length_multiple) == (6, 6)
+    rng = np.random.default_rng(4)
+    reqs = [rng.normal(size=(6, 3)).astype(np.float32) for _ in range(3)]
+    _same(loaded.predict(reqs), pred.predict(reqs))
+    for p in (pred, loaded):
+        for bad in ([reqs[0][:5]], [reqs[0], reqs[1][:4]],
+                    [np.concatenate([reqs[0], reqs[0][-1:]])]):
+            with pytest.raises(ValueError, match="exactly 6 observations"):
+                p.predict(bad)
+
+
 def test_static_features_roundtrip(tmp_path):
     pred, _ = _predictor(static_dim=4, buckets=(1, 4))
     export_predictor(pred, str(tmp_path), channels=3, max_length=8, static_dim=4)
@@ -485,12 +510,14 @@ def test_platforms_bind_the_load_device(pred_art, tmp_path):
 
 
 def test_adaptive_solver_is_refused_by_the_exporter(tmp_path):
-    """A dopri5 model steps under a host controller: the exporter refuses
-    it by name rather than tracing it into a wrong program."""
-    model = NeuralCDE(**dict(PRED_KW, solver="dopri5"), device="cpu")
+    """A ``scipy_solver`` model steps in scipy on the host: the exporter
+    refuses it by name rather than tracing it into a wrong program (the
+    JAX package's exporter cannot trace it either).  The Runge-Kutta and
+    Adams solvers export (``test_torch_port_export_adaptive.py``)."""
+    model = NeuralCDE(**dict(PRED_KW, solver="scipy_solver"), device="cpu")
     pred = Predictor(model, coeff_fn=linear_interpolation_coeffs, batch_buckets=(2,),
                      length_multiple=8, device="cpu")
-    with pytest.raises(ValueError, match="cannot be exported"):
+    with pytest.raises(ValueError, match="'scipy_solver' solve cannot be exported"):
         export_predictor(pred, str(tmp_path), channels=3, max_length=8)
 
 
