@@ -14,7 +14,9 @@ controls, and prints one JSON line per phase:
 2. build     -- builds every kernel from ``online_neural_cdes_tpu_torch/csrc``,
                 one ``nvcc`` per source, and the native preprocessing
                 library (``csrc/preprocess.cpp``, ``g++``), all started
-                together.
+                together; the backward and interval libraries finish while
+                the forward kernel's phase runs (joined before the first
+                phase that launches them).
 3. kernel    -- the fused field's forward kernel against its plain PyTorch
                 version on the card over the sweep and a width above 256
                 (its CUDA-core path), identical bits on a repeat call, and
@@ -96,9 +98,9 @@ controls, and prints one JSON line per phase:
                 plain field; each serves one request batch and takes Adam
                 steps against a CPU copy (outputs, 8-row gradients), with
                 its kernel launches, host waits, step times and profile
-                (the plain-field flagships on 30 observations of the
+                (the plain-field flagships on 20 observations of the
                 flagship batch's 100, the stacked and attention NCDEs on
-                50; the CPU copy serves 8 of the 64
+                30; the CPU copy serves 8 of the 64
                 requests and 1 timed step follows the counted one: cut for
                 the run's time).  The kernel phases also hold both field
                 kernels at the zoo's (512 | 64, 128, 128, 128, 3).
@@ -110,8 +112,8 @@ controls, and prints one JSON line per phase:
                 interval adjoint, BCE, Adam lr 1e-3: gradients against the
                 CPU port on 16 rows, a step's launches (4,096 / 2,048), step
                 times, profile and peak memory, then one step of the same
-                NCDE on the raw series' first 1,025 observations (8,192 /
-                4,096 launches; cut for the run's time) and the
+                NCDE on the raw series' first 513 observations (4,096 /
+                2,048 launches; cut for the run's time) and the
                 trained model's auc, auprc, precision, f1 and accuracy.  The
                 kernel phases also hold both field kernels at its
                 (256, 32, 32, 10 | 4, 2).
@@ -197,7 +199,17 @@ controls, and prints one JSON line per phase:
                 solve's, its gradients on 16 rows at the gradient gate
                 (the zoo's relu-row rules; a serial adaptive solve follows
                 the lane's steps), wall and busy ms, device reads an
-                attempt and masked lane-attempts.
+                attempt and masked lane-attempts.  Then the wave's corners
+                (item 17d): hermite-dopri5 with ``compute_dtype``
+                bfloat16 as one wave (its steps' multi launches in bf16
+                storage, lane 0's first search the serial bf16 step's,
+                test losses beside the float32 wave's), and K=3 flagship
+                fields under ``torch.func.vmap`` on the flagship batch's
+                spline with each lane's own output times through the
+                differentiable dopri5 ``odeint`` and ``odeint_adjoint``
+                (forward and the gradients with respect to the times and
+                the weights, each lane against its serial solve) and an
+                rk4 ``grid_constructor`` solve.
 23. export   -- the exported serving artifact: the flagship predictor's
                 grid at length multiple 64 (4 keys: one program a length,
                 2, each serving both buckets) exported and loaded with no
@@ -211,7 +223,9 @@ controls, and prints one JSON line per phase:
                 through the task-metric gate, each with one length bucket;
                 and the field op's host dispatch time a call beside its
                 ctypes wrapper's.
-24. parallel -- data parallelism and seed ensembles: a world of one rank
+24. parallel -- (its two ranks start before the wave phase and run their
+                checks beside it and the export phase) data parallelism and
+                seed ensembles: a world of one rank
                 over NCCL whose flagship step with ``mesh=`` equals the step
                 without it to the bit; then one spawn of two ranks on the
                 card over gloo, each launching the kernels in its own
@@ -234,8 +248,10 @@ controls, and prints one JSON line per phase:
                 against the same pipeline on the CPU in float32 and
                 float64, the ranks equal to the bit, each rank's launches
                 of both field kernels by I against the reckoning, and the
-                peak memory of both steps at two lengths.  A rank's failure
-                fails the phase.
+                peak memory of both steps at two lengths; config 3's
+                sharded adaptive and Adams solves (C3) and adjoint steps
+                (item 18c: each rank's forward and reverse counts one
+                process's).  A rank's failure fails the phase.
 
 Each phase's seconds are printed as it ends.  Then a line with every
 kernel's numbers, a line with the run's seconds by phase, a line with the
@@ -250,6 +266,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import ctypes
+import gc
 import hashlib
 import importlib.util
 import json
@@ -438,8 +455,12 @@ PREDICT_BF16_RATIO = 1.0
 # the flagship under dopri5 with the adjoint: one predict and one B=512
 # training step.
 CFG3_B, CFG3_L, CFG3_C, CFG3_H = 512, 24, 9, 32
+# The exported dopri5 flagship serves the 64 requests' first
+# EXPORT_ADAPTIVE_L observations (cut for the run's time: the whole requests' loaded
+# call took 9-15 s; 62 rectilinear intervals against 222).
+EXPORT_ADAPTIVE_L = 32
 CFG3_SHAPE = (CFG3_B, CFG3_H, CFG3_H, CFG3_C, 2)
-CFG3_STEPS = 2      # timed steps (cut from 5 for the run's time)
+CFG3_STEPS = 1      # timed steps (cut from 5, then 2, for the run's time)
 # The model zoo.  Kernels 1-2 at every shape the zoo's NCDEs give them
 # (three trunk layers): the stacked NCDE's (HH=128; I=21 for layer 0,
 # I = H = 128 for layer 1) and the attention NCDE's (HH=15, the JAX
@@ -474,11 +495,11 @@ CFG3_STEPS = 2      # timed steps (cut from 5 for the run's time)
 # another order, so |err| <= LOGSIG_RTOL |want| + LOGSIG_ATOL_REL max|want|.
 LOGODE_B, LOGODE_L, LOGODE_C, LOGODE_H, LOGODE_DEPTH, LOGODE_WINDOW = 256, 4096, 4, 32, 2, 8
 # The raw-series step trains on the first LOGODE_RAW_L observations (all
-# 4,096 before PR 18; cut for the run's time).
-LOGODE_RAW_L = 1025
+# 4,096, then 1,025; cut for the run's time).
+LOGODE_RAW_L = 513
 LOGODE_SHAPES = [(LOGODE_B, LOGODE_H, LOGODE_H, 10, 2),
                  (LOGODE_B, LOGODE_H, LOGODE_H, LOGODE_C, 2)]
-LOGODE_LR, LOGODE_STEPS = 1e-3, 2      # timed steps (cut from 5 for the run's time)
+LOGODE_LR, LOGODE_STEPS = 1e-3, 1      # timed steps (cut from 5, then 2)
 LOGSIG_RTOL, LOGSIG_ATOL_REL = 1e-5, 1e-5
 # The rest of the solvers on config 3: scipy on SCIPY_ROWS rows (a host
 # solve of a SCIPY_ROWS x 32 state through solve_ivp, one card read per
@@ -528,6 +549,11 @@ MULTI_FWD = MULTI_BWD + [(3, shape) for shape in HARNESS_SHAPES[2:]]
 MULTI_K1 = HARNESS_SHAPES_BWD + [(17, 42, 37, 5, 1)]
 MULTI_MODE = (torch.bfloat16, "float32")
 MULTI_MAIN = (3, HARNESS_SHAPES_BWD[0])      # the kernels line's timed multi shape
+# The bf16 adaptive wave's shape (the wave phase's BF16_WAVE: K=3,
+# Beijing's 700 training rows, I=10; its training steps run the multi
+# entries in bf16 storage): held against the plain K version in MULTI_MODE
+# alone, as the sweep holds its MULTI_MODE shapes, and timed.
+MULTI_BF16_TIMED = [(3, (700, H, HH, 10, 2))]
 # The wave phase: the harness's suite with medical-sota's three seeds as
 # one wave of K=3 (without the checkpoint and profile keys, which a wave
 # does not take), HARNESS_EPOCHS epochs; its lanes against the harness
@@ -537,7 +563,7 @@ MULTI_MAIN = (3, HARNESS_SHAPES_BWD[0])      # the kernels line's timed multi sh
 # WAVE_TRIALS trials over trainer__lr as one wave of WAVE_TRIALS lanes,
 # one epoch each, and the analysis tables of both ledgers.
 WAVE_SEEDS, WAVE_SUITE, WAVE_SEARCH = (111, 222, 333), "sepsis-ncde-wave", "sepsis-ncde-lr"
-WAVE_TRIALS, WAVE_STEPS = 4, 2      # timed steps (cut from 5 in PR 18)
+WAVE_TRIALS, WAVE_STEPS = 4, 1      # timed steps (cut from 5, then 2)
 WAVE_RTOL, WAVE_AUC_ATOL = 1e-3, 1e-3
 # The raw_data phase: synthetic raw archives at the published shapes of the
 # paper's benchmark datasets (dataset.json5), each builder run on them, and
@@ -587,6 +613,11 @@ RAW_REQUESTS, RAW_CPU_REQUESTS = 64, 16
 # suite against its serial run at PAR_RUN_RTOL.
 PAR_CLASSES, PAR_STREAMS, PAR_TICKS, PAR_LENGTH = 10, 64, 12, TRAIN_L
 PAR_LOSS_RTOL, PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-6, 1e-5, 1e-7
+# 18c's step-deciding quantities on a rank (its rows and parts of sums,
+# reduced over the data axis) against one process's on the whole batch and
+# the totals: the same formulas, the sums split by rank (float32 on the
+# card: a few ulps).
+SUMMED_NORM_RTOL = 1e-5
 # The weights after a sharded step: see ``adam_gate`` (Adam's eps is
 # ADAM_EPS, ``training.loop.make_optimizer``'s).
 ADAM_EPS = 1e-8
@@ -638,11 +669,11 @@ ZOO_STEPS, ZOO_FIELD_STEPS = 1, 1
 # ones (cut from all 64 to 16, then 8, for the run's time).
 ZOO_CPU_REQUESTS = 8
 # The six plain-field flagships train on ZOO_FIELD_L observations (the
-# flagship batch's 100 cut to 50, then 30, for the run's time).
-ZOO_FIELD_L = 30
+# flagship batch's 100 cut to 50, then 30, then 20, for the run's time).
+ZOO_FIELD_L = 20
 # The stacked and attention NCDEs train on the flagship batch's first
-# ZOO_NCDE_L observations (its 100 before PR 18, cut for the run's time).
-ZOO_NCDE_L = 50
+# ZOO_NCDE_L observations (its 100, then 50, cut for the run's time).
+ZOO_NCDE_L = 30
 ZOO_FIELDS = [("gru", "matmul", None, False), ("minimal", "matmul", None, False),
               ("sparse", "matmul", 0.5, False), ("low-rank", "matmul", 0.5, True),
               ("original", "evaluate", None, False), ("original", "derivative", None, False)]
@@ -653,7 +684,16 @@ ZOO_GRAD_ROWS = GRAD_ROWS // 2
 ZOO_RESOLVED, ZOO_MAX_DROPPED = 0.1, ZOO_GRAD_ROWS // 4
 
 
+# What shares the card with this process while the parallel phase's ranks
+# run their checks (handed their spec in ``parallel_start``, joined in
+# ``parallel_finish``): every line printed meanwhile says so, as its times
+# were taken on a shared card and compare with no time taken alone.
+SHARED_CARD = []
+
+
 def emit(phase: str, **fields):
+    if SHARED_CARD:
+        fields["card_shared_with"] = SHARED_CARD[-1]
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -953,18 +993,48 @@ def phase_env():
          count=torch.cuda.device_count())
 
 
+# The backward and interval kernels' libraries build longest (68 and 64 s
+# against the forward's 43 on the card); the forward kernel's phase runs
+# while they build (for the run's time), and they are joined before
+# the first phase that launches them.
+LATE_SOURCES = ("fused_field_bwd.cu", "fused_rk4_interval.cu")
+BUILDS = {}
+
+
 def phase_build():
+    """Start one ``nvcc`` a source and ``g++`` for the native library, all
+    together; return when every library but LATE_SOURCES is built (those
+    are joined by :func:`join_builds`)."""
     from online_neural_cdes_tpu_torch.utils.cuda_build import CSRC, build_library
 
     from online_neural_cdes_tpu_torch.data import native
 
     sources = sorted(p.name for p in CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
-        native_lib = pool.submit(native.build)
-        libs = dict(zip(sources, pool.map(build_library, sources)))
-        native_lib = native_lib.result()
-    seconds = time.perf_counter() - t0
+    done = {}
+
+    def build(name):
+        out = build_library(name)
+        done[name] = time.perf_counter() - t0
+        return out
+
+    pool = ThreadPoolExecutor(max_workers=len(sources) + 1)
+    native_lib = pool.submit(native.build)
+    futures = {name: pool.submit(build, name) for name in sources}
+    for name, future in futures.items():
+        if name not in LATE_SOURCES:
+            future.result()
+    BUILDS.update(pool=pool, futures=futures, done=done, t0=t0, sources=sources,
+                  native=native_lib.result().relative_to(native.LIBRARY.parents[2]))
+
+
+def join_builds():
+    """Wait for LATE_SOURCES, then print the build line: every library's
+    ``ptxas`` registers and spills, the seconds each took."""
+    if not BUILDS:
+        return
+    libs = {name: future.result() for name, future in BUILDS["futures"].items()}
+    BUILDS["pool"].shutdown()
     ptxas, spills = {}, {}
     for name, lib in libs.items():
         lines = lib.with_suffix(".log").read_text().splitlines()
@@ -975,8 +1045,10 @@ def phase_build():
                 function = ln.split("Function properties for")[-1].strip()
             elif "spill stores" in ln and not ln.strip().startswith("0 bytes stack frame, 0 "):
                 spills.setdefault(name, []).append(f"{function}: {ln.strip()}")
-    emit("build", sources=sources, seconds=seconds, ptxas=ptxas, spills=spills,
-         native_library=str(native_lib.relative_to(native.LIBRARY.parents[2])))
+    emit("build", sources=BUILDS["sources"], seconds=time.perf_counter() - BUILDS["t0"],
+         seconds_by_source=BUILDS["done"], joined_late=list(LATE_SOURCES), ptxas=ptxas,
+         spills=spills, native_library=str(BUILDS["native"]))
+    BUILDS.clear()
 
 
 def forward_grid(B, Hd, HHd, I):
@@ -1499,7 +1571,8 @@ def multi_check(kind, pk):
     MULTI_MODE); at K = 3 and 4 against the plain K version in f32 (the
     single entry's gates, replica by replica) and in MULTI_MODE (its bf16
     gate, a row past it held against the plain version with one decision
-    taken the other way, as the sweep), a repeat giving the same bits, one
+    taken the other way, as the sweep; the bf16 wave's MULTI_BF16_TIMED
+    shape in MULTI_MODE alone), a repeat giving the same bits, one
     count of its own launcher a call and none of the single's; times
     against the plain K version and K single calls, bounds K times one
     call's, and each launch's device time at MULTI_MAIN.  In f32 too a row
@@ -1541,62 +1614,64 @@ def multi_check(kind, pk):
                                          "from the single entry")
             k1.append({"mode": mode_name(dtype, precision), "shape": list(shape)})
     sweep, timed, flips = [], {}, []
+    cases = [(K, shape, mode) for K, shape in (MULTI_FWD if fwd else MULTI_BWD)
+             for mode in ((torch.float32, "float32"), MULTI_MODE)]
+    cases += [(K, shape, MULTI_MODE) for K, shape in MULTI_BF16_TIMED]
     with torch.no_grad():
-        for K, shape in (MULTI_FWD if fwd else MULTI_BWD):
-            for dtype, precision in ((torch.float32, "float32"), MULTI_MODE):
-                mode = mode_name(dtype, precision)
-                what = f"{kind} multi K={K} at {shape}, {mode}"
-                stacked, singles, dims = operands(K, shape, dtype)
-                got, launches = counted(lambda: multi(*stacked, *dims, precision))
-                expect_launches(what, launches, **{key: 1})
-                again = multi(*stacked, *dims, precision)
-                for (name, gt), (_, ag) in zip(groups(got), groups(again)):
-                    if not torch.equal(gt, ag):
-                        raise AssertionError(f"{what}: {name} differs between two calls")
-                if dtype == torch.float32:
-                    want = plain_multi(*stacked, *dims, precision) if fwd else None
-                    share = err = 0.0
-                    for r in range(K):
-                        got_r = lane(got, r)
-                        if fwd:
-                            want_r = lane(want, r)
-                        else:
-                            want_r, located = f32_bwd_against_plain(
-                                f"{what}, replica {r}", singles[r][:5], singles[r][5], *dims,
-                                got_r)
-                            flips += [{"K": K, "shape": list(shape), "mode": mode,
-                                       "replica": r, **f} for f in located]
-                        for (name, gt), (_, wt) in zip(groups(got_r), groups(want_r)):
-                            rtol, atol = ((KERNEL_RTOL, KERNEL_ATOL) if fwd else
-                                          (BWD_RTOL, BWD_ATOL_REL * float(wt.abs().max())))
-                            torch.testing.assert_close(gt, wt, rtol=rtol, atol=atol,
-                                                       msg=lambda m: f"{what}, {name}: {m}")
-                            share = max(share, gate_share(gt.cpu(), wt.cpu(), rtol, atol))
-                            err = max(err, float((gt - wt).abs().max()))
-                    sweep.append({"K": K, "shape": list(shape), "mode": mode,
-                                  "max_abs_err": err, "gate_share": share})
-                    continue
-                worst = 0.0
+        for K, shape, (dtype, precision) in cases:
+            mode = mode_name(dtype, precision)
+            what = f"{kind} multi K={K} at {shape}, {mode}"
+            stacked, singles, dims = operands(K, shape, dtype)
+            got, launches = counted(lambda: multi(*stacked, *dims, precision))
+            expect_launches(what, launches, **{key: 1})
+            again = multi(*stacked, *dims, precision)
+            for (name, gt), (_, ag) in zip(groups(got), groups(again)):
+                if not torch.equal(gt, ag):
+                    raise AssertionError(f"{what}: {name} differs between two calls")
+            if dtype == torch.float32:
+                want = plain_multi(*stacked, *dims, precision) if fwd else None
+                share = err = 0.0
                 for r in range(K):
-                    got_r, want_r = lane(got, r), plain(*singles[r], precision)
-                    field = singles[r][:5]
-                    if any(bf16_readings(gt, wt, precision)["failed"]
-                           for (_, gt), (_, wt) in zip(groups(got_r), groups(want_r))):
-                        if fwd:
-                            fl, located = bf16_rounding_flips(what, field, *dims, precision,
-                                                              got_r, want_r, False)
-                            want_r, _ = plain_fwd_rounded(field, *dims, precision, fl)
-                        else:
-                            fl, located = bf16_relu_flips(what, field, singles[r][5], *dims,
-                                                          precision, got_r, want_r)
-                            want_r, _ = plain_bwd_flipped(field, singles[r][5], *dims,
-                                                          precision, fl)
-                        flips += [{"K": K, "shape": list(shape), "replica": r, **f}
-                                  for f in located]
+                    got_r = lane(got, r)
+                    if fwd:
+                        want_r = lane(want, r)
+                    else:
+                        want_r, located = f32_bwd_against_plain(
+                            f"{what}, replica {r}", singles[r][:5], singles[r][5], *dims,
+                            got_r)
+                        flips += [{"K": K, "shape": list(shape), "mode": mode,
+                                   "replica": r, **f} for f in located]
                     for (name, gt), (_, wt) in zip(groups(got_r), groups(want_r)):
-                        worst = max(worst, ulp_gate(f"{what}, replica {r}, {name}", gt, wt,
-                                                    precision)["gate_share"])
-                sweep.append({"K": K, "shape": list(shape), "mode": mode, "gate_share": worst})
+                        rtol, atol = ((KERNEL_RTOL, KERNEL_ATOL) if fwd else
+                                      (BWD_RTOL, BWD_ATOL_REL * float(wt.abs().max())))
+                        torch.testing.assert_close(gt, wt, rtol=rtol, atol=atol,
+                                                   msg=lambda m: f"{what}, {name}: {m}")
+                        share = max(share, gate_share(gt.cpu(), wt.cpu(), rtol, atol))
+                        err = max(err, float((gt - wt).abs().max()))
+                sweep.append({"K": K, "shape": list(shape), "mode": mode,
+                              "max_abs_err": err, "gate_share": share})
+                continue
+            worst = 0.0
+            for r in range(K):
+                got_r, want_r = lane(got, r), plain(*singles[r], precision)
+                field = singles[r][:5]
+                if any(bf16_readings(gt, wt, precision)["failed"]
+                       for (_, gt), (_, wt) in zip(groups(got_r), groups(want_r))):
+                    if fwd:
+                        fl, located = bf16_rounding_flips(what, field, *dims, precision,
+                                                          got_r, want_r, False)
+                        want_r, _ = plain_fwd_rounded(field, *dims, precision, fl)
+                    else:
+                        fl, located = bf16_relu_flips(what, field, singles[r][5], *dims,
+                                                      precision, got_r, want_r)
+                        want_r, _ = plain_bwd_flipped(field, singles[r][5], *dims,
+                                                      precision, fl)
+                    flips += [{"K": K, "shape": list(shape), "replica": r, **f}
+                              for f in located]
+                for (name, gt), (_, wt) in zip(groups(got_r), groups(want_r)):
+                    worst = max(worst, ulp_gate(f"{what}, replica {r}, {name}", gt, wt,
+                                                precision)["gate_share"])
+            sweep.append({"K": K, "shape": list(shape), "mode": mode, "gate_share": worst})
         for K, shape in (MULTI_FWD if fwd else MULTI_BWD):
             stacked, singles, dims = operands(K, shape, torch.float32)
             call = lambda: multi(*stacked, *dims)
@@ -1609,6 +1684,19 @@ def multi_check(kind, pk):
                 **bounds(K * flops, K * nbytes, pk)}
             if (K, shape) == MULTI_MAIN:
                 timed[K, shape]["per_launch"] = per_launch(call)
+        dtype, precision = MULTI_MODE
+        for K, shape in MULTI_BF16_TIMED:
+            stacked, singles, dims = operands(K, shape, dtype)
+            call = lambda: multi(*stacked, *dims, precision)
+            nbytes = (field_cost if fwd else field_bwd_cost)(*shape, elem=dtype.itemsize)[1]
+            products = mode_products(kind, *shape, dtype, precision)
+            timed[K, shape, "bf16"] = {
+                "K": K, "shape": list(shape), "mode": mode_name(dtype, precision),
+                "kernel_us": device_us(call, reps=100 if fwd else 50),
+                "k_single_us": device_us(lambda: [single(*f, precision) for f in singles],
+                                         reps=25),
+                "plain_us": device_us(lambda: plain_multi(*stacked, *dims, precision), reps=8),
+                **mode_bounds([(K * f, a, b) for f, a, b in products], K * nbytes, pk)}
     max_err = max(e["max_abs_err"] for e in sweep if "max_abs_err" in e)
     return {"k1_bit_identical": k1, "sweep": sweep, "mode_flips": flips,
             "timed": list(timed.values())}, timed, max_err
@@ -1759,14 +1847,14 @@ def phase_kernel_rk4(pk):
 
 
 def flagship_model(device, interpolation="rectilinear", dtype=torch.float32,
-                   solver="rk4", **kw):
+                   solver="rk4", seed=0, **kw):
     from online_neural_cdes_tpu_torch import NeuralCDE
 
     return NeuralCDE(
         input_dim=C, hidden_dim=H, output_dim=1, static_dim=STATIC,
         hidden_hidden_dim=HH, num_layers=N_LAYERS, interpolation=interpolation,
         solver=solver, return_sequences=True,
-        generator=torch.Generator().manual_seed(0), device=device, dtype=dtype, **kw,
+        generator=torch.Generator().manual_seed(seed), device=device, dtype=dtype, **kw,
     )
 
 
@@ -2787,8 +2875,7 @@ def phase_adaptive():
          phase_seconds=time.perf_counter() - t_phase)
     # The flagship's adjoint training step (~73 s) is cut for the run's time
     # (PERF.md); config 3 trains through the same reverse solve above.
-    paths.update(adaptive_export_leg(model, pred, requests, static, outs, launches, counts,
-                                     predict_ms))
+    paths.update(adaptive_export_leg(model, requests, static))
     return {f"adaptive_{k}": v for k, v in paths.items()}
 
 
@@ -2857,25 +2944,33 @@ def export_against_live(what, live_pred, requests, static, live_outs, live_launc
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def adaptive_export_leg(model, pred, requests, static, outs, launches, counts, predict_ms):
-    """The dopri5 flagship predictor exported with one length bucket (the
-    64 requests' padded length), loaded with no model object, serving the
-    same 64 requests: its nfe / accepted / rejected and kernel-1 launches
-    equal to the live ``predict``'s (``launches``, ``counts``), rows within
-    the serving gate; the live and loaded calls' times side by side
-    (``predict_ms``: the live counted call's; ``export_against_live``)."""
+def adaptive_export_leg(model, requests, static):
+    """The dopri5 flagship predictor exported with one length bucket,
+    loaded with no model object, serving the 64 requests cut to their first
+    EXPORT_ADAPTIVE_L observations (cut for the run's time: a
+    loaded call of the whole requests took 9-15 s): its nfe / accepted /
+    rejected and kernel-1 launches equal to the live ``predict``'s on the
+    same requests, rows within the serving gate; the live and loaded calls'
+    times side by side (``export_against_live``)."""
     from online_neural_cdes_tpu_torch import Predictor
 
     t0 = time.perf_counter()
+    requests = [r[:EXPORT_ADAPTIVE_L] for r in requests]
     padded = -(-max(len(r) for r in requests) // LENGTH_MULTIPLE) * LENGTH_MULTIPLE
     one_bucket = Predictor(model, coeff_fn=rectilinear_coeffs, batch_buckets=(N_REQUESTS,),
                            length_multiple=padded, device="cuda")
+    t1 = time.perf_counter()
+    outs, launches, counts = solve_counted(lambda: one_bucket.predict(requests,
+                                                                      static=static))
+    predict_ms = (time.perf_counter() - t1) * 1e3
+    expect_evals("flagship dopri5 predict before the export", launches, counts)
     line = export_against_live(
         "adaptive export", one_bucket, requests, static, outs, launches, counts,
         dict(channels=C, max_length=padded, static_dim=STATIC), live_ms=predict_ms)
     emit("adaptive", model="flagship", path="exported_predict", solver="dopri5 min_step=0.5",
-         requests=N_REQUESTS, length=padded, live_solve_counts=solve_counts(counts),
-         live_kernel_launches=launches, **line, seconds=time.perf_counter() - t0)
+         requests=N_REQUESTS, observations=EXPORT_ADAPTIVE_L, length=padded,
+         live_solve_counts=solve_counts(counts), live_kernel_launches=launches, **line,
+         seconds=time.perf_counter() - t0)
     return {"exported_predict": line["kernel_launches"]}
 
 
@@ -4489,6 +4584,65 @@ def phase_export(model, requests, static, outs, deploy):
             "export_rolled_predict": art_roll}
 
 
+# The export phase runs in a process of its own beside the wave phase (for
+# the run's time); EXPORT_TIMEOUT_S bounds its wait.
+EXPORT_TIMEOUT_S = 600
+
+
+def export_start(model, requests, static, outs, deploy):
+    """Start :func:`export_worker` (spawned) on the predictor phase's
+    weights, requests, statics and outputs and the harness phase's
+    checkpoint; returns the handle :func:`export_finish` joins."""
+    import torch.multiprocessing as tmp
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_export_run_")
+    spec_file = os.path.join(out, "spec.pt")
+    torch.save({"state": {k: v.cpu() for k, v in model.state_dict().items()},
+                "requests": requests, "static": static, "outs": outs, "deploy": deploy},
+               spec_file)
+    return {"ctx": tmp.spawn(export_worker, args=(spec_file,), nprocs=1, join=False),
+            "boot": {"world": 1}, "out": out}
+
+
+def export_worker(rank, spec_file):
+    """The export phase (:func:`phase_export`) in a process of its own on
+    the flagship model with the predictor phase's weights; its launches
+    and the lines it printed saved to ``rank0.pt`` beside ``spec_file``
+    (the parent prints them when it joins).  An exception ends the process
+    nonzero, its lines on stderr."""
+    import contextlib
+    import io
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_file, weights_only=False)
+    model = flagship_model("cuda")
+    model.load_state_dict(spec["state"])
+    SHARED_CARD.append("the wave phase and the parallel phase's ranks")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            launches = phase_export(model, spec["requests"], spec["static"], spec["outs"],
+                                    spec["deploy"])
+    except BaseException:
+        sys.stderr.write(buf.getvalue())
+        raise
+    torch.save({"launches": launches, "printed": buf.getvalue()},
+               os.path.join(os.path.dirname(spec_file), f"rank{rank}.pt"))
+
+
+def export_finish(handle):
+    """Join :func:`export_worker`, print its lines and return its
+    launches by path."""
+    try:
+        (result,) = par_join(handle, EXPORT_TIMEOUT_S)
+    finally:
+        shutil.rmtree(handle["out"], ignore_errors=True)
+    sys.stdout.write(result["printed"])
+    sys.stdout.flush()
+    return result["launches"]
+
+
 def wave_suites():
     """The wave phase's two suites: the harness's suite with medical-sota's
     three seeds (its checkpoint and profile keys dropped: a wave takes
@@ -4547,6 +4701,52 @@ def probed_wave(wave, calls, steps, evals):
         yield
     finally:
         wave.run_trials_vmapped, wave.make_wave_step, wave._wave_evaluate = run, make, evaluate
+
+
+@contextmanager
+def first_wave_step(wave, box):
+    """Within the block, the first step of the first wave that
+    ``wave.run_trials_vmapped`` trains fills ``box``: the lanes' losses
+    (K,), its launches, the solvers' counts it made (``solvers.COUNTS``'
+    change over the step), the lanes' (nfe, accepted, rejected) of each of
+    its K-lane forward solves (:func:`recording_lane_counts`' rows) and its
+    CUDA-event ms."""
+    from online_neural_cdes_tpu_torch.ops import solvers
+
+    make = wave.make_wave_step
+
+    def make_probed(*args, **kw):
+        optimizer, step = make(*args, **kw)
+
+        def probed(*step_args):
+            if box:
+                return step(*step_args)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            counts = {kind: dict(c) for kind, c in solvers.COUNTS.items()}
+            rows = []
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            with recording_lane_counts(rows):
+                out = step(*step_args)
+            end.record()
+            end.synchronize()
+            box.update(
+                losses=out.detach().clone(),
+                launches={key: n - launches[key] for key, n in launch_counts().items()},
+                counts={kind: {key: n - counts.get(kind, {}).get(key, 0)
+                               for key, n in c.items()}
+                        for kind, c in solvers.COUNTS.items()},
+                lane_counts=rows, event_ms=start.elapsed_time(end))
+            return out
+
+        return optimizer, probed
+
+    wave.make_wave_step = make_probed
+    try:
+        yield box
+    finally:
+        wave.make_wave_step = make
 
 
 def timed_steps(step, n):
@@ -4632,6 +4832,14 @@ SOLVER_WAVES = {
                                      "solver": "dopri5"}),
 }
 ADJOINT_WAVE = "sepsis-ncde-adjoint-wave"
+# The bfloat16 adaptive wave (ROADMAP item 17d): the hermite-dopri5 leg with
+# trainer.compute_dtype "bfloat16", one epoch; its lanes' test losses (RMSE,
+# ~75 on Beijing's PM2.5) within LOSS_BF16_REL of the float32 wave's (the
+# card's lanes read 8.8e-4 to 2.1e-3 of the loss apart; the limit about
+# five times the largest), and lane 0's first step's search (nfe /
+# accepted / rejected) the serial bf16 step's on the same batch.
+BF16_WAVE = "beijing-hermite-dopri5-bf16"
+LOSS_BF16_REL = 1e-2
 RAW_ROOT = {}   # the raw_data phase's processed BeijingPM2pt5, kept until exit
 
 
@@ -4648,6 +4856,9 @@ def solver_wave_suites():
                       "hidden_dim": [H], "hidden_hidden_dim": [HH],
                       "num_layers": [N_LAYERS], **{k: [v] for k, v in model.items()}},
             "trainer": {"max_epochs": [1]}}
+    bf16 = json.loads(json.dumps(out["beijing-hermite-dopri5"]))
+    bf16["trainer"]["compute_dtype"] = ["bfloat16"]
+    out[BF16_WAVE] = bf16
     adjoint = harness_suite(None, None)
     adjoint["seed"] = list(WAVE_SEEDS)
     adjoint["model"]["adjoint"] = [True]
@@ -4795,15 +5006,16 @@ def lane_input_grads(bundle, states, inputs, labels, loss):
 
 
 @contextmanager
-def recording_lane_counts(rows):
-    """Appends each lane's (nfe, accepted, rejected) of every K-lane
-    forward solve run inside to ``rows``, one list of K a solve."""
+def recording_lane_counts(rows, kind="forward"):
+    """Appends each lane's (nfe, accepted, rejected) of every K-lane solve
+    of ``kind`` (``solvers.COUNTS``' kinds) run inside to ``rows``, one list
+    of K a solve."""
     from online_neural_cdes_tpu_torch.ops import solvers
 
     count = solvers._LaneController.count
 
     def recorded(lc, st):
-        if solvers._KIND[-1] == "forward":
+        if solvers._KIND[-1] == kind:
             rows.append([(int(st.nfe[j]), int(st.accepted[j]), int(st.rejected[j]))
                          for j in range(lc.k)])
         return count(lc, st)
@@ -4829,10 +5041,13 @@ def profiled_counted(fn):
                                                "device_busy_share")})
 
 
-def lanes_against_serial(what, bundle, states, prepared, labels, loss, expect):
+def lanes_against_serial(what, bundle, states, prepared, labels, loss, expect,
+                         wave_step=None):
     """A wave of ``states`` against each lane's serial step.  The batch's
     gradient step (forward and backward) as one wave gives the launches
-    (``expect(counts)``, 0 on the single entries) and its wall and busy ms;
+    (``expect(counts)``, 0 on the single entries) and its wall and busy ms,
+    or ``wave_step`` (a wave run's first step on this batch from these
+    states, :func:`first_wave_step`) gives them and its CUDA-event ms;
     each lane's serial gradient step on the batch gives its own, K of them
     beside the wave's.  An adaptive solve's nfe / accepted / rejected a
     lane on the batch against its serial solve's: equal expected, any flip
@@ -4844,10 +5059,15 @@ def lanes_against_serial(what, bundle, states, prepared, labels, loss, expect):
     different sides, leave the loss, each printed); a serial adaptive solve
     follows the lane's own accepted steps (``following_steps``)."""
     k = len(states)
-    lane_counts = []
-    with recording_lane_counts(lane_counts):
-        (losses, _), launches, counts, wave_time = profiled_counted(
-            lambda: lane_loss_grads(bundle, states, prepared, labels, loss))
+    if wave_step is None:
+        lane_counts = []
+        with recording_lane_counts(lane_counts):
+            (losses, _), launches, counts, wave_time = profiled_counted(
+                lambda: lane_loss_grads(bundle, states, prepared, labels, loss))
+    else:
+        losses, launches, counts, lane_counts = (
+            wave_step[key] for key in ("losses", "launches", "counts", "lane_counts"))
+        wave_time = {"event_ms": wave_step["event_ms"], "from": "the run's first step"}
     want = expect(counts)
     expect_launches(f"{what}: the wave step", launches, **want)
     serial_runs = [profiled_counted(lambda state=state: serial_loss_grads(
@@ -4943,13 +5163,16 @@ def solver_waves(config_dir, sepsis_root):
     from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
 
     root = beijing_root()
-    paths = {}
+    paths, f32_results = {}, {}
+    first_step = {}     # leg (b)'s wave step: the hermite-dopri5 run's first
     for name, (interp, model) in SOLVER_WAVES.items():
         t0 = time.perf_counter()
         cfgs, _ = config.parse_configuration_json(name, config_dir)
         bundle, (train, val, test) = load_and_setup(cfgs[0], root)
-        results, launches, counts = solve_counted(
-            lambda: wave.run_trials_vmapped(cfgs, data_root=root))   # the main path
+        with (first_wave_step(wave, first_step) if name == "beijing-hermite-dopri5"
+              else nullcontext()):
+            results, launches, counts = solve_counted(
+                lambda: wave.run_trials_vmapped(cfgs, data_root=root))   # the main path
         if model.get("model_string") == "odernn":
             want = {}           # the plain field: no kernel
         elif model["solver"] == "rk4":
@@ -4972,6 +5195,8 @@ def solver_waves(config_dir, sepsis_root):
                  "test_loss": [r["test.loss"] for r in results],
                  "seconds": time.perf_counter() - t0})
         paths[f"wave_{name}"] = launches
+        f32_results[name] = results
+    paths.update(bf16_wave_leg(config_dir, root, f32_results["beijing-hermite-dopri5"]))
 
     # (a) The harness leg with the adjoint: B=1,024 on Sepsis, K=3.
     t0 = time.perf_counter()
@@ -4991,15 +5216,18 @@ def solver_waves(config_dir, sepsis_root):
          seconds=time.perf_counter() - t0)
     paths["wave_adjoint_step"] = leg["launches"]
 
-    # (b) hermite-dopri5 on the first Beijing batch, K=3.
+    # (b) hermite-dopri5 on the first Beijing batch, K=3: the wave step is
+    # the hermite-dopri5 run's first (the same batch and initial weights).
     t0 = time.perf_counter()
+    if not first_step:
+        raise AssertionError("wave dopri5: the hermite-dopri5 run took no step")
     cfgs, _ = config.parse_configuration_json("beijing-hermite-dopri5", config_dir)
     bundle, (train, _, _) = load_and_setup(cfgs[0], root)
     inputs, labels = next(iter(Batches(train, BEIJING_B)))
     prepared, labels = bundle.prepare_batch(inputs), bundle.prepare_labels(labels)
     states = [bundle.init(s) for s in WAVE_SEEDS]
     leg = lanes_against_serial("wave dopri5", bundle, states, prepared, labels, "rmse",
-                               lane_reckoning)
+                               lane_reckoning, wave_step=first_step)
     emit("wave", leg="b_dopri5_step", batch=BEIJING_B, **leg,
          seconds=time.perf_counter() - t0)
     paths["wave_dopri5_step"] = leg["launches"]
@@ -5017,6 +5245,283 @@ def solver_waves(config_dir, sepsis_root):
          seconds=time.perf_counter() - t0)
     paths["wave_odeint_adjoint_step"] = leg["launches"]
     solvers.reset_counts()
+    return paths
+
+
+def bf16_wave_leg(config_dir, root, f32_results):
+    """The bf16 adaptive wave (ROADMAP item 17d, BF16_WAVE) through
+    ``run_trials_vmapped`` (the main path): only the multi entries launch,
+    as the float32 leg reckons them from the K-lane counts; the training
+    steps' launches all in bf16 storage and the rest (the evaluations and
+    the NFE probe, at the float32 master weights as JAX's wave and the
+    serial harness take them) in float32; each lane's test loss within
+    LOSS_BF16_REL of the float32 wave's; lane 0's first step (its K-lane
+    search on the batch) against the serial ``compute_dtype="bfloat16"``
+    step of its weights on the same batch: the same nfe / accepted /
+    rejected."""
+    from online_neural_cdes_tpu_torch.data.loader import Batches
+    from online_neural_cdes_tpu_torch.training import config, wave
+    from online_neural_cdes_tpu_torch.training.experiment import load_and_setup
+    from online_neural_cdes_tpu_torch.training.loop import make_train_step
+
+    t0 = time.perf_counter()
+    cfgs, _ = config.parse_configuration_json(BF16_WAVE, config_dir)
+    steps, lane_counts = [], []
+    t1 = time.perf_counter()
+    with probed_wave(wave, [], steps, []), recording_lane_counts(lane_counts), \
+            multi_launches_by_storage() as storage:
+        results, launches, counts = solve_counted(
+            lambda: wave.run_trials_vmapped(cfgs, data_root=root))   # the main path
+    run_s = time.perf_counter() - t1
+    want = lane_reckoning(counts)
+    expect_launches("wave bf16", launches, **want)
+    in_steps = {key: sum(s[2][key] for s in steps) for key in want}
+    by_storage = {key: {"bfloat16": storage.get(f"{key}_bfloat16", 0),
+                        "float32": storage.get(f"{key}_float32", 0)} for key in want}
+    for key in want:
+        if by_storage[key] != {"bfloat16": in_steps[key], "float32": want[key] - in_steps[key]}:
+            raise AssertionError(f"wave bf16: {key} launches by storage {by_storage[key]}; "
+                                 f"the steps made {in_steps[key]} of {want[key]}")
+    if not in_steps["forward_multi"] or by_storage["backward_multi"]["float32"]:
+        raise AssertionError(f"wave bf16: launches by storage {by_storage}")
+    losses = [[r["test.loss"], f["test.loss"]] for r, f in zip(results, f32_results)]
+    if len(results) != len(WAVE_SEEDS) or not all(
+            np.isfinite(a) and abs(a - b) <= LOSS_BF16_REL * abs(b) for a, b in losses):
+        raise AssertionError(f"wave bf16: test losses (bf16, f32) {losses}, "
+                             f"limit {LOSS_BF16_REL} of the f32 loss")
+    bundle, (train, _, _) = load_and_setup(cfgs[0], root)
+    inputs, labels = next(iter(Batches(train, BEIJING_B)))
+    bundle.model.load_state_dict(bundle.init(WAVE_SEEDS[0]))
+    serial = make_train_step(bundle.model, loss=cfgs[0]["trainer"].get("loss_str", "bce"),
+                             lr=1e-3, compute_dtype="bfloat16")
+    t1 = time.perf_counter()
+    _, serial_launches, serial_counts = solve_counted(lambda: serial(
+        bundle.prepare_batch(inputs), bundle.prepare_labels(labels), 1.0))
+    serial_s = time.perf_counter() - t1
+    first = dict(zip(("nfe", "accepted", "rejected"), lane_counts[0][0]))
+    serial_first = {key: serial_counts["forward"][key] for key in first}
+    if first != serial_first:
+        raise AssertionError(f"wave bf16: lane 0's first search {first}, the serial bf16 "
+                             f"step's {serial_first}")
+    emit("wave", leg="bf16_hermite_dopri5", run_trials_vmapped={
+             "lanes": len(results), "launches": launches, "expected": want,
+             "launches_by_storage": by_storage, "steps": len(steps),
+             "search": lane_search(counts), "nfe": [r["nfe"] for r in results],
+             "test_loss_bf16_f32": losses, "loss_limit_rel": LOSS_BF16_REL,
+             "seconds": run_s},
+         lane0_first_step={"wave": first, "serial_bf16": serial_first,
+                           "serial_launches": serial_launches, "serial_seconds": serial_s},
+         seconds=time.perf_counter() - t0)
+    return {"wave_bf16_hermite_dopri5": launches}
+
+
+# The wave's other corners (ROADMAP item 17d) on the card: K = 3 flagship
+# fields (H = HH = 128, I = 21, two trunk layers, seeds CORNER_SEEDS; each
+# lane its model's h0) on the flagship batch's linear spline (B = 512, 100
+# observations), under ``torch.func.vmap``: each lane's own CORNER_T output
+# times (seeded, sorted, spanning CORNER_WINDOW of the series' time from a
+# start of its own), the differentiable dopri5 ``odeint`` and then
+# ``odeint_adjoint`` (config 3's tolerances), forward and the gradient of a
+# seeded weighting of the outputs with respect to the times and the weights;
+# then an rk4 ``grid_constructor`` solve whose grid is CORNER_GRID points of
+# each lane's span.  Each against every lane's serial solve on the card:
+# the forward counts equal, outputs at the serving gate and gradients at the
+# gradient gate (a K-replica launch groups the head's channels otherwise
+# than a single one, so the two round differently; up to CORNER_MAX_DROPPED
+# rows whose start cotangents differ past the gate, a relu decision the two
+# take to different sides, leave the gradients, as in legs a-c; a decision
+# that moves a weight's entries and not a start's leaves up to
+# CORNER_MAX_FLIPS entries of a tensor past the gate, the tensor within
+# GRAD_RTOL of its Frobenius norm), launches as reckoned.
+# The adjoint's forward counts are held to the serial forward solve's and
+# its gradients to the serial adjoint on the lane's own steps
+# (``following_steps``): the weights' cotangent blocks in its reverse error
+# norm let float32 round-off move reverse decisions (on the card: a
+# lane's reverse nfe 1,258-1,252 against its serial solve's 1,324-1,228;
+# on the CPU at 16 rows 1-8% apart, the gradients 5e-6 apart on one set of
+# steps).  Two output times a lane, one reverse interval, for the run's
+# time.
+CORNER_SEEDS, CORNER_T, CORNER_WINDOW, CORNER_GRID = (0, 1, 2), 2, 1.0, 17
+CORNER_MAX_DROPPED, CORNER_MAX_FLIPS = 8, 8
+CORNER_RTOL, CORNER_ATOL = 1e-3, 1e-5
+
+
+def corner_operands(device, rows=TRAIN_B):
+    """The corner legs' spline, stacked h0 (K, rows, H) and packed field
+    weights (K, ...), and each lane's output times (K, CORNER_T)."""
+    from online_neural_cdes_tpu_torch.utils.tree import flatten
+
+    inputs, _ = train_batch(device, coeff_fn=linear_coeffs)
+    inputs = tuple(x[:rows] for x in inputs)
+    models = [flagship_model(device, interpolation="linear", solver="dopri5", seed=seed)
+              for seed in CORNER_SEEDS]
+    with torch.no_grad():
+        built = [m._setup_h0(inputs) for m in models]
+        packed = [flatten(m.packed_field()) for m in models]
+    rebuild = packed[0][1]
+    weights = rebuild([torch.stack([p[0][i] for p in packed]).detach().contiguous()
+                       for i in range(len(packed[0][0]))])
+    rng = np.random.default_rng(41)
+    k = len(CORNER_SEEDS)
+    starts = rng.uniform(0.0, TRAIN_L - 1 - CORNER_WINDOW, size=(k, 1))
+    fractions = np.sort(np.concatenate([np.zeros((k, 1)), np.ones((k, 1)),
+                                        rng.uniform(size=(k, CORNER_T - 2))], 1), 1)
+    times = torch.tensor(starts + CORNER_WINDOW * fractions, dtype=torch.float32,
+                         device=device)
+    return built[0][0], torch.stack([h for _, h in built]).detach(), weights, times
+
+
+def serving_gate(what, got, want):
+    """``par_gate`` at the serving gate, its readings named."""
+    return dict(zip(("max_abs_err", "gate_share", "bit_identical"),
+                    par_gate(what, got.cpu(), want.cpu(), SERVE_RTOL, SERVE_ATOL)))
+
+
+def corner_legs(device="cuda", rows=TRAIN_B):
+    """The corner legs (see CORNER_SEEDS).  Returns the launches by leg."""
+    from online_neural_cdes_tpu_torch.ops import solvers
+    from online_neural_cdes_tpu_torch.ops.cdeint import odeint_adjoint
+    from online_neural_cdes_tpu_torch.ops.kernels import fused_matmul_field
+    from online_neural_cdes_tpu_torch.utils.tree import flatten
+
+    spline, z0, weights, times = corner_operands(device, rows)
+    k = z0.shape[0]
+    gen = torch.Generator().manual_seed(43)
+    w = torch.randn((CORNER_T,) + tuple(z0.shape[1:]), generator=gen).to(device)
+
+    def field(tt, z, p):
+        return fused_matmul_field(p["trunk"], p["head_w"], p["head_b"], z,
+                                  spline.derivative(tt), H, C)
+
+    kw = dict(method="dopri5", rtol=CORNER_RTOL, atol=CORNER_ATOL)
+    solves = {
+        "odeint": lambda z, tt, p: solvers.odeint(field, z, tt, p,
+                                                  options={"differentiable": True}, **kw),
+        "odeint_adjoint": lambda z, tt, p: odeint_adjoint(field, z, tt, p, **kw)}
+
+    def run(solve, z, tt, p, lanes, weight=w):
+        """The outputs, and the gradients of the outputs weighted by
+        ``weight`` (a lane's own, (K, ...), under vmap) with respect to
+        the times, every weight and the starts (in that order)."""
+        z, tt = (x.detach().requires_grad_() for x in (z, tt))
+        leaves, rebuild = flatten(p)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        ys = (torch.func.vmap(solve) if lanes else solve)(z, tt, rebuild(leaves))
+        grads = torch.autograd.grad((ys * weight).sum(), [tt, *leaves, z])
+        return ys.detach(), [g.detach() for g in grads]
+
+    def lane(j):
+        return z0[j], times[j], flatten(weights)[1]([x[j] for x in flatten(weights)[0]])
+
+    def flipped_rows(what, got, want):
+        """The rows whose start cotangents differ past the gradient gate (a
+        relu decision that a K-replica launch and a single one round to
+        different sides: their gradients leave the comparison), at most
+        CORNER_MAX_DROPPED."""
+        rows_ = [r for r, sh in enumerate(row_shares([got], [want])) if not sh <= 1.0]
+        if len(rows_) > CORNER_MAX_DROPPED:
+            raise AssertionError(f"{what}: {len(rows_)} rows' start cotangents differ past "
+                                 "their gate")
+        return rows_
+
+    paths = {}
+    for name, solve in solves.items():
+        t0 = time.perf_counter()
+        forward, reverse, steps = [], [], [[] for _ in range(k)]
+        with recording_lane_counts(forward), recording_lane_counts(reverse, "reverse"), \
+                recording_lane_steps(steps):
+            (ys, grads), launches, counts = solve_counted(
+                lambda: run(solve, z0, times, weights, True))      # the main path
+        want = lane_reckoning(counts)
+        expect_launches(f"wave corners: {name} with each lane's times", launches, **want)
+        lanes, serial, dropped = [], [], {}
+        follow = bool(reverse)
+        for j in range(k):
+            if follow:
+                # The adjoint: the serial forward solve's counts, then the
+                # gradients on the lane's own steps (float32 round-off moves
+                # the reverse decisions: see CORNER_SEEDS).
+                with torch.no_grad():
+                    _, serial_launches, serial_counts = solve_counted(lambda: solve(*lane(j)))
+                with following_steps(steps[j]):
+                    sy, sgrads = run(solve, *lane(j), False)
+            else:
+                (sy, sgrads), serial_launches, serial_counts = solve_counted(
+                    lambda: run(solve, *lane(j), False))
+            got = dict(zip(("nfe", "accepted", "rejected"), forward[0][j]))
+            wanted = {key: serial_counts["forward"][key] for key in got}
+            if got != wanted:
+                raise AssertionError(f"wave corners: {name} lane {j} counts {got}, its serial "
+                                     f"solve's {wanted}")
+            entry = {"counts": got, "serial_launches": serial_launches}
+            if follow:
+                entry["reverse_counts"] = [int(sum(r[j][i] for r in reverse)) for i in range(3)]
+                entry["followed_the_lanes_steps"] = True
+            entry["outputs"] = serving_gate(f"wave corners: {name} lane {j} outputs", ys[j], sy)
+            rows_ = flipped_rows(f"wave corners: {name} lane {j}", grads[-1][j],
+                                 sgrads[-1].cpu())
+            if rows_:
+                dropped[j] = rows_
+            lanes.append(entry)
+            serial.append([sy, sgrads])
+        if dropped:
+            # The flipped rows' outputs weigh 0 in the lanes' and those
+            # lanes' serial gradients, computed again.
+            # (The reverse solves see the new weights: the serial ones follow
+            # the lanes' steps of this run.)
+            weight = w.expand((k,) + tuple(w.shape)).clone()
+            for j, rows_ in dropped.items():
+                weight[j][:, rows_] = 0.0
+            steps = [[] for _ in range(k)]
+            with recording_lane_steps(steps):
+                _, grads = run(solve, z0, times, weights, True, weight)
+            for j in dropped:
+                with following_steps(steps[j]):
+                    serial[j][1] = run(solve, *lane(j), False, weight[j])[1]
+                lanes[j]["dropped_rows"] = dropped[j]
+        for j, entry in enumerate(lanes):
+            shares, past = [], []
+            for i, (g, sg) in enumerate(zip(grads, serial[j][1])):
+                what = f"wave corners: {name} lane {j} gradient {i}"
+                got, want_ = g[j].cpu().double(), sg.cpu().double()
+                atol = GRAD_ATOL_REL * float(want_.abs().max())
+                over = int(((got - want_).abs() > GRAD_RTOL * want_.abs() + atol).sum())
+                frob = float((got - want_).norm() / want_.norm().clamp_min(1e-30))
+                if over > CORNER_MAX_FLIPS or not frob <= GRAD_RTOL:
+                    raise AssertionError(f"{what}: {over} entries past the gradient gate "
+                                         f"(at most {CORNER_MAX_FLIPS}), Frobenius distance "
+                                         f"{frob} of its norm (at most {GRAD_RTOL})")
+                shares.append(gate_share(got, want_, GRAD_RTOL, atol))
+                past.append(over)
+            entry.update(times_grad_gate_share=shares[0],
+                         weights_grad_gate_share=max(shares[1:-1]),
+                         starts_grad_gate_share=shares[-1], entries_past_the_gate=past)
+        emit("wave", leg=f"corners_{name}_lane_times", batch=rows, lane_times=times.tolist(),
+             launches=launches, expected=want, search=lane_search(counts), lanes=lanes,
+             seconds=time.perf_counter() - t0)
+        paths[f"wave_corners_{name}"] = launches
+
+    t0 = time.perf_counter()
+
+    def grid(f, y, tt):
+        return torch.linspace(tt[0], tt[-1], CORNER_GRID, dtype=tt.dtype, device=tt.device)
+
+    def rk4(z, tt, p):
+        return solvers.odeint(field, z, tt, p, method="rk4", options={"grid_constructor": grid})
+
+    with torch.no_grad():
+        ys, launches, counts = solve_counted(lambda: torch.func.vmap(rk4)(z0, times, weights))
+        expect_launches("wave corners: grid_constructor", launches,
+                        forward_multi=4 * (CORNER_GRID - 1))
+        lanes = []
+        for j in range(k):
+            sy, serial_launches, _ = solve_counted(lambda: rk4(*lane(j)))
+            expect_launches(f"wave corners: grid_constructor lane {j}", serial_launches,
+                            forward=4 * (CORNER_GRID - 1))
+            lanes.append(serving_gate(f"wave corners: grid_constructor lane {j}", ys[j], sy))
+    emit("wave", leg="corners_grid_constructor", batch=rows, grid_points=CORNER_GRID,
+         launches=launches, lanes=lanes, seconds=time.perf_counter() - t0)
+    paths["wave_corners_grid_constructor"] = launches
     return paths
 
 
@@ -5261,8 +5766,9 @@ def phase_wave(serial=None):
                          "best_parameters"], "scores": [e["results"]["score"]
                                                        for e in trials]},
              tables=tables, seconds=time.perf_counter() - t_phase)
-        # The solver legs (item 17c).
+        # The solver legs (item 17c) and the wave's corners (17d).
         solver_paths = solver_waves(config_dir, root)
+        solver_paths.update(corner_legs())
         emit("wave", phase_seconds=time.perf_counter() - t_phase)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5768,24 +6274,47 @@ def _par_counted(fn, device):
     return counted(fn)
 
 
-def par_worker(rank, spec):
+def par_worker(rank, boot):
     """One rank of the parallel checks: joins the gloo group of
-    ``spec["world"]`` ranks at ``spec["address"]`` on ``spec["device"]``,
-    runs every check (:func:`par_checks`, or with ``spec["checks"] ==
-    "export"`` only :func:`export_mesh_checks`) and saves its results (host
-    tensors) to ``<spec["out"]>/rank<rank>.pt``.  An exception ends the
-    process nonzero."""
+    ``boot["world"]`` ranks at ``boot["address"]`` on ``boot["device"]``,
+    waits for its spec (:func:`par_start`), runs every check
+    (:func:`par_checks`, or with ``spec["checks"] == "export"`` only
+    :func:`export_mesh_checks`) and saves its results (host tensors) to
+    ``<spec["out"]>/rank<rank>.pt``.  An exception ends the process
+    nonzero."""
     import torch.distributed as dist
 
-    device = torch.device(spec["device"])
+    device = torch.device(boot["device"])
     if device.type == "cuda":
         torch.cuda.set_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=spec["address"], world_size=spec["world"],
+        torch.zeros(1, device=device)           # the CUDA context, before the spec
+    dist.init_process_group("gloo", init_method=boot["address"], world_size=boot["world"],
                             rank=rank)
     try:
+        deadline = time.monotonic() + boot["timeout_s"]
+        while not os.path.exists(boot["spec_file"]):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"no spec at {boot['spec_file']} after "
+                                   f"{boot['timeout_s']} s")
+            time.sleep(0.2)
+        spec = torch.load(boot["spec_file"], weights_only=False)
+        artifacts_s = None
+        if spec.get("prepare"):
+            # The artifacts the checks serve, rank 0 the flagship's and rank
+            # 1 C3's at once, each then read by both.
+            t0 = time.perf_counter()
+            part = ({"artifacts": par_artifacts(spec["out"])} if rank == 0
+                    else {"c3": c3_spec(spec["out"])})
+            torch.save(part, os.path.join(spec["out"], f"prepared{rank}.pt"))
+            artifacts_s = time.perf_counter() - t0
+            dist.barrier()
+            for r in range(boot["world"]):
+                spec.update(torch.load(os.path.join(spec["out"], f"prepared{r}.pt"),
+                                       weights_only=False))
         checks = export_mesh_checks if spec.get("checks") == "export" else par_checks
         out = checks(rank, spec, device)
+        out["artifacts_seconds"] = artifacts_s
         torch.save(_host_tree(out), os.path.join(spec["out"], f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -6102,7 +6631,7 @@ def c3_model(c3, solver, device, dtype, adjoint=False):
     return model
 
 
-def c3_bundle(c3, device, dtype):
+def c3_bundle(c3, device, dtype, adjoint=False):
     """The C3 checks' NCDE on dopri5 as a bundle (``harness.setup_model``),
     for the seed ensemble."""
     from online_neural_cdes_tpu_torch.training import harness
@@ -6110,7 +6639,7 @@ def c3_bundle(c3, device, dtype):
     return harness.setup_model(
         "ncde", input_dim=c3["C"], output_dim=1, hidden_dim=c3["H"],
         hidden_hidden_dim=c3["HH"], num_layers=c3["layers"],
-        interpolation=c3["interpolation"], adjoint=False, solver="dopri5",
+        interpolation=c3["interpolation"], adjoint=adjoint, solver="dopri5",
         return_sequences=c3["return_sequences"], device=device, dtype=dtype)
 
 
@@ -6124,10 +6653,14 @@ def c3_checks(rank, spec, device):
     launches; with ``c3["ensemble"]`` (K seeds, their stacked weights from
     ``c3["ensemble_params"]`` where given), a dopri5 ``make_ensemble_step``
     over (1 ensemble x the world's data): every rank solves the K lanes on
-    its rows, each lane's controller deciding over the whole batch.  On
-    rank 0 the same in one process (``ref``).  Then the refusals: an
-    adaptive ``odeint_adjoint`` step and a ``scipy_solver`` forward over
-    the mesh."""
+    its rows, each lane's controller deciding over the whole batch; for
+    each of ``c3["adjoint_solvers"]`` a ``make_train_step(mesh=)`` step of
+    the model with ``adjoint=True`` (``odeint_adjoint``'s reverse solve
+    deciding its steps as one process over the whole batch: ROADMAP item
+    18c), with the ensemble its adjoint step too (each lane's reverse solve
+    so), and ``summed_norm_probe``.  On rank 0 the same in one process
+    (``ref``).  Then the refusal of a ``scipy_solver`` step over the
+    mesh."""
     from online_neural_cdes_tpu_torch import Predictor
     from online_neural_cdes_tpu_torch.ops import solvers
     from online_neural_cdes_tpu_torch.parallel import ensemble
@@ -6146,9 +6679,12 @@ def c3_checks(rank, spec, device):
     def counted_solve(fn):
         solvers.reset_counts()
         result, launches = _par_counted(fn, device)
-        return {"out": result, "launches": launches,
-                "counts": {k: solvers.COUNTS.get("forward", {}).get(k, 0)
-                           for k in ("solves", "nfe", "accepted", "rejected")}}
+        counts = {k: solvers.COUNTS.get("forward", {}).get(k, 0)
+                  for k in ("solves", "nfe", "accepted", "rejected")}
+        if "reverse" in solvers.COUNTS:     # odeint_adjoint's reverse solves (18c)
+            counts.update({f"reverse_{k}": solvers.COUNTS["reverse"].get(k, 0)
+                           for k in ("solves", "nfe", "accepted", "rejected")})
+        return {"out": result, "launches": launches, "counts": counts}
 
     x_req, _ = c3_batch(c3, c3["requests"], 43)
     requests = [r.astype(np.float32) for r in x_req]
@@ -6185,10 +6721,16 @@ def c3_checks(rank, spec, device):
                     lambda: loaded.predict(requests))
             out["ref"][f"{solver}_step"] = step(c3_model(c3, solver, device, dtype), None,
                                                 (inputs, labels))
+    for solver in c3.get("adjoint_solvers", ()):   # ROADMAP item 18c
+        out[f"{solver}_adjoint_step"] = step(
+            pm.replicate(c3_model(c3, solver, device, dtype, adjoint=True), mesh), mesh,
+            (shard_in, shard_lab))
+        if ref:
+            out["ref"][f"{solver}_adjoint_step"] = step(
+                c3_model(c3, solver, device, dtype, adjoint=True), None, (inputs, labels))
     if c3.get("ensemble"):
-        bundle = c3_bundle(c3, device, dtype)
-
-        def ens_step(mesh_, batch):
+        def ens_step(mesh_, batch, adjoint=False):
+            bundle = c3_bundle(c3, device, dtype, adjoint=adjoint)
             stacked = None
             if c3.get("ensemble_params"):
                 with np.load(c3["ensemble_params"]) as npz:
@@ -6204,21 +6746,87 @@ def c3_checks(rank, spec, device):
             return res
 
         ens_mesh = ensemble.make_ensemble_mesh(1, spec["world"], devices=spec["device"])
-        out["dopri5_ensemble_step"] = ens_step(ens_mesh,
-                                               pm.shard_batch((inputs, labels), ens_mesh))
+        for key, adjoint in (("dopri5_ensemble_step", False),
+                             ("dopri5_adjoint_ensemble_step", True)):
+            if adjoint and not c3.get("adjoint_solvers"):
+                continue
+            out[key] = ens_step(ens_mesh, pm.shard_batch((inputs, labels), ens_mesh), adjoint)
+            if ref:
+                out["ref"][key] = ens_step(None, (inputs, labels), adjoint)
+    if c3.get("adjoint_solvers"):    # 18c's reductions on their own
+        out["summed_norms"] = summed_norm_probe(mesh.groups[pm.DATA_AXIS], spec["world"],
+                                                rank, device, dtype)
         if ref:
-            out["ref"]["dopri5_ensemble_step"] = ens_step(None, (inputs, labels))
+            out["ref"]["summed_norms"] = summed_norm_probe(None, spec["world"], rank, device,
+                                                           dtype)
     refusals = []
-    for solver, adjoint in (("dopri5", True), ("scipy_solver", False)):
-        model = c3_model(c3, solver, device, dtype, adjoint=adjoint)
-        try:
-            make_train_step(model, loss=c3["loss"], lr=c3["lr"], mesh=mesh)(
-                shard_in, shard_lab, 1.0)
-            refusals.append(None)
-        except ValueError as exc:
-            refusals.append(str(exc))
+    try:
+        make_train_step(c3_model(c3, "scipy_solver", device, dtype), loss=c3["loss"],
+                        lr=c3["lr"], mesh=mesh)(shard_in, shard_lab, 1.0)
+        refusals.append(None)
+    except ValueError as exc:
+        refusals.append(str(exc))
     out["refusals"] = refusals
     return out
+
+
+def summed_norm_probe(group, world, rank, device, dtype):
+    """ROADMAP 18c's reductions on their own: an augmented reverse state --
+    row leaves (y, a: this rank's rows of the batch) and summed leaves (vt
+    and a weight-shaped cotangent: this rank's part of a sum over the rows)
+    -- with its error, DOP853's stages and a field, made from a seed.  Over
+    ``group`` (``world`` ranks, this one ``rank``; None: one process on the
+    whole batch and the parts' totals) the step-deciding quantities: dopri5's
+    per-leaf error ratio, DOP853's blended one, each as one block
+    (``norm="rms"``: rows and parts in one sum), and the initial step's
+    norms (d0, d1, d2, h0).  Each rank's equal one process's."""
+    from online_neural_cdes_tpu_torch.ops import reduce as data_reduce
+    from online_neural_cdes_tpu_torch.ops import solvers
+
+    gen = torch.Generator().manual_seed(53)
+    rows, shapes = 4, [(5, 3), ()]
+    n_stages = len(solvers.DOP853.c_sol)
+
+    def draw(kind):
+        """Every rank's rows (kind "rows") or parts (kind "parts") of one
+        quantity, drawn alike on every rank; this rank's, or one process's
+        whole batch / totals."""
+        if kind == "rows":
+            full = [torch.randn((world * rows, 3), generator=gen, dtype=torch.float64)
+                    for _ in range(2)]
+            return [x if group is None else x[rank * rows:(rank + 1) * rows] for x in full]
+        parts = [torch.randn((world,) + s, generator=gen, dtype=torch.float64)
+                 for s in shapes]
+        return [p.sum(0) if group is None else p[rank] for p in parts]
+
+    def state():
+        return [x.to(device, dtype) for x in draw("rows") + draw("parts")]
+
+    y0, y1, err, f0, d = state(), state(), state(), state(), state()
+    err = [e * 1e-4 for e in err]
+    k = [state() for _ in range(n_stages)]
+    summed = [False, False, True, True]
+    kw = dict(rtol=1e-5, atol=1e-7, min_step=0.0, max_step=float("inf"), first_step=None,
+              safety=0.9, ifactor=10.0, dfactor=0.2)
+    t = np.array([0.0, 1.0], dtype=solvers._NUMPY[dtype])
+
+    def field(tt, y):
+        # The row leaves' field row by row, the summed leaves' a part of a
+        # sum (its own constant term): linear in the rows, as the adjoint's.
+        return [-y[0] * 0.5, y[1] * 0.25, d[2], d[3]]
+
+    out = {}
+    with data_reduce.over(group) if group is not None else nullcontext():
+        for name, tableau, blocks in (("dopri5", solvers.DOPRI5, True),
+                                      ("dop853", solvers.DOP853, True),
+                                      ("rms", solvers.DOPRI5, False),
+                                      ("dop853_rms", solvers.DOP853, False)):
+            ctl = solvers._Controller(field, y0, t, tableau, error_blocks=blocks,
+                                      summed=None if group is None else summed, **kw)
+            out[name] = ctl.error_ratio(err, y0, y1, k, solvers._NUMPY[dtype](0.1))
+        out["initial"] = torch.stack(solvers._initial_norms(
+            field, t[0], y0, kw["rtol"], kw["atol"], f0, None if group is None else summed))
+    return {key: v.detach().cpu() for key, v in out.items()}
 
 
 def c3_verify(ranks, failed, check, gate):
@@ -6226,8 +6834,9 @@ def c3_verify(ranks, failed, check, gate):
     accepted / rejected) and kernel launches equal one process's, the
     served rows (live and loaded) within the serving gate of one
     process's, the step's loss at PAR_LOSS_RTOL, its gradients at the
-    gradient gate and its weights Adam's update (``adam_gate``); both
-    refusals name C3.  Returns the readings."""
+    gradient gate and its weights Adam's update (``adam_gate``), the
+    adjoint steps' reverse counts too (ROADMAP 18c); the ``scipy_solver``
+    refusal names C3.  Returns the readings."""
     ref = ranks[0]["c3"]["ref"]
     out = {}
     for r in ranks:
@@ -6235,6 +6844,9 @@ def c3_verify(ranks, failed, check, gate):
         for key, want in ref.items():
             got = c3[key]
             what = f"parallel: rank {i} c3 {key}"
+            if key == "summed_norms":    # each rank's decisions one process's
+                out.setdefault(key, []).append(gate(what, got, want, SUMMED_NORM_RTOL, 0.0))
+                continue
             if got["counts"] != want["counts"]:
                 failed.append(f"{what}: counts {got['counts']}, one process's "
                               f"{want['counts']}")
@@ -6284,6 +6896,34 @@ def launches_by_width(device):
             kernel._fn = by_width
     try:
         yield widths
+    finally:
+        for kernel, fn in saved:
+            kernel._fn = fn
+
+
+@contextmanager
+def multi_launches_by_storage():
+    """Counts the K-replica entries' launches by their operands' storage
+    while open, into the dict it yields (``forward_multi_bfloat16``,
+    ``backward_multi_float32``, ...): the storage index is each C entry
+    point's third argument from the end."""
+    from online_neural_cdes_tpu_torch.ops import kernels
+
+    by_storage, saved = {}, []
+    for key, attr in (("forward_multi", "fused_field_multi_kernel"),
+                      ("backward_multi", "fused_field_bwd_multi_kernel")):
+        kernel = getattr(kernels, attr)
+        fn = kernel.function()
+
+        def by_dtype(*args, _fn=fn, _key=key):
+            name = f"{_key}_{str(kernels.STORAGE[args[-3]]).replace('torch.', '')}"
+            by_storage[name] = by_storage.get(name, 0) + 1
+            return _fn(*args)
+
+        saved.append((kernel, fn))
+        kernel._fn = by_dtype
+    try:
+        yield by_storage
     finally:
         for kernel, fn in saved:
             kernel._fn = fn
@@ -6436,19 +7076,39 @@ def seq_checks(rank, spec, device):
     return out
 
 
-def par_spawn(spec, timeout_s):
-    """Start ``spec["world"]`` ranks of :func:`par_worker` (spawned), join
-    them within ``timeout_s`` and return their results in rank order.  A
-    rank that fails, or that has not finished in time, fails the call (the
-    others are stopped)."""
+def par_start(world, device, out, timeout_s):
+    """Start ``world`` ranks of :func:`par_worker` (spawned) before their
+    spec is ready: each starts its interpreter, joins the gloo group and
+    makes its CUDA context while the caller prepares the checks' inputs,
+    then waits (up to ``timeout_s``) for the spec :func:`par_release`
+    writes.  Returns the handle :func:`par_release` and :func:`par_join`
+    take."""
     import socket
 
     import torch.multiprocessing as tmp
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
-        spec = dict(spec, address=f"tcp://localhost:{s.getsockname()[1]}")
-    ctx = tmp.spawn(par_worker, args=(spec,), nprocs=spec["world"], join=False)
+        address = f"tcp://localhost:{s.getsockname()[1]}"
+    boot = {"world": world, "device": device, "address": address, "timeout_s": timeout_s,
+            "spec_file": os.path.join(out, "spec.pt")}
+    return {"ctx": tmp.spawn(par_worker, args=(boot,), nprocs=world, join=False),
+            "boot": boot, "out": out}
+
+
+def par_release(handle, spec):
+    """Hand the started ranks their spec (written whole, then renamed)."""
+    path = handle["boot"]["spec_file"]
+    torch.save(dict(spec, **{k: handle["boot"][k] for k in ("world", "device", "address")}),
+               path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def par_join(handle, timeout_s):
+    """Join the ranks within ``timeout_s`` and return their results in rank
+    order.  A rank that fails, or that has not finished in time, fails the
+    call (the others are stopped)."""
+    ctx = handle["ctx"]
     deadline = time.monotonic() + timeout_s
     try:
         while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
@@ -6459,8 +7119,24 @@ def par_spawn(spec, timeout_s):
             if p.is_alive():
                 p.terminate()
                 p.join(5.0)
-    return [torch.load(os.path.join(spec["out"], f"rank{r}.pt"), weights_only=False)
-            for r in range(spec["world"])]
+    return [torch.load(os.path.join(handle["out"], f"rank{r}.pt"), weights_only=False)
+            for r in range(handle["boot"]["world"])]
+
+
+def par_stop(handle):
+    """Stop the started ranks (a caller that failed before joining them)."""
+    for p in handle["ctx"].processes:
+        if p.is_alive():
+            p.terminate()
+            p.join(5.0)
+
+
+def par_spawn(spec, timeout_s):
+    """Start ``spec["world"]`` ranks of :func:`par_worker`, hand them
+    ``spec`` and return their results in rank order (:func:`par_join`)."""
+    handle = par_start(spec["world"], spec["device"], spec["out"], timeout_s)
+    par_release(handle, spec)
+    return par_join(handle, timeout_s)
 
 
 def par_gate(what, got, want, rtol, atol):
@@ -6499,29 +7175,16 @@ def toy_intervals(root, suite_cfg):
              else batch[0].shape[1] - 1 for batch in Batches(d, b)] for d in splits]
 
 
-def phase_parallel():
-    """Data parallelism on the card.  A world of one rank over NCCL in this
-    process: the flagship step with ``mesh=`` equals the step without it
-    to the bit.  Then one spawn of two ranks on cuda:0 over gloo, each
-    launching the kernels in its own process (``par_worker``): the
-    flagship step at B=512, gradient accumulation, an epoch step, a padded
-    cross-entropy tail, prefetched shards, ``Predictor(mesh=)`` and
-    ``OnlineNCDEStepper(mesh=)``, a (2 ensemble x 1 data) seed ensemble,
-    and one epoch of ``run --data-parallel 2`` on the toy suite, each
-    against rank 0's single-process run, with each rank's launches against
-    the reckoning."""
+def parallel_world_of_one(step_launches):
+    """A world of one rank over NCCL in this process: the flagship step with
+    ``mesh=`` equal to the step without it, to the bit.  Returns (its
+    readings, its launches)."""
     import socket
 
     import torch.distributed as dist
 
-    from online_neural_cdes_tpu_torch.data.builders import build_toy_bm
     from online_neural_cdes_tpu_torch.parallel.mesh import make_mesh
-    from online_neural_cdes_tpu_torch.training import config
     from online_neural_cdes_tpu_torch.training.loop import make_train_step
-
-    t_phase = time.perf_counter()
-    intervals = 2 * TRAIN_L - 2
-    step_launches = {"forward": 2 * 4 * intervals, "backward": 4 * intervals}
 
     # A world of one over NCCL.
     with socket.socket() as s:
@@ -6543,11 +7206,37 @@ def phase_parallel():
         backend = dist.get_backend()
     finally:
         dist.destroy_process_group()
-    world_of_one = {"backend": backend, "launches": one_launches, "bit_identical": True,
-                    "loss": float(loss)}
+    return ({"backend": backend, "launches": one_launches, "bit_identical": True,
+             "loss": float(loss)}, one_launches)
 
+
+def parallel_start():
+    """Data parallelism on the card, its first part.  A world of one rank
+    over NCCL in this process: the flagship step with ``mesh=`` equals the
+    step without it to the bit.  Then two ranks on cuda:0 over gloo, each
+    launching the kernels in its own process (``par_worker``), started
+    first and handed their spec once the artifacts they serve are made:
+    the flagship step at B=512, gradient accumulation, an epoch step, a
+    padded cross-entropy tail, prefetched shards, ``Predictor(mesh=)`` and
+    ``OnlineNCDEStepper(mesh=)``, a (2 ensemble x 1 data) seed ensemble,
+    one epoch of ``run --data-parallel 2`` on the toy suite, the time
+    pipeline and C3's checks; the ranks export the artifacts they serve.
+    Returns the state :func:`parallel_finish` joins: the ranks run their
+    checks meanwhile (beside the wave and export phases, for the run's
+    time)."""
+    from online_neural_cdes_tpu_torch.data.builders import build_toy_bm
+    from online_neural_cdes_tpu_torch.training import config
+
+    t_phase = time.perf_counter()
+    intervals = 2 * TRAIN_L - 2
+    step_launches = {"forward": 2 * 4 * intervals, "backward": 4 * intervals}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    # The two ranks start (interpreter, imports, gloo group, CUDA context)
+    # while this process runs the world of one (for the run's time);
+    # they wait for their spec.
+    handle = par_start(2, "cuda:0", tmp, PAR_TIMEOUT_S)
     try:
+        world_of_one, one_launches = parallel_world_of_one(step_launches)
         root = os.path.join(tmp, "toy")
         build_toy_bm(root=root)
         config_dir = os.path.join(tmp, "configurations")
@@ -6559,17 +7248,15 @@ def phase_parallel():
         with open(os.path.join(config_dir, "configurations.json5"), "w") as fh:
             json.dump({PAR_TOY_SUITE: toy}, fh)
         (suite_cfg,), _ = config.parse_configuration_json(PAR_TOY_SUITE, config_dir)
-        # The artifacts the ranks serve over the mesh: the flagship's
-        # predictor (bucket 64) and its stepper (63 and 64 streams).
-        t0 = time.perf_counter()
-        artifacts = par_artifacts(tmp)
-        c3 = c3_spec(tmp)
-        artifacts_s = time.perf_counter() - t0
+        # The artifacts the ranks serve over the mesh (the flagship's
+        # predictor at bucket 64 and its stepper at 63 and 64 streams; C3's
+        # dopri5 predictor) are exported by the ranks themselves, one each
+        # (``par_worker``'s ``prepare``).
         spec = dict(world=2, device="cuda:0", dtype="float32", B=TRAIN_B, L=PAR_LENGTH, C=C,
                     H=H, HH=HH, layers=N_LAYERS, S=STATIC, lr=TRAIN_LR, accum=2,
                     classes=PAR_CLASSES, requests=N_REQUESTS, buckets=(2, N_REQUESTS),
                     length_multiple=LENGTH_MULTIPLE, streams=PAR_STREAMS, ticks=PAR_TICKS,
-                    reference=True, out=tmp, artifacts=artifacts, c3=c3,
+                    reference=True, out=tmp, prepare=True,
                     toy={"suite": PAR_TOY_SUITE, "config_dir": config_dir, "root": root,
                          "ledger": os.path.join(tmp, "dp.jsonl"),
                          "serial_ledger": os.path.join(tmp, "serial.jsonl")},
@@ -6577,9 +7264,39 @@ def phase_parallel():
                          "rows_M": SEQ_ROWS_M,
                          "aux_M": SEQ_AUX_M, "memory_B": SEQ_MEM_B,
                          "memory_lengths": SEQ_MEM_LENGTHS})
-        t0 = time.perf_counter()
-        ranks = par_spawn(spec, PAR_TIMEOUT_S)
-        spawn_s = time.perf_counter() - t0
+        par_release(handle, spec)
+        SHARED_CARD.append("the parallel phase's two ranks")
+    except BaseException:
+        par_stop(handle)
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return dict(handle=handle, tmp=tmp, t_phase=t_phase, spec=spec, root=root,
+                suite_cfg=suite_cfg, world_of_one=world_of_one, one_launches=one_launches,
+                step_launches=step_launches, intervals=intervals,
+                t_release=time.perf_counter())
+
+
+def parallel_abort(state):
+    """Stop the started ranks and remove their directory (a phase between
+    :func:`parallel_start` and :func:`parallel_finish` failed)."""
+    par_stop(state["handle"])
+    SHARED_CARD.clear()
+    shutil.rmtree(state["tmp"], ignore_errors=True)
+
+
+def parallel_finish(state):
+    """The parallel phase's second part: the ranks joined, their results
+    held against the reckoning and rank 0's single-process runs, each
+    rank's launches against the reckoning."""
+    handle, tmp, t_phase, spec, root = (state[k] for k in ("handle", "tmp", "t_phase", "spec",
+                                                            "root"))
+    suite_cfg, world_of_one, one_launches = (state[k] for k in ("suite_cfg", "world_of_one",
+                                                                "one_launches"))
+    step_launches, intervals = state["step_launches"], state["intervals"]
+    try:
+        ranks = par_join(handle, PAR_TIMEOUT_S)
+        SHARED_CARD.clear()
+        spawn_s = time.perf_counter() - state["t_release"]
 
         # The reckoning: RK4 evaluates the field 4 times an interval; the
         # flagship steps run the interval adjoint (2 forward passes, 1
@@ -6625,7 +7342,7 @@ def phase_parallel():
              launches={f"rank{r['rank']}": {**r["launches"], **r["export"]["launches"]}
                        for r in ranks},
              expected_launches={**want_launches, **want_export}, gates=gates,
-             artifacts_seconds=artifacts_s,
+             artifacts_seconds=[r["artifacts_seconds"] for r in ranks],
              tolerance={"loss_rtol": PAR_LOSS_RTOL, "param_rtol": PAR_PARAM_RTOL,
                         "param_atol": PAR_PARAM_ATOL, "grad_rtol": GRAD_RTOL,
                         "grad_atol_per_max": GRAD_ATOL_REL, "row_rtol": SERVE_RTOL,
@@ -6656,6 +7373,7 @@ def phase_parallel():
         if failed:
             raise AssertionError(f"parallel: {len(failed)} gates failed: {failed}")
     finally:
+        par_stop(handle)
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = ranks[0]["launches"]
     return {"dp_world_of_one_step": one_launches, "dp_train_step": r0["train_step"],
@@ -6663,7 +7381,8 @@ def phase_parallel():
             "dp_ensemble_step": r0["ensemble_step"], "dp_toy_suite": r0["run_data_parallel"],
             "dp_artifact_predict": ranks[0]["export"]["launches"]["artifact_predict"],
             "dp_artifact_stream": ranks[0]["export"]["launches"]["artifact_stream"],
-            **{f"dp_c3_{key}": ranks[0]["c3"][key]["launches"] for key in ranks[0]["c3"]["ref"]},
+            **{f"dp_c3_{key}": ranks[0]["c3"][key]["launches"] for key in ranks[0]["c3"]["ref"]
+               if key != "summed_norms"},
             **{name: ranks[0]["seq"]["launches"][name] for name in (
                 "seq_forward", "seq_adjoint_step", "seq_direct_step")}}
 
@@ -6709,7 +7428,8 @@ def c3_spec(tmp):
 
     c3 = dict(B=CFG3_B, requests=N_REQUESTS, L=CFG3_L, C=CFG3_C, H=CFG3_H, HH=CFG3_H,
               layers=2, interpolation="hermite", return_sequences=False, loss="mse",
-              lr=5e-3, solvers=("dopri5", "implicit_adams"))
+              lr=5e-3, solvers=("dopri5", "implicit_adams"),
+              adjoint_solvers=("dopri5", "implicit_adams"))
     path = os.path.join(tmp, "c3_dopri5_artifact")
     export_predictor(Predictor(c3_model(c3, "dopri5", torch.device("cuda"), torch.float32),
                                coeff_fn=c3_coeffs(c3), batch_buckets=(c3["requests"],),
@@ -7041,13 +7761,21 @@ PHASE_SECONDS = {}
 
 def timed_phase(name, fn, *args):
     """``fn(*args)``, its seconds added to PHASE_SECONDS[name] and printed
-    (also when it raises)."""
+    (also when it raises), with the collector's passes in it.  What the
+    earlier phases left alive is frozen first (``gc.freeze``), so the
+    collector's passes in a late phase do not walk every object the run
+    made before it."""
+    gc.collect()
+    gc.freeze()
+    passes = sum(st["collections"] for st in gc.get_stats())
     t0 = time.perf_counter()
     try:
         return fn(*args)
     finally:
         PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
-        print(json.dumps({"timed_phase": name, "seconds": PHASE_SECONDS[name]}), flush=True)
+        print(json.dumps({"timed_phase": name, "seconds": PHASE_SECONDS[name],
+                          "gc_passes": sum(st["collections"] for st in gc.get_stats())
+                          - passes}), flush=True)
 
 
 PHASES = ("kernel", "kernel_bwd", "kernel_rk4", "predictor", "stepper", "train",
@@ -7077,6 +7805,7 @@ def main(argv=None) -> int:
     if "kernel" in phases:
         max_err, timings, timings_bf16, timings_multi_fwd = timed_phase(
             "kernel", phase_kernel, pk)
+    timed_phase("build", join_builds)
     if "kernel_bwd" in phases:
         max_err_bwd, timings_bwd, timings_bwd_bf16, timings_multi_bwd = timed_phase(
             "kernel_bwd", phase_kernel_bwd, pk)
@@ -7117,15 +7846,31 @@ def main(argv=None) -> int:
         harness_launches, serial, deploy = timed_phase("harness", phase_harness)
     if "raw_data" in phases:
         raw_launches = timed_phase("raw_data", phase_raw_data)
-    if "wave" in phases:
-        wave_launches = timed_phase("wave", phase_wave, serial)
-    if "export" in phases:
-        if deploy is None:   # the checkpoint to deploy from: the harness's
-            _, _, deploy = timed_phase("harness", phase_harness)
-        export_launches = timed_phase("export", phase_export, model, requests, static,
-                                      outs, deploy)
-    if "parallel" in phases:
-        parallel_launches = timed_phase("parallel", phase_parallel)
+    # The parallel phase's ranks run their checks beside the wave and export
+    # phases (for the run's time): started here, joined after them.
+    # So does the export phase, in a process of its own (export_worker).
+    par_state = timed_phase("parallel", parallel_start) if "parallel" in phases else None
+    export_state = None
+    try:
+        if "export" in phases:
+            if deploy is None:   # the checkpoint to deploy from: the harness's
+                _, _, deploy = timed_phase("harness", phase_harness)
+            export_state = timed_phase("export", export_start, model, requests, static,
+                                       outs, deploy)
+        if "wave" in phases:
+            wave_launches = timed_phase("wave", phase_wave, serial)
+        if export_state is not None:
+            export_launches = timed_phase("export", export_finish, export_state)
+            export_state = None
+    except BaseException:
+        if export_state is not None:
+            par_stop(export_state)
+            shutil.rmtree(export_state["out"], ignore_errors=True)
+        if par_state is not None:
+            parallel_abort(par_state)
+        raise
+    if par_state is not None:
+        parallel_launches = timed_phase("parallel", parallel_finish, par_state)
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
     if phases != set(PHASES):
@@ -7179,8 +7924,9 @@ def main(argv=None) -> int:
             **times(tm[MULTI_MAIN]), "library_ms": None, "K": MULTI_MAIN[0],
             "timed_shape": list(MULTI_MAIN[1]),
             "k_single_ms": tm[MULTI_MAIN]["k_single_us"] / 1e3,
-            "by_shape": [{"K": t["K"], "shape": t["shape"], **times(t),
-                          "k_single_ms": t["k_single_us"] / 1e3} for t in tm.values()],
+            "by_shape": [{"K": t["K"], "shape": t["shape"], "mode": t.get("mode", "float32"),
+                          **times(t), "k_single_ms": t["k_single_us"] / 1e3}
+                         for t in tm.values()],
             "launches_by_path": paths(key)})
     k_main = RK4_MULTI_TIMED[0]
     entries.append({

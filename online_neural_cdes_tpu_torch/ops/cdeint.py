@@ -46,6 +46,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from online_neural_cdes_tpu_torch.ops import reduce as _reduce
 from online_neural_cdes_tpu_torch.ops import solvers
 from online_neural_cdes_tpu_torch.utils.tree import flatten, map_arrays
 
@@ -507,8 +508,9 @@ class _AdjointSetup:
     ``args`` from flat leaves."""
 
     def __init__(self, func, rebuild_y, n_y, rebuild_args, rtol, atol, method,
-                 options, adjoint_options):
+                 options, adjoint_options, row_args=None):
         self.func = func
+        self.row_args = row_args
         self.rebuild_y, self.n_y, self.rebuild_args = rebuild_y, n_y, rebuild_args
         self.rtol, self.atol, self.method = rtol, atol, method
         self.options = options
@@ -541,10 +543,18 @@ class _AdjointSetup:
 
     def reverse_options(self, n_args: int) -> dict:
         """The reverse solves' options (``seminorm``: the parameter-gradient
-        blocks weigh 0 in the step control)."""
+        blocks weigh 0 in the step control).  Over a data axis
+        (``ops/reduce.py``) they mark the augmented state's leaves that hold
+        this rank's part of a sum over the rows -- ``vt`` and the cotangent
+        of every argument that is not itself split by rows (the weights,
+        the knot times) -- so the step decisions take their totals, as one
+        process over the whole batch does (ROADMAP item 18c)."""
         opts = dict(self.adj_options)
         if self.seminorm:
             opts["error_weights"] = [1.0] * (2 * self.n_y + 1) + [0.0] * n_args
+        if _reduce.group() is not None:
+            rows = self.row_args or [False] * n_args
+            opts["summed_leaves"] = [False] * (2 * self.n_y) + [True] + [not r for r in rows]
         return opts
 
     # K lanes (``_OdeintAdjointLanes``)
@@ -662,14 +672,13 @@ class _OdeintAdjoint(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, setup, t, *leaves):
-        if in_dims[1] is not None:
-            raise ValueError("output times that differ between a wave's lanes do not wave "
-                             "(ROADMAP item 17d)")
         k = info.batch_size
         # Every leaf per lane: each lane integrates its own cotangent of a
         # shared argument (a spline's coefficients) in its reverse solve,
-        # as its serial backward does; the expand sums them.
+        # as its serial backward does; the expand sums them.  Output times
+        # that differ between lanes come stacked (K, T).
         leaves = [_lane_major(k, leaf, d) for leaf, d in zip(leaves, in_dims[2:])]
+        t = t if in_dims[1] is None else t.movedim(in_dims[1], 0)
         out = _OdeintAdjointLanes.apply(setup, t, *leaves)
         return out, (0,) * len(out)
 
@@ -677,7 +686,9 @@ class _OdeintAdjoint(torch.autograd.Function):
 class _OdeintAdjointLanes(torch.autograd.Function):
     """``odeint_adjoint`` for K lanes (what :class:`_OdeintAdjoint`'s vmap
     rule records): inputs ``(setup, t, *y0 leaves, *arg leaves)``, every
-    leaf (K, ...).  The forward is the K-lane solve
+    leaf (K, ...), ``t`` the output times the lanes share, (T,), or each
+    lane's own, (K, T): a lane then reverses over its own intervals and its
+    times' gradient is its own.  The forward is the K-lane solve
     (:func:`solvers.odeint_lanes`, the field under ``torch.func.vmap``)
     with no graph; the backward, under plain autograd, integrates every
     lane's augmented state ``(y, a, vt, args_bar)`` in reverse over each
@@ -690,7 +701,10 @@ class _OdeintAdjointLanes(torch.autograd.Function):
         k = leaves[0].shape[0]
         t_host = solvers._host(t)
         func_k = setup.lane_func(k, leaves[setup.n_y:])
-        ys, _ = solvers.odeint_lanes(func_k, list(leaves[:setup.n_y]), t_host, k,
+        y0 = list(leaves[:setup.n_y])
+        ys, _ = solvers.odeint_lanes(func_k, y0, t_host, k, grid_of=lambda c: solvers.lane_grids(
+                                         c, setup.func, setup.rebuild_y, y0, t,
+                                         None if t.dim() == 1 else 0),
                                      **setup.lane_solve(
                                          setup.options, setup.rtol, setup.atol, setup.method,
                                          t_host, leaves[:setup.n_y], not isinstance(
@@ -733,27 +747,34 @@ class _OdeintAdjointLanes(torch.autograd.Function):
                     *vjps[1 + n_y:]]
 
         t_host = solvers._host(t)
+        lane_times = t_host.ndim == 2
+        t_rows = np.stack(solvers._lane_rows(t_host, k))     # each lane's times
         a = [torch.zeros_like(y[:, 0]) for y in ys]
         vt = torch.zeros(k, dtype=dtype, device=device)
         args_bar = [torch.zeros_like(leaf) for leaf in args_d]
-        t_bar = [None] * len(t_host)
+        n_t = t_host.shape[-1]
+        t_bar = [None] * n_t
         opts = setup.reverse_options(len(args_d))
         with solvers.counting_as("reverse"):
-            for i in range(len(t_host) - 1, 0, -1):
+            for i in range(n_t - 1, 0, -1):
                 y_i = [y[:, i] for y in ys]
                 g_i = [g[:, i] for g in grad_ys]
-                f_i = func_k(torch.full((k,), float(t_host[i]), dtype=t.dtype, device=device),
-                             y_i)
+                f_i = func_k(solvers._column(t_rows[:, i], t.dtype, device), y_i)
                 solvers._count(evals=k, lane_evals=1)
                 # Each lane's dL/dt_i as its serial backward sums it.
                 dl_dt = torch.stack([sum((g[j] * f[j]).sum() for g, f in zip(g_i, f_i))
                                      for j in range(k)]).to(dtype)
                 vt = vt - dl_dt
                 a = [al + gl for al, gl in zip(a, g_i)]
-                s_span = np.array([-t_host[i], -t_host[i - 1]], dtype=t_host.dtype)
+                s_span = np.stack([-t_host[..., i], -t_host[..., i - 1]], axis=-1)
                 aug0 = [*y_i, *a, vt, *args_bar]
+                # A grid_constructor sees the lanes' augmented states and
+                # spans (the field of one lane's reverse solve is not
+                # formed: it gets None).
+                span = torch.from_numpy(s_span.astype(np.float64)).to(t.dtype)
                 path, _ = solvers.odeint_lanes(
-                    aug_dynamics, aug0, s_span, k,
+                    aug_dynamics, aug0, s_span, k, grid_of=lambda c: solvers.lane_grids(
+                        c, None, tuple, aug0, span, None if span.dim() == 1 else 0),
                     **setup.lane_solve(opts, setup.adj_rtol, setup.adj_atol, setup.adj_method,
                                        s_span, aug0, True))
                 aug1 = [p[:, -1] for p in path]
@@ -763,7 +784,7 @@ class _OdeintAdjointLanes(torch.autograd.Function):
         t_bar[0] = vt
         t_grad = (torch.stack(t_bar, dim=1).to(t.dtype).to(t.device)
                   if ctx.needs_input_grad[1] else None)
-        if t_grad is not None:
+        if t_grad is not None and not lane_times:
             t_grad = t_grad.sum(0)           # t is shared by the lanes
         need_args = ctx.needs_input_grad[2 + n_y:]
         return (None, t_grad, *a,
@@ -781,6 +802,7 @@ def odeint_adjoint(
     method: str = "dopri5",
     options: Optional[dict] = None,
     adjoint_options: Optional[dict] = None,
+    row_args: Optional[list] = None,
 ):
     """``odeint`` whose gradient integrates the adjoint system backwards
     (O(1) memory in the solve's length).  ``adjoint_options`` may set the
@@ -788,7 +810,14 @@ def odeint_adjoint(
     (``"seminorm"`` leaves the parameter-gradient block out of the step
     control) and its solver options (by default the forward's).  Gradients
     reach ``y0``, ``t`` and the tensors of ``args`` (nested dicts, lists,
-    tuples and splines).  With no gradient needed it is ``odeint``."""
+    tuples and splines).  With no gradient needed it is ``odeint``.
+
+    Over a mesh's data axis (``parallel.mesh.data_reductions``) the state's
+    leaves are this rank's rows, and ``row_args`` says, for each tensor of
+    ``args`` in order, whether it is split by rows too (a spline's
+    coefficients); the others (by default all) are shared, so their
+    cotangents are sums over every rank's rows, which the reverse solve's
+    step decisions take whole."""
     if not isinstance(t, torch.Tensor) and not torch.compiler.is_exporting():
         # (A traced program keeps host times as numpy: it makes no tensor
         # it would have to read back.)
@@ -796,6 +825,9 @@ def odeint_adjoint(
     # Resolve grid-from-step_size against the concrete output times: the
     # reverse solves integrate one output interval at a time.
     options = dict(options or {})
+    if solvers._batched((t,)) and any("step_size" in (o or {}) and not (o or {}).get("substeps")
+                                      for o in (options, adjoint_options)):
+        raise ValueError(solvers._TRACED_STEP_SIZE)    # JAX's rule for traced times
     if "step_size" in options:
         options["substeps"] = _resolve_substeps(options, solvers._host(t))
         options.pop("step_size")
@@ -810,10 +842,8 @@ def odeint_adjoint(
         return solvers.odeint(func, y0, t, args, rtol=rtol, atol=atol, method=method,
                               options=options)
     setup = _AdjointSetup(func, rebuild_y, len(y_leaves), rebuild_args, rtol, atol,
-                          method, options, adjoint_options)
-    if setup.adj_method in (*solvers.ADAPTIVE_METHODS, "implicit_adams", "scipy_solver"):
-        # The reverse state carries the parameter adjoint, a partial sum
-        # over this rank's rows: its norm is not a sum over rows.
+                          method, options, adjoint_options, row_args)
+    if setup.adj_method == "scipy_solver":
         solvers.refuse_rank_local(f"odeint_adjoint's reverse {setup.adj_method!r} solve")
     return rebuild_y(list(_OdeintAdjoint.apply(setup, t, *y_leaves, *arg_leaves)))
 
@@ -852,6 +882,24 @@ def _resolve_substeps(options: dict, grid) -> int:
         spacing = max(b - a for a, b in zip(grid[:-1], grid[1:]))
         return max(1, math.ceil(spacing / float(options["step_size"]) - 1e-9))
     return 1
+
+
+def _shared_leaf_ids(X) -> set:
+    """The ids of a spline's knot times (its ``t`` fields, nested splines'
+    too): the tensors of ``X`` that its rows share."""
+    fields = getattr(type(X), "tree_fields", None)
+    if isinstance(X, (list, tuple)):
+        return set().union(*[_shared_leaf_ids(v) for v in X])
+    if fields is None:
+        return set()
+    out = set()
+    for name in fields:
+        value = getattr(X, name)
+        if name == "t" and isinstance(value, torch.Tensor):
+            out.add(id(value))
+        else:
+            out |= _shared_leaf_ids(value)
+    return out
 
 
 def _generic_cdeint(X, func, z0, t, args, adjoint, vector_field_type, method, atol,
@@ -894,8 +942,11 @@ def _generic_cdeint(X, func, z0, t, args, adjoint, vector_field_type, method, at
                 _, stats = solvers.odeint(vf, z0, t, theta, rtol=rtol, atol=atol,
                                           method=method, options=dict(options),
                                           return_stats=True)
+        shared = _shared_leaf_ids(X)
         zs = odeint_adjoint(vf, z0, t, theta, rtol=rtol, atol=atol, method=method,
-                            options=options, adjoint_options=adjoint_options)
+                            options=options, adjoint_options=adjoint_options,
+                            row_args=[id(leaf) not in shared for leaf in flatten(X)[0]]
+                            + [False] * len(flatten(args)[0]))
     else:
         zs, stats = solvers.odeint(vf, z0, t, theta, rtol=rtol, atol=atol,
                                    method=method,

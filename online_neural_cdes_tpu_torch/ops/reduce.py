@@ -63,9 +63,11 @@ def data_all_reduce(x: torch.Tensor, count: int, op: str) -> torch.Tensor:
     ``x`` summed and rescaled to this rank's share of the ranks' ``count``
     (sum of x * count / sum of counts), so that ``result / count`` is the
     mean over every rank's rows, as ``x / count`` is over this rank's; with
-    ``"max"``, the largest ``x`` (``count`` unused).  The sums run in
-    float64.  With no group set, a copy of ``x``: a solve divides by its
-    own count as it does with no reduction, to the bit."""
+    ``"total"``, every rank's ``x`` summed (``count`` unused: the parts of
+    one sum, such as an adjoint's weight cotangent, each rank's over its
+    rows); with ``"max"``, the largest ``x``.  The sums run in float64.
+    With no group set, a copy of ``x``: a solve divides by its own count as
+    it does with no reduction, to the bit."""
     out = x.clone()
     g = group()
     if g is None:
@@ -73,6 +75,10 @@ def data_all_reduce(x: torch.Tensor, count: int, op: str) -> torch.Tensor:
     if op == "max":
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
         return out
+    if op == "total":
+        wide = x.to(torch.float64, copy=True)
+        dist.all_reduce(wide, group=g)
+        return wide.to(x.dtype)
     both = torch.cat([x.reshape(-1).double(), x.new_full((1,), count, dtype=torch.float64)])
     dist.all_reduce(both, group=g)
     return (both[:-1] / (both[-1] / count)).to(x.dtype).reshape(x.shape)

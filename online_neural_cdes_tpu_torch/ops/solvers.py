@@ -29,7 +29,9 @@ switch), the adaptive and Adams solves take a tensor form instead
 ``lax.while_loop`` controller and Adams scan), so an exported program
 carries its own controller.  Over a mesh's data axis every reduction over
 the batch that decides a step goes through ``ops/reduce.py``, so each rank
-takes the steps one process takes over the whole batch.
+takes the steps one process takes over the whole batch; leaves that hold a
+rank's part of a sum (``options["summed_leaves"]``: ``odeint_adjoint``'s
+vt and weight cotangents) are judged on their totals (:func:`_summed_totals`).
 
 ``COUNTS`` holds what the adaptive solves did since ``reset_counts()``, by
 kind of solve: the forward solves, ``odeint_adjoint``'s reverse solves and
@@ -59,6 +61,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import copy
 import dataclasses
 import functools
 import math
@@ -451,6 +454,56 @@ def _max_over_rows(x: torch.Tensor) -> torch.Tensor:
     return _reduce.all_reduce(x, 1, "max") if _reduce.active() else x
 
 
+def _summed_totals(summed, *parts):
+    """Each list of leaves in ``parts`` with the leaves ``summed`` marks
+    replaced by their totals over the data axis, in one reduction: such a
+    leaf holds this rank's part of a sum over the batch's rows (the
+    parameter adjoint of ``odeint_adjoint``'s reverse state, ROADMAP item
+    18c), and one process over the whole batch decides on the sum.  With no
+    data axis set, or nothing marked, ``parts`` as they are."""
+    if not summed or not any(summed) or _reduce.group() is None:
+        return parts
+    idx = [i for i, mark in enumerate(summed) if mark]
+    total = _reduce.all_reduce(torch.cat([p[i].reshape(-1) for p in parts for i in idx]), 1,
+                               "total")
+    out, pos = [], 0
+    for p in parts:
+        p = list(p)
+        for i in idx:
+            n = p[i].numel()
+            p[i] = total[pos:pos + n].reshape(p[i].shape)
+            pos += n
+        out.append(p)
+    return tuple(out)
+
+
+def _row_totals(sums, count: int):
+    """This rank's sums of squares over its rows (``sums``, 0-d tensors) and
+    their entries ``count``, each summed over every rank of the data axis in
+    float64, in one reduction: (the sums, (len(sums),); the entries, 0-d)."""
+    total = _reduce.all_reduce(torch.stack([*(x.double() for x in sums), sums[0].new_tensor(
+        float(count), dtype=torch.float64)]), 1, "total")
+    return total[:-1], total[-1]
+
+
+def _mixed_rms(norms, counts, summed) -> torch.Tensor:
+    """sqrt(sum of squares / entries) over the leaves whose norms are
+    ``norms`` (None: left out) and entry counts ``counts``, over a data
+    axis: the row leaves' squares and entries summed over every rank, a
+    ``summed`` leaf's (its norm taken of its total) counted once."""
+    rows = [(n, c) for n, c, mark in zip(norms, counts, summed) if n is not None and not mark]
+    parts = [(n, c) for n, c, mark in zip(norms, counts, summed) if n is not None and mark]
+    sq = torch.stack([n for n, _ in parts]).square().sum() if parts else None
+    count = sum(c for _, c in parts)
+    if not rows:
+        return torch.sqrt(sq / max(count, 1))
+    row_sq = torch.stack([n for n, _ in rows]).square().sum()
+    total, n = _row_totals([row_sq], sum(c for _, c in rows))
+    if sq is not None:
+        total, n = total + sq.double(), n + count
+    return torch.sqrt(total[0] / torch.clamp_min(n, 1)).to(row_sq.dtype)
+
+
 def refuse_rank_local(what: str) -> None:
     """Raise when a data axis is set (ROADMAP fault C3): ``what`` decides
     its steps on this rank's rows alone, and no reduction of its makes them
@@ -502,20 +555,33 @@ class _ErrorNorm:
     one block for a tensor state or ``norm="rms"``, one per leaf
     otherwise); DOP853's blended 5th/3rd-order ratio within each block."""
 
-    def __init__(self, leaves, weights, per_leaf: bool):
+    def __init__(self, leaves, weights, per_leaf: bool, summed=None):
         self.weights = _weights_per_leaf(weights, leaves)
-        counts = _leaf_weight_counts(leaves, self.weights)
+        self.leaf_counts = _leaf_weight_counts(leaves, self.weights)
         idx = list(range(len(leaves)))
         self.blocks = [[i] for i in idx] if per_leaf else [idx]
-        self.counts = [max(sum(counts[i] for i in b), 1) for b in self.blocks]
+        self.counts = [max(sum(self.leaf_counts[i] for i in b), 1) for b in self.blocks]
+        # Leaves holding this rank's part of a sum over the rows (18c):
+        # over a data axis their error is normed on their totals.
+        self.summed = list(summed) if summed is not None and any(summed) else None
+
+    def over_ranks(self) -> bool:
+        """Whether some leaves are rank parts of sums and a data axis is set."""
+        return self.summed is not None and _reduce.group() is not None
 
     def ratio(self, r):
         """max over blocks of sqrt(sum((r w)^2) / count), a 0-d tensor (a
-        block whose weights are all 0 gives 0)."""
+        block whose weights are all 0 gives 0).  Over a data axis ``r``'s
+        summed leaves are their totals (``_Controller.error_ratio``)."""
         norms = _norms(r, self.weights)
         live = [i for i, n in enumerate(norms) if n is not None]
         if not live:
             return r[0].new_zeros(())
+        if self.over_ranks():
+            return _max_combine([_mixed_rms([norms[i] for i in b],
+                                            [self.leaf_counts[i] for i in b],
+                                            [self.summed[i] for i in b])
+                                 for b in self.blocks if any(norms[i] is not None for i in b)])
         if len(self.blocks) == 1:
             return _rms([norms[i] for i in live], self.counts[0])
         if _reduce.active():   # each leaf's RMS over every rank's rows
@@ -529,8 +595,9 @@ class _ErrorNorm:
         """:meth:`ratio` of each of ``k`` lanes (``r``'s leaves (k, ...),
         the norm's shapes one lane's), with the same arithmetic: every
         lane's leaf norms in one ``_foreach_norm``; one block of several
-        leaves sums its squares lane by lane."""
-        if len(self.blocks) == 1 and len(r) > 1:
+        leaves sums its squares lane by lane (and over a data axis with
+        summed leaves, every lane's :meth:`ratio`)."""
+        if (len(self.blocks) == 1 and len(r) > 1) or self.over_ranks():
             return torch.stack([self.ratio([x[j] for x in r]) for j in range(k)])
         live = [i for i, w in enumerate(self.weights)
                 if not (isinstance(w, (int, float)) and w == 0)]
@@ -565,12 +632,34 @@ class _ErrorNorm:
                 continue
             s5 = torch.stack([n5[i] for i in live]).square().sum()
             s3 = torch.stack([n3[i] for i in live]).square().sum()
-            if _reduce.active():   # the block's two sums over every rank's rows
+            if self.over_ranks() and any(self.summed[i] for i in live):
+                s5, s3, n = self._mixed_sums(live, n5, n3)
+            elif _reduce.active():   # the block's two sums over every rank's rows
                 s5, s3 = _sum_over_rows(torch.stack([s5, s3]), n).unbind()
             denom = s5 + 0.01 * s3
             val = dt_abs * s5 / torch.sqrt(torch.clamp(denom, min=1e-30) * float(n))
             out.append(torch.where(denom > 0.0, val, torch.zeros_like(val)))
         return _max_combine(out)
+
+
+    def _mixed_sums(self, live, n5, n3):
+        """The block's two sums of squares and its entries over a data axis:
+        the row leaves' over every rank, the summed leaves' (their totals)
+        once."""
+        rows = [i for i in live if not self.summed[i]]
+        parts = [i for i in live if self.summed[i]]
+
+        def sq(norms, idx):
+            return torch.stack([norms[i] for i in idx]).square().sum()
+
+        out = torch.stack([sq(n5, parts).double(), sq(n3, parts).double()])
+        count = sum(self.leaf_counts[i] for i in parts)
+        if rows:
+            total, n = _row_totals([sq(n5, rows), sq(n3, rows)],
+                                   sum(self.leaf_counts[i] for i in rows))
+            out, count = out + total, count + int(n)
+        dtype = n5[parts[0]].dtype
+        return out[0].to(dtype), out[1].to(dtype), max(count, 1)
 
 
 def _max_combine(norms):
@@ -589,30 +678,42 @@ def _optimal_step_size(last_step, error_ratio, safety, ifactor, dfactor, order):
     return S(last_step * factor)
 
 
-def _initial_norms(func, t0, y0, rtol, atol, f0):
+def _initial_norms(func, t0, y0, rtol, atol, f0, summed=None, lanes: int = 0):
     """The heuristic's norms on the device: (d0, d1, d2, h0), 0-d tensors
-    (``t0`` a host scalar or, traced, a 0-d tensor)."""
-    scale = torch._foreach_add(torch._foreach_mul(torch._foreach_abs(y0), float(rtol)),
+    (``t0`` a host scalar or, traced, a 0-d tensor); with ``lanes`` = K the
+    leaves stack K lanes, ``t0`` is a (K,) tensor and each norm is every
+    lane's, (K,).  Over a data axis the leaves ``summed`` marks enter by
+    their totals (``_summed_totals``)."""
+    mixed = bool(summed) and any(summed) and _reduce.group() is not None
+    g_y0, g_f0 = _summed_totals(summed, y0, f0) if mixed else (y0, f0)
+    scale = torch._foreach_add(torch._foreach_mul(torch._foreach_abs(g_y0), float(rtol)),
                                float(atol))
-    n = sum(yl.numel() for yl in y0)
+    counts = [yl[0].numel() if lanes else yl.numel() for yl in y0]
+
+    def one(norms):
+        return _mixed_rms(norms, counts, summed) if mixed else _rms(norms, sum(counts))
 
     def rms(xs):
-        return _rms(_norms(torch._foreach_div(xs, scale)), n)
+        scaled = torch._foreach_div(xs, scale)
+        if not lanes:
+            return one(_norms(scaled))
+        return torch.stack([one(_norms([leaf[j] for leaf in scaled])) for j in range(lanes)])
 
-    d0, d1 = rms(y0), rms(f0)
+    d0, d1 = rms(g_y0), rms(g_f0)
     small = (d0 < 1e-5) | (d1 < 1e-5)
     h0 = torch.where(small, torch.full_like(d0, 1e-6),
                      0.01 * d0 / torch.where(d1 == 0, torch.ones_like(d1), d1))
-    y1 = [yl + h0 * fl for yl, fl in zip(y0, f0)]
+    y1 = [yl + (_per_lane(h0, fl) if lanes else h0) * fl for yl, fl in zip(y0, f0)]
     f1 = func((t0 if isinstance(t0, torch.Tensor) else float(t0)) + h0, y1)
-    d2 = rms(torch._foreach_sub(f1, f0)) / h0
+    df = torch._foreach_sub(f1, f0)
+    d2 = rms(_summed_totals(summed, df)[0] if mixed else df) / h0
     return d0, d1, d2, h0
 
 
-def _select_initial_step(func, t0, y0, order, rtol, atol, f0):
+def _select_initial_step(func, t0, y0, order, rtol, atol, f0, summed=None):
     """Hairer, Norsett & Wanner heuristic (reference misc.py:32-71): the
     norms and h0 on the device, read once (d0, d1, d2 and h0 stacked)."""
-    norms = _initial_norms(func, t0, y0, rtol, atol, f0)
+    norms = _initial_norms(func, t0, y0, rtol, atol, f0, summed)
     return _initial_step_host(type(t0), order, *_read(torch.stack(norms)))
 
 
@@ -750,39 +851,69 @@ def _fit_from_stages(y0, y1, k, dt, tableau: ButcherTableau):
 # dtype; state updates cast dt to the state dtype (rk_common.py:136-138).
 # ---------------------------------------------------------------------------
 
-def _euler_step(func, t0, dt, y0, S):
-    h = float(S(dt))
-    return [yl + fl * h for yl, fl in zip(y0, func(t0, y0))], 1
+def _scaled(x: torch.Tensor, c):
+    """``x * c``: ``c`` a host scalar, or a (K,) column of a K-lane step (one
+    factor a lane) broadcast against x's lanes."""
+    return x * (c if not isinstance(c, torch.Tensor) else _per_lane(c, x))
 
 
-def _midpoint_step(func, t0, dt, y0, S):
+# Each fixed step is its host part (``_*_plan``: the stages' times and the
+# step's factors, host scalars computed in the times' and the state's
+# dtypes) and its tensor part (``_*_apply``), so the K lanes of a wave step
+# each lane's own plan, its factors stacked as (K,) columns.
+
+def _euler_plan(t0, dt, S):
+    return [t0], [float(S(dt))]
+
+
+def _euler_apply(func, times, coeffs, y0, f0=None):
+    (h,) = coeffs
+    return [yl + _scaled(fl, h) for yl, fl in zip(y0, func(times[0], y0))], 1
+
+
+def _midpoint_plan(t0, dt, S):
     h = S(dt)
-    y_mid = [yl + fl * float(S(0.5) * h) for yl, fl in zip(y0, func(t0, y0))]
-    k2 = func(t0 + type(dt)(0.5) * dt, y_mid)
-    return [yl + fl * float(h) for yl, fl in zip(y0, k2)], 2
+    return [t0, t0 + type(dt)(0.5) * dt], [float(S(0.5) * h), float(h)]
 
 
-def _rk4_38_step(func, t0, dt, y0, S, f0=None):
+def _midpoint_apply(func, times, coeffs, y0, f0=None):
+    half, h = coeffs
+    y_mid = [yl + _scaled(fl, half) for yl, fl in zip(y0, func(times[0], y0))]
+    k2 = func(times[1], y_mid)
+    return [yl + _scaled(fl, h) for yl, fl in zip(y0, k2)], 2
+
+
+def _rk4_38_plan(t0, dt, S):
+    T = type(dt)
+    h = S(dt)
+    return ([t0, t0 + dt / T(3.0), t0 + T(2.0) * dt / T(3.0), t0 + dt],
+            [float(h / S(3.0)), float(h)])
+
+
+def _rk4_38_apply(func, times, coeffs, y0, f0=None):
     """RK4 3/8-rule -- the variant the reference uses for method='rk4'
     (rk_common.py:106-114 ``rk4_alt_step_func``).  ``f0`` reuses a
     derivative already taken at (t0, y0) as k1 (the Adams bootstrap)."""
-    T = type(dt)
-    h = S(dt)
-    third, hf = float(h / S(3.0)), float(h)
-    k1 = func(t0, y0) if f0 is None else f0
-    k2 = func(t0 + dt / T(3.0), [y + a * third for y, a in zip(y0, k1)])
-    k3 = func(t0 + T(2.0) * dt / T(3.0),
-              [y + (b - a / 3.0) * hf for y, a, b in zip(y0, k1, k2)])
-    k4 = func(t0 + dt, [y + (a - b + c) * hf for y, a, b, c in zip(y0, k1, k2, k3)])
-    return [y + ((a + (b + c) * 3.0 + d) * hf) * 0.125
+    third, hf = coeffs
+    k1 = func(times[0], y0) if f0 is None else f0
+    k2 = func(times[1], [y + _scaled(a, third) for y, a in zip(y0, k1)])
+    k3 = func(times[2], [y + _scaled(b - a / 3.0, hf) for y, a, b in zip(y0, k1, k2)])
+    k4 = func(times[3], [y + _scaled(a - b + c, hf) for y, a, b, c in zip(y0, k1, k2, k3)])
+    return [y + _scaled(a + (b + c) * 3.0 + d, hf) * 0.125
             for y, a, b, c, d in zip(y0, k1, k2, k3, k4)], (4 if f0 is None else 3)
 
 
-_FIXED_STEPS = {
-    "euler": _euler_step,
-    "midpoint": _midpoint_step,
-    "rk4": _rk4_38_step,
+_FIXED_PLANS = {
+    "euler": (_euler_plan, _euler_apply),
+    "midpoint": (_midpoint_plan, _midpoint_apply),
+    "rk4": (_rk4_38_plan, _rk4_38_apply),
 }
+
+
+def _fixed_step(method, func, t0, dt, y0, S, f0=None):
+    """One fixed step of ``method`` from the host time ``t0``."""
+    plan, apply = _FIXED_PLANS[method]
+    return apply(func, *plan(t0, dt, S), y0, f0)
 
 
 def _stats(nfe, accepted, rejected, **extra):
@@ -796,14 +927,13 @@ def _stats(nfe, accepted, rejected, **extra):
 def _fixed_grid_integrate(func, y0, t, S, method, substeps=1, remat=False):
     """``substeps`` equal RK sub-steps per output interval of ``t`` (host
     times).  Returns (ys per leaf, stats) with ys[i] = y(t[i])."""
-    step_fn = _FIXED_STEPS[method]
     T = type(t[0])
 
     def interval(t0, t1, *y):
         dt = (t1 - t0) / T(substeps)
         y = list(y)
         for i in range(substeps):
-            y, _ = step_fn(func, t0 if i == 0 else t0 + T(i) * dt, dt, y, S)
+            y, _ = _fixed_step(method, func, t0 if i == 0 else t0 + T(i) * dt, dt, y, S)
         return tuple(y)
 
     if remat and torch.is_grad_enabled():
@@ -901,7 +1031,7 @@ def _adams_coefficient_tables(max_order: int):
 
 def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, atol=1e-4,
                      max_order: int = _ADAMS_MAX_ORDER, max_iters: int = _ADAMS_MAX_ITERS,
-                     lanes: int = 0):
+                     lanes: int = 0, columns=None, summed=None):
     """``substeps`` uniform Adams steps per output interval of the uniform
     host times ``t``.  The first two steps are RK4 (3/8) bootstraps that
     reuse the step's f_n as k1; then the predictor (Adams-Bashforth of the
@@ -912,21 +1042,31 @@ def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, at
     corrected step makes 1 + max_iters field calls and no host read, and
     its nfe counts them all, as the JAX package's fixed-length scan.
     ``lanes`` > 0: the leaves stack that many lanes (a wave's), each with
-    its own convergence test."""
+    its own convergence test and its own times, the rows of a (K, T) ``t``
+    (``func`` takes (K,) time columns, ``columns`` = the value and time
+    column makers).  ``summed``: per leaf, whether it holds this rank's
+    part of a sum over the data axis (``_summed_totals``)."""
     max_order = int(max(max_order, _ADAMS_MIN_ORDER))
     hist_len = max_order - 1
-    n_steps = (len(t) - 1) * substeps
-    diffs = np.diff(t).astype(np.float64)
-    if diffs.size > 1 and not np.allclose(diffs, diffs[0], rtol=1e-6, atol=0):
-        raise ValueError(
-            "explicit/implicit_adams requires uniformly spaced output times (got "
-            f"spacings {diffs.min():g}..{diffs.max():g}); interpolate outputs onto a "
-            "uniform grid or use an RK method.")
-    T = type(t[0])
-    h_t = (t[-1] - t[0]) / T(n_steps)
-    h = S(h_t)
+    rows = list(t) if lanes else [t]
+    n_steps = (len(rows[0]) - 1) * substeps
+    for row in rows:
+        diffs = np.diff(row).astype(np.float64)
+        if diffs.size > 1 and not np.allclose(diffs, diffs[0], rtol=1e-6, atol=0):
+            raise ValueError(
+                "explicit/implicit_adams requires uniformly spaced output times (got "
+                f"spacings {diffs.min():g}..{diffs.max():g}); interpolate outputs onto a "
+                "uniform grid or use an RK method.")
+    types = [type(row[0]) for row in rows]
+    h_ts = [(row[-1] - row[0]) / T(n_steps) for row, T in zip(rows, types)]
+    hs = [S(h_t) for h_t in h_ts]
     bash_tab, moul_tab = _adams_coefficient_tables(max_order)
     rtol_f, atol_f = float(S(rtol)), float(S(atol))
+    if lanes:
+        value_col, time_col = columns
+        at = time_col
+    else:
+        value_col, at = (lambda v: float(v[0])), (lambda v: v[0])
 
     def dot(coeffs, fs):
         """sum_j c_j f_j with the coefficients in the state's dtype; a bf16
@@ -938,31 +1078,40 @@ def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, at
 
     if torch.compiler.is_exporting() and not lanes:
         return _adams_scan(func, y0, t, S, substeps, correct, rtol_f, atol_f, max_iters,
-                           hist_len, n_steps, h_t, bash_tab, moul_tab)
+                           hist_len, n_steps, h_ts[0], bash_tab, moul_tab)
     y, hist, nfe, states = list(y0), [], 0, [list(y0)]
     for i in range(n_steps):
-        tt = t[0] + T(i) * h_t
-        f_n = func(tt, y)
+        tts = [row[0] + T(i) * h_t for row, T, h_t in zip(rows, types, h_ts)]
+        f_n = func(at(tts), y)
         hist = [f_n] + hist[:hist_len - 1]
         nfe += 1
         if i < _ADAMS_MIN_ORDER - 2:
-            y, extra = _rk4_38_step(func, tt, h_t, y, S, f0=f_n)
+            if lanes:
+                y, extra = _lane_step("rk4", func, tts, h_ts, y, S, value_col, time_col,
+                                      f0=f_n)
+            else:
+                y, extra = _fixed_step("rk4", func, tts[0], h_ts[0], y, S, f0=f_n)
             nfe += extra
         else:
             order = min(i + 1, hist_len)
-            dy = torch._foreach_mul(dot(bash_tab[order], hist[:order]), float(h))
+            h = value_col(hs)
+            dy = _mul_all(dot(bash_tab[order], hist[:order]), h)
             if correct:
                 mrow = moul_tab[order + 1]
-                hm0 = float(h * S(mrow[0]))
-                delta = torch._foreach_mul(dot(mrow[1:], hist[:order]), float(h))
+                hm0 = value_col([h_ * S(mrow[0]) for h_ in hs])
+                delta = _mul_all(dot(mrow[1:], hist[:order]), h)
+                t_c = at([tt + h_t for tt, h_t in zip(tts, h_ts)])
                 done = torch.zeros((lanes,) if lanes else (), dtype=torch.bool,
                                    device=y[0].device)
                 for _ in range(max_iters):
-                    f_c = func(tt + h_t, torch._foreach_add(y, dy))
-                    dy_new = torch._foreach_add(torch._foreach_mul(f_c, hm0), delta)
+                    f_c = func(t_c, torch._foreach_add(y, dy))
+                    dy_new = torch._foreach_add(_mul_all(f_c, hm0), delta)
+                    # (Over a data axis a summed leaf's change is tested on
+                    # its totals.)
+                    old, new = _summed_totals(summed, dy, dy_new)
                     scale = torch._foreach_add(torch._foreach_mul(torch._foreach_maximum(
-                        torch._foreach_abs(dy), torch._foreach_abs(dy_new)), rtol_f), atol_f)
-                    err = torch._foreach_div(torch._foreach_abs(torch._foreach_sub(dy, dy_new)),
+                        torch._foreach_abs(old), torch._foreach_abs(new)), rtol_f), atol_f)
+                    err = torch._foreach_div(torch._foreach_abs(torch._foreach_sub(old, new)),
                                              scale)
                     if lanes:
                         ratio = torch.stack([e.reshape(lanes, -1).amax(1) for e in err]).amax(0)
@@ -976,6 +1125,14 @@ def _adams_integrate(func, y0, t, S, substeps: int, correct: bool, rtol=1e-3, at
         states.append(list(y))
     _count(solves=max(lanes, 1), nfe=nfe * max(lanes, 1), accepted=n_steps * max(lanes, 1))
     return _stack(states[::substeps]), _stats(nfe, n_steps, 0)
+
+
+def _mul_all(xs, c):
+    """Each of ``xs`` times ``c``: a host scalar (one ``_foreach_mul``) or a
+    (K,) column (lane j's leaves by its factor)."""
+    if isinstance(c, torch.Tensor):
+        return [_scaled(x, c) for x in xs]
+    return torch._foreach_mul(xs, c)
 
 
 def _adams_scan(func, y0, t, S, substeps, correct, rtol_f, atol_f, max_iters, hist_len,
@@ -1017,7 +1174,7 @@ def _adams_scan(func, y0, t, S, substeps, correct, rtol_f, atol_f, max_iters, hi
     for i in range(n_boot):
         f_n = func_t(tts[i], y)
         hist = [torch.cat([f[None], hl[:-1]]) for f, hl in zip(f_n, hist)]
-        y, _ = _rk4_38_step(func_t, tts[i], h_t, y, S, f0=f_n)
+        y, _ = _fixed_step("rk4", func_t, tts[i], h_t, y, S, f0=f_n)
         states.append(list(y))
     rows = []
     for i in range(n_boot, n_steps):
@@ -1155,7 +1312,7 @@ class _Controller:
 
     def __init__(self, func, y0, t, tableau, rtol, atol, min_step, max_step,
                  first_step, safety, ifactor, dfactor, step_t=None, jump_t=None,
-                 error_weights=None, error_blocks=False):
+                 error_weights=None, error_blocks=False, summed=None):
         S = _NUMPY[y0[0].dtype]
         self.S, self.func, self.y0, self.tableau = S, func, y0, tableau
         self.t = _cast(t, S)
@@ -1165,8 +1322,18 @@ class _Controller:
         self.first_step = first_step
         self.safety, self.ifactor, self.dfactor = S(safety), S(ifactor), S(dfactor)
         self.n_stages = len(tableau.c_sol)
+        self.step_t, self.jump_t = step_t, jump_t
         self.special, self.jumps = _special_grids(tableau, self.t, S, step_t, jump_t)
-        self.norm = _ErrorNorm(y0, error_weights, error_blocks)
+        self.norm = _ErrorNorm(y0, error_weights, error_blocks, summed)
+
+    def with_times(self, t) -> "_Controller":
+        """This controller stepping to the output times ``t`` (a wave lane's
+        own), its discontinuity grids rebuilt for them."""
+        out = copy.copy(self)
+        out.t = _cast(t, self.S)
+        out.special, out.jumps = _special_grids(self.tableau, out.t, self.S, self.step_t,
+                                                self.jump_t)
+        return out
 
     def start(self) -> _RKState:
         S, t0 = self.S, self.t[0]
@@ -1175,7 +1342,7 @@ class _Controller:
         with torch.no_grad():
             if self.first_step is None:
                 dt0 = _select_initial_step(self.func, t0, self.y0, self.tableau.order - 1,
-                                           self.rtol, self.atol, f0)
+                                           self.rtol, self.atol, f0, self.norm.summed)
                 nfe += 1
             else:
                 dt0 = S(self.first_step)
@@ -1207,15 +1374,29 @@ class _Controller:
             return _nextafter(t1, t1 + self.S(1))
         return None
 
-    def error_ratio(self, err, y0, y1, k, dt) -> torch.Tensor:
-        tab = self.tableau
+    def scaled_error(self, err, y0, y1, k):
+        """(err, alt, scale): the step's error, DOP853's third-order error
+        (None for the other tableaus) and the scale rtol max(|y0|, |y1|) +
+        atol.  Over a data axis a leaf that holds this rank's part of a sum
+        enters by its totals (its error and states are linear in the
+        stages)."""
+        alt = None if self.tableau.c_error_alt is None else _lincomb(
+            self.tableau.c_error_alt, k)
+        if self.norm.over_ranks():
+            err, y0, y1, *rest = _summed_totals(self.norm.summed, err, y0, y1,
+                                                *([] if alt is None else [alt]))
+            alt = rest[0] if rest else None
         scale = torch._foreach_add(torch._foreach_mul(torch._foreach_maximum(
             torch._foreach_abs(y0), torch._foreach_abs(y1)), float(self.rtol)),
             float(self.atol))
-        if tab.c_error_alt is None:
+        return err, alt, scale
+
+    def error_ratio(self, err, y0, y1, k, dt) -> torch.Tensor:
+        err, alt, scale = self.scaled_error(err, y0, y1, k)
+        if alt is None:
             return self.norm.ratio(torch._foreach_div(err, scale))
         # DOP853 blended 5th/3rd-order error (Hairer; scipy semantics).
-        err3 = torch._foreach_div(_lincomb(tab.c_error_alt, k), scale)
+        err3 = torch._foreach_div(alt, scale)
         if isinstance(dt, torch.Tensor):   # the traced controller's
             err5 = [e / dt / sc for e, sc in zip(err, scale)]
             return self.norm.blended(err5, err3, dt.abs())
@@ -1591,7 +1772,11 @@ def _time_dtype(t_host: np.ndarray) -> torch.dtype:
 # rides the attempt masked (its step size 0, its state kept by a
 # ``torch.where``), as the batched while-loop does.  Each lane's host
 # arithmetic is its serial controller's (:meth:`_Controller.clamp`,
-# :meth:`_Controller.judge`), so its accepted grid is its serial solve's.
+# :meth:`_Controller.judge`), so its accepted grid is its serial solve's:
+# in a bf16 state's ``_Bf16`` scalars too, the device columns built exactly
+# from them.  Output times batched as (K, T) give each lane its own
+# controller (:meth:`_Controller.with_times`), fixed grid or Adams grid;
+# a ``grid_constructor`` gives each lane its own grid (:func:`lane_grids`).
 # ---------------------------------------------------------------------------
 
 
@@ -1684,47 +1869,75 @@ class _Lanes:
     step size and counts in host arrays (of the state's scalar type); the
     states and FSAL derivatives stacked on the device."""
 
-    def __init__(self, k, t0, dt0, nfe, y, f):
-        self.t0 = np.full(k, t0, dtype=object)
-        self.t1 = np.full(k, t0, dtype=object)
-        self.dt = np.asarray(dt0, dtype=object)
+    def __init__(self, t0s, dt0, nfe, y, f):
+        k = len(t0s)
+        self.t0 = _objects(t0s)
+        self.t1 = _objects(t0s)
+        self.dt = _objects(dt0)
         self.nfe = np.full(k, nfe, np.int64)
         self.accepted = np.zeros(k, np.int64)
         self.rejected = np.zeros(k, np.int64)
         self.y, self.f = y, f
 
 
+def _objects(values) -> np.ndarray:
+    """A 1-d object array holding the host scalars ``values`` as they are."""
+    out = np.empty(len(values), dtype=object)
+    out[:] = list(values)
+    return out
+
+
+def _column(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host scalars (any nesting) as a tensor of ``dtype`` on ``device``, one
+    copy.  Each value is one of ``dtype`` already (a numpy scalar of the
+    state's or the times' type, or a bf16 state's ``_Bf16``), so the float64
+    detour is exact."""
+    return torch.from_numpy(np.asarray(values, dtype=np.float64)).to(device=device,
+                                                                      dtype=dtype)
+
+
+def _lane_rows(t_host: np.ndarray, k: int) -> list:
+    """Each lane's output times: the rows of a (K, T) array, or the shared
+    (T,) times K times."""
+    return list(t_host) if t_host.ndim == 2 else [t_host] * k
+
+
 class _LaneController:
     """K lanes of a :class:`_Controller` (see the section's comment).
     ``func_k(t, y)`` evaluates the field for every lane: ``t`` a (K,)
-    tensor of times, ``y`` a list of (K, ...) leaves."""
+    tensor of times, ``y`` a list of (K, ...) leaves.  ``t`` holds the
+    output times the lanes share, (T,), or each lane's own, (K, T): a lane
+    then clamps to its own outputs and discontinuities."""
 
     def __init__(self, func_k, y0, k, t, tableau, **kw):
-        self.ctl = _Controller(None, [leaf[0] for leaf in y0], t, tableau, **kw)
-        if self.ctl.S is _Bf16:
-            raise ValueError("a bfloat16 adaptive solve does not wave (ROADMAP item 17d)")
+        t = np.asarray(t)
+        self.ctl = _Controller(None, [leaf[0] for leaf in y0], t if t.ndim == 1 else t[0],
+                               tableau, **kw)
+        self.ctls = ([self.ctl] * k if t.ndim == 1
+                     else [self.ctl] + [self.ctl.with_times(t[j]) for j in range(1, k)])
+        self.times = [c.t for c in self.ctls]
         self.func_k, self.y0, self.k = func_k, list(y0), k
         self.S, self.tableau = self.ctl.S, tableau
-        self.device = y0[0].device
+        self.dtype, self.device = y0[0].dtype, y0[0].device
         self.attempts = 0
         self.wasted = 0
 
     def column(self, values) -> torch.Tensor:
         """Host values of the state's dtype as a device tensor (one copy)."""
-        return torch.from_numpy(np.asarray(values, dtype=self.S)).to(self.device)
+        return _column(values, self.dtype, self.device)
 
     def evals(self, n: int = 1) -> None:
         _count(lane_evals=n)
 
     def start(self) -> _Lanes:
         ctl, S, k = self.ctl, self.S, self.k
-        t0 = ctl.t[0]
-        f0 = self.func_k(self.column([t0] * k), self.y0)
+        t0s = [t[0] for t in self.times]
+        f0 = self.func_k(self.column(t0s), self.y0)
         self.evals()
         nfe = 1
         with torch.no_grad():
             if ctl.first_step is None:
-                dt0 = self.initial_steps(t0, f0)
+                dt0 = self.initial_steps(t0s, f0)
                 nfe += 1
             else:
                 dt0 = [S(ctl.first_step)] * k
@@ -1733,44 +1946,34 @@ class _LaneController:
             if ctl.min_step_given:
                 d = np.maximum(d, ctl.min_step)
             out.append(S(np.minimum(d, ctl.max_step)))
-        return _Lanes(k, t0, out, nfe, list(self.y0), f0)
+        return _Lanes(t0s, out, nfe, list(self.y0), f0)
 
-    def initial_steps(self, t0, f0):
+    def initial_steps(self, t0s, f0):
         """:func:`_select_initial_step` for every lane: the lanes' norms
         and h0 on the device, read once."""
-        ctl, k, y0 = self.ctl, self.k, self.y0
-        scale = torch._foreach_add(torch._foreach_mul(torch._foreach_abs(y0), float(ctl.rtol)),
-                                   float(ctl.atol))
-        n = sum(leaf[0].numel() for leaf in y0)
+        ctl = self.ctl
 
-        def rms(xs):
-            q = torch._foreach_div(xs, scale)
-            return torch.stack([_rms(_norms([leaf[j] for leaf in q]), n) for j in range(k)])
+        def func(tt, yy):
+            self.evals()
+            return self.func_k(tt, yy)
 
-        d0, d1 = rms(y0), rms(f0)
-        small = (d0 < 1e-5) | (d1 < 1e-5)
-        h0 = torch.where(small, torch.full_like(d0, 1e-6),
-                         0.01 * d0 / torch.where(d1 == 0, torch.ones_like(d1), d1))
-        y1 = [yl + _per_lane(h0, fl) * fl for yl, fl in zip(y0, f0)]
-        f1 = self.func_k(float(t0) + h0, y1)
-        self.evals()
-        d2 = rms(torch._foreach_sub(f1, f0)) / h0
-        vals = np.asarray(_read(torch.stack([d0, d1, d2, h0]))).reshape(4, k)
+        norms = _initial_norms(func, self.column(t0s), self.y0, ctl.rtol, ctl.atol, f0,
+                               ctl.norm.summed, lanes=self.k)
+        vals = np.asarray(_read(torch.stack(norms))).reshape(4, self.k)
         return [_initial_step_host(self.S, self.tableau.order - 1, *vals[:, j])
-                for j in range(k)]
+                for j in range(self.k)]
 
     def ratios(self, err, y0, y1, k, dts):
         """Every lane's error ratio, one device read."""
-        ctl, tab = self.ctl, self.tableau
-        scale = torch._foreach_add(torch._foreach_mul(torch._foreach_maximum(
-            torch._foreach_abs(y0), torch._foreach_abs(y1)), float(ctl.rtol)), float(ctl.atol))
+        ctl = self.ctl
+        err, alt, scale = ctl.scaled_error(err, y0, y1, k)
         lanes = range(self.k)
-        if tab.c_error_alt is None:
+        if alt is None:
             out = ctl.norm.ratio_lanes(torch._foreach_div(err, scale), self.k)
         else:
             dt_col = self.column(dts)
             err5 = torch._foreach_div([e / _per_lane(dt_col, e) for e in err], scale)
-            err3 = torch._foreach_div(_lincomb(tab.c_error_alt, k), scale)
+            err3 = torch._foreach_div(alt, scale)
             out = torch.stack([ctl.norm.blended([x[j] for x in err5], [x[j] for x in err3],
                                                 float(abs(dts[j]))) for j in lanes])
         return [self.S(v) for v in _read(out)]
@@ -1784,7 +1987,7 @@ class _LaneController:
         rows, plans = [], []
         for j in range(k):
             if active[j]:
-                dt, t1, t1_eval = ctl.clamp(st.t1[j], st.dt[j])
+                dt, t1, t1_eval = self.ctls[j].clamp(st.t1[j], st.dt[j])
             else:
                 dt, t1, t1_eval = S(0), st.t1[j], None
             plans.append((dt, t1, t1_eval))
@@ -1811,7 +2014,7 @@ class _LaneController:
                 st.rejected[j] += 1
                 continue
             accept[j] = True
-            reseed = ctl.jump_reseed(t1)
+            reseed = self.ctls[j].jump_reseed(t1)
             if reseed is not None:
                 reseeds.append((j, reseed))
                 st.nfe[j] += 1
@@ -1831,10 +2034,14 @@ class _LaneController:
             col = self.column([dict(reseeds).get(j, st.t1[j]) for j in range(k)])
             fr = self.func_k(col, st.y)
             self.evals()
-            mask = torch.zeros(k, dtype=torch.bool)
-            mask[[j for j, _ in reseeds]] = True
-            st.f = _where_lanes(mask.to(self.device), fr, st.f)
+            st.f = _where_lanes(self.mask([j for j, _ in reseeds]), fr, st.f)
         return steps, fit
+
+    def mask(self, lanes) -> torch.Tensor:
+        """A (K,) bool device tensor, true on ``lanes``."""
+        out = torch.zeros(self.k, dtype=torch.bool)
+        out[list(lanes)] = True
+        return out.to(self.device)
 
     def count(self, st: _Lanes) -> None:
         _count(solves=self.k, lane_solves=1, nfe=int(st.nfe.sum()),
@@ -1850,20 +2057,32 @@ def _lane_stats(st: _Lanes, **extra):
     return out
 
 
+def _lane_outputs(lc: _LaneController, y0, o: int, lanes, value):
+    """``value`` with the lanes among ``lanes`` whose output ``o`` is at or
+    before their first time set to ``y0`` (a lane's serial solve returns
+    its start there)."""
+    start = [j for j in lanes if lc.times[j][1 + o] <= lc.times[j][0]]
+    if not start:
+        return value
+    if len(start) == lc.k:
+        return list(y0)
+    return _where_lanes(lc.mask(start), list(y0), value)
+
+
 def _adaptive_integrate_lanes(func_k, y0, k, t, tableau, max_num_steps, **kw):
     """:func:`_adaptive_integrate` for K lanes: each lane's outputs from its
     own last accepted step's dense output, as its serial solve's.  Returns
     (per leaf (K, len(t), ...), per-lane stats)."""
     lc = _LaneController(func_k, y0, k, t, tableau, **kw)
     st = lc.start()
-    t = lc.ctl.t
-    n_out = len(t) - 1
+    times = lc.times
+    n_out = len(times[0]) - 1
     nxt = np.zeros(k, np.int64)             # each lane's next output
     outs = [None] * n_out
     fit = None                              # the lanes' last accepted fits
 
     def needs_step(j):
-        t_out = t[1 + nxt[j]]
+        t_out = times[j][1 + nxt[j]]
         return (t_out > st.t1[j] and st.accepted[j] + st.rejected[j] < max_num_steps
                 and st.dt[j] > 0)
 
@@ -1874,26 +2093,20 @@ def _adaptive_integrate_lanes(func_k, y0, k, t, tableau, max_num_steps, **kw):
                 emits.setdefault(int(nxt[j]), []).append(j)
                 nxt[j] += 1
         for i, lanes in emits.items():
-            t_out = t[1 + i]
-            if t_out <= t[0]:
-                value = list(y0)
-            else:
-                dense = [j for j in lanes if t_out <= st.t1[j]]
-                value = _nan_like(y0)
-                if dense:
-                    with np.errstate(all="ignore"):
-                        xs = [lc.S((t_out - st.t0[j]) / (st.t1[j] - st.t0[j])) if j in dense
-                              else lc.S(0) for j in range(k)]
-                    picked = torch.zeros(k, dtype=torch.bool)
-                    picked[dense] = True
-                    value = _where_lanes(picked.to(lc.device),
-                                         _interp_evaluate_lanes(fit, lc.column(xs)), value)
+            dense = [j for j in lanes
+                     if times[j][0] < times[j][1 + i] <= st.t1[j]]
+            value = _nan_like(y0)
+            if dense:
+                with np.errstate(all="ignore"):
+                    xs = [lc.S((times[j][1 + i] - st.t0[j]) / (st.t1[j] - st.t0[j]))
+                          if j in dense else lc.S(0) for j in range(k)]
+                value = _where_lanes(lc.mask(dense),
+                                     _interp_evaluate_lanes(fit, lc.column(xs)), value)
+            value = _lane_outputs(lc, y0, i, lanes, value)
             if outs[i] is None:
                 outs[i] = value
             else:
-                mask = torch.zeros(k, dtype=torch.bool)
-                mask[lanes] = True
-                outs[i] = _where_lanes(mask.to(lc.device), value, outs[i])
+                outs[i] = _where_lanes(lc.mask(lanes), value, outs[i])
         if (nxt >= n_out).all():
             break
         active = np.asarray([nxt[j] < n_out for j in range(k)])
@@ -1914,23 +2127,25 @@ def _adaptive_integrate_diff_lanes(func_k, y0, k, t, t_tensor, tableau, max_num_
     grid found under no grad by the K-lane controller, then the lanes
     replayed together with grad over their grids padded to the longest (a
     padded step has dt = 0 and leaves its lane's state as it is), each
-    lane's outputs from its own steps' dense outputs."""
+    lane's outputs from its own steps' dense outputs.  ``max_steps`` is
+    one budget or a lane's own each.  Output times that require grad
+    (``t_tensor``, shared (T,) or a lane's own (K, T)) get their gradient
+    through the dense-output evaluation, as the serial solve's: the step
+    grid held constant."""
     if not needs_grad:
         ys, stats = _adaptive_integrate_lanes(func_k, y0, k, t, tableau, max_num_steps, **kw)
         stats["grid_exhausted"] = torch.zeros(k, dtype=torch.bool)
         return ys, stats
-    if t_tensor is not None and t_tensor.requires_grad:
-        raise ValueError("output times that take gradients do not wave (ROADMAP item 17d)")
     lc = _LaneController(func_k, y0, k, t, tableau, **kw)
-    S, t = lc.S, lc.ctl.t
-    t_end = t[-1]
+    S, times = lc.S, lc.times
+    budgets = list(max_steps) if isinstance(max_steps, (list, tuple)) else [max_steps] * k
     steps = [[] for _ in range(k)]
     with torch.no_grad():
         st = lc.start()
 
         def going(j):
-            return (st.t1[j] < t_end and st.accepted[j] + st.rejected[j] < max_num_steps
-                    and len(steps[j]) < max_steps and st.dt[j] > 0)
+            return (st.t1[j] < times[j][-1] and st.accepted[j] + st.rejected[j] < max_num_steps
+                    and len(steps[j]) < budgets[j] and st.dt[j] > 0)
 
         active = np.asarray([going(j) for j in range(k)])
         while active.any():
@@ -1940,27 +2155,29 @@ def _adaptive_integrate_diff_lanes(func_k, y0, k, t, t_tensor, tableau, max_num_
                     steps[j].append(step)
             active = np.asarray([going(j) for j in range(k)])
     lc.count(st)
-    exhausted = [bool(st.t1[j] < t_end) for j in range(k)]
+    exhausted = [bool(st.t1[j] < times[j][-1]) for j in range(k)]
 
-    # Which recorded step each output falls in, lane by lane.
-    n_out = len(t) - 1
+    # Which recorded step each output falls in, lane by lane, and the
+    # step's left end and length (the output's fraction of it).
+    n_out = len(times[0]) - 1
     where_out = np.full((k, n_out), -1, np.int64)
-    xs = np.zeros((k, n_out), dtype=object)
+    ends = np.zeros((2, k, n_out), dtype=object)
+    ends[1] = S(1)
     for j in range(k):
-        ts_full = [t[0]] + [step[2] for step in steps[j]]
-        for o, t_out in enumerate(t[1:]):
-            if t_out <= t[0] or (exhausted[j] and t_out > st.t1[j]) or not steps[j]:
+        tj = times[j]
+        ts_full = [tj[0]] + [step[2] for step in steps[j]]
+        for o, t_out in enumerate(tj[1:]):
+            if t_out <= tj[0] or (exhausted[j] and t_out > st.t1[j]) or not steps[j]:
                 continue
             i = min(max(bisect.bisect_left(ts_full, t_out) - 1, 0), len(steps[j]) - 1)
             a, _, b, _, _ = steps[j][i]
-            denom = b - a if b != a else S(1)
             where_out[j, o] = i
-            xs[j, o] = S((t_out - a) / denom)
+            ends[:, j, o] = a, b - a if b != a else S(1)
     n_max = max(len(lane) for lane in steps)
     rows = np.zeros((n_max, 4 + len(tableau.alpha), k), dtype=object)
     live = np.zeros((n_max, k), bool)
     for j in range(k):
-        t_last = t[0]
+        t_last = times[j][0]
         for i in range(n_max):
             if i < len(steps[j]):
                 a, dt, b, t1_eval, reseed = steps[j][i]
@@ -1971,13 +2188,23 @@ def _adaptive_integrate_diff_lanes(func_k, y0, k, t, t_tensor, tableau, max_num_
                 t_last = b
             else:
                 rows[i, :, j] = [S(0)] * 3 + [t_last] * (1 + len(tableau.alpha))
-    outs = [list(y0) if t_out <= t[0] else _nan_like(y0) for t_out in t[1:]]
+    outs = [_lane_outputs(lc, y0, o, range(k), _nan_like(y0)) for o in range(n_out)]
+    t_grad = t_tensor is not None and t_tensor.requires_grad
     with counting_as("replay"):
         if n_max:
-            table = lc.column(rows.astype(S))
+            table = lc.column(rows)
             live_dev = torch.from_numpy(live).to(lc.device)
-            x_dev = lc.column(xs.T.astype(S))
-        f = func_k(lc.column([t[0]] * k), y0)
+            left, span = (lc.column(x.T) for x in ends)          # (n_out, K) each
+            if t_grad:
+                t_lanes = t_tensor.to(lc.dtype)
+                t_lanes = (t_lanes[:, 1:].T if t_lanes.dim() == 2
+                           else t_lanes[1:, None].expand(n_out, k))
+                x_dev = (t_lanes - left) / span
+            else:
+                with np.errstate(all="ignore"):
+                    x_dev = lc.column([[S((times[j][1 + o] - ends[0, j, o]) / ends[1, j, o])
+                                        for j in range(k)] for o in range(n_out)])
+        f = func_k(lc.column([tj[0] for tj in times]), y0)
         y, evals = list(y0), 1
         for i in range(n_max):
             row = table[i]
@@ -1995,9 +2222,7 @@ def _adaptive_integrate_diff_lanes(func_k, y0, k, t, t_tensor, tableau, max_num_
             if reseeding:
                 fr = func_k(row[3], y1)
                 evals += 1
-                mask = torch.zeros(k, dtype=torch.bool)
-                mask[reseeding] = True
-                f1 = _where_lanes(mask.to(lc.device), fr, f1)
+                f1 = _where_lanes(lc.mask(reseeding), fr, f1)
             y = _where_lanes(live_dev[i], y1, y)
             f = _where_lanes(live_dev[i], f1, f)
         _count(evals=evals * k, lane_evals=evals)
@@ -2006,6 +2231,80 @@ def _adaptive_integrate_diff_lanes(func_k, y0, k, t, t_tensor, tableau, max_num_
         if leaf.requires_grad:
             leaf.register_hook(lambda g: torch.where(torch.isnan(g), torch.zeros_like(g), g))
     return ys, _lane_stats(st, grid_exhausted=exhausted)
+
+
+def _lane_step(method, func_k, t0s, dts, y, S, value_col, time_col, f0=None):
+    """One fixed step of ``method`` for K lanes, lane j from ``t0s[j]`` by
+    ``dts[j]`` (host scalars): each lane's plan (its serial step's host
+    arithmetic) as columns."""
+    plan, apply = _FIXED_PLANS[method]
+    plans = [plan(t0, dt, S) for t0, dt in zip(t0s, dts)]
+    times = time_col([[p[0][m] for p in plans] for m in range(len(plans[0][0]))])
+    coeffs = value_col([[p[1][m] for p in plans] for m in range(len(plans[0][1]))])
+    return apply(func_k, list(times), list(coeffs), y, f0)
+
+
+def _fixed_grid_lanes(func_k, y0, grids, S, method, substeps, value_col, time_col):
+    """:func:`_fixed_grid_integrate` for K lanes, lane j over its own host
+    times ``grids[j]`` (all of one length): every step's plans a lane
+    (the serial step's host arithmetic) copied to the device as two tables,
+    the stages' times and the steps' factors.  Returns (per leaf the states
+    at the grid's times, (G, K, ...), stats)."""
+    plan, apply = _FIXED_PLANS[method]
+    plans = []
+    for i in range(len(grids[0]) - 1):
+        for s in range(substeps):
+            step = []
+            for g in grids:
+                T = type(g[0])
+                dt = (g[i + 1] - g[i]) / T(substeps)
+                step.append(plan(g[i] if s == 0 else g[i] + T(s) * dt, dt, S))
+            plans.append(step)
+    states, y = [list(y0)], list(y0)
+    if plans:
+        n_t, n_c = len(plans[0][0][0]), len(plans[0][0][1])
+        times = time_col([[[p[0][m] for p in step] for m in range(n_t)] for step in plans])
+        coeffs = value_col([[[p[1][m] for p in step] for m in range(n_c)] for step in plans])
+        for i in range(len(plans)):
+            y, _ = apply(func_k, list(times[i]), list(coeffs[i]), y)
+            if (i + 1) % substeps == 0:
+                states.append(y)
+    n_steps = len(plans)
+    return _stack(states), _stats(n_steps * FIXED_NFE_PER_STEP[method], n_steps, 0)
+
+
+def _grid_constructor_lanes(func_k, y0, t_rows, S, method, grids, value_col, time_col):
+    """:func:`_grid_constructor_integrate` for K lanes: lane j steps over
+    ``grids[j]`` and its outputs at ``t_rows[j]`` come from the same linear
+    interpolation between its grid states, each lane's bracketing interval
+    and weight found on the host as the serial solve finds them."""
+    k = len(grids)
+    for grid, tj in zip(grids, t_rows):
+        if not (np.isclose(grid[0], tj[0]) and np.isclose(grid[-1], tj[-1])):
+            raise ValueError(
+                "grid_constructor must return a grid spanning exactly "
+                f"[t[0], t[-1]] = [{tj[0]}, {tj[-1]}]; got [{grid[0]}, {grid[-1]}].")
+    ys_grid, stats = _fixed_grid_lanes(func_k, y0, grids, S, method, 1, value_col, time_col)
+    n = len(t_rows[0])
+    index = np.zeros((n, k), np.int64)
+    weight = np.zeros((2, n, k), dtype=object)
+    for j, (grid, tj) in enumerate(zip(grids, t_rows)):
+        sgn = grid.dtype.type(1.0 if grid[-1] >= grid[0] else -1.0)
+        keys = sgn * grid
+        for o, tt in enumerate(tj.astype(grid.dtype)):
+            i = int(np.clip(np.searchsorted(keys, sgn * tt, side="right") - 1,
+                            0, len(grid) - 2))
+            t0_, t1_ = grid[i], grid[i + 1]
+            denom = t1_ - t0_ if t1_ != t0_ else grid.dtype.type(1)
+            w = S(np.clip((tt - t0_) / denom, 0.0, 1.0))
+            index[o, j] = i
+            weight[:, o, j] = S(1) - w, w
+    lanes = torch.arange(k, device=y0[0].device)
+    at = torch.from_numpy(index).to(y0[0].device)
+    keep, take = value_col(weight)
+    outs = [[_scaled(ys[at[o], lanes], keep[o]) + _scaled(ys[at[o] + 1, lanes], take[o])
+             for ys in ys_grid] for o in range(n)]
+    return _stack(outs), stats
 
 
 def _adaptive_kwargs(options: dict, rtol, atol, per_leaf: bool) -> dict:
@@ -2025,23 +2324,42 @@ def _adaptive_kwargs(options: dict, rtol, atol, per_leaf: bool) -> dict:
     )
 
 
+_TRACED_STEP_SIZE = ("step_size cannot be resolved against traced times; pass "
+                     "options={'substeps': n} instead (one RK step per output interval is "
+                     "substeps=1).")
+
+
 def odeint_lanes(func_k, y0, t_host, k: int, *, rtol, atol, method: str, options: dict,
                  per_leaf: bool, needs_grad: bool = False, t_tensor=None,
-                 time_dtype=None):
+                 time_dtype=None, grid_of=None):
     """``odeint``'s solve for K lanes of stacked leaves: ``func_k(t, y)``
     takes a (K,) tensor of times and a list of (K, ...) leaves.  Returns
-    (per leaf (K, len(t), ...), per-lane stats).  The fixed and Adams
-    methods step every lane on the shared grid; the adaptive ones run
-    :class:`_LaneController` (differentiable when ``options`` asks for it
-    and ``needs_grad``).  ``scipy_solver`` does not wave: the JAX package
-    cannot trace its host callback either."""
+    (per leaf (K, len(t), ...), per-lane stats).  ``t_host`` holds the
+    output times the lanes share, (T,), or each lane's own, (K, T); every
+    method steps each lane on its own times, and a ``grid_constructor``
+    (``grid_of(constructor)``: the (K, G) grids it gives the lanes, as
+    JAX's vmapped trace calls it) on its own grid.  The adaptive methods
+    run :class:`_LaneController` (differentiable when ``options`` asks for
+    it and ``needs_grad``; ``t_tensor`` the times whose gradient the replay
+    takes).  ``scipy_solver`` does not wave: the JAX package cannot trace
+    its host callback either."""
     options = dict(options)
     S = _NUMPY[y0[0].dtype]
     device, dtype = y0[0].device, y0[0].dtype
     time_dtype = time_dtype or dtype
+    t_host = np.asarray(t_host)
+    lane_times = t_host.ndim == 2
+    t_rows = _lane_rows(t_host, k)
+    if lane_times and options.get("step_size") is not None and not options.get("substeps"):
+        # JAX's rule for a batched (traced) t: a lane's grid from step_size
+        # would change the program's length.
+        raise ValueError(_TRACED_STEP_SIZE)
 
-    def host_time_func(tt, yy):
-        return func_k(torch.full((k,), float(tt), dtype=time_dtype, device=device), yy)
+    def value_col(values):
+        return _column(values, dtype, device)
+
+    def time_col(values):
+        return _column(values, time_dtype, device)
 
     def lane_major(ys):
         return [torch.movedim(leaf, 0, 1) for leaf in ys]
@@ -2049,20 +2367,30 @@ def odeint_lanes(func_k, y0, t_host, k: int, *, rtol, atol, method: str, options
     def lane_stats(stats):
         return {key: v.expand(k) if v.dim() == 0 else v for key, v in stats.items()}
 
+    summed = options.pop("summed_leaves", None)
     if method in FIXED_METHODS:
         options.pop("remat", None)
-        if options.pop("grid_constructor", None) is not None:
-            raise ValueError("a grid_constructor solve does not wave (ROADMAP item 17d)")
-        ys, stats = _fixed_grid_integrate(host_time_func, y0, t_host, S, method,
-                                          _substeps_from_options(options, t_host))
+        constructor = options.pop("grid_constructor", None)
+        if constructor is not None:
+            if "step_size" in options or options.get("substeps"):
+                raise ValueError(
+                    "step_size and grid_constructor are mutually exclusive arguments.")
+            grids = list(np.asarray(grid_of(constructor)))
+            ys, stats = _grid_constructor_lanes(func_k, y0, t_rows, S, method, grids,
+                                                value_col, time_col)
+        else:
+            ys, stats = _fixed_grid_lanes(func_k, y0, t_rows, S, method,
+                                          _substeps_from_options(options, t_rows[0]),
+                                          value_col, time_col)
         _count(lane_evals=int(stats["nfe"]))
         return lane_major(ys), lane_stats(stats)
     if method in ADAMS_METHODS:
         ys, stats = _adams_integrate(
-            host_time_func, y0, t_host, S, _substeps_from_options(options, t_host),
+            func_k, y0, np.stack(t_rows), S, _substeps_from_options(options, t_rows[0]),
             correct=method == "implicit_adams", rtol=float(rtol), atol=float(atol),
             max_order=int(options.pop("max_order", _ADAMS_MAX_ORDER)),
-            max_iters=int(options.pop("max_iters", _ADAMS_MAX_ITERS)), lanes=k)
+            max_iters=int(options.pop("max_iters", _ADAMS_MAX_ITERS)), lanes=k,
+            columns=(value_col, time_col), summed=summed)
         _count(lane_evals=int(stats["nfe"]))
         return lane_major(ys), lane_stats(stats)
     if method == "scipy_solver":
@@ -2073,29 +2401,35 @@ def odeint_lanes(func_k, y0, t_host, k: int, *, rtol, atol, method: str, options
     differentiable = bool(options.pop("differentiable", False))
     max_steps_opt = options.pop("max_steps", None)
     kwargs = _adaptive_kwargs(options, rtol, atol, per_leaf)
+    kwargs["summed"] = summed
     max_num_steps = int(options.pop("max_num_steps", 2**31 - 1))
     tab = ADAPTIVE_METHODS[method]
     if differentiable:
-        n_landings = len(t_host) - 1 if (tab.mid is None and tab.order > 4) else 0
-        max_steps = _resolve_max_steps(
-            max_steps_opt, t_host, kwargs["min_step"], kwargs["step_t"],
-            kwargs["jump_t"]) + (0 if max_steps_opt is not None else n_landings)
+        n_landings = len(t_rows[0]) - 1 if (tab.mid is None and tab.order > 4) else 0
+        max_steps = [_resolve_max_steps(max_steps_opt, tj, kwargs["min_step"], kwargs["step_t"],
+                                        kwargs["jump_t"])
+                     + (0 if max_steps_opt is not None else n_landings)
+                     for tj in (t_rows if lane_times else t_rows[:1])]
         return _adaptive_integrate_diff_lanes(func_k, y0, k, t_host, t_tensor, tab,
-                                              max_num_steps, max_steps, needs_grad, **kwargs)
+                                              max_num_steps,
+                                              max_steps if lane_times else max_steps[0],
+                                              needs_grad, **kwargs)
     return _adaptive_integrate_lanes(func_k, y0, k, t_host, tab, max_num_steps, **kwargs)
 
 
 class _LaneSolve(torch.autograd.Function):
-    """``odeint``'s adaptive and Adams solves under ``torch.func.vmap``.
-    Inputs ``(spec, *state leaves, *arg leaves)``; outputs the state's
-    leaves at every output time and the stats.  Only its ``vmap`` rule
-    runs: it stacks the lanes and solves them with :func:`odeint_lanes`
-    on plain tensors, whose autograd graph (the replay's, or the solve's
-    own for a plain adaptive solve, as serially) reaches the stacked
-    weights; the wave's step differentiates it with plain autograd."""
+    """``odeint``'s solves under ``torch.func.vmap`` that the lanes cannot
+    run as one batched serial solve: the adaptive and Adams methods, output
+    times that differ between lanes, a ``grid_constructor``.  Inputs
+    ``(spec, t, *state leaves, *arg leaves)``; outputs the state's leaves
+    at every output time and the stats.  Only its ``vmap`` rule runs: it
+    stacks the lanes and solves them with :func:`odeint_lanes` on plain
+    tensors, whose autograd graph (the replay's, or the solve's own for a
+    plain adaptive solve, as serially) reaches the stacked weights and the
+    output times; the wave's step differentiates it with plain autograd."""
 
     @staticmethod
-    def forward(spec, *leaves):
+    def forward(spec, t, *leaves):
         raise RuntimeError("the K-lane solve runs only under torch.func.vmap")
 
     @staticmethod
@@ -2108,18 +2442,24 @@ class _LaneSolve(torch.autograd.Function):
                            "graph")
 
     @staticmethod
-    def vmap(info, in_dims, spec, *leaves):
+    def vmap(info, in_dims, spec, t, *leaves):
         k = info.batch_size
         n_y = spec.n_y
+        if in_dims[1] is not None:           # each lane its own output times
+            t = t.movedim(in_dims[1], 0)
+            t_host = _host(t)
+        else:
+            t_host = spec.t_host
         y = [leaf.movedim(d, 0) if d is not None
              else leaf.expand((k,) + tuple(leaf.shape)) for leaf, d in
-             zip(leaves[:n_y], in_dims[1:1 + n_y])]
+             zip(leaves[:n_y], in_dims[2:2 + n_y])]
         args = [leaf if d is None else leaf.movedim(d, 0)
-                for leaf, d in zip(leaves[n_y:], in_dims[1 + n_y:])]
-        arg_dims = [None if d is None else 0 for d in in_dims[1 + n_y:]]
-        needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (*y, *args))
-        ys, stats = odeint_lanes(spec.func_k(k, args, arg_dims), y, spec.t_host, k,
-                                 needs_grad=needs_grad, **spec.solve)
+                for leaf, d in zip(leaves[n_y:], in_dims[2 + n_y:])]
+        arg_dims = [None if d is None else 0 for d in in_dims[2 + n_y:]]
+        needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (*y, *args, t))
+        ys, stats = odeint_lanes(spec.func_k(k, args, arg_dims), y, t_host, k,
+                                 needs_grad=needs_grad, t_tensor=t,
+                                 grid_of=spec.grid_of(y, t, in_dims[1]), **spec.solve)
         spec.keys = sorted(stats)
         out = (*ys, *[stats[key] for key in spec.keys])
         return out, (0,) * len(out)
@@ -2127,10 +2467,13 @@ class _LaneSolve(torch.autograd.Function):
 
 class _LaneSpec:
     """What :class:`_LaneSolve` needs besides tensors: the single-lane field
-    ``flat(t, state leaves, arg leaves)`` and the solve's settings."""
+    ``flat(t, state leaves, arg leaves)``, the solve's settings and, for a
+    ``grid_constructor``, the caller's field and how to rebuild its state
+    from leaves (what the constructor is called with)."""
 
-    def __init__(self, flat, n_y, t_host, solve):
+    def __init__(self, flat, n_y, t_host, solve, func=None, rebuild=None):
         self.flat, self.n_y, self.t_host, self.solve = flat, n_y, t_host, solve
+        self.func, self.rebuild = func, rebuild
         self.keys = None
 
     def func_k(self, k, args, arg_dims):
@@ -2142,6 +2485,25 @@ class _LaneSpec:
             return mapped(t, list(y), list(args))
 
         return func_k
+
+    def grid_of(self, y, t, t_dim):
+        """``grid_of`` for :func:`odeint_lanes` (:func:`lane_grids`)."""
+        return lambda constructor: lane_grids(constructor, self.func, self.rebuild, y, t,
+                                              t_dim)
+
+
+def lane_grids(constructor, func, rebuild, y, t, t_dim) -> np.ndarray:
+    """The (K, G) host grids ``constructor(func, state, t)`` gives K lanes:
+    called under ``torch.func.vmap`` over the lanes' stacked state leaves
+    ``y`` (``rebuild`` makes one lane's state of them) and, with ``t_dim``
+    0, their own times, as JAX's vmapped trace calls it.  A grid that
+    depends on neither comes back the same for every lane."""
+
+    def one(yy, tt):
+        grid = constructor(func, rebuild(list(yy)), tt)
+        return grid if isinstance(grid, torch.Tensor) else torch.as_tensor(np.asarray(grid))
+
+    return _host(torch.func.vmap(one, in_dims=(0, t_dim))(list(y), t))
 
 
 # ---------------------------------------------------------------------------
@@ -2187,10 +2549,20 @@ def odeint(
     y = [leaf.to(dtype) for leaf in leaves]
     device = y[0].device
     t_tensor = t if isinstance(t, torch.Tensor) else None
-    t_host = _host(t)
     per_leaf = not isinstance(y0, torch.Tensor)
     if options.pop("norm", None) == "rms":
         per_leaf = False
+    if _batched((*y, *flatten(args)[0], t_tensor)) and (
+            method not in FIXED_METHODS or _batched((t_tensor,))
+            or options.get("grid_constructor") is not None):
+        # Under torch.func.vmap: solves a lane cannot share with the others
+        # run as K lanes (a fixed grid on shared times steps batched).
+        ys, stats = _vmapped_solve(func, y, rebuild, dtypes, dtype, args, t, method, rtol,
+                                   atol, options, per_leaf)
+        ys = rebuild([l.to(d) for l, d in zip(ys, dtypes)])
+        return (ys, stats) if return_stats else ys
+    t_host = _host(t)
+    summed = options.pop("summed_leaves", None)
 
     def make_func(time_dtype):
         def flat_func(tt, yy):
@@ -2200,10 +2572,7 @@ def odeint(
             return [l.to(dtype) for l in flatten(func(tt, state, args))[0]]
         return flat_func
 
-    if method not in FIXED_METHODS and _batched((*y, *flatten(args)[0], t_tensor)):
-        ys, stats = _vmapped_solve(func, y, rebuild, dtypes, dtype, args, t_host, t_tensor,
-                                   method, rtol, atol, options, per_leaf)
-    elif method in FIXED_METHODS:
+    if method in FIXED_METHODS:
         remat = bool(options.pop("remat", False))
         grid_constructor = options.pop("grid_constructor", None)
         flat_func = make_func(_time_dtype(t_host))
@@ -2225,7 +2594,7 @@ def odeint(
             flat_func, y, t_host, S, _substeps_from_options(options, t_host),
             correct=method == "implicit_adams", rtol=float(rtol), atol=float(atol),
             max_order=int(options.pop("max_order", _ADAMS_MAX_ORDER)),
-            max_iters=int(options.pop("max_iters", _ADAMS_MAX_ITERS)))
+            max_iters=int(options.pop("max_iters", _ADAMS_MAX_ITERS)), summed=summed)
     elif method == "scipy_solver":
         refuse_rank_local("a scipy_solver solve")
         ys, stats = _scipy_integrate(make_func(dtype), y, t_host, rtol, atol, options)
@@ -2234,6 +2603,7 @@ def odeint(
         differentiable = bool(options.pop("differentiable", False))
         max_steps_opt = options.pop("max_steps", None)
         kwargs = _adaptive_kwargs(options, rtol, atol, per_leaf)
+        kwargs["summed"] = summed
         max_num_steps = int(options.pop("max_num_steps", 2**31 - 1))
         tab = ADAPTIVE_METHODS[method]
         if differentiable:
@@ -2262,25 +2632,32 @@ def odeint(
     return ys
 
 
-def _vmapped_solve(func, y, rebuild, dtypes, dtype, args, t_host, t_tensor, method, rtol,
-                   atol, options, per_leaf):
-    """``odeint``'s adaptive and Adams solves under ``torch.func.vmap``:
-    through :class:`_LaneSolve`, whose vmap rule solves the K lanes
-    together.  Returns what the serial branches return, each lane's."""
-    if t_tensor is not None and _batched((t_tensor,)):
-        raise ValueError("output times that differ between a wave's lanes do not wave "
-                         "(ROADMAP item 17d)")
+def _vmapped_solve(func, y, rebuild, dtypes, dtype, args, t, method, rtol, atol, options,
+                   per_leaf):
+    """``odeint``'s solves under ``torch.func.vmap`` that run as K lanes
+    (see the call): through :class:`_LaneSolve`, whose vmap rule solves the
+    K lanes together, each on its own output times when ``t`` is batched.
+    Returns what the serial branches return, each lane's."""
     arg_leaves, rebuild_args = flatten(args)
+    t_in = t if isinstance(t, torch.Tensor) else torch.as_tensor(np.asarray(t))
+    lane_times = _batched((t_in,))
+    if lane_times and options.get("step_size") is not None and not options.get("substeps"):
+        raise ValueError(_TRACED_STEP_SIZE)
 
     def flat(tt, yy, aa):
         state = rebuild([l.to(d) for l, d in zip(yy, dtypes)])
         return [l.to(dtype) for l in flatten(func(tt, state, rebuild_args(list(aa))))[0]]
 
-    time_dtype = dtype if method in ADAPTIVE_METHODS else _time_dtype(t_host)
-    spec = _LaneSpec(flat, len(y), t_host, dict(
+    def state(yy):
+        # The caller's state (its own leaf dtypes), as the serial solve
+        # passes it to a grid_constructor.
+        return rebuild([l.to(d) for l, d in zip(yy, dtypes)])
+
+    time_dtype = dtype if method in ADAPTIVE_METHODS else t_in.dtype
+    spec = _LaneSpec(flat, len(y), None if lane_times else _host(t_in), dict(
         rtol=rtol, atol=atol, method=method, options=options, per_leaf=per_leaf,
-        t_tensor=t_tensor, time_dtype=time_dtype))
-    out = _LaneSolve.apply(spec, *y, *arg_leaves)
+        time_dtype=time_dtype), func, state)
+    out = _LaneSolve.apply(spec, t_in, *y, *arg_leaves)
     return list(out[:len(y)]), dict(zip(spec.keys, out[len(y):]))
 
 

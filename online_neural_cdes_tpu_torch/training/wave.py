@@ -20,7 +20,8 @@ solves have vmap rules of their own (``ops/cdeint.py``,
 K-lane Functions whose backward reverses every lane at once, and an
 adaptive or Adams solve runs K host controllers side by side, each lane
 with its own times, step sizes and accept/reject decisions, as JAX's
-vmapped ``lax.while_loop`` gives each lane.  The
+vmapped ``lax.while_loop`` gives each lane, in float32, float64 or a
+bfloat16 step's bfloat16 (``compute_dtype``, as the JAX wave takes it).  The
 update is a stacked Adam (:class:`StackedAdam`) with per-lane learning
 rates, in the serial step's order of operations, so each lane follows its
 serial run (``harness.train``).  The host bookkeeping -- plateau schedule,
@@ -29,9 +30,8 @@ share -- is the JAX wave's, vectorised over the lanes.
 
 A bundle whose step cannot be stacked raises :class:`WaveUnsupported`:
 ``scipy_solver``, a host callback the JAX package cannot trace under
-``jax.vmap`` either, and a bfloat16 step over an adaptive solver (ROADMAP
-item 17d).  The sweep and the hyperopt search catch only that exception
-and run such members one after another.
+``jax.vmap`` either.  The sweep and the hyperopt search catch only that
+exception and run such members one after another.
 """
 
 from __future__ import annotations
@@ -113,29 +113,21 @@ def config_wave_groups(configs: List[dict]):
     return list(groups.values())
 
 
-def check_waveable(model, compute_dtype=None) -> None:
+def check_waveable(model) -> None:
     """Raise :class:`WaveUnsupported` for a model whose step cannot be
     stacked: a ``scipy_solver`` solve (a host callback through
     ``scipy.integrate.solve_ivp``, which the JAX package cannot trace under
     ``jax.jit`` or ``jax.vmap`` either, so its wave refuses it too: parity,
-    not a gap), or a bfloat16 step over an adaptive solver (ROADMAP item
-    17d).  Every other model stacks: the interval adjoint, ``odeint_adjoint``
-    and the adaptive and Adams solves have vmap rules of their own."""
-    from online_neural_cdes_tpu_torch.ops.solvers import ADAPTIVE_METHODS
-
+    not a gap).  Every other model stacks, in any compute dtype: the
+    interval adjoint, ``odeint_adjoint`` and the adaptive and Adams solves
+    have vmap rules of their own."""
     for module in model.modules():
-        solver = getattr(module, "solver", None)
-        if solver == "scipy_solver":
+        if getattr(module, "solver", None) == "scipy_solver":
             raise WaveUnsupported(
                 f"{type(module).__name__} with solver 'scipy_solver': its solve is a host "
                 "callback (scipy.integrate.solve_ivp) that no vmapped program can carry; "
                 "the JAX package cannot trace it under jax.vmap either, so its members "
                 "train one after another")
-        if solver in ADAPTIVE_METHODS and compute_dtype is not None and str(
-                compute_dtype).replace("torch.", "") in ("bfloat16", "bf16"):
-            raise WaveUnsupported(
-                f"{type(module).__name__} with solver {solver!r} in bfloat16: the K-lane "
-                "controller steps float32 and float64 states (ROADMAP item 17d)")
 
 
 class StackedAdam:
@@ -410,7 +402,7 @@ def run_trials_vmapped(trial_cfgs: List[dict], data_root: str = "data/processed"
     ds = dict(cfg0.get("dataset", {}))
     trainer_cfg = dict(cfg0.get("trainer", {}))
     bundle, (train_data, val_data, test_data) = load_and_setup(cfg0, data_root, device)
-    check_waveable(bundle.model, trainer_cfg.get("compute_dtype"))
+    check_waveable(bundle.model)
 
     loss_str = trainer_cfg.get("loss_str", "bce")
     metric_names = tuple(trainer_cfg.get("metrics", ("loss",)))

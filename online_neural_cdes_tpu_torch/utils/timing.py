@@ -10,8 +10,10 @@ subtracted.  On a local CUDA card nothing needs subtracting, so
 - :func:`device_us`: device time per call of a function, from CUDA events
   around calls that the host queues behind a ~0.1 s sleep kernel, so they
   run back to back on the card whatever the host's per-call cost.  If the
-  host took longer than the sleep to queue them, the card may have waited
-  for it, and the function raises instead of returning a host-bound time.
+  host took longer than the sleep to queue them (a busy host), the card
+  may have waited for it: the calls are queued once more behind a sleep
+  long enough for that host time, and if the host outlasts that one too
+  the function raises instead of returning a host-bound time.
 - :func:`chain_times`: a chain of ``n`` dependent iterations (warm-up
   first): the host wall clock and the event span of the whole chain, and
   the device time per iteration from a queued segment of the chain.  Where
@@ -23,6 +25,7 @@ On the CPU (no events) only the wall clock is measured.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Optional
 
@@ -36,13 +39,13 @@ HOST_GUARD_MS = 80.0         # queueing must end well inside the sleep
 QUEUE_LAUNCHES = 512         # launches per queued segment, inside CUDA's queue
 
 
-def _queued(fn: Callable[[], None], reps: int):
-    """(device ms, host ms) of ``reps`` calls of ``fn`` queued behind the
-    sleep kernel, timed by CUDA events."""
+def _queued(fn: Callable[[], None], reps: int, sleeps: int = 1):
+    """(device ms, host ms) of ``reps`` calls of ``fn`` queued behind
+    ``sleeps`` times the sleep kernel's cycles, timed by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(SLEEP_CYCLES * sleeps)
     start.record()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -55,14 +58,19 @@ def _queued(fn: Callable[[], None], reps: int):
 
 def device_us(fn: Callable[[], object], reps: int, warmup: int = 10) -> float:
     """Device time per call of ``fn`` in microseconds.  Keep ``reps`` x the
-    launches per call under :data:`QUEUE_LAUNCHES`; raises if queueing took
-    longer than :data:`HOST_GUARD_MS` (the time would be host-bound)."""
+    launches per call under :data:`QUEUE_LAUNCHES`.  Queueing that took
+    longer than :data:`HOST_GUARD_MS` is done again behind a sleep that many
+    times longer as twice that host time needs; raises if it outlasts that
+    guard too (the time would be host-bound)."""
     for _ in range(warmup):
         fn()
     device_ms, host_ms = _queued(fn, reps)
     if host_ms > HOST_GUARD_MS:
-        raise RuntimeError(f"device_us: queueing {reps} calls took {host_ms:.1f} ms, "
-                           "longer than the sleep; the time would be host-bound")
+        sleeps = math.ceil(2 * host_ms / HOST_GUARD_MS)
+        device_ms, host_ms = _queued(fn, reps, sleeps)
+        if host_ms > HOST_GUARD_MS * sleeps:
+            raise RuntimeError(f"device_us: queueing {reps} calls took {host_ms:.1f} ms, "
+                               "longer than the sleep; the time would be host-bound")
     return device_ms * 1e3 / reps
 
 

@@ -495,15 +495,6 @@ def test_scipy_solver_refuses_to_wave_and_says_why(toy_dataset):
     assert issubclass(wave.WaveUnsupported, ValueError)
 
 
-def test_a_bfloat16_adaptive_group_names_17d(toy_dataset):
-    cfg = _toy_cfg("ncde", compute_dtype="bfloat16")
-    cfg["model"].update(solver="dopri5")
-    cfg["dataset"]["interpolation"] = "hermite"
-    with pytest.raises(wave.WaveUnsupported, match="17d"):
-        wave.run_trials_vmapped([cfg, {**cfg, "seed": 1}], data_root=toy_dataset,
-                                device="cpu")
-
-
 def test_a_scipy_seed_group_runs_its_members_serially(toy_dataset, tmp_path, monkeypatch):
     """The sweep's serial path stays for a group that cannot wave: the
     wave refuses with ``WaveUnsupported`` and each member goes to the
