@@ -1,0 +1,8 @@
+"""Backward field kernel (csrc/fused_field_bwd.cu): its calls' bounds over
+their device time in one traced training step, in %."""
+
+from port_bench import trace
+
+
+def read(r):
+    return trace.roofline_pct(r.calls, r.cfg, "backward")

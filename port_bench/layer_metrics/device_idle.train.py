@@ -1,0 +1,8 @@
+"""The share of the traced steps' wall time in which nothing ran on
+the device, in %."""
+
+from port_bench import trace
+
+
+def read(r):
+    return trace.idle_pct(r.steady)
