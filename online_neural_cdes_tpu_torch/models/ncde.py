@@ -46,6 +46,7 @@ from online_neural_cdes_tpu_torch.ops.kernels import (
 )
 from online_neural_cdes_tpu_torch.utils.device import resolve_device
 from online_neural_cdes_tpu_torch.utils.params import linear_apply, linear_init
+from online_neural_cdes_tpu_torch.utils.profiling import span
 
 __all__ = ["NeuralCDE", "SPLINES"]
 
@@ -224,20 +225,21 @@ class NeuralCDE(nn.Module):
                     "Inputs must be a 2-tuple of (static_data, temporal_data)"
                 )
             static, coeffs = inputs
-        spline = make_spline(self.interpolation, coeffs, self.interpolation_eps)
-        x0 = spline.evaluate(spline.interval[0])
-        if static is None:
-            if self.use_initial:
-                h0 = linear_apply(self.initial, x0)
+        with span("oncde.spline.setup"):
+            spline = make_spline(self.interpolation, coeffs, self.interpolation_eps)
+            x0 = spline.evaluate(spline.interval[0])
+            if static is None:
+                if self.use_initial:
+                    h0 = linear_apply(self.initial, x0)
+                else:
+                    h0 = torch.zeros(coeffs.shape[:-2] + (self.hidden_dim,),
+                                     dtype=coeffs.dtype, device=coeffs.device)
             else:
-                h0 = torch.zeros(coeffs.shape[:-2] + (self.hidden_dim,),
-                                 dtype=coeffs.dtype, device=coeffs.device)
-        else:
-            if self.use_initial:
-                h0 = linear_apply(self.initial, torch.cat([static, x0], -1))
-            else:
-                h0 = linear_apply(self.initial, static)
-        return spline, h0
+                if self.use_initial:
+                    h0 = linear_apply(self.initial, torch.cat([static, x0], -1))
+                else:
+                    h0 = linear_apply(self.initial, static)
+            return spline, h0
 
     def _make_outputs(self, hidden):
         """Final linear + every-other filtering for rectilinear sequences."""
@@ -307,21 +309,22 @@ class NeuralCDE(nn.Module):
         return func, even_func, self.packed_field(), "matmul_fused"
 
     def forward(self, inputs, return_stats: bool = False):
-        spline, h0 = self._setup_h0(inputs)
-        times = spline.grid_points if self.return_sequences else spline.interval
-        func, even_func, field_args, vf_type = self.make_solve_func(h0)
-        adjoint_options = (
-            {"method": self.adjoint_method}
-            if self.adjoint_method is not None else None
-        )
-        result = cdeint(
-            spline, func, h0, times, field_args,
-            adjoint=self.adjoint, vector_field_type=vf_type,
-            method=self.solver, return_stats=return_stats,
-            even_func=even_func, adjoint_options=adjoint_options,
-            **self.solver_settings,
-        )
-        if return_stats:
-            hidden, stats = result
-            return self._make_outputs(hidden), stats
-        return self._make_outputs(result)
+        with span("oncde.model.forward"):
+            spline, h0 = self._setup_h0(inputs)
+            times = spline.grid_points if self.return_sequences else spline.interval
+            func, even_func, field_args, vf_type = self.make_solve_func(h0)
+            adjoint_options = (
+                {"method": self.adjoint_method}
+                if self.adjoint_method is not None else None
+            )
+            result = cdeint(
+                spline, func, h0, times, field_args,
+                adjoint=self.adjoint, vector_field_type=vf_type,
+                method=self.solver, return_stats=return_stats,
+                even_func=even_func, adjoint_options=adjoint_options,
+                **self.solver_settings,
+            )
+            if return_stats:
+                hidden, stats = result
+                return self._make_outputs(hidden), stats
+            return self._make_outputs(result)

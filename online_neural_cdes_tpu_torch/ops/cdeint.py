@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from online_neural_cdes_tpu_torch.ops import reduce as _reduce
 from online_neural_cdes_tpu_torch.ops import solvers
+from online_neural_cdes_tpu_torch.utils.profiling import span
 from online_neural_cdes_tpu_torch.utils.tree import flatten, map_arrays
 
 __all__ = ["cdeint", "odeint_adjoint"]
@@ -305,11 +306,12 @@ class _Setup:
         at every knot."""
         pieces, arg_leaves = self.split(leaves)
         args = self.rebuild_args(arg_leaves)
-        if len(self.pfs) == 2:
-            return _fixed_scan_forward_paired(*self.pfs, z0, self.grid, pieces, args,
-                                              self.method, self.substeps)
-        return _fixed_scan_forward(self.pfs[0], z0, self.grid, pieces, args,
-                                   self.method, self.substeps)
+        with span("oncde.cdeint.scan"):
+            if len(self.pfs) == 2:
+                return _fixed_scan_forward_paired(*self.pfs, z0, self.grid, pieces, args,
+                                                  self.method, self.substeps)
+            return _fixed_scan_forward(self.pfs[0], z0, self.grid, pieces, args,
+                                       self.method, self.substeps)
 
 
 class _ReverseSolve:
@@ -410,11 +412,12 @@ class _FixedCDEAdjoint(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_zs):
-        rev = _ReverseSolve(ctx, ctx.setup)
-        a = torch.zeros_like(grad_zs[0])
-        for i in range(len(ctx.setup.grid) - 2, -1, -1):
-            a = rev.interval(ctx.setup.pfs[0], i, a + grad_zs[i + 1])
-        return rev.grads(a + grad_zs[0])
+        with span("oncde.cdeint.adjoint"):
+            rev = _ReverseSolve(ctx, ctx.setup)
+            a = torch.zeros_like(grad_zs[0])
+            for i in range(len(ctx.setup.grid) - 2, -1, -1):
+                a = rev.interval(ctx.setup.pfs[0], i, a + grad_zs[i + 1])
+            return rev.grads(a + grad_zs[0])
 
     @staticmethod
     def vmap(info, in_dims, setup, z0, *leaves):
@@ -432,13 +435,14 @@ class _FixedCDEAdjointPaired(_FixedCDEAdjoint):
 
     @staticmethod
     def backward(ctx, grad_zs):
-        pf_even, pf_odd = ctx.setup.pfs
-        rev = _ReverseSolve(ctx, ctx.setup)
-        a = torch.zeros_like(grad_zs[0])
-        for i in range(len(ctx.setup.grid) - 3, -1, -2):
-            a = rev.interval(pf_odd, i + 1, a + grad_zs[i + 2])
-            a = rev.interval(pf_even, i, a + grad_zs[i + 1])
-        return rev.grads(a + grad_zs[0])
+        with span("oncde.cdeint.adjoint"):
+            pf_even, pf_odd = ctx.setup.pfs
+            rev = _ReverseSolve(ctx, ctx.setup)
+            a = torch.zeros_like(grad_zs[0])
+            for i in range(len(ctx.setup.grid) - 3, -1, -2):
+                a = rev.interval(pf_odd, i + 1, a + grad_zs[i + 2])
+                a = rev.interval(pf_even, i, a + grad_zs[i + 1])
+            return rev.grads(a + grad_zs[0])
 
 
 def _lane_field(pf, piece_dims, arg_dims, rebuild_args):
@@ -481,20 +485,21 @@ class _FixedCDEAdjointLanes(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_zs):
-        setup = ctx.setup
-        rev = _ReverseSolve(ctx, setup, lanes=ctx.dims)
-        a = torch.zeros_like(grad_zs[:, 0])
-        n = len(setup.grid) - 1
-        if len(setup.pfs) == 2:
-            pf_even, pf_odd = (rev.lane_field(pf) for pf in setup.pfs)
-            for i in range(n - 2, -1, -2):
-                a = rev.interval(pf_odd, i + 1, a + grad_zs[:, i + 2])
-                a = rev.interval(pf_even, i, a + grad_zs[:, i + 1])
-        else:
-            pf = rev.lane_field(setup.pfs[0])
-            for i in range(n - 1, -1, -1):
-                a = rev.interval(pf, i, a + grad_zs[:, i + 1])
-        return (None, *rev.grads(a + grad_zs[:, 0]))
+        with span("oncde.cdeint.adjoint"):
+            setup = ctx.setup
+            rev = _ReverseSolve(ctx, setup, lanes=ctx.dims)
+            a = torch.zeros_like(grad_zs[:, 0])
+            n = len(setup.grid) - 1
+            if len(setup.pfs) == 2:
+                pf_even, pf_odd = (rev.lane_field(pf) for pf in setup.pfs)
+                for i in range(n - 2, -1, -2):
+                    a = rev.interval(pf_odd, i + 1, a + grad_zs[:, i + 2])
+                    a = rev.interval(pf_even, i, a + grad_zs[:, i + 1])
+            else:
+                pf = rev.lane_field(setup.pfs[0])
+                for i in range(n - 1, -1, -1):
+                    a = rev.interval(pf, i, a + grad_zs[:, i + 1])
+            return (None, *rev.grads(a + grad_zs[:, 0]))
 
 
 # ---------------------------------------------------------------------------

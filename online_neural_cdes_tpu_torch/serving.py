@@ -44,6 +44,7 @@ from online_neural_cdes_tpu_torch.parallel.mesh import (
 )
 from online_neural_cdes_tpu_torch.utils.device import resolve_device
 from online_neural_cdes_tpu_torch.utils.params import linear_apply
+from online_neural_cdes_tpu_torch.utils.profiling import span, unit
 from online_neural_cdes_tpu_torch.utils.tree import map_arrays
 
 __all__ = ["OnlineNCDEStepper", "Predictor", "predictor_from_bundle"]
@@ -593,9 +594,11 @@ class OnlineNCDEStepper:
     def step(self, state: dict, x_new):
         """Advance by one observation; returns (new_state, outputs) where
         outputs match the offline model's per-observation rows."""
-        with torch.inference_mode():
+        with unit("oncde.serve.step"), torch.inference_mode():
+            with span("oncde.serve.upload"):
+                x_new = self._tensor(x_new)
             z, filled, y = self._advance(self._w, state["z"], state["last_obs"],
-                                         self._streams(self._tensor(x_new)))
+                                         self._streams(x_new))
             y = self._gathered(y)
         return {"z": z, "last_obs": filled}, y
 

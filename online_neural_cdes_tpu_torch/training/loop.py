@@ -35,6 +35,7 @@ from online_neural_cdes_tpu_torch.parallel.mesh import (
 from online_neural_cdes_tpu_torch.training.metrics import (
     make_loss, masked_temporal_loss, masked_temporal_loss_parts,
 )
+from online_neural_cdes_tpu_torch.utils.profiling import span, unit
 
 __all__ = ["make_optimizer", "make_train_step", "make_epoch_step",
            "make_eval_step"]
@@ -126,7 +127,8 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
         gradient."""
         if n_micro <= 1 and mesh is None:
             value = masked_temporal_loss(pointwise, preds_fn(inputs), labels, sqrt=sqrt)
-            value.backward()
+            with span("oncde.train.backward"):
+                value.backward()
             return value.detach()
         if n_micro <= 1:
             # This rank's sum over the global count: the label counts (and
@@ -141,10 +143,11 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
             mean = sums[0] / denom
             if sqrt:
                 value = torch.sqrt(mean)
-                local.backward(torch.ones_like(value) / (2 * value))
+                seed = torch.ones_like(value) / (2 * value)
             else:
-                value = mean
-                local.backward()
+                value, seed = mean, None
+            with span("oncde.train.backward"):
+                local.backward(seed)
             reduce_grads()
             return value
         # Gradient accumulation: microbatches with sum-form masked losses
@@ -156,7 +159,8 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
         for mb_in, mb_lab in zip(_split_batch(inputs, n_micro),
                                  _split_batch(labels, n_micro)):
             t, c = masked_temporal_loss_parts(pointwise, preds_fn(mb_in), mb_lab)
-            t.backward()
+            with span("oncde.train.backward"):
+                t.backward()
             t = t.detach()
             tsum = t if tsum is None else tsum + t
             csum = c if csum is None else csum + c
@@ -181,11 +185,14 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
     if optimizer is not None:
 
         def step(inputs, labels):
-            optimizer.zero_grad(set_to_none=True)
-            with data_reductions(mesh):
-                value = loss_and_grads(inputs, labels)
-            optimizer.step()
-            return value
+            with unit("oncde.train.step"):
+                with span("oncde.train.optimizer"):
+                    optimizer.zero_grad(set_to_none=True)
+                with data_reductions(mesh):
+                    value = loss_and_grads(inputs, labels)
+                with span("oncde.train.optimizer"):
+                    optimizer.step()
+                return value
 
         step.optimizer = optimizer
         return step
@@ -193,16 +200,19 @@ def _make_step_body(model, optimizer, loss, lr, final_lr_multiplier, final_key,
     adam = make_optimizer(model, lr, 1.0, final_key)
 
     def apply_scaled(inputs, labels, lr_scale, final_mult):
-        adam.zero_grad(set_to_none=True)
-        with data_reductions(mesh):
-            value = loss_and_grads(inputs, labels)
-        # Read the groups at each call: ``adam.load_state_dict`` (a resume)
-        # replaces the group dicts.
-        rest, final = adam.param_groups
-        rest["lr"] = lr * lr_scale
-        final["lr"] = lr * final_mult * lr_scale
-        adam.step()
-        return value
+        with unit("oncde.train.step"):
+            with span("oncde.train.optimizer"):
+                adam.zero_grad(set_to_none=True)
+            with data_reductions(mesh):
+                value = loss_and_grads(inputs, labels)
+            with span("oncde.train.optimizer"):
+                # Read the groups at each call: ``adam.load_state_dict`` (a
+                # resume) replaces the group dicts.
+                rest, final = adam.param_groups
+                rest["lr"] = lr * lr_scale
+                final["lr"] = lr * final_mult * lr_scale
+                adam.step()
+            return value
 
     if final_lr_multiplier is None:
 
